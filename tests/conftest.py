@@ -66,6 +66,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "nightly: slow tests excluded from the quick suite "
         "(run with --nightly)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (a CUDA kernel of the "
+        "PyTorch port); skips where CUDA is not available")
 
 
 def pytest_collection_modifyitems(config, items):
