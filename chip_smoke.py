@@ -3,18 +3,33 @@
 
     python3 chip_smoke.py              # every phase, one H100
     python3 chip_smoke.py --phases device,build,kernel   # a shorter run
+    python3 chip_smoke.py --phases device,build,kernel,train
 
 Phases, in order; any failure exits non-zero (nothing is caught and
 passed over):
 
 1. device  — the card's name, count, capability, nvidia-smi power limit.
-2. build   — every kernel of the serving path, built from this checkout's
-             sources with nvcc for sm_90a into build/kernels/.
+2. build   — every kernel of the port (paged attention; flash attention
+             forward, dq and dkv), built from this checkout's sources with
+             nvcc for sm_90a into build/kernels/, one nvcc per source, all
+             started together.
 3. kernel  — each kernel against its plain PyTorch version on the card,
-             in bf16, at Llama-3-8B and GPT-2 widths on a mixed
-             prefill/decode batch with an aliased block table, plus the
-             serving path's decode shape; times (CUDA events) and bounds.
-4. serve   — Llama-3-8B at full width (random bf16 weights from a seed)
+             in bf16: paged attention at Llama-3-8B and GPT-2 widths on a
+             mixed prefill/decode batch with an aliased block table plus
+             the serving path's decode shape; flash fwd/dq/dkv (causal) at
+             the GPT-2 training shape, the llama-0.7B training leg of
+             bench.py and Llama-3-8B widths.  Times (CUDA events), bounds,
+             and for flash attention the time of PyTorch's
+             scaled_dot_product_attention as a yardstick.
+4. train   — GPT-2-small at full width and depth (bf16, ZeRO-1, AdamW,
+             clip 1.0, micro-batch 32, seq 1024, attention_impl="flash":
+             bench.py's training configuration) through
+             deepspeed_tpu_torch.initialize on synthetic_lm_data batches
+             through PrefetchingLoader: 2 + 10 steps with 12 launches of
+             each flash kernel per step, a first-step parity check of
+             loss and grad norm against the plain attention, tokens/s,
+             MFU, peak memory, host time per step and the device profile.
+5. serve   — Llama-3-8B at full width (random bf16 weights from a seed)
              through InferenceEngine.generate with the pipeline at depth 2
              and the prefix cache on; launch counts, a first-forward check
              against the dense plain forward, TTFT and token rates.
@@ -29,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import sys
 import time
@@ -179,8 +195,317 @@ def check_kernel_case(torch, pa, name, case, H, Hkv, D, iters):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+# flash attention cases: (B, H, Hkv, S, D, timing iterations).  GPT-2 is
+# the training phase's shape (micro-batch 32, 12 heads of 64, seq 1024);
+# llama-0.7B is bench.py's long-context training leg (:586-593);
+# Llama-3-8B its serving width at S=4096.
+FLASH_CASES = [("gpt2 train", (32, 12, 12, 1024, 64, 20)),
+               ("llama-0.7B train", (2, 16, 8, 2048, 128, 20)),
+               ("llama3-8b", (1, 32, 8, 4096, 128, 10))]
+
+# kernel vs plain tolerance: the kernel must land within NOISE_FACTOR x
+# the bf16 noise floor, the distance of the plain version run in bf16
+# (inputs rounded to bf16) from the plain version run in fp32 on the
+# unrounded inputs, per output
+FLASH_NOISE_FACTOR = 2.0
+
+
+def flash_bound(B, H, Hkv, S, D, products, in_bf16, in_f32, out_bf16,
+                out_f32):
+    """(bound ms, bound_by, bytes, flops) of one flash kernel: ``products``
+    causal matrix products of B*H*S*S/2*D multiply-adds; bytes count each
+    [B,H|Hkv,S,D] bf16 operand ("q" or "k" in the specs) and [B,H,S] fp32
+    row vector once."""
+    flops = products * 2 * B * H * (S * S // 2) * D
+    q_el, kv_el, vec = B * H * S * D, B * Hkv * S * D, B * H * S
+
+    def n(spec):
+        return sum({"q": q_el, "k": kv_el}[k] for k in spec)
+
+    nbytes = 2 * (n(in_bf16) + n(out_bf16)) + 4 * vec * (in_f32 + out_f32)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_flops = flops / PEAK_BF16_FLOPS * 1e3
+    return (max(t_bytes, t_flops),
+            "bytes" if t_bytes >= t_flops else "operations", nbytes, flops)
+
+
+def _within_noise(torch, name, got, ref_bf16, ref_fp32):
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: kernel output has non-finite values")
+    noise = float((ref_bf16.float() - ref_fp32.float()).abs().max())
+    err = float((got.float() - ref_bf16.float()).abs().max())
+    tol = FLASH_NOISE_FACTOR * noise
+    if err > tol:
+        raise AssertionError(f"{name}: kernel disagrees with the plain "
+                             f"version: max|d| {err} > {tol} "
+                             f"({FLASH_NOISE_FACTOR} x noise {noise})")
+    return err, tol
+
+
+def check_flash_case(torch, fa, name, B, H, Hkv, S, D, iters,
+                     device="cuda"):
+    """fwd, dq, dkv (causal) against their plain versions on the same bf16
+    inputs; times of kernels, plain versions and SDPA fwd / bwd."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=device).manual_seed(S + D)
+    f32 = [torch.randn(shape, device=device, generator=gen)
+           for shape in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D),
+                         (B, H, S, D))]
+    q, k, v, do = (x.to(torch.bfloat16) for x in f32)
+    scale = D ** -0.5
+    res = {}
+    o, lse = fa.flash_fwd(q, k, v, scale, True)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, scale, True)
+    o32, lse32 = fa.flash_fwd_plain(*f32[:3], scale, True)
+    errs = {"o": _within_noise(torch, f"{name} fwd o", o, o_ref, o32),
+            "lse": _within_noise(torch, f"{name} fwd lse", lse, lse_ref,
+                                 lse32)}
+    res["flash_fwd"] = max(e for e, _ in errs.values())
+    delta = (do.float() * o_ref.float()).sum(-1)
+    delta32 = (f32[3] * o32).sum(-1)
+    del o, lse, o32
+    args = (q, k, v, do, lse_ref, delta, scale, True)
+    args32 = (*f32, lse32, delta32, scale, True)
+    dq = fa.flash_dq(*args)
+    torch.cuda.synchronize()
+    errs["dq"] = _within_noise(torch, f"{name} dq", dq, fa.flash_dq_plain(*args),
+                               fa.flash_dq_plain(*args32))
+    res["flash_dq"] = errs["dq"][0]
+    del dq
+    dk, dv = fa.flash_dkv(*args)
+    torch.cuda.synchronize()
+    ref, ref32 = fa.flash_dkv_plain(*args), fa.flash_dkv_plain(*args32)
+    errs["dk"] = _within_noise(torch, f"{name} dk", dk, ref[0], ref32[0])
+    errs["dv"] = _within_noise(torch, f"{name} dv", dv, ref[1], ref32[1])
+    res["flash_dkv"] = max(errs["dk"][0], errs["dv"][0])
+    del dk, dv, ref, ref32, f32, args32, delta32
+    torch.cuda.empty_cache()
+
+    plain_iters = 3
+    t = {"flash_fwd": time_ms(torch, lambda: fa.flash_fwd(q, k, v, scale),
+                              iters),
+         "flash_dq": time_ms(torch, lambda: fa.flash_dq(*args), iters),
+         "flash_dkv": time_ms(torch, lambda: fa.flash_dkv(*args), iters)}
+    tp = {"flash_fwd": time_ms(
+              torch, lambda: fa.flash_fwd_plain(q, k, v, scale, True),
+              plain_iters, warmup=1),
+          "flash_dq": time_ms(torch, lambda: fa.flash_dq_plain(*args),
+                              plain_iters, warmup=1),
+          "flash_dkv": time_ms(torch, lambda: fa.flash_dkv_plain(*args),
+                               plain_iters, warmup=1)}
+    # the library yardstick (timed here only; the port never calls it):
+    # SDPA forward, and its backward against dq + dkv together
+    sdpa = lambda a, b, c: F.scaled_dot_product_attention(  # noqa: E731
+        a, b, c, is_causal=True, scale=scale, enable_gqa=True)
+    lib_fwd = time_ms(torch, lambda: sdpa(q, k, v), iters)
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    out = sdpa(qg, kg, vg)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), iters)
+    del out, qg, kg, vg
+    lib = {"flash_fwd": lib_fwd, "flash_dq": lib_bwd, "flash_dkv": lib_bwd}
+    bounds = {
+        "flash_fwd": flash_bound(B, H, Hkv, S, D, 2, "qkk", 0, "q", 1),
+        "flash_dq": flash_bound(B, H, Hkv, S, D, 3, "qkkq", 2, "q", 0),
+        "flash_dkv": flash_bound(B, H, Hkv, S, D, 4, "qkkq", 2, "kk", 0)}
+    out = {}
+    for kname in ("flash_fwd", "flash_dq", "flash_dkv"):
+        bound_ms, bound_by, nbytes, flops = bounds[kname]
+        out[kname] = dict(max_abs_err=res[kname], ms=t[kname],
+                          plain_ms=tp[kname], bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=lib[kname])
+        log(f"[kernel] {name} {kname}: B={B} H={H} Hkv={Hkv} S={S} D={D} "
+            f"max|d|={res[kname]:.3e} kernel_ms={t[kname]:.4f} "
+            f"plain_ms={tp[kname]:.4f} bound_ms={bound_ms:.4f} ({bound_by}: "
+            f"{nbytes} B, {flops} flop; {flops / t[kname] / 1e9:.1f} "
+            f"TFLOP/s achieved) library_ms={lib[kname]:.4f} "
+            f"({'SDPA fwd' if kname == 'flash_fwd' else 'SDPA bwd, dq+dkv'})")
+    log(f"[kernel] {name} tolerances (kernel vs bf16 plain, "
+        f"{FLASH_NOISE_FACTOR} x the bf16 noise floor): " + ", ".join(
+            f"{k} {e:.3e} <= {tol:.3e}" for k, (e, tol) in errs.items()))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4 helpers
+# ---------------------------------------------------------------------------
+
+# bench.py's headline training configuration (:145-168): GPT-2-small,
+# seq 1024, micro-batch 32, bf16, ZeRO-1, AdamW lr 3e-4, clip 1.0, no
+# remat; attention_impl="flash" (the configuration that runs K1)
+TRAIN_SEQ = 1024
+TRAIN_MICRO = 32
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 10
+PARITY_MICRO = 4
+
+# first-step parity, flash kernels vs the plain attention (both bf16): the
+# bar is PARITY_FACTOR x the bf16 noise floor measured in the same run, the
+# distance of the plain-attention bf16 step from the same step in fp32
+# (same weights and batch).  Each is one scalar, which can land close to
+# its fp32 value by chance, so the floor never goes below PARITY_FLOOR
+# relative: 2^-12, 1/16 of one bf16 rounding step (2^-8).
+PARITY_FACTOR = 2.0
+PARITY_FLOOR = 2.0 ** -12
+
+
+def train_config(micro, bf16=True):
+    return {"train_micro_batch_size_per_device": micro,
+            "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
+            "bf16": {"enabled": bf16},
+            "zero_optimization": {"stage": 1},
+            "mesh": {"data": -1},
+            "gradient_clipping": 1.0,
+            "steps_per_print": 10_000}
+
+
+def flash_counts(fa):
+    return (fa.flash_fwd.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches, fa.flash_attention.fallbacks)
+
+
+def train(torch, fa, seed, device=None, **overrides):
+    """GPT-2-small training through the port's public entry points;
+    returns the flash kernels' launch counts over the 12-step run.
+    ``device`` and ``overrides`` (model-config fields) exist for a CPU
+    rehearsal at a tiny size; the chip run passes neither."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.runtime import (DataLoader, PrefetchingLoader,
+                                             param_count, synthetic_lm_data)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seq = overrides.pop("max_seq_len", TRAIN_SEQ)
+    micro = overrides.pop("micro", TRAIN_MICRO)
+    t0 = time.perf_counter()
+    model = build_model("gpt2", seed=seed, device=device, max_seq_len=seq,
+                        remat=False, attention_impl="flash", **overrides)
+    cfg = model.config
+    engine = ds.initialize(model=model, config=train_config(micro),
+                           device=device)
+    n_params = param_count(model.params)
+    tbs = engine.train_batch_size
+    data = synthetic_lm_data(cfg.vocab_size,
+                             tbs * (TRAIN_WARMUP + TRAIN_STEPS + 1), seq,
+                             seed=seed)
+    it = iter(PrefetchingLoader(DataLoader(data, tbs), engine))
+    log(f"[train] gpt2: {n_params / 1e6:.2f} M params, {cfg.num_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads of "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}, seq {seq}; bf16, ZeRO-1, "
+        f"AdamW lr 3e-4, clip 1.0, micro-batch {micro}, attention_impl="
+        f"flash; set up in {time.perf_counter() - t0:.2f} s")
+
+    # the main path: counts to 0 just before, read just after
+    fa.flash_fwd.launches = fa.flash_dq.launches = 0
+    fa.flash_dkv.launches = fa.flash_attention.fallbacks = 0
+    torch.cuda.reset_peak_memory_stats()
+    metrics, host_ms, per_step = [], [], []
+    for step in range(TRAIN_WARMUP + TRAIN_STEPS):
+        if step == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        before = flash_counts(fa)
+        th = time.perf_counter()
+        metrics.append(engine.train_batch(next(it)))
+        host_ms.append((time.perf_counter() - th) * 1e3)
+        per_step.append(tuple(b - a for a, b in zip(before, flash_counts(fa))))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    counts = flash_counts(fa)
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    log(f"[train] losses {[round(x, 4) for x in losses]}")
+    log(f"[train] grad norms {[round(x, 4) for x in gnorms]}")
+    log(f"[train] flash launches over {len(metrics)} steps: fwd={counts[0]} "
+        f"dq={counts[1]} dkv={counts[2]}; routed to causal_attention: "
+        f"{counts[3]}; per step {sorted(set(per_step))}")
+    if not all(map(math.isfinite, losses + gnorms)):
+        raise AssertionError("non-finite loss or grad norm")
+    want = (cfg.num_layers, cfg.num_layers, cfg.num_layers, 0)
+    if any(p != want for p in per_step):
+        raise AssertionError(f"a step did not launch each flash kernel once "
+                             f"per layer (want {want} per step, got "
+                             f"{per_step})")
+
+    toks = tbs * (seq - 1) * TRAIN_STEPS
+    tok_s = toks / wall
+    flops_per_token = 6 * n_params + 12 * cfg.num_layers * cfg.d_model * (
+        seq - 1)                                  # bench.py:207-211
+    mfu = tok_s * flops_per_token / PEAK_BF16_FLOPS
+    smi = nvidia_smi_line()
+    log(f"[train] {TRAIN_STEPS} steps in {wall:.3f} s "
+        f"({wall / TRAIN_STEPS * 1e3:.1f} ms/step): {tok_s:.0f} tokens/s, "
+        f"MFU {100 * mfu:.2f}% of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s "
+        f"({flops_per_token / 1e6:.1f} MFLOP/token); max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; host time in train_batch "
+        f"{statistics.mean(host_ms[TRAIN_WARMUP:]):.1f} ms/step (first "
+        f"step {host_ms[0]:.1f} ms) [{smi}]")
+
+    def one_step(prof):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prof.start()
+        engine.train_batch(next(it))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        prof.stop()
+        return dt
+
+    device_profile(torch, one_step, wall / TRAIN_STEPS, tag="train")
+    del engine, it
+    torch.cuda.empty_cache()
+
+    parity(torch, model, data, seed, device)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def parity(torch, model, data, seed, device):
+    """First step at micro-batch PARITY_MICRO from the same weights and
+    batch: flash kernels (bf16) vs the plain causal_attention (bf16), with
+    the plain attention in fp32 as the noise-floor reference."""
+    import dataclasses
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import Model
+
+    batch = {"input_ids": data["input_ids"][:PARITY_MICRO]}
+    res = {}
+    for tag, impl, bf16 in (("flash", "flash", True), ("plain", "xla", True),
+                            ("fp32", "xla", False)):
+        m = Model.from_params(dataclasses.replace(
+            model.config, attention_impl=impl), model.params)
+        eng = ds.initialize(model=m, config=train_config(PARITY_MICRO, bf16),
+                            device=device)
+        met = eng.train_batch(dict(batch))
+        res[tag] = (float(met["loss"]), float(met["grad_norm"]))
+        del eng
+        torch.cuda.empty_cache()
+    for i, what in enumerate(("loss", "grad_norm")):
+        got, ref, ref32 = res["flash"][i], res["plain"][i], res["fp32"][i]
+        noise = abs(ref - ref32)
+        tol = PARITY_FACTOR * max(noise, PARITY_FLOOR * abs(ref32))
+        log(f"[train] parity (micro-batch {PARITY_MICRO}, first step) "
+            f"{what}: flash {got:.6f} vs plain {ref:.6f} (|d| "
+            f"{abs(got - ref):.3e}); fp32 plain {ref32:.6f}: noise "
+            f"{noise:.3e}, tol {tol:.3e}")
+        if not math.isfinite(got) or abs(got - ref) > tol:
+            raise AssertionError(f"first-step {what} with the flash kernels "
+                                 f"disagrees with the plain attention")
+
+
+def nvidia_smi_line() -> str:
+    from deepspeed_tpu_torch.platform.cuda import nvidia_smi_power
+    return nvidia_smi_power() or "nvidia-smi: not available"
+
+
+# ---------------------------------------------------------------------------
+# phase 5 helpers
 # ---------------------------------------------------------------------------
 
 # first-forward check.  The kernel path and the dense plain forward both
@@ -331,19 +656,20 @@ def serve(torch, pa, seed):
         f"(ms): schedule {tm['schedule_ms'] / n:.3f}, stage "
         f"{tm['stage_ms'] / n:.3f}, enqueue {tm['device_ms'] / n:.3f}, "
         f"wait {tm['wait_ms'] / n:.3f}, readback {tm['readback_ms'] / n:.3f}")
-    device_profile(torch, lambda prof: run(32, prof), t_all)
+    device_profile(torch, lambda prof: run(32, prof)[0], t_all)
     return launches
 
 
-def device_profile(torch, run, wall_unprofiled):
+def device_profile(torch, run, wall_unprofiled, tag="serve"):
     """The kernels that take the device time, over one more full run under
-    torch.profiler, and the device busy share: that device time over the
-    same run's wall time WITHOUT the profiler (``wall_unprofiled``; the
-    profiler slows the host several times over)."""
+    torch.profiler (``run(prof)`` returns its wall seconds), and the
+    device busy share: that device time over the same run's wall time
+    WITHOUT the profiler (``wall_unprofiled``; the profiler slows the host
+    several times over)."""
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                    acc_events=True)
-    wall, _, _ = run(prof)
+    wall = run(prof)
     rows = []
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -353,22 +679,40 @@ def device_profile(torch, run, wall_unprofiled):
             rows.append((us, e.count, e.key))
     total_us = sum(r[0] for r in rows)
     if total_us <= 0:
-        log("[serve] device busy share: not measured (the profiler "
+        log(f"[{tag}] device busy share: not measured (the profiler "
             "recorded no device time)")
         return
-    log(f"[serve] device time {total_us / 1e3:.1f} ms; busy share "
+    log(f"[{tag}] device time {total_us / 1e3:.1f} ms; busy share "
         f"{100 * total_us / 1e6 / wall_unprofiled:.1f}% of the unprofiled "
         f"{wall_unprofiled * 1e3:.1f} ms wall ({wall * 1e3:.1f} ms under the "
         f"profiler); top kernels by device time:")
     for us, count, key in sorted(rows, reverse=True)[:10]:
-        log(f"[serve]   {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+        log(f"[{tag}]   {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+    groups = {}
+    for us, _, key in rows:
+        name = next((g for g, subs in KERNEL_GROUPS
+                     if any(s in key for s in subs)), "other")
+        groups[name] = groups.get(name, 0.0) + us
+    log(f"[{tag}] device time by kind: " + ", ".join(
+        f"{g} {us / 1e3:.2f} ms ({100 * us / total_us:.1f}%)"
+        for g, us in sorted(groups.items(), key=lambda kv: -kv[1])))
+
+
+# kernel-name substrings -> kind, first match wins (a cast is a copy
+# kernel inside an elementwise template, so copies come before elementwise)
+KERNEL_GROUPS = [("flash attention", ("flash_fwd", "flash_dq", "flash_dkv")),
+                 ("paged attention", ("paged_attention",)),
+                 ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
+                 ("copies and casts", ("copy",)),
+                 ("reductions", ("reduce",)),
+                 ("elementwise", ("elementwise",))]
 
 
 # ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="device,build,kernel,serve")
+    ap.add_argument("--phases", default="device,build,kernel,train,serve")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -387,6 +731,7 @@ def main() -> int:
     from deepspeed_tpu_torch.ops import build_all
     from deepspeed_tpu_torch.platform.cuda import device_report
     pa_mod = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")
+    fa = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")
     pa = pa_mod.paged_attention
     t_start = time.perf_counter()
 
@@ -401,7 +746,7 @@ def main() -> int:
 
     # 2. build
     if "build" in phases:
-        builders = [pa_mod.BUILDER]
+        builders = [pa_mod.BUILDER, fa.BUILDER]
         build_all(builders, force=True)
         for b in builders:
             log(f"[build] {b.name}: {' '.join(b.command)}")
@@ -410,7 +755,7 @@ def main() -> int:
                 log(f"[build]   {line.strip()}")
 
     # 3. kernels vs plain
-    kern = None
+    kern = flash_kern = None
     if "kernel" in phases:
         dev = torch.device("cuda")
         cases = [("llama3-8b mixed", (32, 8, 128, 64, 512, 20)),
@@ -424,19 +769,38 @@ def main() -> int:
                 kern = res
             del case
             torch.cuda.empty_cache()
+        for name, (B, H, Hkv, S, D, iters) in FLASH_CASES:
+            res = check_flash_case(torch, fa, name, B, H, Hkv, S, D, iters)
+            if name == FLASH_CASES[0][0]:        # the training shape
+                flash_kern = res
+            torch.cuda.empty_cache()
 
-    # 4. the serving path
+    # 4. the training path
+    flash_launches = {}
+    if "train" in phases:
+        counts = train(torch, fa, args.seed)
+        flash_launches = dict(zip(("flash_fwd", "flash_dq", "flash_dkv"),
+                                  counts))
+
+    # 5. the serving path
     launches = None
     if "serve" in phases:
         launches = serve(torch, pa, args.seed)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if kern is not None:
+        flash_src = "deepspeed_tpu_torch/ops/csrc/flash_attention.cu"
+        replaces = {"flash_fwd": "deepspeed_tpu/ops/flash_attention.py:76",
+                    "flash_dq": "deepspeed_tpu/ops/flash_attention.py:173",
+                    "flash_dkv": "deepspeed_tpu/ops/flash_attention.py:212"}
         print(json.dumps({"kernels": [dict(
             name="paged_attention", route="cuda",
             source="deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
             replaces="deepspeed_tpu/ops/paged_attention.py:48",
-            launches=launches, library_ms=None, **kern)]}), flush=True)
+            launches=launches, library_ms=None, **kern)] + [dict(
+                name=k, route="cuda", source=flash_src,
+                replaces=replaces[k], launches=flash_launches.get(k),
+                **flash_kern[k]) for k in replaces]}), flush=True)
     print(rep["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

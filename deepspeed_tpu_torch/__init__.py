@@ -6,7 +6,15 @@ obvious reference; it never imports JAX or the JAX package.  Entry points
 run on the card unless the caller passes ``device="cpu"``.
 
 Ported so far: the single-device serving path (``models``, ``inference``)
-with paged attention as a hand-written Hopper kernel (``ops``).
+with paged attention as a hand-written Hopper kernel, and one-device
+training (``runtime``: ``initialize`` -> ``Engine.train_batch``) with
+flash attention forward and backward as hand-written Hopper kernels
+(``ops``).
 """
 
 __version__ = "0.1.0"
+
+from .config import Config, load_config                     # noqa: F401
+from .inference import (InferenceConfig, InferenceEngine,   # noqa: F401
+                        SamplingParams)
+from .runtime.engine import Engine, initialize              # noqa: F401

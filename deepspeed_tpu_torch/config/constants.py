@@ -1,0 +1,60 @@
+"""Config key constants and defaults (a copy of
+``deepspeed_tpu/config/constants.py``).
+
+Analog of the reference's ``deepspeed/runtime/constants.py`` — key strings are
+kept DeepSpeed-compatible where a concept carries over so user configs port
+with minimal edits (``train_batch_size``, ``gradient_accumulation_steps``,
+``zero_optimization.stage`` …).  TPU-only knobs are new keys.
+"""
+
+TRAIN_BATCH_SIZE = "train_batch_size"
+TRAIN_MICRO_BATCH_SIZE_PER_DEVICE = "train_micro_batch_size_per_device"
+# accepted alias for configs ported from the reference
+TRAIN_MICRO_BATCH_SIZE_PER_GPU = "train_micro_batch_size_per_gpu"
+GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
+
+GRADIENT_CLIPPING = "gradient_clipping"
+GRADIENT_CLIPPING_DEFAULT = 0.0
+
+STEPS_PER_PRINT = "steps_per_print"
+STEPS_PER_PRINT_DEFAULT = 10
+
+WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
+
+OPTIMIZER = "optimizer"
+SCHEDULER = "scheduler"
+
+FP16 = "fp16"
+BF16 = "bf16"
+
+ZERO_OPTIMIZATION = "zero_optimization"
+
+PRESCALE_GRADIENTS = "prescale_gradients"
+GRADIENT_PREDIVIDE_FACTOR = "gradient_predivide_factor"
+
+SEED = "seed"
+SEED_DEFAULT = 42
+
+# mesh / parallelism topology
+MESH = "mesh"
+PIPELINE = "pipeline"
+TENSOR_PARALLEL = "tensor_parallel"
+SEQUENCE_PARALLEL = "sequence_parallel"
+MOE = "moe"
+
+ACTIVATION_CHECKPOINTING = "activation_checkpointing"
+COMMS_LOGGER = "comms_logger"
+FLOPS_PROFILER = "flops_profiler"
+MONITOR_TENSORBOARD = "tensorboard"
+MONITOR_CSV = "csv_monitor"
+MONITOR_WANDB = "wandb"
+DATA_TYPES = "data_types"
+COMPRESSION = "compression"
+ELASTICITY = "elasticity"
+AIO = "aio"
+CHECKPOINT = "checkpoint"
+
+# precision modes
+PRECISION_BF16 = "bf16"
+PRECISION_FP16 = "fp16"
+PRECISION_FP32 = "fp32"

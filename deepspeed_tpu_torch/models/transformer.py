@@ -9,8 +9,12 @@ stacked on a leading layer dimension under ``params["blocks"]``,
 tree map (:func:`params_from_numpy`).
 
 The layer stack is a Python loop over views of the stacked weights
-(the JAX package's ``lax.scan``).  Forward only: training (loss, remat,
-MoE) is not ported yet.
+(the JAX package's ``lax.scan``).  :func:`forward` is the grad-enabled
+forward the training loss runs; :func:`apply` is the same forward under
+``torch.no_grad`` for serving.  The training half: ``lm_loss_fn`` with
+``rolled_lm_targets`` and ``cross_entropy_loss``, ``_resolve_attention``
+(``attention_impl``) and per-layer remat.  Not ported: MoE
+(``num_experts > 1`` raises), ALiBi, the selective remat policies.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..platform.cuda import resolve_device
 from . import layers as L
@@ -234,8 +239,12 @@ def attn_scale(cfg: TransformerConfig) -> float:
 
 
 def block_apply(cfg: TransformerConfig, lp, x: torch.Tensor, cos, sin,
-                mask=None) -> torch.Tensor:
-    """One decoder layer.  lp: this layer's params; x: [B, S, dm]."""
+                mask=None, attention_fn: Optional[Callable] = None
+                ) -> torch.Tensor:
+    """One decoder layer.  lp: this layer's params; x: [B, S, dm].
+    ``attention_fn`` None: ``causal_attention`` at ``attn_scale(cfg)``."""
+    if attention_fn is None:
+        attention_fn = partial(L.causal_attention, scale=attn_scale(cfg))
     norm = _norm(cfg)
     act = L.ACTIVATIONS[cfg.activation]
     ap = lp["attn"]
@@ -251,7 +260,7 @@ def block_apply(cfg: TransformerConfig, lp, x: torch.Tensor, cos, sin,
     if cfg.position == "rope":
         q = L.apply_rope(q, cos, sin)
         k = L.apply_rope(k, cos, sin)
-    o = L.causal_attention(q, k, v, mask=mask, scale=attn_scale(cfg))
+    o = attention_fn(q, k, v, mask=mask)
     o = torch.einsum("bshk,hkd->bsd", o, ap["wo"].to(dt))
     if cfg.attn_out_bias:
         o = o + ap["bo"].to(dt)
@@ -273,12 +282,15 @@ def block_apply(cfg: TransformerConfig, lp, x: torch.Tensor, cos, sin,
     return x + d
 
 
-@torch.no_grad()
-def apply(cfg: TransformerConfig, params, input_ids: torch.Tensor,
-          mask: Optional[torch.Tensor] = None, dtype=None) -> torch.Tensor:
-    """Dense forward -> logits [B, S, vocab] (the JAX ``apply`` without
-    its training options)."""
+def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor,
+            mask: Optional[torch.Tensor] = None,
+            attention_fn: Optional[Callable] = None,
+            dtype=None) -> torch.Tensor:
+    """Dense forward -> logits [B, S, vocab], differentiable (the JAX
+    ``apply`` without PLD/LTD/MoE).  ``cfg.remat`` recomputes each layer
+    in the backward (``torch.utils.checkpoint``)."""
     _require_supported(cfg)
+    remat = _remat(cfg)
     dt = dtype or params["embed"]["table"].dtype
     x = L.embed(params["embed"], input_ids).to(dt)
     if cfg.embed_norm:
@@ -293,7 +305,10 @@ def apply(cfg: TransformerConfig, params, input_ids: torch.Tensor,
         cos, sin = L.rope_freqs(cfg.rotary_dim, cfg.max_seq_len,
                                 cfg.rope_theta, device=x.device)
     for lp in unstack_layers(params["blocks"], cfg.num_layers):
-        x = block_apply(cfg, lp, x, cos, sin, mask=mask)
+        layer = partial(block_apply, cfg, lp, cos=cos, sin=sin, mask=mask,
+                        attention_fn=attention_fn)
+        x = (checkpoint(layer, x, use_reentrant=False) if remat
+             else layer(x))
     x = _norm(cfg)(params["ln_f"], x)
     if cfg.tie_embeddings:
         return x @ params["embed"]["table"].to(dt).T
@@ -303,23 +318,190 @@ def apply(cfg: TransformerConfig, params, input_ids: torch.Tensor,
     return logits
 
 
+@torch.no_grad()
+def apply(cfg: TransformerConfig, params, input_ids: torch.Tensor,
+          mask: Optional[torch.Tensor] = None, dtype=None,
+          attention_fn: Optional[Callable] = None) -> torch.Tensor:
+    """:func:`forward` without autograd (the serving path's dense forward)."""
+    return forward(cfg, params, input_ids, mask=mask,
+                   attention_fn=attention_fn, dtype=dtype)
+
+
+# --------------------------------------------------------------------------
+# training: remat, attention choice, loss
+# --------------------------------------------------------------------------
+
+# per-layer recompute policies of the JAX package (transformer.py:119).
+# "nothing" and "everything" both save nothing inside a layer: one
+# torch.utils.checkpoint per layer.  The selective policies save chosen
+# intermediates (dot outputs, the flash output) and are not ported.
+REMAT_POLICIES = {"nothing": "layer", "everything": "layer",
+                  "dots": None, "dots_no_batch": None, "flash": None,
+                  "xla_flash": None}
+
+
+def _remat(cfg: TransformerConfig) -> bool:
+    if not cfg.remat:
+        return False
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                         f"known: {sorted(REMAT_POLICIES)}")
+    if REMAT_POLICIES[cfg.remat_policy] is None:
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} (selective saving) is not "
+            "ported yet (ROADMAP Queue 1 item 4, what is left); "
+            "'nothing' and 'everything' recompute whole layers")
+    return True
+
+
+def rolled_lm_targets(ids: torch.Tensor, mask: Optional[torch.Tensor] = None):
+    """Next-token targets by rolling left with the final position masked.
+    Returns (labels, target_mask fp32)."""
+    labels = torch.roll(ids, -1, dims=1)
+    S = ids.shape[1]
+    keep = (torch.arange(S, device=ids.device) < S - 1).float()
+    tgt_mask = keep[None, :].expand(ids.shape)
+    if mask is not None:
+        tgt_mask = tgt_mask * torch.roll(mask, -1, dims=1).float()
+    return labels, tgt_mask
+
+
+# rows of [*, V] logits turned to fp32 at once by the loss (bounds the fp32
+# transient to ~1 GiB whatever B * S is)
+_LOSS_CHUNK_ELEMS = 1 << 28
+
+
+def _row_chunks(x: torch.Tensor):
+    rows = max(1, _LOSS_CHUNK_ELEMS // x.shape[-1])
+    return x.split(rows)
+
+
+class _CrossEntropy(torch.autograd.Function):
+    """sum(weights * (logsumexp(logits) - logits[label])) with the
+    logsumexp in fp32.  Saves the logits in their own dtype and the fp32
+    per-row LSE; the backward rebuilds softmax rows chunk by chunk, so no
+    fp32 copy of the [B*S, V] logits outlives one chunk."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, weights):
+        V = logits.shape[-1]
+        flat = logits.reshape(-1, V)
+        lab = labels.reshape(-1, 1).long()
+        lse = torch.cat([torch.logsumexp(c.float(), dim=-1)
+                         for c in _row_chunks(flat)])
+        tgt = flat.gather(1, lab).squeeze(1).float()
+        w = weights.reshape(-1)
+        ctx.save_for_backward(logits, lab, w, lse)
+        return ((lse - tgt) * w).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lab, w, lse = ctx.saved_tensors
+        V = logits.shape[-1]
+        grad = torch.empty_like(logits)
+        gw = (w * g).unsqueeze(1)
+        out_rows = grad.view(-1, V).split(max(1, _LOSS_CHUNK_ELEMS // V))
+        start = 0
+        for c, out in zip(_row_chunks(logits.reshape(-1, V)), out_rows):
+            n = c.shape[0]
+            p = torch.exp(c.float() - lse[start:start + n, None])
+            p.mul_(gw[start:start + n])
+            p.scatter_add_(1, lab[start:start + n], -gw[start:start + n])
+            out.copy_(p)
+            start += n
+        return grad, None, None
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token LM loss, ``lse - target_logit`` with fp32 reductions;
+    logits [B, S, V], labels [B, S].  The mean over tokens (over the
+    masked-in tokens with ``mask``)."""
+    if mask is not None:
+        m = mask.float()
+        denom = torch.clamp(m.sum(), min=1.0)
+        return _CrossEntropy.apply(logits, labels, m) / denom
+    n = labels.numel()
+    w = torch.full(labels.shape, 1.0 / n, dtype=torch.float32,
+                   device=logits.device)
+    return _CrossEntropy.apply(logits, labels, w)
+
+
+def lm_loss_fn(cfg: TransformerConfig,
+               attention_fn: Optional[Callable] = None,
+               pld: bool = False, ltd_keep: Optional[int] = None):
+    """Causal-LM loss over a batch ``{input_ids, [attention_mask]}``:
+    ``loss_fn(params, batch, rng) -> loss`` (``rng`` unused: the dense
+    model draws no randomness)."""
+    if pld or ltd_keep is not None:
+        raise NotImplementedError(
+            "progressive layer drop / random-LTD are not ported yet "
+            "(ROADMAP Queue 1 item 8, data_pipeline)")
+
+    def loss_fn(params, batch, rng=None):
+        ids = batch["input_ids"]
+        mask = batch.get("attention_mask")
+        logits = forward(cfg, params, ids, mask=mask,
+                         attention_fn=attention_fn)
+        labels, tgt_mask = rolled_lm_targets(ids, mask)
+        return cross_entropy_loss(logits, labels, tgt_mask)
+
+    return loss_fn
+
+
+def _resolve_attention(cfg: TransformerConfig) -> Callable:
+    """attention_impl -> callable: ``"flash"`` is the K1 kernels' wrapper;
+    ``"xla"`` and ``"xla_flash"`` (an XLA memory schedule of the same
+    function, ops/xla_attention.py in the JAX package) are the plain
+    ``causal_attention``."""
+    if cfg.attn_scale is not None and cfg.attention_impl in (
+            "flash", "xla_flash"):
+        raise ValueError(
+            "attn_scale needs the eager attention (attention_impl="
+            "'xla'): the flash kernels bake in 1/sqrt(d)")
+    if cfg.position == "alibi":
+        if cfg.attention_impl in ("flash", "xla_flash"):
+            raise ValueError(
+                "position='alibi' needs the eager attention "
+                "(attention_impl='xla'): the flash kernels carry no "
+                "additive-bias operand")
+        L.alibi_slopes(cfg.num_heads)            # raises: not ported yet
+    if cfg.attention_impl == "flash":
+        from ..ops.flash_attention import flash_attention
+        return flash_attention
+    if cfg.attention_impl not in ("xla", "xla_flash"):
+        raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
+    return partial(L.causal_attention, scale=attn_scale(cfg))
+
+
 class Model:
-    """Config + parameters on one device (``device`` None = the card)."""
+    """Config + parameters on one device (``device`` None = the card) +
+    the LM loss, for ``deepspeed_tpu_torch.initialize(model=...)``."""
 
     def __init__(self, cfg: TransformerConfig, seed: int = 0, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 attention_fn: Optional[Callable] = None):
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         self.config = cfg
         self.device = dev
         self.params = init_params(cfg, gen, dev, dtype)
+        self._set_loss(attention_fn)
+
+    def _set_loss(self, attention_fn: Optional[Callable]) -> None:
+        if attention_fn is None:
+            attention_fn = _resolve_attention(self.config)
+        self.attention_fn = attention_fn
+        self.loss_fn = lm_loss_fn(self.config, attention_fn)
 
     def apply(self, params, input_ids, **kw):
+        kw.setdefault("attention_fn", self.attention_fn)
         return apply(self.config, params, input_ids, **kw)
 
     @classmethod
-    def from_params(cls, cfg: TransformerConfig, params) -> "Model":
+    def from_params(cls, cfg: TransformerConfig, params,
+                    attention_fn: Optional[Callable] = None) -> "Model":
         """Wrap EXISTING parameters (no initializer run); the device is
         the one the parameters live on."""
         _require_supported(cfg)
@@ -327,4 +509,5 @@ class Model:
         m.config = cfg
         m.params = params
         m.device = tree_leaves(params)[0].device
+        m._set_loss(attention_fn)
         return m

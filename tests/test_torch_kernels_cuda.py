@@ -13,6 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops.flash_attention import (FlashAttentionFunction,
+                                                     flash_dkv,
+                                                     flash_dkv_plain,
+                                                     flash_dq, flash_dq_plain,
+                                                     flash_fwd,
+                                                     flash_fwd_plain)
 from deepspeed_tpu_torch.ops.paged_attention import (paged_attention,
                                                      paged_attention_plain)
 
@@ -83,4 +89,103 @@ def test_paged_attention_kernel_rejects_what_it_does_not_take(cuda_device):
                                     dtype=torch.bfloat16), *ok[2:])
     with pytest.raises(ValueError, match="int32"):
         paged_attention(kv, q, i32(2).long(), *ok[3:])
+    torch.cuda.synchronize()
+
+
+def _flash_case(dev, B, H, Hkv, S, D, seed):
+    """fp32 inputs and their bf16 roundings (q, k, v, dO)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f32 = [torch.randn(shape, device=dev, generator=gen)
+           for shape in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D),
+                         (B, H, S, D))]
+    return f32, [x.to(torch.bfloat16) for x in f32]
+
+
+def _assert_within_noise(name, got, ref_bf16, ref_fp32):
+    """|kernel - plain(bf16)| <= 2 x |plain(bf16) - plain(fp32)|: the
+    kernel must be at least as close to the fp32 result as the plain
+    version in bf16 is (the bf16 noise floor, chip_smoke.py's bar)."""
+    assert torch.isfinite(got).all(), f"{name}: non-finite values"
+    noise = float((ref_bf16.float() - ref_fp32.float()).abs().max())
+    err = float((got.float() - ref_bf16.float()).abs().max())
+    assert err <= 2.0 * noise, f"{name}: max|d| {err} > 2 x noise {noise}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("B, H, Hkv, S, D", [
+    (2, 4, 4, 256, 64), (1, 4, 2, 256, 128), (1, 8, 2, 192, 64),
+    (2, 4, 1, 100, 128), (1, 2, 2, 64, 64)],
+    ids=["mha", "gqa2-d128", "gqa4", "mqa-s100", "one-tile"])
+def test_flash_kernels_match_plain(cuda_device, B, H, Hkv, S, D, causal):
+    """fwd, dq and dkv against their plain versions on the same bf16
+    inputs, within the bf16 noise floor; S=100 and 192 exercise the
+    zero-filled ragged tile."""
+    f32, (q, k, v, do) = _flash_case(cuda_device, B, H, Hkv, S, D, S + D)
+    scale = D ** -0.5
+    before = (flash_fwd.launches, flash_dq.launches, flash_dkv.launches)
+    o, lse = flash_fwd(q, k, v, scale, causal)
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, scale, causal)
+    o32, lse32 = flash_fwd_plain(*f32[:3], scale, causal)
+    torch.cuda.synchronize()
+    _assert_within_noise("o", o, o_ref, o32)
+    _assert_within_noise("lse", lse, lse_ref, lse32)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    delta32 = (f32[3] * o32).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, scale, causal)
+    args32 = (*f32, lse32, delta32, scale, causal)
+    dq = flash_dq(*args)
+    dk, dv = flash_dkv(*args)
+    torch.cuda.synchronize()
+    _assert_within_noise("dq", dq, flash_dq_plain(*args),
+                         flash_dq_plain(*args32))
+    for name, got, ref, ref32 in zip(("dk", "dv"), (dk, dv),
+                                     flash_dkv_plain(*args),
+                                     flash_dkv_plain(*args32)):
+        _assert_within_noise(name, got, ref, ref32)
+    assert (flash_fwd.launches, flash_dq.launches, flash_dkv.launches) == \
+        tuple(n + 1 for n in before)
+
+
+@pytest.mark.cuda
+def test_flash_autograd_runs_the_kernels(cuda_device):
+    """The autograd Function's backward on the card goes through dq and
+    dkv and matches the plain backward's arithmetic on the same inputs."""
+    _, (q, k, v, do) = _flash_case(cuda_device, 2, 8, 2, 256, 64, 3)
+    q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+    before = flash_dkv.launches
+    o = FlashAttentionFunction.apply(q, k, v, 0.125, True)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert flash_dkv.launches == before + 1
+    _, lse = flash_fwd_plain(q.detach(), k.detach(), v.detach(), 0.125,
+                             True)
+    delta = (do.float() * o.detach().float()).sum(-1)
+    args = (q.detach(), k.detach(), v.detach(), do, lse, delta, 0.125, True)
+    torch.testing.assert_close(q.grad.float(), flash_dq_plain(*args).float(),
+                               atol=3e-2, rtol=3e-2)
+    dk, dv = flash_dkv_plain(*args)
+    torch.testing.assert_close(k.grad.float(), dk.float(), atol=3e-2,
+                               rtol=3e-2)
+    torch.testing.assert_close(v.grad.float(), dv.float(), atol=3e-2,
+                               rtol=3e-2)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
+    z = lambda *s, dt=torch.bfloat16: torch.zeros(  # noqa: E731
+        *s, device=cuda_device, dtype=dt)
+    q, k = z(1, 4, 128, 64), z(1, 2, 128, 64)
+    flash_fwd(q, k, k, 0.1)
+    with pytest.raises(ValueError, match="bf16"):
+        flash_fwd(q.float(), k.float(), k.float(), 0.1)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_fwd(z(1, 4, 128, 32), z(1, 2, 128, 32), z(1, 2, 128, 32), 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_fwd(z(1, 128, 4, 64).transpose(1, 2), k, k, 0.1)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_fwd(z(1, 3, 128, 64), k, k, 0.1)
+    with pytest.raises(ValueError, match="fp32"):
+        flash_dq(q, k, k, q, z(1, 4, 128), z(1, 4, 128, dt=torch.float32),
+                 0.1)
     torch.cuda.synchronize()
