@@ -4,23 +4,29 @@
     python3 chip_smoke.py              # every phase, one H100
     python3 chip_smoke.py --phases device,build,kernel   # a shorter run
     python3 chip_smoke.py --phases device,build,kernel,train
+    python3 chip_smoke.py --phases device,build,kernel,serve-quant
 
 Phases, in order; any failure exits non-zero (nothing is caught and
 passed over):
 
 1. device  — the card's name, count, capability, nvidia-smi power limit.
-2. build   — every kernel of the port (paged attention; flash attention
-             forward, dq and dkv), built from this checkout's sources with
-             nvcc for sm_90a into build/kernels/, one nvcc per source, all
-             started together.
+2. build   — every kernel of the port (paged attention with its int8/fp8
+             cache variant; flash attention forward, dq and dkv; the
+             int8/int4 mixed-input GEMM), built from this checkout's
+             sources with nvcc for sm_90a into build/kernels/, one nvcc per
+             source, all started together.
 3. kernel  — each kernel against its plain PyTorch version on the card,
              in bf16: paged attention at Llama-3-8B and GPT-2 widths on a
              mixed prefill/decode batch with an aliased block table plus
-             the serving path's decode shape; flash fwd/dq/dkv (causal) at
-             the GPT-2 training shape, the llama-0.7B training leg of
-             bench.py and Llama-3-8B widths.  Times (CUDA events), bounds,
-             and for flash attention the time of PyTorch's
-             scaled_dot_product_attention as a yardstick.
+             the serving path's decode shape, and with int8 and fp8
+             caches on the 8B batches; flash fwd/dq/dkv (causal) at the
+             GPT-2 training shape, the llama-0.7B training leg of bench.py
+             and Llama-3-8B widths; the int8 and int4 mixed-input GEMM at
+             Llama-3-8B's projection shapes at M = 8 (decode) and 1024 (a
+             prefill budget).  Times (CUDA events), bounds, and for flash
+             attention the time of PyTorch's scaled_dot_product_attention
+             as a yardstick (for the GEMM, a dense bf16 torch.matmul of
+             the same shape, as context).
 4. train   — GPT-2-small at full width and depth (bf16, ZeRO-1, AdamW,
              clip 1.0, micro-batch 32, seq 1024, attention_impl="flash":
              bench.py's training configuration) through
@@ -33,6 +39,14 @@ passed over):
              through InferenceEngine.generate with the pipeline at depth 2
              and the prefix cache on; launch counts, a first-forward check
              against the dense plain forward, TTFT and token rates.
+6. serve-quant — the same model and traffic served quantized: (a) int8
+             weights and embeddings with an int8 cache (bench.py's
+             llama8b_serving_bench configuration without decode bursts),
+             (b) int4 weights with an fp8 cache; launch counts of the
+             mixed-input GEMM and the quantized paged attention, a
+             first-forward check against the plain path on the same
+             quantized weights and cache, TTFT, token rates, resident
+             bytes and the device profile.
 
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; the line before that, the per-kernel JSON; the last line,
@@ -126,10 +140,12 @@ def decode_batch(torch, H, Hkv, D, bs, num_blocks, seed, device):
                 slots_np=np.arange(8), pos_np=np.asarray([c - 1 for c in ctx]))
 
 
-def attention_bound(case, H, Hkv, D):
+def attention_bound(case, H, Hkv, D, kv_bytes=2):
     """Least time on the card: the larger of (bytes each input/output moves
     once) / 3.35 TB/s and (flops) / 989 TFLOP/s.  KV bytes count each
-    distinct (block, offset) row this batch's tokens read, once."""
+    distinct (block, offset) row this batch's tokens read, once, at
+    ``kv_bytes`` per element (2 for bf16; 1 for int8/fp8 codes, plus one
+    fp32 scale per K/V row)."""
     bs = case["block_size"]
     flops = 4 * H * D * int((case["pos_np"] + 1).sum())
     last = {}                     # slot -> deepest position its tokens read
@@ -138,7 +154,8 @@ def attention_bound(case, H, Hkv, D):
     rows = {(int(case["tables_np"][s, key // bs]), key % bs)
             for s, p in last.items() for key in range(p + 1)}
     T = len(case["pos_np"])
-    nbytes = (len(rows) * 2 * Hkv * D * 2          # K and V rows, bf16
+    scale_bytes = 0 if kv_bytes == 2 else 4
+    nbytes = (len(rows) * 2 * Hkv * (D * kv_bytes + scale_bytes)  # K, V
               + 2 * T * H * D * 2                  # q in, out
               + T * 4 * 2                          # seq_slot, positions
               + len(set(case["slots_np"].tolist()))
@@ -207,7 +224,7 @@ FLASH_CASES = [("gpt2 train", (32, 12, 12, 1024, 64, 20)),
 # the bf16 noise floor, the distance of the plain version run in bf16
 # (inputs rounded to bf16) from the plain version run in fp32 on the
 # unrounded inputs, per output
-FLASH_NOISE_FACTOR = 2.0
+NOISE_FACTOR = 2.0
 
 
 def flash_bound(B, H, Hkv, S, D, products, in_bf16, in_f32, out_bf16,
@@ -234,11 +251,11 @@ def _within_noise(torch, name, got, ref_bf16, ref_fp32):
         raise AssertionError(f"{name}: kernel output has non-finite values")
     noise = float((ref_bf16.float() - ref_fp32.float()).abs().max())
     err = float((got.float() - ref_bf16.float()).abs().max())
-    tol = FLASH_NOISE_FACTOR * noise
+    tol = NOISE_FACTOR * noise
     if err > tol:
         raise AssertionError(f"{name}: kernel disagrees with the plain "
                              f"version: max|d| {err} > {tol} "
-                             f"({FLASH_NOISE_FACTOR} x noise {noise})")
+                             f"({NOISE_FACTOR} x noise {noise})")
     return err, tol
 
 
@@ -322,9 +339,111 @@ def check_flash_case(torch, fa, name, B, H, Hkv, S, D, iters,
             f"TFLOP/s achieved) library_ms={lib[kname]:.4f} "
             f"({'SDPA fwd' if kname == 'flash_fwd' else 'SDPA bwd, dq+dkv'})")
     log(f"[kernel] {name} tolerances (kernel vs bf16 plain, "
-        f"{FLASH_NOISE_FACTOR} x the bf16 noise floor): " + ", ".join(
+        f"{NOISE_FACTOR} x the bf16 noise floor): " + ", ".join(
             f"{k} {e:.3e} <= {tol:.3e}" for k, (e, tol) in errs.items()))
     return out
+
+
+def check_quant_kv_case(torch, pa, name, case, code, H, Hkv, D, iters):
+    """The int8 / fp8 cache variant of paged attention: the case's cache
+    quantized by the serving path's _quantize_kv, kernel vs the plain
+    version (bf16 q) within NOISE_FACTOR x the bf16 noise floor (the
+    plain version with q and the dequantized rows in fp32)."""
+    from deepspeed_tpu_torch.inference.model import _quantize_kv
+    from deepspeed_tpu_torch.ops.paged_attention import (
+        paged_attention_plain)
+    qdt = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[code]
+    kv = _quantize_kv(case["kv"], qdt)
+    rest = (case["seq_slot"], case["positions"], case["block_tables"],
+            case["block_size"], case["max_blocks_per_seq"], case["scale"])
+    q = case["q"]
+    out = pa(kv, q, *rest)
+    torch.cuda.synchronize()
+    ref = paged_attention_plain(kv, q, *rest)
+    ref32 = paged_attention_plain(kv, q.float(), *rest)
+    err, tol = _within_noise(torch, f"{name} {code}", out, ref, ref32)
+    kernel_ms = time_ms(torch, lambda: pa(kv, q, *rest), iters)
+    plain_ms = time_ms(torch, lambda: paged_attention_plain(kv, q, *rest),
+                       max(2, iters // 10), warmup=1)
+    bound_ms, bound_by, nbytes, flops = attention_bound(case, H, Hkv, D,
+                                                        kv_bytes=1)
+    log(f"[kernel] {name} {code} cache: T={q.shape[0]} H={H} Hkv={Hkv} "
+        f"D={D} max|d|={err:.3e} <= {tol:.3e} ({NOISE_FACTOR} x the bf16 "
+        f"noise floor) kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}: {nbytes} B, {flops} flop) "
+        f"library_ms: n/a")
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+# mixed-input GEMM cases: Llama-3-8B's projections (contraction dims, N) —
+# mlp wi (and wg), mlp wo, wk (and wv), the attention output [32, 128] ->
+# 4096 with one scale per head — at a decode step (M = 8) and a full
+# prefill budget (M = 1024)
+MIXED_PROJECTIONS = [("wi", (4096,), 14336), ("mlp wo", (14336,), 4096),
+                     ("wk", (4096,), 1024), ("attn wo", (32, 128), 4096)]
+MIXED_M = (8, 1024)
+
+
+def mixed_bound(M, K, N, bits):
+    """(bound ms, bound_by, bytes, flops): the codes at bits/8 bytes per
+    weight, one fp32 scale per contraction row, bf16 x in and out once."""
+    nbytes = K * N * bits // 8 + 4 * K + 2 * M * K + 2 * M * N
+    flops = 2 * M * K * N
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_flops = flops / PEAK_BF16_FLOPS * 1e3
+    return (max(t_bytes, t_flops),
+            "bytes" if t_bytes >= t_flops else "operations", nbytes, flops)
+
+
+def check_mixed_case(torch, mg, name, kdims, N, M, bits, iters,
+                     device="cuda"):
+    """The int8 / int4 mixed-input GEMM at one projection shape: kernel vs
+    the plain version on the same bf16 x and quantized weight, within
+    NOISE_FACTOR x the bf16 noise floor (x @ dequant(w) in fp32 on the
+    unrounded x); times of the kernel, the plain version and a dense bf16
+    torch.matmul of the same shape (context: no single PyTorch call
+    computes this function)."""
+    from deepspeed_tpu_torch.ops.quant import (_quantize_leading,
+                                               dequantize, quantize_rowwise4)
+    gen = torch.Generator(device=device).manual_seed(M + N + bits)
+    K = math.prod(kdims)
+    w = torch.randn(*kdims, N, device=device, generator=gen)
+    qt = (_quantize_leading(w.to(torch.bfloat16), 1) if bits == 8 else
+          quantize_rowwise4(w.to(torch.bfloat16), contract_dims=len(kdims)))
+    del w
+    x32 = torch.randn(M, K, device=device, generator=gen)
+    x = x32.to(torch.bfloat16)
+    s = qt.scale.reshape(-1)
+    s = s[:, None].expand(s.numel(), K // s.numel()).reshape(K).contiguous()
+    data = qt.data.reshape(-1, N)
+    kern = mg.mixed_matmul_2d if bits == 8 else mg.mixed4_matmul_2d
+    plain = mg.mixed_matmul_2d_plain if bits == 8 else \
+        mg.mixed4_matmul_2d_plain
+    out = mg.mixed_matmul(x, qt, contract_dims=len(kdims)).reshape(M, N)
+    torch.cuda.synchronize()
+    ref = plain(x, data, s)
+    ref32 = x32 @ dequantize(qt, torch.float32).reshape(K, N)
+    err, tol = _within_noise(torch, f"{name} int{bits} M={M}", out, ref,
+                             ref32)
+    del ref32
+    kernel_ms = time_ms(torch, lambda: kern(x, data, s), iters)
+    plain_ms = time_ms(torch, lambda: plain(x, data, s), max(2, iters // 10),
+                       warmup=1)
+    wd = dequantize(qt, torch.bfloat16).reshape(K, N)
+    dense_ms = time_ms(torch, lambda: x @ wd, iters)
+    del wd
+    bound_ms, bound_by, nbytes, flops = mixed_bound(M, K, N, bits)
+    log(f"[kernel] mixed gemm int{bits} {name} M={M} K={K} N={N}: "
+        f"max|d|={err:.3e} <= {tol:.3e} ({NOISE_FACTOR} x the bf16 noise "
+        f"floor) kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}: {nbytes} B, {flops} flop; "
+        f"{flops / kernel_ms / 1e9:.1f} TFLOP/s, {nbytes / kernel_ms / 1e6:.1f}"
+        f" GB/s achieved) dense bf16 torch.matmul {dense_ms:.4f} ms "
+        f"(context); library_ms: n/a (no single PyTorch call)")
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                dense_bf16_matmul_ms=dense_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -515,8 +634,8 @@ def nvidia_smi_line() -> str:
 # noise floor measured in the same run: the distance NOISE of the dense
 # bf16 forward from the dense forward in fp32 (same weights, no TF32).  If
 # the kernel path is at least as exact as the dense bf16 path, both lie
-# within NOISE of the fp32 logits and within 2 * NOISE of each other.
-NOISE_FACTOR = 2.0
+# within NOISE of the fp32 logits and within NOISE_FACTOR * NOISE of each
+# other.
 
 
 def first_forward_check(torch, model, prompts):
@@ -558,34 +677,60 @@ def first_forward_check(torch, model, prompts):
                              "reference margin exceeds the tolerance")
 
 
-def serve(torch, pa, seed):
+def llama_model(torch, seed):
+    """Llama-3-8B at full width and depth, random bf16 weights from
+    ``seed`` drawn on the card, and the serving traffic: 8 prompts of 512
+    random tokens, prompt 2 sharing prompt 0's first 256 (4 blocks)."""
     import numpy as np
 
-    from deepspeed_tpu_torch.inference import (InferenceConfig,
-                                               InferenceEngine,
-                                               SamplingParams)
     from deepspeed_tpu_torch.models import build_model
     from deepspeed_tpu_torch.models.transformer import tree_leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model("llama3-8b", seed=seed, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     cfg = model.config
     n_params = sum(x.numel() for x in tree_leaves(model.params))
-    log(f"[serve] llama3-8b: {n_params / 1e9:.3f} B params, bf16, random "
-        f"init on the card in {time.perf_counter() - t0:.2f} s")
+    log(f"[serve] llama3-8b: {n_params / 1e9:.3f} B params, bf16 "
+        f"({tree_bytes(model.params) / 1e9:.2f} GB), random init on the card "
+        f"in {time.perf_counter() - t0:.2f} s")
     r = np.random.RandomState(seed)
     prompts = [list(map(int, r.randint(0, cfg.vocab_size, 512)))
                for _ in range(8)]
     prompts[2][:256] = prompts[0][:256]   # 4 shared blocks: a prefix hit
+    return model, prompts
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor of a parameter or quantized tree."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if hasattr(tree, "tensors"):                  # a QuantizedTensor
+        return sum(t.numel() * t.element_size() for t in tree.tensors())
+    if isinstance(tree, tuple):                   # a quantized KV cache
+        return sum(tree_bytes(t) for t in tree)
+    return tree.numel() * tree.element_size()
+
+
+# phase 5's engine: token budget 1024, 8 sequence slots, 512 KV blocks of 64
+SERVE_ENGINE = dict(token_budget=1024, max_seqs=8, kv_block_size=64,
+                    num_kv_blocks=512)
+SERVE_NEW_TOKENS = 32
+
+
+def serve(torch, pa, model, prompts):
+    from deepspeed_tpu_torch.inference import (InferenceConfig,
+                                               InferenceEngine,
+                                               SamplingParams)
+
+    cfg = model.config
+    torch.cuda.reset_peak_memory_stats()
     first_forward_check(torch, model, prompts)
 
-    icfg = InferenceConfig(token_budget=1024, max_seqs=8, kv_block_size=64,
-                           num_kv_blocks=512)
-    sp = SamplingParams(max_new_tokens=32)
+    icfg = InferenceConfig(**SERVE_ENGINE)
+    sp = SamplingParams(max_new_tokens=SERVE_NEW_TOKENS)
     eng = InferenceEngine(model, icfg)
     pa.launches = 0
     t0 = time.perf_counter()
@@ -604,28 +749,43 @@ def serve(torch, pa, seed):
     if launches != cfg.num_layers * steps or launches == 0:
         raise AssertionError("the serving path did not run the kernel in "
                              "every layer of every step")
+    ttft = sorted(eng.ttft_ms[u] for u in out)
+    check_prefix_and_cow(eng, prompts, sp, "serve")
+    del eng
+    serve_rates(torch, lambda: InferenceEngine(model, icfg), prompts, ttft,
+                "serve")
+    return launches
+
+
+def check_prefix_and_cow(eng, prompts, sp, tag):
+    """The shared prompts hit the prefix cache; a repeat of prompt 0 (its
+    blocks rest in the cached-free pool) is a full-cover hit that query()
+    reports, served through a copy-on-write block."""
     tm = eng.timings
-    log(f"[serve] prefix cache: hits={int(tm['prefix_hits'])} cached_tokens="
+    log(f"[{tag}] prefix cache: hits={int(tm['prefix_hits'])} cached_tokens="
         f"{int(tm['cached_tokens'])} of prompt_tokens="
         f"{int(tm['prompt_tokens'])}")
     if tm["prefix_hits"] < 1:
-        raise AssertionError("no prefix-cache hit on the shared prompts")
-    ttft = sorted(eng.ttft_ms[u] for u in out)
-    # a repeat of prompt 0: its blocks rest in the cached-free pool, so
-    # query() reports the hit (full cover -> a copy-on-write block)
+        raise AssertionError(f"{tag}: no prefix-cache hit on the shared "
+                             "prompts")
     eng.put(100, prompts[0])
     eng.step(sp)
     q = eng.query(100)
-    log(f"[serve] query(repeat of prompt 0) -> status={q['status']} "
+    log(f"[{tag}] query(repeat of prompt 0) -> status={q['status']} "
         f"cached_tokens={q['cached_tokens']}")
     if q["cached_tokens"] <= 0:
-        raise AssertionError("query() shows no prefix hit")
+        raise AssertionError(f"{tag}: query() shows no prefix hit")
     eng.flush(100)
-    del eng
 
-    # rates: prefill alone (1 new token) vs the full run, fresh engines
+
+def serve_rates(torch, make_engine, prompts, ttft, tag):
+    """Prefill alone (1 new token) vs the full 32-token run on fresh
+    engines from ``make_engine()``; TTFT (from the main run), token rates,
+    peak memory, host phases per step and the device profile."""
+    from deepspeed_tpu_torch.inference import SamplingParams
+
     def run(n_new, profiler=None):
-        e = InferenceEngine(model, icfg)
+        e = make_engine()
         torch.cuda.synchronize()
         t = time.perf_counter()
         if profiler is not None:
@@ -642,22 +802,207 @@ def serve(torch, pa, seed):
         return dt, computed, tm
 
     t_pre, computed, _ = run(1)
-    t_all, _, tm = run(32)
-    prefill_tps = computed / t_pre
-    decode_tps = 8 * 31 / max(t_all - t_pre, 1e-9)
-    log(f"[serve] TTFT p50={statistics.median(ttft):.1f} ms "
+    t_all, _, tm = run(SERVE_NEW_TOKENS)
+    n_dec = len(prompts) * (SERVE_NEW_TOKENS - 1)
+    rates = dict(ttft_p50_ms=statistics.median(ttft),
+                 prefill_tok_s=computed / t_pre,
+                 decode_tok_s=n_dec / max(t_all - t_pre, 1e-9),
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[{tag}] TTFT p50={rates['ttft_p50_ms']:.1f} ms "
         f"(min {ttft[0]:.1f}, max {ttft[-1]:.1f}); prefill "
-        f"{prefill_tps:.0f} tok/s ({computed} prompt tokens in "
-        f"{t_pre:.3f} s); decode {decode_tps:.0f} tok/s (8 x 31 tokens in "
+        f"{rates['prefill_tok_s']:.0f} tok/s ({computed} prompt tokens in "
+        f"{t_pre:.3f} s); decode {rates['decode_tok_s']:.0f} tok/s "
+        f"({len(prompts)} x {SERVE_NEW_TOKENS - 1} tokens in "
         f"{t_all - t_pre:.3f} s); max_memory_allocated="
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{rates['peak_gib']:.2f} GiB")
     n = max(tm["steps"], 1)
-    log(f"[serve] host phases per step over {int(tm['steps'])} steps "
+    log(f"[{tag}] host phases per step over {int(tm['steps'])} steps "
         f"(ms): schedule {tm['schedule_ms'] / n:.3f}, stage "
         f"{tm['stage_ms'] / n:.3f}, enqueue {tm['device_ms'] / n:.3f}, "
         f"wait {tm['wait_ms'] / n:.3f}, readback {tm['readback_ms'] / n:.3f}")
-    device_profile(torch, lambda prof: run(32, prof)[0], t_all)
-    return launches
+    device_profile(torch, lambda prof: run(SERVE_NEW_TOKENS, prof)[0], t_all,
+                   tag=tag)
+    return rates
+
+
+# ---------------------------------------------------------------------------
+# phase 6 helpers
+# ---------------------------------------------------------------------------
+
+# the quantized serving runs: (a) bench.py's llama8b_serving_bench
+# configuration (:752-758) without decode bursts, (b) the packed-int4
+# weights with an fp8 cache
+QUANT_RUNS = [("a", dict(weight_quant="int8", quantize_embeddings=True,
+                         kv_quant="int8")),
+              ("b", dict(weight_quant="int4", kv_quant="fp8"))]
+# projections per layer that take the mixed-input GEMM: wq wk wv wo, and
+# the MLP's wi wg wo
+PROJECTIONS_PER_LAYER = 7
+
+
+class plain_kernels:
+    """Route the serving forward's kernels to their plain versions for the
+    duration of a ``with`` block (the first-forward reference on the
+    card): paged attention and the int8/int4 GEMMs."""
+
+    def __enter__(self):
+        import deepspeed_tpu_torch.inference.model as im
+        import deepspeed_tpu_torch.ops.mixed_gemm as mg
+        from deepspeed_tpu_torch.ops.paged_attention import (
+            paged_attention_plain)
+        self.saved = (im.paged_attention, mg.mixed_matmul_2d,
+                      mg.mixed4_matmul_2d)
+        im.paged_attention = paged_attention_plain
+        mg.mixed_matmul_2d = mg.mixed_matmul_2d_plain
+        mg.mixed4_matmul_2d = mg.mixed4_matmul_2d_plain
+        return self
+
+    def __exit__(self, *exc):
+        import deepspeed_tpu_torch.inference.model as im
+        import deepspeed_tpu_torch.ops.mixed_gemm as mg
+        (im.paged_attention, mg.mixed_matmul_2d,
+         mg.mixed4_matmul_2d) = self.saved
+        return False
+
+
+def quant_first_forward_check(torch, eng, prompts, tag):
+    """First forward of two prompts with the engine's quantized weights and
+    a fresh quantized cache: the kernel path vs the plain path on the same
+    weights and cache (both bf16), within NOISE_FACTOR x the bf16 noise
+    floor — the distance of the plain path from the same quantized model
+    run in fp32 (dense weights and dequantized rows in fp32, no bf16
+    rounding of x or of the dequantized weights)."""
+    from deepspeed_tpu_torch.inference.model import ragged_forward
+    from deepspeed_tpu_torch.inference.ragged.state import (KVCacheConfig,
+                                                            StateManager)
+    from deepspeed_tpu_torch.models.transformer import tree_map
+    from deepspeed_tpu_torch.ops.quant import QuantizedTensor
+    cfg = eng.cfg
+
+    def forward(params, quant, mixed):
+        sm = StateManager(KVCacheConfig(
+            cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, block_size=64,
+            num_blocks=32, dtype=torch.bfloat16, quant=eng.icfg.kv_quant,
+            device=eng.device), max_seqs=2)
+        batch = sm.build_batch([(0, prompts[0]), (1, prompts[1])], 1024)
+        logits, _ = ragged_forward(cfg, params, sm.kv, batch, 64, 8,
+                                   quant=quant, mixed_gemm=mixed)
+        out = logits[[sm.slot(0), sm.slot(1)]]
+        del sm
+        return out
+
+    def retype(tree):
+        if isinstance(tree, dict):
+            return {k: retype(v) for k, v in tree.items()}
+        return QuantizedTensor(tree.data, tree.scale, tree.zero, tree.bits,
+                               tree.shape, torch.float32, layout=tree.layout)
+
+    got = forward(eng.params, eng._quant, True)
+    with plain_kernels():
+        ref = forward(eng.params, eng._quant, True)
+        ref32 = forward(tree_map(lambda t: t.float(), eng.params),
+                        retype(eng._quant), False)
+    torch.cuda.empty_cache()
+    noise = float((ref - ref32).abs().max())
+    tol = NOISE_FACTOR * noise
+    max_err = float((got - ref).abs().max())
+    top2 = ref.topk(2, dim=-1)
+    margin = top2.values[:, 0] - top2.values[:, 1]
+    agree = got.argmax(-1) == top2.indices[:, 0]
+    log(f"[{tag}] first forward, kernel path vs plain path (same quantized "
+        f"weights and cache, both bf16): max|d|={max_err:.4f}; bf16 noise "
+        f"floor (plain bf16 vs plain fp32)={noise:.4f} -> tol={tol:.4f}; "
+        f"kernel path vs fp32: max|d|={float((got - ref32).abs().max()):.4f};"
+        f" top1 agree={agree.tolist()} margins="
+        f"{[round(float(m), 4) for m in margin]}")
+    if not bool(torch.isfinite(got).all()) or max_err > tol:
+        raise AssertionError(f"{tag}: first-forward logits disagree: max|d| "
+                             f"{max_err} > {tol}")
+    if bool(((margin > tol) & ~agree).any()):
+        raise AssertionError(f"{tag}: first-forward top-1 disagrees where "
+                             "the reference margin exceeds the tolerance")
+    return max_err, tol
+
+
+def serve_quant(torch, pa, mg, model, prompts, tag, over):
+    """One quantized serving run of Llama-3-8B (full width and depth) at
+    phase 5's traffic; returns the kernels' launch counts and the rates."""
+    from deepspeed_tpu_torch.inference import (InferenceConfig,
+                                               InferenceEngine,
+                                               SamplingParams)
+    from deepspeed_tpu_torch.models import Model
+
+    cfg = model.config
+    tag = f"serve-quant {tag}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    icfg = InferenceConfig(**SERVE_ENGINE, **over)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(model, icfg)       # quantizes on the card
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    dense_bytes, quant_bytes = tree_bytes(eng.params), tree_bytes(eng._quant)
+    log(f"[{tag}] {over}: quantized on the card in {t_quant:.2f} s; "
+        f"resident weights {(dense_bytes + quant_bytes) / 1e9:.3f} GB "
+        f"(dense remainder {dense_bytes / 1e9:.3f} GB + quantized "
+        f"{quant_bytes / 1e9:.3f} GB) vs the bf16 model's "
+        f"{tree_bytes(model.params) / 1e9:.3f} GB; KV cache "
+        f"{tree_bytes(eng.state.kv) / 1e9:.3f} GB; mixed gemm active="
+        f"{eng._mixed_gemm_active}")
+    if not eng._mixed_gemm_active:
+        raise AssertionError(f"{tag}: the mixed-input GEMM is not active")
+    ffwd = quant_first_forward_check(torch, eng, prompts, tag)
+
+    int8 = over["weight_quant"] == "int8"
+    k3, k3_other = ((mg.mixed_matmul_2d, mg.mixed4_matmul_2d) if int8
+                    else (mg.mixed4_matmul_2d, mg.mixed_matmul_2d))
+    kv_attr = f"{over['kv_quant']}_launches"
+    sp = SamplingParams(max_new_tokens=SERVE_NEW_TOKENS)
+    # the main path: counts to 0 just before, read just after
+    mg.mixed_matmul_2d.launches = mg.mixed4_matmul_2d.launches = 0
+    pa.launches = pa.int8_launches = pa.fp8_launches = 0
+    t0 = time.perf_counter()
+    out = eng.generate(dict(enumerate(prompts)), sp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(k3=k3.launches, k3_other=k3_other.launches,
+                    kv=getattr(pa, kv_attr),
+                    other_pa=pa.launches + pa.int8_launches
+                    + pa.fp8_launches - getattr(pa, kv_attr))
+    steps = int(eng.timings["steps"])
+    L = cfg.num_layers
+    log(f"[{tag}] generate: 8 x 512-token prompts, {SERVE_NEW_TOKENS} new "
+        f"tokens each, {steps} steps in {wall:.3f} s; mixed gemm int"
+        f"{8 if int8 else 4} launches={launches['k3']} "
+        f"({PROJECTIONS_PER_LAYER} x {L} layers x {steps} steps = "
+        f"{PROJECTIONS_PER_LAYER * L * steps}); paged_attention "
+        f"{over['kv_quant']} cache launches={launches['kv']} ({L} x {steps} = "
+        f"{L * steps}); other variants: {launches['k3_other']} GEMM, "
+        f"{launches['other_pa']} attention")
+    for uid, toks in out.items():
+        if len(toks) != SERVE_NEW_TOKENS \
+                or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"{tag} request {uid}: bad output {toks}")
+    if launches["k3"] != PROJECTIONS_PER_LAYER * L * steps or steps == 0 \
+            or launches["kv"] != L * steps or launches["k3_other"] \
+            or launches["other_pa"]:
+        raise AssertionError(f"{tag}: the serving path did not run the "
+                             f"run's kernels in every projection and layer "
+                             f"of every step: {launches}")
+    ttft = sorted(eng.ttft_ms[u] for u in out)
+    check_prefix_and_cow(eng, prompts, sp, tag)
+    # the rate runs reuse this quantized tree through quant_tree=
+    dense = Model.from_params(cfg, eng.params)
+    quant = eng._quant
+    del eng
+    rates = serve_rates(
+        torch, lambda: InferenceEngine(dense, icfg, quant_tree=quant),
+        prompts, ttft, tag)
+    del dense, quant
+    torch.cuda.empty_cache()
+    return dict(launches=launches, first_forward=ffwd,
+                weight_bytes=dense_bytes + quant_bytes, **rates)
 
 
 def device_profile(torch, run, wall_unprofiled, tag="serve"):
@@ -699,9 +1044,11 @@ def device_profile(torch, run, wall_unprofiled, tag="serve"):
 
 
 # kernel-name substrings -> kind, first match wins (a cast is a copy
-# kernel inside an elementwise template, so copies come before elementwise)
+# kernel inside an elementwise template, so copies come before elementwise;
+# the port's mixed_gemm_kernel comes before the library GEMMs' "gemm")
 KERNEL_GROUPS = [("flash attention", ("flash_fwd", "flash_dq", "flash_dkv")),
                  ("paged attention", ("paged_attention",)),
+                 ("mixed gemm", ("mixed_gemm",)),
                  ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
                  ("copies and casts", ("copy",)),
                  ("reductions", ("reduce",)),
@@ -712,7 +1059,8 @@ KERNEL_GROUPS = [("flash attention", ("flash_fwd", "flash_dq", "flash_dkv")),
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="device,build,kernel,train,serve")
+    ap.add_argument("--phases",
+                    default="device,build,kernel,train,serve,serve-quant")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -728,10 +1076,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import importlib
 
-    from deepspeed_tpu_torch.ops import build_all
+    from deepspeed_tpu_torch.ops import BUILDERS, build_all
     from deepspeed_tpu_torch.platform.cuda import device_report
     pa_mod = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")
     fa = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")
+    mg = importlib.import_module("deepspeed_tpu_torch.ops.mixed_gemm")
     pa = pa_mod.paged_attention
     t_start = time.perf_counter()
 
@@ -746,9 +1095,8 @@ def main() -> int:
 
     # 2. build
     if "build" in phases:
-        builders = [pa_mod.BUILDER, fa.BUILDER]
-        build_all(builders, force=True)
-        for b in builders:
+        build_all(BUILDERS, force=True)
+        for b in BUILDERS:
             log(f"[build] {b.name}: {' '.join(b.command)}")
             log(f"[build] {b.name}: {b.build_seconds:.2f} s; nvcc output:")
             for line in b.build_log.strip().splitlines():
@@ -756,6 +1104,7 @@ def main() -> int:
 
     # 3. kernels vs plain
     kern = flash_kern = None
+    qkv_kern, mixed_kern = {}, {}
     if "kernel" in phases:
         dev = torch.device("cuda")
         cases = [("llama3-8b mixed", (32, 8, 128, 64, 512, 20)),
@@ -767,6 +1116,11 @@ def main() -> int:
             res = check_kernel_case(torch, pa, name, case, H, Hkv, D, iters)
             if kern is None:
                 kern = res
+            if name.startswith("llama3-8b"):      # the quantized caches
+                for code in ("int8", "fp8"):
+                    res = check_quant_kv_case(torch, pa, name, case, code, H,
+                                              Hkv, D, iters)
+                    qkv_kern.setdefault(code, res)
             del case
             torch.cuda.empty_cache()
         for name, (B, H, Hkv, S, D, iters) in FLASH_CASES:
@@ -774,6 +1128,14 @@ def main() -> int:
             if name == FLASH_CASES[0][0]:        # the training shape
                 flash_kern = res
             torch.cuda.empty_cache()
+        for bits in (8, 4):
+            for name, kdims, N in MIXED_PROJECTIONS:
+                for M in MIXED_M:
+                    res = check_mixed_case(torch, mg, name, kdims, N, M, bits,
+                                           iters=50 if M <= 8 else 10)
+                    if name == "wi" and M == max(MIXED_M):   # a prefill step
+                        mixed_kern[bits] = res
+                    torch.cuda.empty_cache()
 
     # 4. the training path
     flash_launches = {}
@@ -782,25 +1144,51 @@ def main() -> int:
         flash_launches = dict(zip(("flash_fwd", "flash_dq", "flash_dkv"),
                                   counts))
 
-    # 5. the serving path
+    # 5. and 6. the serving paths, bf16 and quantized, on one model
     launches = None
-    if "serve" in phases:
-        launches = serve(torch, pa, args.seed)
+    quant_runs = {}
+    if phases & {"serve", "serve-quant"}:
+        model, prompts = llama_model(torch, args.seed)
+        if "serve" in phases:
+            launches = serve(torch, pa, model, prompts)
+        if "serve-quant" in phases:
+            for tag, over in QUANT_RUNS:
+                quant_runs[tag] = serve_quant(torch, pa, mg, model, prompts,
+                                              tag, over)
+        del model
+        torch.cuda.empty_cache()
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if kern is not None:
+        pa_src = "deepspeed_tpu_torch/ops/csrc/paged_attention.cu"
+        pa_replaces = "deepspeed_tpu/ops/paged_attention.py:48"
         flash_src = "deepspeed_tpu_torch/ops/csrc/flash_attention.cu"
         replaces = {"flash_fwd": "deepspeed_tpu/ops/flash_attention.py:76",
                     "flash_dq": "deepspeed_tpu/ops/flash_attention.py:173",
                     "flash_dkv": "deepspeed_tpu/ops/flash_attention.py:212"}
-        print(json.dumps({"kernels": [dict(
-            name="paged_attention", route="cuda",
-            source="deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
-            replaces="deepspeed_tpu/ops/paged_attention.py:48",
-            launches=launches, library_ms=None, **kern)] + [dict(
-                name=k, route="cuda", source=flash_src,
-                replaces=replaces[k], launches=flash_launches.get(k),
-                **flash_kern[k]) for k in replaces]}), flush=True)
+
+        def quant_launches(run, key):
+            return quant_runs[run]["launches"][key] if run in quant_runs \
+                else None
+
+        entries = [dict(name="paged_attention", route="cuda", source=pa_src,
+                        replaces=pa_replaces, launches=launches,
+                        library_ms=None, **kern)]
+        entries += [dict(name=f"paged_attention_{code}kv", route="cuda",
+                         source=pa_src, replaces=pa_replaces,
+                         launches=quant_launches(run, "kv"),
+                         **qkv_kern[code])
+                    for code, run in (("int8", "a"), ("fp8", "b"))]
+        entries += [dict(name=k, route="cuda", source=flash_src,
+                         replaces=replaces[k], launches=flash_launches.get(k),
+                         **flash_kern[k]) for k in replaces]
+        entries += [dict(name=f"mixed_matmul_int{bits}", route="cuda",
+                         source="deepspeed_tpu_torch/ops/csrc/mixed_gemm.cu",
+                         replaces=f"deepspeed_tpu/ops/mixed_gemm.py:{line}",
+                         launches=quant_launches(run, "k3"),
+                         **mixed_kern[bits])
+                    for bits, line, run in ((8, 49, "a"), (4, 125, "b"))]
+        print(json.dumps({"kernels": entries}), flush=True)
     print(rep["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,15 +5,19 @@ Counterpart of ``deepspeed_tpu/inference/engine.py`` (``InferenceConfig``,
 driver and the dispatch-ahead pipeline), ``flush``, ``cancel``,
 ``query``, the SplitFuse scheduler with prefix-cache admission and the
 overload policy (priorities, deadlines, bounded admission, preemption),
-the copy-on-write drain and the power-of-two context bucketing of each
-step's block bound.
+the copy-on-write drain, the power-of-two context bucketing of each
+step's block bound, and quantized serving: int8/int4 weights
+(``weight_quant``, ``quantize_embeddings``, or a pre-built ``quant_tree``)
+through the mixed-input GEMM (``mixed_gemm``) and an int8/fp8 KV cache
+(``kv_quant``).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item when its config field is set away from the default): the
 attention-implementation probe, failure domains and the watchdog,
 telemetry (tracing, device telemetry, anomaly detection, SLOs,
-captures), speculative decoding, decode bursts, the KV tier, weight and
-KV quantization, KV offload, weight streaming and tensor parallelism.
+captures), speculative decoding, decode bursts, the KV tier, the fp6/fp12
+minifloat weight layouts, KV offload, weight streaming and tensor
+parallelism.
 
 API:
     eng = InferenceEngine(model, InferenceConfig(...))
@@ -40,10 +44,15 @@ import numpy as np
 import torch
 
 from ..models.transformer import Model, TransformerConfig, tree_map
+from ..ops.mixed_gemm import flat_kn, shape_error
+from ..ops.quant import (WEIGHT_QUANT_BITS, QuantizedTensor,
+                         is_mixed_gemm_layout, is_rowwise_int4)
 from .model import pipelined_ragged_step
 from .overload import (AdmissionVerdict, OverloadConfig, RequestMeta,
                        admission_decision, effective_priority,
                        select_victim)
+from .quantization import (DENSE_ONLY_GROUPS, contract_dims,
+                           quantize_model_params)
 from .ragged.state import (FEEDBACK_TOKEN, BatchStager, KVCacheConfig,
                            StateManager)
 from .sampler import SamplingParams, sample_rows
@@ -63,8 +72,14 @@ class InferenceConfig:
     # "auto" only: CUDA tensors take the kernel, CPU tensors the plain
     # version — there is no implementation race to run
     attn_impl: str = "auto"
+    # None | "int8" | "fp8": the paged cache holds codes + per-vector scales
     kv_quant: Optional[str] = None
+    # None | "int8" | "int4" (fp6/fp12 are not ported)
     weight_quant: Optional[str] = None
+    # "auto": a row-wise int8/int4 tree takes the mixed-input GEMM (no
+    # probe: the kernel on the card, its plain version on the CPU), any
+    # other layout is dequantized per layer; "on": the GEMM, or raise at
+    # construction; "off": dequantize each layer and torch.matmul
     mixed_gemm: str = "auto"
     quantize_embeddings: bool = False
     kv_offload: bool = False
@@ -103,15 +118,12 @@ class InferenceConfig:
 
 
 # field -> (accepted values, ROADMAP item that ports the rest)
-_QUANT = "ROADMAP Queue 1, quantized serving"
 _HOST = "ROADMAP Queue 1, host layers above the engine"
 _UNSUPPORTED = {
     "attn_impl": (("auto",), "ROADMAP Queue 1, serving slice: the kernel "
                   "is chosen by the tensors' device, there is no probe"),
-    "kv_quant": ((None,), _QUANT),
-    "weight_quant": ((None,), _QUANT),
-    "mixed_gemm": (("auto", "off"), _QUANT),
-    "quantize_embeddings": ((False,), _QUANT),
+    "weight_quant": ((None, "int8", "int4"), "ROADMAP Queue 1, quantized "
+                     "serving: the fp6/fp12 minifloat layouts"),
     "kv_offload": ((False,), "ROADMAP Queue 1, multi-GPU training "
                    "breadth (offload)"),
     "weight_stream": ((None,), _HOST),
@@ -156,10 +168,23 @@ class InferenceEngine:
     """Single-device serving engine on the model's device (the card, or
     the CPU when the model was built with ``device="cpu"``)."""
 
-    def __init__(self, model: Model, config: Optional[InferenceConfig] = None):
+    def __init__(self, model: Model, config: Optional[InferenceConfig] = None,
+                 quant_tree=None):
+        """``quant_tree``: a pre-built quantized tree (the second output of
+        ``quantization.quantize_model_params``, e.g. carried over from a
+        quantized checkpoint with ``models.quant_tree_from_numpy``);
+        ``model.params`` must then be the matching dense remainder, and
+        ``weight_quant`` is not re-applied."""
         self.model = model
         self.cfg: TransformerConfig = model.config
         self.icfg = config or InferenceConfig()
+        wq = self.icfg.weight_quant
+        if wq is not None and wq not in WEIGHT_QUANT_BITS:
+            raise ValueError(f"weight_quant={wq!r}: expected one of "
+                             f"{sorted(WEIGHT_QUANT_BITS)}")
+        if self.icfg.mixed_gemm not in ("auto", "on", "off"):
+            raise ValueError(f"mixed_gemm={self.icfg.mixed_gemm!r}: "
+                             "expected 'auto', 'on', or 'off'")
         for name, (ok, item) in _UNSUPPORTED.items():
             val = getattr(self.icfg, name)
             if val not in ok:
@@ -182,7 +207,8 @@ class InferenceEngine:
             head_dim=self.cfg.head_dim,
             block_size=self.icfg.kv_block_size,
             num_blocks=self.icfg.num_kv_blocks,
-            dtype=self.icfg.kv_dtype, device=self.device)
+            dtype=self.icfg.kv_dtype, quant=self.icfg.kv_quant or "none",
+            device=self.device)
         self.state = StateManager(kv_cfg, max_seqs=self.icfg.max_seqs,
                                   max_blocks_per_seq=self.max_blocks_per_seq,
                                   prefix_cache=self.icfg.prefix_cache
@@ -190,6 +216,23 @@ class InferenceEngine:
         self.params = tree_map(
             lambda x: x.to(self.icfg.param_dtype)
             if x.dtype == torch.float32 else x, model.params)
+        self._quant = None
+        if quant_tree is not None:
+            self._quant = quant_tree
+        elif wq:
+            # quantized one layer slice at a time, on the model's device
+            self.params, self._quant = quantize_model_params(
+                self.params, bits=WEIGHT_QUANT_BITS[wq],
+                quantize_embeddings=self.icfg.quantize_embeddings)
+        # "auto" takes the mixed-input GEMM wherever the tree allows it;
+        # an explicit force-on with an ineligible tree is a config error:
+        # fail at construction, not at the first step
+        refusal = (None if self.icfg.mixed_gemm == "off"
+                   else self._mixed_gemm_refusal())
+        if self.icfg.mixed_gemm == "on" and refusal is not None:
+            raise ValueError(f"mixed_gemm='on': {refusal}; use 'auto'")
+        self._mixed_gemm_active = (self.icfg.mixed_gemm != "off"
+                                   and refusal is None)
         self._cuda = self.device.type == "cuda"
         # uid -> unprocessed toks
         self._pending: Dict[int, List[int]] = {}
@@ -221,6 +264,33 @@ class InferenceEngine:
         self.ttft_ms: Dict[int, float] = {}
         self.timings: Dict[str, float] = dict.fromkeys(_TIMINGS, 0)
         self.state.on_release = self._on_state_release
+
+    def _mixed_gemm_refusal(self) -> Optional[str]:
+        """Why the resident quantized weights cannot take the mixed-input
+        GEMM, or None.  Every weight the projection sites consume (the
+        ``blocks`` groups outside ``DENSE_ONLY_GROUPS``; the embedding
+        table is dequantized either way) must be a row-wise int8 or
+        packed int4 layout whose flattened ``[K, N]`` the kernel family
+        takes (``mixed_gemm.shape_error``)."""
+        if self._quant is None:
+            return "no quantized weights"
+        leaves = [(f"{gname}.{name}", qt, contract_dims(gname, name,
+                                                        len(qt.shape)))
+                  for gname, group in (self._quant.get("blocks") or {}).items()
+                  if gname not in DENSE_ONLY_GROUPS
+                  for name, qt in group.items()
+                  if isinstance(qt, QuantizedTensor)]
+        if not leaves:
+            return "no quantized projection weights"
+        for path, qt, cd in leaves:
+            if not is_mixed_gemm_layout(qt):
+                return (f"{path} is {qt!r}, not a row-wise int8/int4 layout "
+                        "the kernel family consumes")
+            K, N = flat_kn(qt.shape[1:], cd)
+            why = shape_error(K, N, is_rowwise_int4(qt))
+            if why is not None:
+                return f"{path} [{K}, {N}]: {why}"
+        return None
 
     def reset_timings(self) -> None:
         """Zero the per-phase milliseconds (host scheduling, batch
@@ -597,9 +667,9 @@ class InferenceEngine:
         prev = self._last_toks if self._last_toks is not None \
             else self._zero_toks
         toks, self.state.kv = pipelined_ragged_step(
-            self.cfg, self.params, self.state.kv, batch, prev,
+            self.cfg, self.params, self._quant, self.state.kv, batch, prev,
             lambda logits: sample_rows(logits, sampling),
-            bs_blk, mbs)
+            bs_blk, mbs, mixed_gemm=self._mixed_gemm_active)
         if self._cuda:
             # start the token readback now, behind the sample on the
             # stream; _collect waits on this event only
@@ -629,10 +699,14 @@ class InferenceEngine:
     def _drain_cow(self) -> None:
         """Run queued copy-on-write block copies (a prefix-cache match
         that covered a whole prompt aliases its last block as a private
-        copy) on the device BEFORE the step that appends into the copy.
-        Asynchronous; a round with no full-cover match is a no-op."""
+        copy) on the device BEFORE the step that appends into the copy;
+        a quantized cache copies codes and scales.  Asynchronous; a round
+        with no full-cover match is a no-op."""
+        kv = self.state.kv
+        parts = kv if isinstance(kv, tuple) else (kv,)
         for src, dst in self.state.take_cow_copies():
-            self.state.kv[:, dst] = self.state.kv[:, src]
+            for t in parts:
+                t[:, dst] = t[:, src]
 
     def _mark_feedback(self, uid: int, st: _InFlight) -> None:
         """Queue uid's next decode token as a deferred on-device read of

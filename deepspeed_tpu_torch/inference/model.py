@@ -13,8 +13,17 @@ PyTorch runs eagerly, so the step computes only the batch's ``n_tokens``
 real tokens, not its padded budget (the JAX package pads to a fixed shape
 for XLA).  The rows of every valid token are identical either way; only
 the trash block no longer receives the padding tokens' garbage.  The
-cache is updated in place.  Dense weights only (quantized weights are a
-later slice).
+cache is updated in place.
+
+Quantized serving (``quant=`` a tree from
+``inference.quantization.quantize_model_params``): each layer's weights
+are merged one layer at a time, left quantized for the mixed-input GEMM
+(``mixed_gemm=True``: ``ops.mixed_gemm.mixed_matmul``, the Hopper kernel
+on the card) or dequantized into the serving dtype; a quantized embedding
+table is dequantized per step (an untied model dequantizes only the
+gathered rows).  A quantized cache is a ``(codes, scales)`` pair: K/V are
+quantized on write, one symmetric scale per vector, and the attention
+reads the codes.
 """
 
 from __future__ import annotations
@@ -27,8 +36,25 @@ from ..models import layers as L
 from ..models.transformer import (TransformerConfig, _norm,
                                   _require_supported, attn_scale,
                                   unstack_layers)
-from ..ops.paged_attention import paged_attention
+from ..ops.mixed_gemm import mixed_matmul
+from ..ops.paged_attention import _kv_parts, paged_attention
+from ..ops.quant import QuantizedTensor, dequantize_any, is_rowwise_int8
+from .quantization import merge_layer
 from .ragged.state import RaggedBatch
+
+# quantized KV cache: code dtype -> the largest code magnitude
+_KV_QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
+
+
+def _quantize_kv(x: torch.Tensor, qdt: torch.dtype):
+    """x: [..., D] -> (codes [..., D] in ``qdt``, scales [...] f32), one
+    symmetric scale per trailing vector."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / _KV_QMAX[qdt], min=1e-8)
+    q = xf / scale[..., None]
+    if qdt == torch.int8:
+        q = torch.clamp(torch.round(q), -127, 127)
+    return q.to(qdt), scale
 
 
 def _kv_slots(batch: RaggedBatch, n: int, block_size: int, trash: int):
@@ -42,19 +68,31 @@ def _kv_slots(batch: RaggedBatch, n: int, block_size: int, trash: int):
     return blk, pos % block_size
 
 
-def _write_kv(kv_layer: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              slots) -> None:
-    """Scatter per-token K/V into the paged cache, in place.
-    kv_layer: [blocks+1, bs, 2, Hkv, D]; k/v: [n, Hkv, D]; ``slots`` from
+def _write_kv(kv_layer, k: torch.Tensor, v: torch.Tensor, slots) -> None:
+    """Scatter per-token K/V into the paged cache, in place, quantizing on
+    write when the cache is a (codes, scales) pair.  kv_layer:
+    [blocks+1, bs, 2, Hkv, D]; k/v: [n, Hkv, D]; ``slots`` from
     :func:`_kv_slots`."""
     blk, off = slots
-    kv_layer[blk, off] = torch.stack([k, v], dim=1).to(kv_layer.dtype)
+    data, scales = _kv_parts(kv_layer)
+    kv = torch.stack([k, v], dim=1)                      # [n, 2, Hkv, D]
+    if scales is None:
+        data[blk, off] = kv.to(data.dtype)
+        return
+    codes, sc = _quantize_kv(kv, data.dtype)
+    # one-byte codes scatter through a uint8 view (index_put does not
+    # cover every fp8 type on every device)
+    data.view(torch.uint8)[blk, off] = codes.view(torch.uint8)
+    scales[blk, off] = sc
 
 
-def _mm(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype,
+def _mm(x: torch.Tensor, w, dt: torch.dtype,
         contract_dims: int = 1) -> torch.Tensor:
     """``x @ w`` contracting x's last dim with w's first ``contract_dims``
-    dims; always returns ``dt``."""
+    dims; always returns ``dt``.  A row-wise QuantizedTensor ``w`` goes
+    through the mixed-input GEMM."""
+    if isinstance(w, QuantizedTensor):
+        return mixed_matmul(x, w, contract_dims=contract_dims, out_dtype=dt)
     wshape = w.shape
     K = 1
     for s in wshape[:contract_dims]:
@@ -93,16 +131,38 @@ def _ffn(cfg: TransformerConfig, lp, h: torch.Tensor, dt,
     return d
 
 
+def _embed_rows(params, quant, ids: torch.Tensor, tied: bool):
+    """(embedded rows [n, dm], the table for a tied unembed or None, dt).
+    A quantized table is dequantized into its original dtype: whole when
+    the unembed needs it (tied) or the layout is not row-wise, else only
+    the gathered rows, which are bitwise the rows of the whole table."""
+    if quant is None or "embed" not in quant:
+        tab = params["embed"]["table"]
+        return L.embed(params["embed"], ids), tab, tab.dtype
+    qt = quant["embed"]["table"]
+    if tied or not is_rowwise_int8(qt):
+        tab = dequantize_any(qt)
+        return L.embed({"table": tab}, ids), tab, tab.dtype
+    idx = ids.long()
+    return qt.data[idx].to(qt.dtype) * qt.scale[idx].to(qt.dtype), None, \
+        qt.dtype
+
+
 @torch.no_grad()
-def ragged_forward(cfg: TransformerConfig, params, kv: torch.Tensor,
+def ragged_forward(cfg: TransformerConfig, params, kv,
                    batch: RaggedBatch, block_size: int,
-                   max_blocks_per_seq: int
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   max_blocks_per_seq: int, quant=None,
+                   mixed_gemm: bool = False):
     """-> (last_token_logits [max_seqs, vocab] f32, kv).
 
-    ``kv``: [L, blocks+1, bs, 2, Hkv, D], written in place (and returned
-    for symmetry with the JAX function).  Rows of the logits whose
-    ``batch.logits_idx`` is -1 are garbage (callers mask by it).
+    ``kv``: [L, blocks+1, bs, 2, Hkv, D], or a quantized ``(codes,
+    scales [L, blocks+1, bs, 2, Hkv])`` pair, written in place (and
+    returned for symmetry with the JAX function).  Rows of the logits
+    whose ``batch.logits_idx`` is -1 are garbage (callers mask by it).
+    ``quant``: the quantized half of the weights
+    (``quantize_model_params``), merged one layer at a time; with
+    ``mixed_gemm`` its row-wise weights go through the mixed-input GEMM,
+    else each layer is dequantized into the serving dtype.
     Speculative verify batches (``batch.verify_idx``) are not ported yet.
 
     Every path is position-absolute: a batch whose tokens start at a
@@ -114,14 +174,14 @@ def ragged_forward(cfg: TransformerConfig, params, kv: torch.Tensor,
         raise NotImplementedError("speculative verify batches are not "
                                   "ported yet (ROADMAP Queue 1, item 5)")
     n = batch.n_tokens
-    embed_tab = params["embed"]
-    dt = embed_tab["table"].dtype
+    x, table, dt = _embed_rows(params, quant, batch.token_ids[:n],
+                               cfg.tie_embeddings)
+    x = x.to(dt)                                                   # [n, dm]
     norm = _norm(cfg)
     act = L.ACTIVATIONS[cfg.activation]
     scale = attn_scale(cfg)
     positions = batch.positions[:n]
 
-    x = L.embed(embed_tab, batch.token_ids[:n]).to(dt)            # [n, dm]
     if cfg.embed_norm:                  # bloom word_embeddings_layernorm
         x = norm(params["ln_embed"], x)
     rope = None
@@ -137,11 +197,15 @@ def ragged_forward(cfg: TransformerConfig, params, kv: torch.Tensor,
 
     # per-step work every layer shares: the KV write slots and the
     # per-layer views of the stacked weights
-    slots = _kv_slots(batch, n, block_size, kv.shape[1] - 1)
+    data, scales = _kv_parts(kv)
+    slots = _kv_slots(batch, n, block_size, data.shape[1] - 1)
     seq_slot = batch.seq_slot[:n]
     layers = unstack_layers(params["blocks"], cfg.num_layers)
     for li, lp in enumerate(layers):
-        kv_layer = kv[li]                 # contiguous: L is the lead dim
+        # contiguous: L is the lead dim
+        kv_layer = data[li] if scales is None else (data[li], scales[li])
+        if quant is not None:
+            lp = merge_layer(lp, quant["blocks"], li, dt, mixed=mixed_gemm)
         ap = lp["attn"]
         h = norm(lp["ln1"], x)
         q, k, v = _qkv_proj(cfg, ap, h, dt, rope)
@@ -165,7 +229,7 @@ def ragged_forward(cfg: TransformerConfig, params, kv: torch.Tensor,
     # token 0 and give garbage rows
     last = norm(params["ln_f"], x[batch.logits_idx.clamp(min=0).long()])
     if cfg.tie_embeddings:
-        logits = last @ embed_tab["table"].to(dt).T
+        logits = last @ table.to(dt).T
     else:
         logits = last @ params["lm_head"]["kernel"].to(dt)
         if cfg.head_bias:
@@ -174,11 +238,11 @@ def ragged_forward(cfg: TransformerConfig, params, kv: torch.Tensor,
 
 
 @torch.no_grad()
-def pipelined_ragged_step(cfg: TransformerConfig, params, kv: torch.Tensor,
+def pipelined_ragged_step(cfg: TransformerConfig, params, quant, kv,
                           batch: RaggedBatch, prev_toks: torch.Tensor,
                           sample_fn: Callable, block_size: int,
-                          max_blocks_per_seq: int
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+                          max_blocks_per_seq: int, mixed_gemm: bool = False
+                          ) -> Tuple[torch.Tensor, object]:
     """One serving pipeline stage, entirely on the device: substitute
     deferred feedback tokens from the previous step's on-device samples,
     run the ragged forward, sample every slot's next token.
@@ -186,6 +250,7 @@ def pipelined_ragged_step(cfg: TransformerConfig, params, kv: torch.Tensor,
     ``prev_toks``: [max_seqs] i32, the previous step's sample output
     (still on the device).  ``batch.feedback_src[t] == s`` means token
     ``t``'s id is ``prev_toks[s]``; -1 keeps the host-staged id.
+    ``quant``/``mixed_gemm`` as in :func:`ragged_forward`.
     Returns (sampled tokens [max_seqs] i32, kv); rows whose
     ``batch.logits_idx`` is -1 are garbage."""
     fb = batch.feedback_src
@@ -194,5 +259,6 @@ def pipelined_ragged_step(cfg: TransformerConfig, params, kv: torch.Tensor,
                           batch.token_ids)
         batch = batch._replace(token_ids=tok)
     logits, kv = ragged_forward(cfg, params, kv, batch, block_size,
-                                max_blocks_per_seq)
+                                max_blocks_per_seq, quant=quant,
+                                mixed_gemm=mixed_gemm)
     return sample_fn(logits), kv

@@ -7,8 +7,10 @@ ROADMAP Queue 1, host layers).  What changes with PyTorch:
 
 * the KV cache is one tensor [L, num_blocks + 1, block_size, 2, Hkv, D]
   on the device, updated in place by the forward (the extra row is the
-  trash block budget padding writes to).  L leads, so a layer's slice
-  ``kv[li]`` stays contiguous — the paged-attention kernel needs that;
+  trash block budget padding writes to), or with ``quant`` "int8"/"fp8"
+  a (codes, scales [L, num_blocks + 1, block_size, 2, Hkv] fp32) pair.
+  L leads, so a layer's slice ``kv[li]`` stays contiguous — the
+  paged-attention kernel needs that;
 * batch metadata is staged in ONE flat int32 host buffer per step and
   crosses to the device in one copy; :class:`RaggedBatch` holds views
   of the device copy.  With a :class:`BatchStager` on a CUDA engine the
@@ -81,7 +83,7 @@ class KVCacheConfig:
     block_size: int = 64
     num_blocks: int = 128
     dtype: torch.dtype = torch.bfloat16
-    # "none" only: the int8/fp8 cache is not ported yet
+    # "none" | "int8" | "fp8": codes + one fp32 scale per K/V vector
     quant: str = "none"
     # None = the card (raises without one)
     device: object = None
@@ -94,18 +96,21 @@ class KVCacheConfig:
         if self.quant not in ("none", "int8", "fp8"):
             raise ValueError(
                 f"kv_quant={self.quant!r}: the paged cache supports "
-                "'int8' or 'fp8' (per-vector scales)")
-        if self.quant != "none":
-            raise NotImplementedError(
-                f"kv_quant={self.quant!r} is not ported yet (ROADMAP "
-                "Queue 1, quantized serving: the int8/fp8-KV variant of K2)")
+                "'int8' or 'fp8' (per-vector scales); weight_quant is "
+                "the option that also takes 'int4'")
 
-    def kv_zeros(self) -> torch.Tensor:
-        """A pristine cache [L, blocks+1, bs, 2, Hkv, D] on the device."""
+    def kv_zeros(self):
+        """A pristine cache on the device: [L, blocks+1, bs, 2, Hkv, D] in
+        ``dtype``, or (codes of that shape in int8 / float8_e4m3fn, fp32
+        scales [L, blocks+1, bs, 2, Hkv]) when quantized."""
         shape = (self.num_layers, self.num_blocks + 1, self.block_size, 2,
                  self.num_kv_heads, self.head_dim)
-        return torch.zeros(shape, dtype=self.dtype,
-                           device=resolve_device(self.device))
+        dev = resolve_device(self.device)
+        if self.quant == "none":
+            return torch.zeros(shape, dtype=self.dtype, device=dev)
+        qdt = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[self.quant]
+        return (torch.zeros(shape, dtype=qdt, device=dev),
+                torch.zeros(shape[:-1], dtype=torch.float32, device=dev))
 
 
 @dataclasses.dataclass
@@ -261,7 +266,8 @@ class StateManager:
         # build_batch began (a failed step must unregister exactly these)
         self.round_registered: List[Tuple[bytes, int]] = []
         self.kv = cfg.kv_zeros()
-        self.device = self.kv.device
+        self.device = (self.kv[0] if isinstance(self.kv, tuple)
+                       else self.kv).device
 
     # ---- sequence lifecycle ---------------------------------------------
     def get_or_create(self, uid: int) -> SequenceDescriptor:

@@ -207,21 +207,61 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     return params
 
 
+# numpy dtypes torch.from_numpy rejects (ml_dtypes) -> (same-width integer
+# view, torch dtype): carried bit for bit
+_VIEW_DTYPES = {"bfloat16": (np.uint16, torch.bfloat16),
+                "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+# dtype names of a JAX tree's static metadata -> torch dtypes
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
+
+
+def _from_numpy(a) -> torch.Tensor:
+    """A host tensor with ``a``'s exact bits (bf16 and fp8 arrays through
+    a same-width integer view)."""
+    a = np.ascontiguousarray(np.asarray(a))
+    view = _VIEW_DTYPES.get(a.dtype.name)
+    if view is None:
+        return torch.from_numpy(a.copy())
+    return torch.from_numpy(a.view(view[0]).copy()).view(view[1])
+
+
 def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
     """Carry a parameter tree of numpy arrays (e.g. ``np.asarray`` of each
-    leaf of a JAX tree) into the port on ``device``.  bf16 arrays (numpy
-    dtype ``bfloat16``, which ``torch.from_numpy`` rejects) go through
-    float32, which is exact.  ``dtype`` None keeps each leaf's own type."""
+    leaf of a JAX tree) into the port on ``device``, bit for bit (bf16
+    arrays, numpy dtype ``bfloat16``, which ``torch.from_numpy`` rejects,
+    go through a uint16 view).  ``dtype`` None keeps each leaf's own
+    type."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _from_numpy(a).to(device=dev, dtype=dtype),
+                    tree)
+
+
+def quant_tree_from_numpy(tree, device=None):
+    """Carry a quantized tree (``quantize_model_params``'s second output)
+    whose leaves are QuantizedTensor-like objects with numpy ``data``,
+    ``scale``, ``zero`` and static ``bits``, ``shape``, ``dtype`` and
+    ``layout`` (e.g. a JAX tree after ``jax.tree.map(np.asarray, ...)``)
+    into the port's :class:`~..ops.quant.QuantizedTensor`s on ``device``;
+    payloads and scales stay bitwise exact."""
+    from ..ops.quant import QuantizedTensor
     dev = resolve_device(device)
 
-    def conv(a):
-        a = np.asarray(a)
-        is_bf16 = a.dtype.name == "bfloat16"
-        t = torch.from_numpy(np.array(a, np.float32 if is_bf16 else a.dtype))
-        target = dtype or (torch.bfloat16 if is_bf16 else t.dtype)
-        return t.to(device=dev, dtype=target)
+    def conv(qt):
+        if isinstance(qt, dict):
+            return {k: conv(v) for k, v in qt.items()}
+        name = np.dtype(qt.dtype).name
+        if name not in _TORCH_DTYPES:
+            raise ValueError(f"quantized leaf of dtype {name}: expected one "
+                             f"of {sorted(_TORCH_DTYPES)}")
+        return QuantizedTensor(
+            _from_numpy(qt.data).to(dev), _from_numpy(qt.scale).to(dev),
+            None if qt.zero is None else _from_numpy(qt.zero).to(dev),
+            int(qt.bits), tuple(qt.shape), _TORCH_DTYPES[name],
+            layout=qt.layout)
 
-    return tree_map(conv, tree)
+    return conv(tree)
 
 
 # --------------------------------------------------------------------------

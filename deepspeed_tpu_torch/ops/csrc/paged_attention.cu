@@ -1,4 +1,5 @@
-// Paged attention over a block table, bf16, for Hopper (sm_90a).
+// Paged attention over a block table, for Hopper (sm_90a): a bf16 cache,
+// or an int8 / fp8 (e4m3) cache of codes with one fp32 scale per K/V row.
 //
 // Replaces the TPU kernel `_kernel` in deepspeed_tpu/ops/paged_attention.py
 // (launched by `paged_attention`, pallas_call at :163).  For each of T
@@ -7,6 +8,8 @@
 //
 //   kv      [nrows, bs, 2, Hkv, D] bf16   (nrows = blocks + 1; the last row
 //                                          is the trash block -1 pads map to)
+//           or int8 / fp8 codes of that shape with
+//   scales  [nrows, bs, 2, Hkv] fp32       (the `kv_quant` variant, :78-82)
 //   q / out [T, H, D] bf16
 //   seq_slot, positions [T] i32;  block_tables [max_seqs, tbl_stride] i32
 //
@@ -16,11 +19,14 @@
 // reads KV head h / rep.  (The TPU kernel rounds the probabilities to the
 // value dtype before the PV product; this one keeps them in fp32.)
 // Budget-padding tokens (slot 0, position 0) read one block and produce
-// finite garbage.
+// finite garbage.  A quantized row is dequantized as bf16(float(code) x
+// scale), which is the reference's (codes.astype(f32) * scale).astype(q
+// dtype); the rest of the arithmetic is the bf16 kernel's.
 //
 // What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense):
 //   * decode: the KV bytes.  A token reads ctx x Hkv x D x 2 (K and V)
-//     x 2 B, and does only ~4 flops per byte read.
+//     x 2 B (1 B + a 4 B scale per row when quantized), and does only ~4
+//     flops per byte read.
 //   * prefill chunk: the flops, 4 x H x D x sum(ctx), because the chunk's
 //     tokens all read the same sequence's KV, which a real kernel would
 //     read once and reuse from on-chip memory.
@@ -28,9 +34,9 @@
 // Design (simple first): one thread block of 128 threads per (token, KV
 // head).  The block walks its own block-table entries up to pos / bs (the
 // loop replaces the TPU's sequential grid dimension).  A group of D / 8
-// threads owns one key row at a time, each thread loading 16 bytes (8 bf16)
-// of K and of V, so the `rep` query heads of the GQA group share every K/V
-// row read.  Scores and probabilities of one block live in shared memory;
+// threads owns one key row at a time, each thread loading 8 elements of K
+// and of V (16 bytes of bf16, or 8 bytes of codes plus the row's scale),
+// so the `rep` query heads of the GQA group share every K/V row read.  Scores and probabilities of one block live in shared memory;
 // the running max and sum per head live in shared memory; the output
 // accumulator lives in registers (8 dims x rep heads per thread) and is
 // summed across the key groups once at the end.
@@ -43,11 +49,15 @@
 //   * no split over blocks: a decode batch of 8 sequences x 8 KV heads
 //     launches only 64 thread blocks on 132 SMs.
 //
-// Supported: D in {64, 128}, 1 <= rep = H / Hkv <= 8, 1 <= bs <= 256.
+// Supported: a bf16, int8 or fp8 e4m3 cache, bf16 q and out, D in {64, 128},
+// 1 <= rep = H / Hkv <= 8, 1 <= bs <= 256.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -66,9 +76,27 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
   }
 }
 
-template <int D, int REP>
+// 8 consecutive cache elements -> fp32.  bf16: one 16-byte load; codes:
+// one 8-byte load, each value rounded to bf16 after the scale multiply.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float,
+                                      float* f) {
+  unpack8(*reinterpret_cast<const uint4*>(p), f);
+}
+
+template <typename CodeT>
+__device__ __forceinline__ void load8(const CodeT* p, float scale, float* f) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const CodeT* c = reinterpret_cast<const CodeT*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    f[i] = __bfloat162float(__float2bfloat16_rn(static_cast<float>(c[i]) *
+                                                scale));
+}
+
+template <int D, int REP, typename CodeT>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const __nv_bfloat16* __restrict__ kv,
+paged_attention_kernel(const CodeT* __restrict__ kv,
+                       const float* __restrict__ kv_scales,
                        const __nv_bfloat16* __restrict__ q,
                        const int* __restrict__ seq_slot,
                        const int* __restrict__ positions,
@@ -120,20 +148,25 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ kv,
   // are Hkv * D apart, and head g sits g * D into each
   const size_t row = (size_t)2 * Hkv * D;
   const int* table = block_tables + (size_t)slot * tbl_stride;
+  // scales (quantized cache): one per (block, offset, K|V, head)
+  constexpr bool quant = !std::is_same<CodeT, __nv_bfloat16>::value;
+  const size_t srow = (size_t)2 * Hkv;
 
   for (int j = 0; j <= last; ++j) {
     int b = table[j];
     if (b < 0 || b >= nrows) b = nrows - 1;          // -1 pad -> trash row
-    const __nv_bfloat16* kbase =
+    const CodeT* kbase =
         kv + (size_t)b * bs * row + (size_t)g * D + lane * VEC;
-    const __nv_bfloat16* vbase = kbase + (size_t)Hkv * D;
+    const CodeT* vbase = kbase + (size_t)Hkv * D;
+    const float* ksc = quant ? kv_scales + (size_t)b * bs * srow + g : nullptr;
 
     // 1. scores of this block's keys for every head of the group
     for (int o0 = 0; o0 < bs; o0 += NG) {
       const int o = o0 + grp;
       float kf[VEC];
       if (o < bs) {
-        unpack8(*reinterpret_cast<const uint4*>(kbase + (size_t)o * row), kf);
+        load8(kbase + (size_t)o * row, quant ? ksc[(size_t)o * srow] : 1.f,
+              kf);
       } else {
 #pragma unroll
         for (int i = 0; i < VEC; ++i) kf[i] = 0.f;
@@ -199,7 +232,8 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ kv,
     }
     for (int o = grp; o < bs; o += NG) {
       float vf[VEC];
-      unpack8(*reinterpret_cast<const uint4*>(vbase + (size_t)o * row), vf);
+      load8(vbase + (size_t)o * row,
+            quant ? ksc[(size_t)o * srow + Hkv] : 1.f, vf);
 #pragma unroll
       for (int r = 0; r < REP; ++r) {
         const float p = s_sh[r * bs + o];
@@ -229,16 +263,17 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ kv,
   }
 }
 
-template <int D, int REP>
-cudaError_t launch(const void* kv, const void* q, const void* seq_slot,
-                   const void* positions, const void* block_tables, void* out,
-                   int T, int Hkv, int bs, int nrows, int tbl_stride, int nb,
-                   float scale, cudaStream_t stream) {
+template <int D, int REP, typename CodeT>
+cudaError_t launch(const void* kv, const void* kv_scales, const void* q,
+                   const void* seq_slot, const void* positions,
+                   const void* block_tables, void* out, int T, int Hkv,
+                   int bs, int nrows, int tbl_stride, int nb, float scale,
+                   cudaStream_t stream) {
   constexpr int NG = kThreads / (D / 8);
   const size_t smem = sizeof(float) * ((size_t)REP * bs + (size_t)NG * REP * D);
   dim3 grid(T, Hkv);
-  paged_attention_kernel<D, REP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(kv),
+  paged_attention_kernel<D, REP, CodeT><<<grid, kThreads, smem, stream>>>(
+      static_cast<const CodeT*>(kv), static_cast<const float*>(kv_scales),
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const int*>(seq_slot), static_cast<const int*>(positions),
       static_cast<const int*>(block_tables),
@@ -246,16 +281,18 @@ cudaError_t launch(const void* kv, const void* q, const void* seq_slot,
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_rep(int rep, const void* kv, const void* q,
-                       const void* seq_slot, const void* positions,
-                       const void* block_tables, void* out, int T, int Hkv,
-                       int bs, int nrows, int tbl_stride, int nb, float scale,
+template <typename CodeT, int D>
+cudaError_t launch_rep(int rep, const void* kv, const void* kv_scales,
+                       const void* q, const void* seq_slot,
+                       const void* positions, const void* block_tables,
+                       void* out, int T, int Hkv, int bs, int nrows,
+                       int tbl_stride, int nb, float scale,
                        cudaStream_t stream) {
 #define PA_CASE(R)                                                          \
   case R:                                                                   \
-    return launch<D, R>(kv, q, seq_slot, positions, block_tables, out, T,   \
-                        Hkv, bs, nrows, tbl_stride, nb, scale, stream);
+    return launch<D, R, CodeT>(kv, kv_scales, q, seq_slot, positions,      \
+                               block_tables, out, T, Hkv, bs, nrows,       \
+                               tbl_stride, nb, scale, stream);
   switch (rep) {
     PA_CASE(1) PA_CASE(2) PA_CASE(3) PA_CASE(4)
     PA_CASE(5) PA_CASE(6) PA_CASE(7) PA_CASE(8)
@@ -263,6 +300,28 @@ cudaError_t launch_rep(int rep, const void* kv, const void* q,
       return cudaErrorInvalidValue;
   }
 #undef PA_CASE
+}
+
+template <typename CodeT>
+cudaError_t launch_d(const void* kv, const void* kv_scales, const void* q,
+                     const void* seq_slot, const void* positions,
+                     const void* block_tables, void* out, int T, int H,
+                     int Hkv, int D, int bs, int nrows, int tbl_stride,
+                     int nb, float scale, cudaStream_t stream) {
+  if (T == 0) return cudaSuccess;
+  if (Hkv <= 0 || H % Hkv != 0 || bs < 1 || bs > kMaxBlockSize || nb < 1)
+    return cudaErrorInvalidValue;
+  const int rep = H / Hkv;
+  if (rep > kMaxRep) return cudaErrorInvalidValue;
+  if (D == 128)
+    return launch_rep<CodeT, 128>(rep, kv, kv_scales, q, seq_slot, positions,
+                                  block_tables, out, T, Hkv, bs, nrows,
+                                  tbl_stride, nb, scale, stream);
+  if (D == 64)
+    return launch_rep<CodeT, 64>(rep, kv, kv_scales, q, seq_slot, positions,
+                                 block_tables, out, T, Hkv, bs, nrows,
+                                 tbl_stride, nb, scale, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -276,21 +335,31 @@ extern "C" int paged_attention_bf16(const void* kv, const void* q,
                                     int T, int H, int Hkv, int D, int bs,
                                     int nrows, int tbl_stride, int nb,
                                     float scale, void* stream) {
-  if (T == 0) return 0;
-  if (Hkv <= 0 || H % Hkv != 0 || bs < 1 || bs > kMaxBlockSize || nb < 1)
-    return (int)cudaErrorInvalidValue;
-  const int rep = H / Hkv;
-  if (rep > kMaxRep) return (int)cudaErrorInvalidValue;
+  return (int)launch_d<__nv_bfloat16>(
+      kv, nullptr, q, seq_slot, positions, block_tables, out, T, H, Hkv, D,
+      bs, nrows, tbl_stride, nb, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The quantized cache: `kv` holds int8 (code_type 0) or fp8 e4m3 (code_type
+// 1) codes, `kv_scales` their fp32 scales.  Same contract otherwise.
+extern "C" int paged_attention_quant(const void* kv, const void* kv_scales,
+                                     const void* q, const void* seq_slot,
+                                     const void* positions,
+                                     const void* block_tables, void* out,
+                                     int T, int H, int Hkv, int D, int bs,
+                                     int nrows, int tbl_stride, int nb,
+                                     float scale, int code_type,
+                                     void* stream) {
+  if (kv_scales == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (D == 128) {
-    err = launch_rep<128>(rep, kv, q, seq_slot, positions, block_tables, out,
-                          T, Hkv, bs, nrows, tbl_stride, nb, scale, s);
-  } else if (D == 64) {
-    err = launch_rep<64>(rep, kv, q, seq_slot, positions, block_tables, out,
-                         T, Hkv, bs, nrows, tbl_stride, nb, scale, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  if (code_type == 0)
+    return (int)launch_d<int8_t>(kv, kv_scales, q, seq_slot, positions,
+                                 block_tables, out, T, H, Hkv, D, bs, nrows,
+                                 tbl_stride, nb, scale, s);
+  if (code_type == 1)
+    return (int)launch_d<__nv_fp8_e4m3>(kv, kv_scales, q, seq_slot,
+                                        positions, block_tables, out, T, H,
+                                        Hkv, D, bs, nrows, tbl_stride, nb,
+                                        scale, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -15,11 +15,18 @@ formulations (``deepspeed_tpu/inference/model.py``): the one-shot gather
 ``_paged_attention`` (:145) and, past ``_ONE_SHOT_GATHER_BYTES`` of
 gathered context, the block-at-a-time online softmax
 ``_paged_attention_chunked`` (:191).
+
+A quantized cache travels as a ``(codes, scales)`` tuple, as in the JAX
+package: int8 or fp8 (e4m3) codes ``[blocks+1, bs, 2, Hkv, D]`` with one
+fp32 scale per K/V row ``[blocks+1, bs, 2, Hkv]``.  The plain versions
+dequantize the gathered rows to q's dtype (``_dequant_ctx``); the kernel
+reads the codes and dequantizes each row it reads.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple, Union
 
 import torch
 
@@ -36,11 +43,23 @@ HEAD_DIMS = (64, 128)
 MAX_REP = 8
 MAX_BLOCK_SIZE = 256
 
+# code dtype of a quantized cache -> the kernel's code_type
+KV_CODE_TYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
+
 BUILDER = CUDAOpBuilder("paged_attention", ["paged_attention.cu"])
 
+KVLayer = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
-def _kernel_fn():
+
+def _kernel_fn(quant: bool):
     lib = BUILDER.load()
+    if quant:
+        fn = lib.paged_attention_quant
+        if fn.argtypes is None:
+            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        return fn
     fn = lib.paged_attention_bf16
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
@@ -49,38 +68,75 @@ def _kernel_fn():
     return fn
 
 
+def _kv_parts(kv_layer: KVLayer):
+    """(data, scales-or-None) of a paged cache operand."""
+    if isinstance(kv_layer, tuple):
+        return kv_layer[0], kv_layer[1]
+    return kv_layer, None
+
+
+def _gather(data: torch.Tensor, idx) -> torch.Tensor:
+    """``data[idx]``; one-byte codes gather through a uint8 view (indexing
+    kernels do not cover every fp8 type on every device)."""
+    if data.element_size() == 1 and data.dtype != torch.uint8:
+        return data.view(torch.uint8)[idx].view(data.dtype)
+    return data[idx]
+
+
+def _dequant_ctx(data: torch.Tensor, scales: torch.Tensor,
+                 dt: torch.dtype) -> torch.Tensor:
+    """data: [..., D] codes, scales: [...] -> [..., D] in ``dt``."""
+    return (data.float() * scales[..., None]).to(dt)
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"paged_attention kernel: {msg}")
 
 
-def paged_attention(kv_layer: torch.Tensor, q: torch.Tensor,
+def paged_attention(kv_layer: KVLayer, q: torch.Tensor,
                     seq_slot: torch.Tensor, positions: torch.Tensor,
                     block_tables: torch.Tensor, block_size: int,
                     max_blocks_per_seq: int, scale: float) -> torch.Tensor:
-    """kv_layer: [blocks+1, bs, 2, Hkv, D] (last row = trash); q: [T, H, D];
+    """kv_layer: [blocks+1, bs, 2, Hkv, D] (last row = trash), or a
+    quantized ``(codes, scales [blocks+1, bs, 2, Hkv])`` pair; q: [T, H, D];
     seq_slot/positions: [T] i32; block_tables: [max_seqs, >= nb] i32
     (-1 pad) -> out [T, H, D].  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (bf16 only) and bump
-    ``paged_attention.launches``."""
+    tensors launch the kernel (bf16 q; a bf16, int8 or fp8 cache) and bump
+    ``paged_attention.launches`` (bf16 cache), ``.int8_launches`` or
+    ``.fp8_launches``."""
     if q.device.type == "cpu":
         return paged_attention_plain(kv_layer, q, seq_slot, positions,
                                      block_tables, block_size,
                                      max_blocks_per_seq, scale)
     _check(q.device.type == "cuda", f"unsupported device {q.device}")
-    for name, x in (("kv_layer", kv_layer), ("seq_slot", seq_slot),
-                    ("positions", positions), ("block_tables", block_tables)):
+    data, scales = _kv_parts(kv_layer)
+    operands = [("kv", data), ("seq_slot", seq_slot),
+                ("positions", positions), ("block_tables", block_tables)]
+    if scales is not None:
+        operands.append(("kv scales", scales))
+    for name, x in operands:
         _check(x.device == q.device, f"{name} on {x.device}, q on {q.device}")
         _check(x.is_contiguous(), f"{name} is not contiguous")
     _check(q.is_contiguous(), "q is not contiguous")
-    _check(q.dtype == torch.bfloat16 and kv_layer.dtype == torch.bfloat16,
-           f"needs bf16 q and kv, got {q.dtype} and {kv_layer.dtype}")
-    _check(q.dim() == 3 and kv_layer.dim() == 5,
-           f"q {tuple(q.shape)} / kv {tuple(kv_layer.shape)}")
+    if scales is None:
+        _check(q.dtype == torch.bfloat16 and data.dtype == torch.bfloat16,
+               f"needs bf16 q and kv, got {q.dtype} and {data.dtype}")
+    else:
+        _check(q.dtype == torch.bfloat16, f"needs bf16 q, got {q.dtype}")
+        _check(data.dtype in KV_CODE_TYPES,
+               f"quantized kv codes must be int8 or float8_e4m3fn, got "
+               f"{data.dtype}")
+        _check(scales.dtype == torch.float32
+               and tuple(scales.shape) == tuple(data.shape[:-1]),
+               f"kv scales {scales.dtype} {tuple(scales.shape)} vs codes "
+               f"{tuple(data.shape)}")
+    _check(q.dim() == 3 and data.dim() == 5,
+           f"q {tuple(q.shape)} / kv {tuple(data.shape)}")
     T, H, D = q.shape
-    nrows, bs, two, Hkv, Dk = kv_layer.shape
+    nrows, bs, two, Hkv, Dk = data.shape
     _check(two == 2 and Dk == D and bs == block_size,
-           f"kv {tuple(kv_layer.shape)} vs q {tuple(q.shape)}, "
+           f"kv {tuple(data.shape)} vs q {tuple(q.shape)}, "
            f"block_size {block_size}")
     _check(D in HEAD_DIMS, f"head_dim {D} not in {HEAD_DIMS}")
     _check(H % Hkv == 0 and 1 <= H // Hkv <= MAX_REP,
@@ -95,28 +151,41 @@ def paged_attention(kv_layer: torch.Tensor, q: torch.Tensor,
            and 1 <= max_blocks_per_seq <= block_tables.shape[1],
            f"block_tables {tuple(block_tables.shape)} vs "
            f"max_blocks_per_seq {max_blocks_per_seq}")
-    _check(kv_layer.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0,
+    _check(data.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0,
            "kv/q must be 16-byte aligned")
     out = torch.empty_like(q)
     if T == 0:
         return out
-    err = _kernel_fn()(
-        kv_layer.data_ptr(), q.data_ptr(), seq_slot.data_ptr(),
-        positions.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
-        T, H, Hkv, D, bs, nrows, block_tables.shape[1],
-        max_blocks_per_seq, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    ints = (T, H, Hkv, D, bs, nrows, block_tables.shape[1],
+            max_blocks_per_seq)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), seq_slot.data_ptr(), positions.data_ptr(),
+            block_tables.data_ptr(), out.data_ptr())
+    if scales is None:
+        err = _kernel_fn(False)(data.data_ptr(), *ptrs, *ints, float(scale),
+                                stream)
+    else:
+        err = _kernel_fn(True)(data.data_ptr(), scales.data_ptr(), *ptrs,
+                               *ints, float(scale),
+                               KV_CODE_TYPES[data.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {err}")
-    paged_attention.launches += 1
+    if scales is None:
+        paged_attention.launches += 1
+    elif data.dtype == torch.int8:
+        paged_attention.int8_launches += 1
+    else:
+        paged_attention.fp8_launches += 1
     return out
 
 
-paged_attention.launches = 0
+paged_attention.launches = 0          # bf16 cache
+paged_attention.int8_launches = 0     # int8 codes + scales
+paged_attention.fp8_launches = 0      # fp8 e4m3 codes + scales
 
 
-def paged_attention_plain(kv_layer: torch.Tensor, q: torch.Tensor,
+def paged_attention_plain(kv_layer: KVLayer, q: torch.Tensor,
                           seq_slot: torch.Tensor, positions: torch.Tensor,
                           block_tables: torch.Tensor, block_size: int,
                           max_blocks_per_seq: int,
@@ -125,16 +194,21 @@ def paged_attention_plain(kv_layer: torch.Tensor, q: torch.Tensor,
     (port of ``_paged_attention``); switches to the block-at-a-time form
     when the one-shot gather would exceed ``_ONE_SHOT_GATHER_BYTES``."""
     T, H, D = q.shape
-    nrows, _, _, Hkv, _ = kv_layer.shape
+    data, scales = _kv_parts(kv_layer)
+    nrows, _, _, Hkv, _ = data.shape
     C = max_blocks_per_seq * block_size
-    if T * C * 2 * Hkv * D * kv_layer.element_size() > _ONE_SHOT_GATHER_BYTES:
+    if T * C * 2 * Hkv * D * data.element_size() > _ONE_SHOT_GATHER_BYTES:
         return paged_attention_chunked(kv_layer, q, seq_slot, positions,
                                        block_tables, block_size,
                                        max_blocks_per_seq, scale)
     rep = H // Hkv
     tables = _tables(block_tables, seq_slot, max_blocks_per_seq, nrows)
-    ctx = kv_layer[tables].reshape(T, C, 2, Hkv, D)   # [T, nb, bs, ...]
+    ctx = _gather(data, tables).reshape(T, C, 2, Hkv, D)   # [T, nb, bs, ...]
     k_ctx, v_ctx = ctx[:, :, 0], ctx[:, :, 1]           # [T, C, Hkv, D]
+    if scales is not None:
+        sctx = scales[tables].reshape(T, C, 2, Hkv)
+        k_ctx = _dequant_ctx(k_ctx, sctx[:, :, 0], q.dtype)
+        v_ctx = _dequant_ctx(v_ctx, sctx[:, :, 1], q.dtype)
     qg = q.reshape(T, Hkv, rep, D)
     s = torch.einsum("thrd,tchd->thrc", qg, k_ctx).float() * scale
     cols = torch.arange(C, device=q.device)[None, :]
@@ -145,7 +219,7 @@ def paged_attention_plain(kv_layer: torch.Tensor, q: torch.Tensor,
     return o.reshape(T, H, D)
 
 
-def paged_attention_chunked(kv_layer: torch.Tensor, q: torch.Tensor,
+def paged_attention_chunked(kv_layer: KVLayer, q: torch.Tensor,
                             seq_slot: torch.Tensor, positions: torch.Tensor,
                             block_tables: torch.Tensor, block_size: int,
                             max_blocks_per_seq: int,
@@ -154,7 +228,8 @@ def paged_attention_chunked(kv_layer: torch.Tensor, q: torch.Tensor,
     ([T, bs, 2, Hkv, D] gathered) folded into an online softmax — the
     one-shot numerics with memory proportional to T * block_size."""
     T, H, D = q.shape
-    nrows, bs, _, Hkv, _ = kv_layer.shape
+    data, scales = _kv_parts(kv_layer)
+    nrows, bs, _, Hkv, _ = data.shape
     rep = H // Hkv
     tables = _tables(block_tables, seq_slot, max_blocks_per_seq, nrows)
     qg = q.reshape(T, Hkv, rep, D)
@@ -163,8 +238,12 @@ def paged_attention_chunked(kv_layer: torch.Tensor, q: torch.Tensor,
     l = torch.zeros((T, Hkv, rep), device=q.device)
     acc = torch.zeros((T, Hkv, rep, D), device=q.device)
     for j in range(max_blocks_per_seq):
-        ctx = kv_layer[tables[:, j]]                    # [T, bs, 2, Hkv, D]
+        ctx = _gather(data, tables[:, j])               # [T, bs, 2, Hkv, D]
         k, v = ctx[:, :, 0], ctx[:, :, 1]
+        if scales is not None:
+            sc = scales[tables[:, j]]                   # [T, bs, 2, Hkv]
+            k = _dequant_ctx(k, sc[:, :, 0], q.dtype)
+            v = _dequant_ctx(v, sc[:, :, 1], q.dtype)
         s = torch.einsum("thrd,tbhd->thrb", qg, k).float() * scale
         cols = j * bs + offs[None, :]
         valid = cols <= positions[:, None]              # [T, bs]

@@ -126,11 +126,11 @@ def test_step_api_matches_generate(models, reference):
 
 
 @pytest.mark.parametrize("field, value", [
-    ("attn_impl", "pallas"), ("kv_quant", "int8"), ("weight_quant", "int8"),
+    ("attn_impl", "pallas"), ("weight_quant", "fp6"), ("weight_quant", "fp12"),
     ("decode_burst", 4), ("spec_decode", "on"), ("kv_tier", "on"),
     ("trace", True), ("device_telemetry", "on"), ("anomaly", "on"),
     ("slo", "on"), ("kv_offload", True), ("weight_stream", "/nonexistent"),
-    ("comm_quant", "int8"), ("kv_donate", "off"), ("mixed_gemm", "on")])
+    ("comm_quant", "int8"), ("kv_donate", "off")])
 def test_unsupported_config_values_raise(models, field, value):
     _, port = models
     with pytest.raises(NotImplementedError, match=field):
@@ -141,6 +141,13 @@ def test_bad_values_and_seeded_sampling_raise(models):
     _, port = models
     with pytest.raises(ValueError, match="prefix_cache"):
         _port_engine(port, prefix_cache="sometimes")
+    for field, value in (("kv_quant", "int4"), ("weight_quant", "int2"),
+                         ("mixed_gemm", "sometimes")):
+        with pytest.raises(ValueError, match=field):
+            _port_engine(port, **{field: value})
+    # 'on' with nothing quantized: no layout the kernel family consumes
+    with pytest.raises(ValueError, match="mixed_gemm"):
+        _port_engine(port, mixed_gemm="on")
     with pytest.raises(NotImplementedError, match="temperature"):
         SamplingParams(temperature=0.8)
 

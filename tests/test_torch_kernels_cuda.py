@@ -189,3 +189,168 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
         flash_dq(q, k, k, q, z(1, 4, 128), z(1, 4, 128, dt=torch.float32),
                  0.1)
     torch.cuda.synchronize()
+
+
+# --- the mixed-input GEMM (K3) ----------------------------------------------
+
+# Llama-3-8B's projections (K, N, contract_dims): mlp wi/wg, mlp wo, wk/wv,
+# and the attention output [32, 128] -> 4096 with one scale per head
+LLAMA3_8B_PROJECTIONS = {"wi": ((4096,), 14336), "mlp_wo": ((14336,), 4096),
+                         "wk": ((4096,), 1024), "attn_wo": ((32, 128), 4096)}
+
+
+def _mixed_case(dev, kdims, N, M, bits, seed):
+    """(x fp32, x bf16, QuantizedTensor) on the card."""
+    from deepspeed_tpu_torch.ops.quant import (_quantize_leading,
+                                               quantize_rowwise4)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    K = int(np.prod(kdims))
+    w = torch.randn(*kdims, N, device=dev, generator=gen).to(torch.bfloat16)
+    x32 = torch.randn(M, K, device=dev, generator=gen)
+    qt = (_quantize_leading(w, 1) if bits == 8
+          else quantize_rowwise4(w, contract_dims=len(kdims)))
+    return x32, x32.to(torch.bfloat16), qt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+@pytest.mark.parametrize("M", [8, 77, 1024])
+@pytest.mark.parametrize("proj", sorted(LLAMA3_8B_PROJECTIONS))
+def test_mixed_gemm_kernels_match_plain(cuda_device, proj, M, bits):
+    """K3 at Llama-3-8B's projection shapes against the plain version on
+    the same bf16 inputs, within 2x the bf16 noise floor (the plain
+    version in bf16 against x @ dequant(w) in fp32 on the unrounded x)."""
+    from deepspeed_tpu_torch.ops import mixed_gemm as mg
+    from deepspeed_tpu_torch.ops.quant import dequantize
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kdims, N = LLAMA3_8B_PROJECTIONS[proj]
+    x32, x, qt = _mixed_case(cuda_device, kdims, N, M, bits, M + bits)
+    counter = mg.mixed_matmul_2d if bits == 8 else mg.mixed4_matmul_2d
+    before = counter.launches
+    got = mg.mixed_matmul(x, qt, contract_dims=len(kdims))
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    plain = mg.mixed4_matmul_2d_plain if bits == 4 else \
+        mg.mixed_matmul_2d_plain
+    K = int(np.prod(kdims))
+    s = qt.scale.reshape(-1)
+    s = s[:, None].expand(s.numel(), K // s.numel()).reshape(K)
+    data = qt.data.reshape(-1, N)
+    ref = plain(x, data, s)
+    ref32 = x32 @ dequantize(qt, torch.float32).reshape(K, N)
+    _assert_within_noise(f"{proj} M={M} int{bits}", got, ref, ref32)
+    # fp32 out: the same sums, not rounded
+    got32 = mg.mixed_matmul(x, qt, contract_dims=len(kdims),
+                            out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    _assert_within_noise(f"{proj} M={M} int{bits} fp32", got32,
+                         plain(x, data, s, out_dtype=torch.float32), ref32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_mixed_gemm_kernel_ragged_tiles(cuda_device, bits):
+    """N and M that do not fill a tile (N % 64 != 0, M % 16 != 0)."""
+    from deepspeed_tpu_torch.ops import mixed_gemm as mg
+    x32, x, qt = _mixed_case(cuda_device, (128,), 48, 5, bits, 1)
+    got = mg.mixed_matmul(x, qt)
+    plain = mg.mixed4_matmul_2d_plain if bits == 4 else \
+        mg.mixed_matmul_2d_plain
+    ref = plain(x, qt.data.reshape(-1, 48), qt.scale.reshape(-1))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_mixed_gemm_kernels_reject_what_they_do_not_take(cuda_device):
+    from deepspeed_tpu_torch.ops import mixed_gemm as mg
+    dev = cuda_device
+    x = torch.zeros(4, 64, device=dev, dtype=torch.bfloat16)
+    d = torch.zeros(64, 64, device=dev, dtype=torch.int8)
+    s = torch.ones(64, device=dev)
+    mg.mixed_matmul_2d(x, d, s)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        mg.mixed_matmul_2d(x[:, :48].contiguous(), d[:48].contiguous(), s[:48])
+    with pytest.raises(ValueError, match="multiple of 16"):
+        mg.mixed_matmul_2d(x, d[:, :24].contiguous(), s)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        mg.mixed4_matmul_2d(x[:, :32].contiguous(), d[:16].contiguous(),
+                            s[:32])
+    with pytest.raises(ValueError, match="int8 data"):
+        mg.mixed_matmul_2d(x, d.to(torch.uint8), s)
+    with pytest.raises(ValueError, match="fp32 scale"):
+        mg.mixed_matmul_2d(x, d, s.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        mg.mixed_matmul_2d(x, d.t(), s)
+    with pytest.raises(ValueError, match="on cpu"):
+        mg.mixed_matmul_2d(x, d.cpu(), s)
+    torch.cuda.synchronize()
+
+
+# --- the quantized-KV variant of paged attention (K2) ------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["int8", "fp8"])
+@pytest.mark.parametrize("bs", [16, 64])
+@pytest.mark.parametrize("H, Hkv, D", [(32, 8, 128), (12, 12, 64),
+                                       (8, 1, 64)],
+                         ids=["llama3-8b", "gpt2", "mqa"])
+def test_paged_attention_quantized_kernel_matches_plain(cuda_device, H, Hkv,
+                                                        D, bs, code):
+    """int8 / fp8 codes + fp32 scales (quantized by the serving path's
+    _quantize_kv): a prefill chunk, an aliased decode token, a position-0
+    token and a long-context decode token; atol = rtol = 2e-2."""
+    from deepspeed_tpu_torch.inference.model import _quantize_kv
+    qdt = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[code]
+    rng = np.random.RandomState(bs + 1)
+    nb = -(-4096 // bs)
+    nblocks = nb + 16
+    tables = np.full((5, nblocks), -1, np.int32)
+    chunk_blocks = -(-96 // bs)
+    tables[0, :chunk_blocks] = rng.permutation(nblocks)[:chunk_blocks]
+    tables[1, :1] = tables[0, :1]
+    tables[1, 1:-(-120 // bs)] = nblocks - 1
+    tables[2, 0] = tables[0, 0]
+    tables[3, :nb] = rng.randint(0, nblocks, nb)
+    toks = ([(0, p) for p in range(32, 96)] + [(1, 119), (2, 0),
+                                                (3, 4095)])
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(bs)
+    kv = torch.randn(nblocks + 1, bs, 2, Hkv, D, device=dev, generator=gen)
+    codes, scales = _quantize_kv(kv, qdt)
+    q = torch.randn(len(toks), H, D, device=dev, dtype=torch.bfloat16,
+                    generator=gen)
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)  # noqa: E731
+    args = ((codes, scales), q, as_t([s for s, _ in toks]),
+            as_t([p for _, p in toks]), as_t(tables), bs, nb, D ** -0.5)
+    counter = f"{code}_launches"
+    before = (getattr(paged_attention, counter), paged_attention.launches)
+    out = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert (getattr(paged_attention, counter), paged_attention.launches) \
+        == (before[0] + 1, before[1])
+    ref = paged_attention_plain(*args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_paged_attention_quantized_rejects_what_it_does_not_take(cuda_device):
+    dev = cuda_device
+    codes = torch.zeros(3, 16, 2, 2, 128, device=dev, dtype=torch.int8)
+    scales = torch.ones(3, 16, 2, 2, device=dev)
+    q = torch.zeros(2, 4, 128, device=dev, dtype=torch.bfloat16)
+    i32 = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa: E731
+    rest = (i32(2), i32(2), i32(2, 2), 16, 2, 0.1)
+    paged_attention((codes, scales), q, *rest)
+    with pytest.raises(ValueError, match="int8 or float8"):
+        paged_attention((codes.view(torch.uint8), scales), q, *rest)
+    with pytest.raises(ValueError, match="scales"):
+        paged_attention((codes, scales[..., :1].contiguous()), q, *rest)
+    with pytest.raises(ValueError, match="bf16 q"):
+        paged_attention((codes, scales), q.float(), *rest)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_attention((codes[..., :32].contiguous(), scales),
+                        q[..., :32].contiguous(), *rest)
+    torch.cuda.synchronize()

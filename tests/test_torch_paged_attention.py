@@ -166,3 +166,99 @@ def test_other_devices_raise_never_fall_back():
     with pytest.raises(ValueError, match="unsupported device"):
         paged_attention(kv_t.to("meta"), q_t.to("meta"), slot_t.to("meta"),
                         pos_t.to("meta"), tab_t.to("meta"), bs, NB, scale)
+
+
+# --- the quantized cache: (codes, scales) pairs -----------------------------
+
+_CODES = {"int8": (jnp.int8, torch.int8),
+          "fp8": (jnp.float8_e4m3fn, torch.float8_e4m3fn)}
+
+
+def _quantized(kv, code):
+    """(JAX (codes, scales), port (codes, scales)) of a cache, quantized
+    by the JAX package's ``_quantize_kv`` and carried over bit for bit."""
+    from deepspeed_tpu.inference.model import _quantize_kv
+    from deepspeed_tpu_torch.models import params_from_numpy
+    codes, scales = _quantize_kv(jnp.asarray(kv), _CODES[code][0])
+    port = params_from_numpy({"c": np.asarray(codes),
+                              "s": np.asarray(scales)}, device="cpu")
+    assert port["c"].dtype == _CODES[code][1]
+    return (codes, scales), (port["c"], port["s"])
+
+
+@pytest.mark.parametrize("code", sorted(_CODES))
+@pytest.mark.parametrize("H", [4, 2])
+def test_quantized_cache_plain_matches_jax(code, H):
+    """One-shot and chunked plain versions on an int8 / fp8 cache against
+    the JAX Pallas kernel (interpret) and its XLA formulations, fp32 q:
+    the same dequantized rows, sums in another order (1e-5)."""
+    kv, q, batch, bs, scale = _case(H, seed=7)
+    jkv, pkv = _quantized(kv, code)
+    _, q_t, slot_t, pos_t, tab_t = _torch_args(kv, q, batch, torch.float32)
+    args = (q_t, slot_t, pos_t, tab_t, bs, NB, scale)
+    out = paged_attention(pkv, *args)
+    chunked = paged_attention_chunked(pkv, *args)
+    pallas = jax_pallas_paged_attention(jkv, q, batch.seq_slot,
+                                        batch.positions, batch.block_tables,
+                                        bs, NB, scale)
+    xla = _paged_attention(jkv, q, batch, bs, NB, scale)
+    xla_chunked = _paged_attention_chunked(jkv, q, batch, bs, NB, scale)
+    valid = np.asarray(batch.token_valid)
+    for got, ref in ((out, pallas), (out, xla), (chunked, xla_chunked),
+                     (chunked, out)):
+        np.testing.assert_allclose(_f32(got)[valid], _f32(ref)[valid],
+                                   atol=1e-5, rtol=1e-5)
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("code", sorted(_CODES))
+def test_quantized_cache_bf16_q_matches_jax(code):
+    """bf16 q (the serving dtype): the rows dequantize to bf16 on both
+    sides; the bar of tests/test_paged_attention.py (2e-2)."""
+    kv, q, batch, bs, scale = _case(4, seed=8)
+    jkv, pkv = _quantized(kv, code)
+    q16 = q.astype(jnp.bfloat16)
+    _, q_t, slot_t, pos_t, tab_t = _torch_args(kv, q16, batch,
+                                               torch.bfloat16)
+    out = paged_attention(pkv, q_t, slot_t, pos_t, tab_t, bs, NB, scale)
+    assert out.dtype == torch.bfloat16
+    ref = jax_pallas_paged_attention(jkv, q16, batch.seq_slot,
+                                     batch.positions, batch.block_tables,
+                                     bs, NB, scale)
+    valid = np.asarray(batch.token_valid)
+    np.testing.assert_allclose(_f32(out)[valid], _f32(ref)[valid],
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("code", sorted(_CODES))
+def test_quantized_cache_aliased_block_tables(code):
+    kv, aliased, dealiased, bs, valid = \
+        jax_tests.TestAliasedBlockTables()._aliased_batch()
+    jkv, pkv = _quantized(kv, code)
+    D = kv.shape[4]
+    q = jnp.asarray(np.random.RandomState(9).randn(
+        aliased.token_ids.shape[0], 4, D).astype(np.float32))
+    scale = 1.0 / np.sqrt(D)
+    a = _torch_args(kv, q, aliased, torch.float32)[1:]
+    d = _torch_args(kv, q, dealiased, torch.float32)[1:]
+    out_alias = paged_attention(pkv, *a, bs, NB, scale)
+    out_dealias = paged_attention(pkv, *d, bs, NB, scale)
+    np.testing.assert_allclose(_f32(out_alias)[valid],
+                               _f32(out_dealias)[valid], atol=1e-6,
+                               rtol=1e-6)
+    ref = jax_pallas_paged_attention(jkv, q, aliased.seq_slot,
+                                     aliased.positions, aliased.block_tables,
+                                     bs, NB, scale)
+    np.testing.assert_allclose(_f32(out_alias)[valid], _f32(ref)[valid],
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_quantized_cache_counts_no_launch_on_cpu():
+    kv, q, batch, bs, scale = _case(4)
+    _, pkv = _quantized(kv, "int8")
+    args = _torch_args(kv, q, batch, torch.float32)[1:]
+    before = (paged_attention.launches, paged_attention.int8_launches,
+              paged_attention.fp8_launches)
+    paged_attention(pkv, *args, bs, NB, scale)
+    assert (paged_attention.launches, paged_attention.int8_launches,
+            paged_attention.fp8_launches) == before

@@ -12,6 +12,7 @@ Also ported from tests/test_scheduler_fuzz.py: the scheduler over-commit
 fuzz and the prefix-cache accounting fuzz, on the port's engine (built
 on the CPU; no step is dispatched)."""
 
+import dataclasses
 from collections import Counter
 
 import jax.numpy as jnp
@@ -175,9 +176,23 @@ def test_kv_cache_layout_and_unsupported_quant():
     kv = cfg.kv_zeros()
     assert kv.shape == (3, 6, 4, 2, 2, 8)
     assert kv[1].is_contiguous()       # per-layer slices stay contiguous
-    with pytest.raises(NotImplementedError, match="kv_quant"):
+    # a quantized cache is (codes, fp32 scales), as the JAX package's
+    for quant, qdt, jdt in (("int8", torch.int8, jnp.int8),
+                            ("fp8", torch.float8_e4m3fn, jnp.float8_e4m3fn)):
+        codes, scales = dataclasses.replace(cfg, quant=quant).kv_zeros()
+        jcodes, jscales = JaxKV(num_layers=3, num_kv_heads=2, head_dim=8,
+                                block_size=4, num_blocks=5,
+                                quant=quant).kv_zeros()
+        assert codes.dtype == qdt and jcodes.dtype == jdt
+        assert codes.shape == jcodes.shape == (3, 6, 4, 2, 2, 8)
+        assert scales.dtype == torch.float32
+        assert scales.shape == jscales.shape == (3, 6, 4, 2, 2)
+        assert codes[1].is_contiguous() and scales[1].is_contiguous()
+        sm = StateManager(dataclasses.replace(cfg, quant=quant), max_seqs=2)
+        assert sm.device.type == "cpu" and isinstance(sm.kv, tuple)
+    with pytest.raises(ValueError, match="kv_quant"):
         KVCacheConfig(num_layers=1, num_kv_heads=1, head_dim=8,
-                      quant="int8", device="cpu")
+                      quant="int4", device="cpu")
 
 
 # --- ported from tests/test_scheduler_fuzz.py ------------------------------
