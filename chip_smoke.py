@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases device,build,kernel   # a shorter run
     python3 chip_smoke.py --phases device,build,kernel,train
     python3 chip_smoke.py --phases device,build,kernel,serve-quant
+    python3 chip_smoke.py --phases device,build,kernel,serve-alibi
 
 Phases, in order; any failure exits non-zero (nothing is caught and
 passed over):
@@ -19,7 +20,9 @@ passed over):
              in bf16: paged attention at Llama-3-8B and GPT-2 widths on a
              mixed prefill/decode batch with an aliased block table plus
              the serving path's decode shape, and with int8 and fp8
-             caches on the 8B batches; flash fwd/dq/dkv (causal) at the
+             caches on the 8B batches; its ALiBi variant at BLOOM-7b1
+             width (mixed and decode batches; bf16, int8 and fp8 caches)
+             and on a GQA batch with slopes; flash fwd/dq/dkv (causal) at the
              GPT-2 training shape, the llama-0.7B training leg of bench.py
              and Llama-3-8B widths; the int8 and int4 mixed-input GEMM at
              Llama-3-8B's projection shapes at M = 8 (decode) and 1024 (a
@@ -47,6 +50,17 @@ passed over):
              first-forward check against the plain path on the same
              quantized weights and cache, TTFT, token rates, resident
              bytes and the device profile.
+7. serve-alibi — BLOOM-7b1 at full width and depth (ALiBi, random bf16
+             weights from a seed), run after the Llama model is freed,
+             at phase 5's traffic and engine: a first-forward check
+             against the dense forward with the ALiBi bias, a greedy run
+             (every layer of every step launches the ALiBi kernel), TTFT
+             and token rates, a seeded sampled run (temperature 0.8,
+             top-k 50, top-p 0.95, rng=PRNGKey(seed)) at pipeline depth 2
+             and 1 that must agree token for token, with the keys,
+             Gumbel noise and tokens of the first step and of the first
+             step that samples every slot held against the CPU, the
+             sampler's cost per step, and a short int8-cache run.
 
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; the line before that, the per-kernel JSON; the last line,
@@ -57,6 +71,7 @@ package beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import statistics
@@ -76,6 +91,15 @@ KERNEL_ATOL = KERNEL_RTOL = 2e-2
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def free_engines(torch) -> None:
+    """Give back the card memory of engines the caller dropped.  An engine
+    and its state reference each other (the state's release hook is a
+    bound method), so ``del`` leaves the KV cache to the cycle collector:
+    at BLOOM-7b1's 16 GB cache, three dropped engines fill the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -179,12 +203,14 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_kernel_case(torch, pa, name, case, H, Hkv, D, iters):
+def check_kernel_case(torch, pa, name, case, H, Hkv, D, iters, slopes=None):
+    """One bf16 case of paged attention (with ALiBi ``slopes`` if given)
+    against its plain version on the same inputs."""
     from deepspeed_tpu_torch.ops.paged_attention import (
         paged_attention_plain)
     args = (case["kv"], case["q"], case["seq_slot"], case["positions"],
             case["block_tables"], case["block_size"],
-            case["max_blocks_per_seq"], case["scale"])
+            case["max_blocks_per_seq"], case["scale"], slopes)
     out = pa(*args)
     torch.cuda.synchronize()
     ref = paged_attention_plain(*args)
@@ -199,8 +225,8 @@ def check_kernel_case(torch, pa, name, case, H, Hkv, D, iters):
                        max(2, iters // 10), warmup=1)
     bound_ms, bound_by, nbytes, flops = attention_bound(case, H, Hkv, D)
     T = case["q"].shape[0]
-    log(f"[kernel] {name}: T={T} H={H} Hkv={Hkv} D={D} "
-        f"bs={case['block_size']} max|d|={max_err:.3e} "
+    log(f"[kernel] {name}{' alibi' if slopes is not None else ''}: T={T} "
+        f"H={H} Hkv={Hkv} D={D} bs={case['block_size']} max|d|={max_err:.3e} "
         f"(atol=rtol={KERNEL_ATOL}) kernel_ms={kernel_ms:.4f} "
         f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}: "
         f"{nbytes} B, {flops} flop) library_ms: n/a")
@@ -209,7 +235,7 @@ def check_kernel_case(torch, pa, name, case, H, Hkv, D, iters):
             f"{name}: kernel disagrees with the plain version on "
             f"{int(bad.sum())} elements (max |d| {max_err})")
     return dict(max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 # flash attention cases: (B, H, Hkv, S, D, timing iterations).  GPT-2 is
@@ -344,7 +370,8 @@ def check_flash_case(torch, fa, name, B, H, Hkv, S, D, iters,
     return out
 
 
-def check_quant_kv_case(torch, pa, name, case, code, H, Hkv, D, iters):
+def check_quant_kv_case(torch, pa, name, case, code, H, Hkv, D, iters,
+                        slopes=None):
     """The int8 / fp8 cache variant of paged attention: the case's cache
     quantized by the serving path's _quantize_kv, kernel vs the plain
     version (bf16 q) within NOISE_FACTOR x the bf16 noise floor (the
@@ -355,7 +382,8 @@ def check_quant_kv_case(torch, pa, name, case, code, H, Hkv, D, iters):
     qdt = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[code]
     kv = _quantize_kv(case["kv"], qdt)
     rest = (case["seq_slot"], case["positions"], case["block_tables"],
-            case["block_size"], case["max_blocks_per_seq"], case["scale"])
+            case["block_size"], case["max_blocks_per_seq"], case["scale"],
+            slopes)
     q = case["q"]
     out = pa(kv, q, *rest)
     torch.cuda.synchronize()
@@ -367,7 +395,8 @@ def check_quant_kv_case(torch, pa, name, case, code, H, Hkv, D, iters):
                        max(2, iters // 10), warmup=1)
     bound_ms, bound_by, nbytes, flops = attention_bound(case, H, Hkv, D,
                                                         kv_bytes=1)
-    log(f"[kernel] {name} {code} cache: T={q.shape[0]} H={H} Hkv={Hkv} "
+    log(f"[kernel] {name} {code} cache{' alibi' if slopes is not None else ''}"
+        f": T={q.shape[0]} H={H} Hkv={Hkv} "
         f"D={D} max|d|={err:.3e} <= {tol:.3e} ({NOISE_FACTOR} x the bf16 "
         f"noise floor) kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
         f"bound_ms={bound_ms:.4f} ({bound_by}: {nbytes} B, {flops} flop) "
@@ -638,7 +667,7 @@ def nvidia_smi_line() -> str:
 # other.
 
 
-def first_forward_check(torch, model, prompts):
+def first_forward_check(torch, model, prompts, tag="serve"):
     from deepspeed_tpu_torch.inference.model import ragged_forward
     from deepspeed_tpu_torch.inference.ragged.state import (KVCacheConfig,
                                                             StateManager)
@@ -663,24 +692,26 @@ def first_forward_check(torch, model, prompts):
     margin = top2.values[:, 0] - top2.values[:, 1]
     agree = got.argmax(-1) == top2.indices[:, 0]
     must = margin > tol
-    log(f"[serve] first forward, kernel path vs dense apply (both bf16): "
+    log(f"[{tag}] first forward, kernel path vs dense apply (both bf16): "
         f"max|d|={max_err:.4f}; bf16 noise floor (dense bf16 vs dense fp32)"
         f"={noise:.4f} -> tol={tol:.4f}; kernel path vs dense fp32: "
         f"max|d|={err32:.4f}; |ref|max={float(ref.abs().max()):.3f}; top1 "
         f"agree={agree.tolist()} margins="
         f"{[round(float(m), 4) for m in margin]}")
-    if max_err > tol:
-        raise AssertionError(f"first-forward logits disagree: max|d| "
+    if not bool(torch.isfinite(got).all()) or max_err > tol:
+        raise AssertionError(f"{tag}: first-forward logits disagree: max|d| "
                              f"{max_err} > {tol}")
     if bool((must & ~agree).any()):
-        raise AssertionError("first-forward top-1 disagrees where the "
-                             "reference margin exceeds the tolerance")
+        raise AssertionError(f"{tag}: first-forward top-1 disagrees where "
+                             "the reference margin exceeds the tolerance")
 
 
-def llama_model(torch, seed):
-    """Llama-3-8B at full width and depth, random bf16 weights from
-    ``seed`` drawn on the card, and the serving traffic: 8 prompts of 512
-    random tokens, prompt 2 sharing prompt 0's first 256 (4 blocks)."""
+def serving_model(torch, name, seed, tag="serve", device=None, **overrides):
+    """A preset (Llama-3-8B, BLOOM-7b1) at full width and depth, random
+    bf16 weights from ``seed`` drawn on the card, and the serving traffic:
+    8 prompts of 512 random tokens, prompt 2 sharing prompt 0's first 256
+    (4 blocks).  ``device`` and ``overrides`` (model-config fields) exist
+    for a CPU rehearsal at a tiny size; the chip run passes neither."""
     import numpy as np
 
     from deepspeed_tpu_torch.models import build_model
@@ -689,13 +720,17 @@ def llama_model(torch, seed):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    model = build_model("llama3-8b", seed=seed, dtype=torch.bfloat16)
+    model = build_model(name, seed=seed, dtype=torch.bfloat16, device=device,
+                        **overrides)
     torch.cuda.synchronize()
     cfg = model.config
     n_params = sum(x.numel() for x in tree_leaves(model.params))
-    log(f"[serve] llama3-8b: {n_params / 1e9:.3f} B params, bf16 "
-        f"({tree_bytes(model.params) / 1e9:.2f} GB), random init on the card "
-        f"in {time.perf_counter() - t0:.2f} s")
+    log(f"[{tag}] {name}: {n_params / 1e9:.3f} B params, bf16 "
+        f"({tree_bytes(model.params) / 1e9:.2f} GB), {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} heads ({cfg.num_kv_heads} KV) "
+        f"of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"position {cfg.position}; random init on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
     r = np.random.RandomState(seed)
     prompts = [list(map(int, r.randint(0, cfg.vocab_size, 512)))
                for _ in range(8)]
@@ -720,41 +755,55 @@ SERVE_ENGINE = dict(token_budget=1024, max_seqs=8, kv_block_size=64,
 SERVE_NEW_TOKENS = 32
 
 
-def serve(torch, pa, model, prompts):
+def serve(torch, pa, model, prompts, tag="serve"):
+    """Greedy bf16 serving at phase 5's traffic; returns the bf16-cache
+    paged-attention launches (for an ALiBi model, every one of them must
+    carry the slopes) and the rates."""
     from deepspeed_tpu_torch.inference import (InferenceConfig,
                                                InferenceEngine,
                                                SamplingParams)
 
     cfg = model.config
+    alibi = cfg.position == "alibi"
     torch.cuda.reset_peak_memory_stats()
-    first_forward_check(torch, model, prompts)
+    first_forward_check(torch, model, prompts, tag)
 
     icfg = InferenceConfig(**SERVE_ENGINE)
     sp = SamplingParams(max_new_tokens=SERVE_NEW_TOKENS)
     eng = InferenceEngine(model, icfg)
-    pa.launches = 0
+    log(f"[{tag}] KV cache {tree_bytes(eng.state.kv) / 1e9:.3f} GB")
+    # the main path: counts to 0 just before, read just after
+    pa.launches = pa.alibi_launches = 0
     t0 = time.perf_counter()
     out = eng.generate(dict(enumerate(prompts)), sp)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = pa.launches
+    launches, alibi_launches = pa.launches, pa.alibi_launches
     steps = int(eng.timings["steps"])
-    log(f"[serve] generate: 8 x 512-token prompts, 32 new tokens each, "
+    log(f"[{tag}] generate: 8 x 512-token prompts, 32 new tokens each, "
         f"{steps} steps in {wall:.3f} s; paged_attention launches="
-        f"{launches} ({cfg.num_layers} layers x {steps} steps = "
-        f"{cfg.num_layers * steps})")
-    for uid, toks in out.items():
-        if len(toks) != 32 or not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"request {uid}: bad output {toks}")
-    if launches != cfg.num_layers * steps or launches == 0:
-        raise AssertionError("the serving path did not run the kernel in "
+        f"{launches}, with ALiBi slopes={alibi_launches} ({cfg.num_layers} "
+        f"layers x {steps} steps = {cfg.num_layers * steps})")
+    check_tokens(out, cfg, SERVE_NEW_TOKENS, tag)
+    if launches != cfg.num_layers * steps or launches == 0 \
+            or alibi_launches != (launches if alibi else 0):
+        raise AssertionError(f"{tag}: the serving path did not run the "
+                             "kernel (with ALiBi where the model has it) in "
                              "every layer of every step")
     ttft = sorted(eng.ttft_ms[u] for u in out)
-    check_prefix_and_cow(eng, prompts, sp, "serve")
+    check_prefix_and_cow(eng, prompts, sp, tag)
     del eng
-    serve_rates(torch, lambda: InferenceEngine(model, icfg), prompts, ttft,
-                "serve")
-    return launches
+    free_engines(torch)
+    rates = serve_rates(torch, lambda: InferenceEngine(model, icfg), prompts,
+                        ttft, tag)
+    return dict(launches=launches, alibi_launches=alibi_launches, **rates)
+
+
+def check_tokens(out, cfg, n_new, tag):
+    for uid, toks in out.items():
+        if len(toks) != n_new \
+                or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"{tag} request {uid}: bad output {toks}")
 
 
 def check_prefix_and_cow(eng, prompts, sp, tag):
@@ -799,6 +848,7 @@ def serve_rates(torch, make_engine, prompts, ttft, tag):
         computed = e.timings["prompt_tokens"] - e.timings["cached_tokens"]
         tm = dict(e.timings)
         del e
+        free_engines(torch)
         return dt, computed, tm
 
     t_pre, computed, _ = run(1)
@@ -980,10 +1030,7 @@ def serve_quant(torch, pa, mg, model, prompts, tag, over):
         f"{over['kv_quant']} cache launches={launches['kv']} ({L} x {steps} = "
         f"{L * steps}); other variants: {launches['k3_other']} GEMM, "
         f"{launches['other_pa']} attention")
-    for uid, toks in out.items():
-        if len(toks) != SERVE_NEW_TOKENS \
-                or not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"{tag} request {uid}: bad output {toks}")
+    check_tokens(out, cfg, SERVE_NEW_TOKENS, tag)
     if launches["k3"] != PROJECTIONS_PER_LAYER * L * steps or steps == 0 \
             or launches["kv"] != L * steps or launches["k3_other"] \
             or launches["other_pa"]:
@@ -996,6 +1043,7 @@ def serve_quant(torch, pa, mg, model, prompts, tag, over):
     dense = Model.from_params(cfg, eng.params)
     quant = eng._quant
     del eng
+    free_engines(torch)
     rates = serve_rates(
         torch, lambda: InferenceEngine(dense, icfg, quant_tree=quant),
         prompts, ttft, tag)
@@ -1003,6 +1051,205 @@ def serve_quant(torch, pa, mg, model, prompts, tag, over):
     torch.cuda.empty_cache()
     return dict(launches=launches, first_forward=ffwd,
                 weight_bytes=dense_bytes + quant_bytes, **rates)
+
+
+# ---------------------------------------------------------------------------
+# phase 7 helpers
+# ---------------------------------------------------------------------------
+
+# phase 7's sampled run: BLOOM is served by sampling (temperature, top-k,
+# top-p) with a seeded key
+ALIBI_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
+# the allowed card-vs-CPU difference of a sampled token: a row whose two
+# best perturbed scores (logit + Gumbel noise) lie this close, where the
+# card's and the host's float32 filters may round the logits apart
+SAMPLE_TIE = 1e-4
+ALIBI_INT8_NEW_TOKENS = 8
+
+
+class capture_first_step:
+    """Record sampled steps of the engine's serving loop inside a ``with``
+    block: the first one (``recs["first"]``) and the first in which every
+    slot samples (``recs["full"]``, a decode step): its base key, the
+    batch's uids, context lengths and logits index, and the sampler's
+    logits, per-row keys and tokens (all still on the card)."""
+
+    def __enter__(self):
+        import deepspeed_tpu_torch.inference.engine as em
+        self.em, self.real, self.recs = em, em.pipelined_ragged_step, {}
+
+        def step(cfg, params, quant, kv, batch, prev, rng, sample_fn, *a,
+                 **kw):
+            # every slot samples (host ints: no read from the card)
+            full = batch.n_seqs == batch.logits_idx.shape[0]
+            tag = ("first" if "first" not in self.recs else
+                   "full" if full and "full" not in self.recs else None)
+            if tag is None or rng is None:
+                return self.real(cfg, params, quant, kv, batch, prev, rng,
+                                 sample_fn, *a, **kw)
+
+            def sample(logits, keys):
+                toks = sample_fn(logits, keys)
+                self.recs[tag] = dict(
+                    rng=rng.clone(), uids=batch.seq_uids.clone(),
+                    ctx=batch.context_lens.clone(),
+                    idx=batch.logits_idx.clone(), logits=logits.clone(),
+                    keys=keys.clone(), toks=toks.clone())
+                return toks
+            return self.real(cfg, params, quant, kv, batch, prev, rng, sample,
+                             *a, **kw)
+
+        em.pipelined_ragged_step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.em.pipelined_ragged_step = self.real
+        return False
+
+
+def check_first_step_on_cpu(torch, rec, sp, tag):
+    """A sampled step's per-row keys, Gumbel noise and tokens, computed on
+    the card, against the same functions on the CPU on the card's logits:
+    keys and noise bit for bit; tokens equal, except a row whose two best
+    perturbed scores lie within SAMPLE_TIE (logged).  Random BLOOM weights
+    put the top logit tens of units above the rest, so the noise rarely
+    decides a token; the tokens are compared again on the logits / 64
+    (an exact scaling), where it does."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.sampler import (_filter, row_keys,
+                                                       sample_rows)
+    from deepspeed_tpu_torch.utils.prng import gumbel, key_to_numpy
+    cpu = {k: v.cpu() for k, v in rec.items()}
+    keys_cpu = row_keys(cpu["rng"], cpu["uids"], cpu["ctx"])
+    same_keys = np.array_equal(key_to_numpy(keys_cpu),
+                               key_to_numpy(cpu["keys"]))
+    V = cpu["logits"].shape[-1]
+    noise_card = gumbel(rec["keys"], (V,)).cpu()
+    noise_cpu = gumbel(keys_cpu, (V,))
+    noise_bits = int((noise_card.view(torch.int32)
+                      != noise_cpu.view(torch.int32)).sum())
+    log(f"[{tag}]: per-row keys card vs CPU bitwise equal={same_keys}; "
+        f"Gumbel noise [{cpu['keys'].shape[0]}, {V}] words that differ="
+        f"{noise_bits}")
+    if not same_keys or noise_bits:
+        raise AssertionError(f"{tag}: the card's keys or Gumbel noise differ "
+                             "from the CPU's")
+    valid = cpu["idx"] >= 0
+    for label, div in (("logits", 1.0), ("logits / 64", 64.0)):
+        toks_card = (cpu["toks"] if div == 1.0 else
+                     sample_rows(rec["logits"] / div, sp, rec["keys"]).cpu())
+        logits = cpu["logits"] / div
+        toks_cpu = sample_rows(logits, sp, keys_cpu)
+        top2 = (noise_cpu + _filter(logits, sp)).topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        differ = valid & (toks_cpu != toks_card)
+        not_argmax = valid & (toks_cpu != logits.argmax(-1))
+        log(f"[{tag}] {label}: {int(valid.sum())} rows sampled; tokens "
+            f"card={toks_card[valid].tolist()} cpu={toks_cpu[valid].tolist()}"
+            f" ({int(not_argmax.sum())} rows not the argmax); rows that "
+            f"differ={differ.nonzero().flatten().tolist()} (top-2 perturbed "
+            f"gaps {[round(float(g), 6) for g in gap[differ]]})")
+        if bool((differ & (gap >= SAMPLE_TIE)).any()):
+            raise AssertionError(f"{tag}: a sampled token differs from the "
+                                 f"CPU's where the top-2 gap is >= "
+                                 f"{SAMPLE_TIE}")
+
+
+def sampler_cost(torch, rec, sp, tag):
+    """Device ms (CUDA events over 20 calls) and host ms per call of the
+    step's key fold and sampler at the first step's shapes."""
+    from deepspeed_tpu_torch.inference.sampler import row_keys, sample_rows
+    res = {}
+    for what, fn in (("row_keys", lambda: row_keys(rec["rng"], rec["uids"],
+                                                   rec["ctx"])),
+                     ("sample_rows", lambda: sample_rows(
+                         rec["logits"], sp, rec["keys"]))):
+        dev_ms = time_ms(torch, fn, 20)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(20):
+            fn()
+        host_ms = (time.perf_counter() - t) / 20 * 1e3
+        torch.cuda.synchronize()
+        res[what] = (dev_ms, host_ms)
+    S, V = rec["logits"].shape
+    log(f"[{tag}] sampler cost per step at [{S}, {V}] ({sp.temperature=}, "
+        f"{sp.top_k=}, {sp.top_p=}): " + "; ".join(
+            f"{k} {d:.3f} ms on the card, {h:.3f} ms to enqueue"
+            for k, (d, h) in res.items()))
+    return res
+
+
+def serve_alibi(torch, pa, seed, device=None, **overrides):
+    """Phase 7: BLOOM-7b1 served greedy (bf16 cache), seeded-sampled at
+    pipeline depths 2 and 1, and with an int8 cache.  ``device`` and
+    ``overrides`` as in :func:`serving_model`."""
+    from deepspeed_tpu_torch.inference import (InferenceConfig,
+                                               InferenceEngine,
+                                               SamplingParams)
+    from deepspeed_tpu_torch.utils.prng import PRNGKey
+    tag = "serve-alibi"
+    model, prompts = serving_model(torch, "bloom-7b1", seed, tag, device,
+                                   **overrides)
+    cfg = model.config
+    res = serve(torch, pa, model, prompts, tag)
+    L = cfg.num_layers
+
+    # seeded sampling: the same stream at depth 2 and depth 1
+    sp = SamplingParams(max_new_tokens=SERVE_NEW_TOKENS, **ALIBI_SAMPLING)
+    streams = {}
+    for depth in (2, 1):
+        eng = InferenceEngine(model, InferenceConfig(**SERVE_ENGINE,
+                                                     pipeline_depth=depth))
+        with capture_first_step() as cap:
+            t0 = time.perf_counter()
+            streams[depth] = eng.generate(dict(enumerate(prompts)), sp,
+                                          rng=PRNGKey(seed))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        steps = int(eng.timings["steps"])
+        log(f"[{tag}] sampled generate {ALIBI_SAMPLING}, rng=PRNGKey({seed}),"
+            f" pipeline depth {depth}: {steps} steps in {wall:.3f} s; "
+            f"request 0 -> {streams[depth][0][:12]}...")
+        check_tokens(streams[depth], cfg, SERVE_NEW_TOKENS, tag)
+        del eng
+        free_engines(torch)
+        if depth == 2:
+            for which in ("first", "full"):
+                check_first_step_on_cpu(torch, cap.recs[which], sp,
+                                        f"{tag} {which} sampled step")
+            res["sampler"] = sampler_cost(torch, cap.recs["full"], sp, tag)
+        del cap
+    same = streams[2] == streams[1]
+    log(f"[{tag}] sampled streams at depth 2 and depth 1 identical={same}")
+    if not same:
+        raise AssertionError(f"{tag}: the seeded stream depends on the "
+                             "pipeline depth")
+
+    # the ALiBi kernel on the int8 cache, in every layer of every step
+    eng = InferenceEngine(model, InferenceConfig(**SERVE_ENGINE,
+                                                 kv_quant="int8"))
+    pa.launches = pa.int8_launches = pa.fp8_launches = 0
+    pa.alibi_launches = 0
+    out = eng.generate(dict(enumerate(prompts)), SamplingParams(
+        max_new_tokens=ALIBI_INT8_NEW_TOKENS))
+    torch.cuda.synchronize()
+    steps = int(eng.timings["steps"])
+    res["int8_launches"] = pa.int8_launches
+    log(f"[{tag}] int8 cache ({tree_bytes(eng.state.kv) / 1e9:.3f} GB): "
+        f"{ALIBI_INT8_NEW_TOKENS} new tokens, {steps} steps; int8 launches="
+        f"{pa.int8_launches}, with ALiBi={pa.alibi_launches} ({L} x {steps} "
+        f"= {L * steps}); other variants {pa.launches + pa.fp8_launches}")
+    check_tokens(out, cfg, ALIBI_INT8_NEW_TOKENS, tag)
+    if not (pa.alibi_launches == pa.int8_launches == L * steps) or steps == 0 \
+            or pa.launches or pa.fp8_launches:
+        raise AssertionError(f"{tag}: the int8-cache run did not launch the "
+                             "ALiBi kernel on the int8 cache in every layer "
+                             "of every step")
+    del eng, model
+    free_engines(torch)
+    return res
 
 
 def device_profile(torch, run, wall_unprofiled, tag="serve"):
@@ -1060,7 +1307,8 @@ KERNEL_GROUPS = [("flash attention", ("flash_fwd", "flash_dq", "flash_dkv")),
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="device,build,kernel,train,serve,serve-quant")
+                    default="device,build,kernel,train,serve,serve-quant,"
+                            "serve-alibi")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1104,23 +1352,36 @@ def main() -> int:
 
     # 3. kernels vs plain
     kern = flash_kern = None
-    qkv_kern, mixed_kern = {}, {}
+    qkv_kern, mixed_kern, alibi_kern = {}, {}, {}
     if "kernel" in phases:
+        from deepspeed_tpu_torch.models.layers import alibi_slopes
         dev = torch.device("cuda")
-        cases = [("llama3-8b mixed", (32, 8, 128, 64, 512, 20)),
-                 ("gpt2 mixed", (12, 12, 64, 64, 512, 20)),
-                 ("llama3-8b decode", (32, 8, 128, 64, 512, 100))]
-        for name, (H, Hkv, D, bs, nblk, iters) in cases:
+        # (name, (H, Hkv, D, bs, blocks, iterations), ALiBi): Llama-3-8B,
+        # GPT-2 and BLOOM-7b1 widths (BLOOM: MHA, 32 heads of 128); a GQA
+        # batch with slopes; the quantized caches on the 8B and BLOOM
+        # mixed batches
+        cases = [("llama3-8b mixed", (32, 8, 128, 64, 512, 20), False),
+                 ("gpt2 mixed", (12, 12, 64, 64, 512, 20), False),
+                 ("llama3-8b decode", (32, 8, 128, 64, 512, 100), False),
+                 ("bloom-7b1 mixed", (32, 32, 128, 64, 512, 10), True),
+                 ("bloom-7b1 decode", (32, 32, 128, 64, 512, 100), True),
+                 ("gqa rep4 mixed", (32, 8, 128, 64, 512, 10), True)]
+        for name, (H, Hkv, D, bs, nblk, iters), alibi in cases:
             make = decode_batch if "decode" in name else mixed_batch
             case = make(torch, H, Hkv, D, bs, nblk, args.seed, dev)
-            res = check_kernel_case(torch, pa, name, case, H, Hkv, D, iters)
-            if kern is None:
+            slopes = alibi_slopes(H, device=dev) if alibi else None
+            res = check_kernel_case(torch, pa, name, case, H, Hkv, D, iters,
+                                    slopes)
+            if alibi:
+                alibi_kern.setdefault("bf16", res)
+            elif kern is None:
                 kern = res
-            if name.startswith("llama3-8b"):      # the quantized caches
+            if name in ("llama3-8b mixed", "llama3-8b decode",
+                        "bloom-7b1 mixed"):     # the quantized caches
                 for code in ("int8", "fp8"):
                     res = check_quant_kv_case(torch, pa, name, case, code, H,
-                                              Hkv, D, iters)
-                    qkv_kern.setdefault(code, res)
+                                              Hkv, D, iters, slopes)
+                    (alibi_kern if alibi else qkv_kern).setdefault(code, res)
             del case
             torch.cuda.empty_cache()
         for name, (B, H, Hkv, S, D, iters) in FLASH_CASES:
@@ -1148,15 +1409,20 @@ def main() -> int:
     launches = None
     quant_runs = {}
     if phases & {"serve", "serve-quant"}:
-        model, prompts = llama_model(torch, args.seed)
+        model, prompts = serving_model(torch, "llama3-8b", args.seed)
         if "serve" in phases:
-            launches = serve(torch, pa, model, prompts)
+            launches = serve(torch, pa, model, prompts)["launches"]
         if "serve-quant" in phases:
             for tag, over in QUANT_RUNS:
                 quant_runs[tag] = serve_quant(torch, pa, mg, model, prompts,
                                               tag, over)
         del model
         torch.cuda.empty_cache()
+
+    # 7. BLOOM-7b1 with ALiBi, after the Llama model is freed
+    alibi_run = {}
+    if "serve-alibi" in phases:
+        alibi_run = serve_alibi(torch, pa, args.seed)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if kern is not None:
@@ -1172,8 +1438,7 @@ def main() -> int:
                 else None
 
         entries = [dict(name="paged_attention", route="cuda", source=pa_src,
-                        replaces=pa_replaces, launches=launches,
-                        library_ms=None, **kern)]
+                        replaces=pa_replaces, launches=launches, **kern)]
         entries += [dict(name=f"paged_attention_{code}kv", route="cuda",
                          source=pa_src, replaces=pa_replaces,
                          launches=quant_launches(run, "kv"),
@@ -1188,6 +1453,13 @@ def main() -> int:
                          launches=quant_launches(run, "k3"),
                          **mixed_kern[bits])
                     for bits, line, run in ((8, 49, "a"), (4, 125, "b"))]
+        entries += [dict(name=name, route="cuda", source=pa_src,
+                         replaces=pa_replaces,
+                         launches=alibi_run.get(key), **alibi_kern[code])
+                    for name, code, key in (
+                        ("paged_attention_alibi", "bf16", "alibi_launches"),
+                        ("paged_attention_alibi_int8kv", "int8",
+                         "int8_launches"))]
         print(json.dumps({"kernels": entries}), flush=True)
     print(rep["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

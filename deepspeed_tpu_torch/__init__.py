@@ -6,10 +6,12 @@ obvious reference; it never imports JAX or the JAX package.  Entry points
 run on the card unless the caller passes ``device="cpu"``.
 
 Ported so far: the single-device serving path (``models``, ``inference``)
-with paged attention as a hand-written Hopper kernel, and one-device
-training (``runtime``: ``initialize`` -> ``Engine.train_batch``) with
-flash attention forward and backward as hand-written Hopper kernels
-(``ops``).
+with paged attention as a hand-written Hopper kernel (with its quantized
+cache and ALiBi variants) and seeded sampling on the JAX package's
+threefry keys (``utils.prng``), quantized serving with the mixed-input
+GEMM, and one-device training (``runtime``: ``initialize`` ->
+``Engine.train_batch``) with flash attention forward and backward as
+hand-written Hopper kernels (``ops``).
 """
 
 __version__ = "0.1.0"

@@ -9,7 +9,8 @@ the copy-on-write drain, the power-of-two context bucketing of each
 step's block bound, and quantized serving: int8/int4 weights
 (``weight_quant``, ``quantize_embeddings``, or a pre-built ``quant_tree``)
 through the mixed-input GEMM (``mixed_gemm``) and an int8/fp8 KV cache
-(``kv_quant``).
+(``kv_quant``), and seeded sampling (``rng=`` on ``step`` and
+``generate``) with the JAX engine's key stream.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item when its config field is set away from the default): the
@@ -23,8 +24,16 @@ API:
     eng = InferenceEngine(model, InferenceConfig(...))
     eng.put(uid, prompt_tokens)      # enqueue / continue a request
     out = eng.step()                 # one SplitFuse step -> {uid: token}
-    eng.generate(prompts, sampling)  # convenience loop
+    eng.generate(prompts, sampling, rng=PRNGKey(seed))  # convenience loop
     eng.flush(uid)                   # free a finished sequence
+
+Sampling keys (``utils.prng``, bit for bit the JAX package's threefry
+keys): a caller's key is the base key of every step of the call; without
+one, a sampler that needs a key takes the next ``split`` of the engine's
+own stream (``PRNGKey(0)`` at construction), one per dispatched step.
+Each row then samples with ``fold_in(fold_in(base, uid), position)``, so
+a seeded stream does not depend on pipeline depth, chunking or
+prefix-cache hits.
 
 Pipelining on the card: a step's sampled tokens are copied into a pinned
 host buffer right after the sample (non-blocking) and an event is
@@ -47,6 +56,7 @@ from ..models.transformer import Model, TransformerConfig, tree_map
 from ..ops.mixed_gemm import flat_kn, shape_error
 from ..ops.quant import (WEIGHT_QUANT_BITS, QuantizedTensor,
                          is_mixed_gemm_layout, is_rowwise_int4)
+from ..utils.prng import PRNGKey, split
 from .model import pipelined_ragged_step
 from .overload import (AdmissionVerdict, OverloadConfig, RequestMeta,
                        admission_decision, effective_priority,
@@ -245,6 +255,10 @@ class InferenceEngine:
         self._zero_toks = torch.zeros(self.icfg.max_seqs, dtype=torch.int32,
                                       device=self.device)
         self._last_toks: Optional[torch.Tensor] = None
+        # the engine's own key stream (a sampler without a caller key);
+        # kept on the device: a per-step host-to-card copy would stall
+        # the pipeline
+        self._rng = PRNGKey(0, device=self.device)
         self._dispatch_seq = 0
         self._fb_step: Dict[int, int] = {}   # uid -> sid its marker defers to
         # --- overload policy state (inference/overload.py) -------------
@@ -626,20 +640,36 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     # dispatch / collect
     # ------------------------------------------------------------------
-    def step(self, sampling: SamplingParams = SamplingParams()
-             ) -> Dict[int, int]:
+    def step(self, sampling: SamplingParams = SamplingParams(),
+             rng: Optional[torch.Tensor] = None) -> Dict[int, int]:
         """Run one engine step; returns {uid: next_token} for sequences
         whose last pending token was consumed.  Strict-sync form of the
-        pipeline: dispatch, then read straight back."""
-        st = self._dispatch(sampling)
+        pipeline: dispatch, then read straight back.  ``rng``: the base
+        key of this step, or None for the engine's own stream."""
+        st = self._dispatch(sampling, rng)
         if st is None:
             return {}
         return {u: ts[-1] for u, ts in self._collect(st).items()}
 
-    def _dispatch(self, sampling: SamplingParams) -> Optional[_InFlight]:
+    def _rng_drawer(self, rng: Optional[torch.Tensor]):
+        """None, or a zero-arg callable yielding the BASE sampling key
+        for each dispatched step.  An explicit caller key is reused
+        verbatim for every step of the call (moved to the engine's
+        device once): per-token randomness comes from the (uid,
+        position) fold inside the step (``sampler.row_keys``)."""
+        if rng is None:
+            return None
+        rng = rng.to(self.device)
+        return lambda: rng
+
+    def _dispatch(self, sampling: SamplingParams,
+                  rng=None) -> Optional[_InFlight]:
         """Schedule, stage and launch one serving step WITHOUT reading
         the sampled tokens back; returns the in-flight record or None
-        when nothing is schedulable."""
+        when nothing is schedulable.  ``rng``: an explicit key, a
+        zero-arg callable invoked only once a step is known to launch,
+        or None (the engine's own stream when the sampler needs a
+        key)."""
         t0 = time.perf_counter()
         sched = self._schedule()
         self._close_ctx_exhausted()
@@ -664,11 +694,18 @@ class InferenceEngine:
                                        stager=self._stager)
         self._drain_cow()       # COW copies land before the step's write
         t2 = time.perf_counter()
+        if callable(rng):
+            rng = rng()
+        if rng is None and sampling.needs_rng:
+            self._rng, rng = split(self._rng)
+        # greedy takes no key (the JAX engine passes a zero key that XLA
+        # then drops; here the fold would run, so none is passed)
+        rng = rng.to(self.device) if sampling.needs_rng else None
         prev = self._last_toks if self._last_toks is not None \
             else self._zero_toks
         toks, self.state.kv = pipelined_ragged_step(
             self.cfg, self.params, self._quant, self.state.kv, batch, prev,
-            lambda logits: sample_rows(logits, sampling),
+            rng, lambda logits, keys: sample_rows(logits, sampling, keys),
             bs_blk, mbs, mixed_gemm=self._mixed_gemm_active)
         if self._cuda:
             # start the token readback now, behind the sample on the
@@ -756,12 +793,15 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
     def generate(self, prompts: Dict[int, Sequence[int]],
-                 sampling: SamplingParams = SamplingParams()
+                 sampling: SamplingParams = SamplingParams(),
+                 rng: Optional[torch.Tensor] = None
                  ) -> Dict[int, List[int]]:
         """Run all prompts to max_new_tokens/stop.  ``pipeline_depth >=
         2`` (the default) keeps steps in flight: host scheduling,
         staging and token readback overlap device compute, and the
-        sampled tokens feed the next step on the device."""
+        sampled tokens feed the next step on the device.  ``rng``: the
+        base key of every step (``utils.prng.PRNGKey(seed)``), or None
+        for the engine's own stream."""
         done: Dict[int, List[int]] = {}
         active = set()
         for uid, p in prompts.items():
@@ -769,8 +809,8 @@ class InferenceEngine:
             if self.put(uid, p):
                 active.add(uid)
         if self.icfg.pipeline_depth >= 2:
-            return self._generate_pipelined(done, active, sampling)
-        return self._generate_sync(done, active, sampling)
+            return self._generate_pipelined(done, active, sampling, rng)
+        return self._generate_sync(done, active, sampling, rng)
 
     def _emit(self, done, active, uid, toks, sampling) -> bool:
         """Append ``toks`` to ``done[uid]`` up to stop/max; True when the
@@ -786,14 +826,16 @@ class InferenceEngine:
         return False
 
     def _generate_sync(self, done: Dict[int, List[int]], active: set,
-                       sampling: SamplingParams) -> Dict[int, List[int]]:
+                       sampling: SamplingParams,
+                       rng: Optional[torch.Tensor]) -> Dict[int, List[int]]:
         """Strict step-at-a-time driver (``pipeline_depth=1``)."""
         i = 0
+        draw = self._rng_drawer(rng)
         while active:
             active -= self._drain_reaped()
             if not active:
                 break
-            st = self._dispatch(sampling)
+            st = self._dispatch(sampling, draw)
             outs = self._collect(st) if st is not None else {}
             for uid in list(self._ctx_exhausted):
                 if uid in active:
@@ -810,7 +852,8 @@ class InferenceEngine:
         return done
 
     def _generate_pipelined(self, done: Dict[int, List[int]], active: set,
-                            sampling: SamplingParams
+                            sampling: SamplingParams,
+                            rng: Optional[torch.Tensor]
                             ) -> Dict[int, List[int]]:
         """Depth-``pipeline_depth`` dispatch-ahead driver: after
         launching step N it schedules, stages and launches step N+1 —
@@ -822,6 +865,7 @@ class InferenceEngine:
         inflight: deque = deque()
         finishing: set = set()    # ctx-exhausted, last token still in flight
         counts = {uid: 0 for uid in done}   # emitted + in-flight samples
+        draw = self._rng_drawer(rng)
         stall = 0
         while active or inflight:
             reaped = self._drain_reaped()
@@ -829,7 +873,7 @@ class InferenceEngine:
                 active -= reaped
                 finishing -= reaped
             while len(inflight) < depth and any(self._pending.values()):
-                st = self._dispatch(sampling)
+                st = self._dispatch(sampling, draw)
                 for uid in list(self._ctx_exhausted):
                     self._ctx_exhausted.discard(uid)
                     if uid in active:

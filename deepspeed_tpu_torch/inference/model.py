@@ -6,8 +6,10 @@ the scheduled mixed prefill/decode tokens of a :class:`RaggedBatch`:
   embed [n] -> per layer: qkv + rope(positions) -> write K/V into the
   paged cache -> per-token attention over the owning sequence's block
   table (``ops.paged_attention``: the Hopper kernel on the card, its
-  plain version on the CPU) -> MLP -> final norm -> unembed only at each
-  sequence's last scheduled token.
+  plain version on the CPU; with ALiBi slopes for ``position="alibi"``)
+  -> MLP -> final norm -> unembed only at each sequence's last scheduled
+  token.  :func:`pipelined_ragged_step` then samples every slot with a
+  key folded by (uid, position) (``sampler.row_keys``).
 
 PyTorch runs eagerly, so the step computes only the batch's ``n_tokens``
 real tokens, not its padded budget (the JAX package pads to a fixed shape
@@ -28,7 +30,7 @@ reads the codes.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -41,6 +43,7 @@ from ..ops.paged_attention import _kv_parts, paged_attention
 from ..ops.quant import QuantizedTensor, dequantize_any, is_rowwise_int8
 from .quantization import merge_layer
 from .ragged.state import RaggedBatch
+from .sampler import row_keys
 
 # quantized KV cache: code dtype -> the largest code magnitude
 _KV_QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
@@ -184,11 +187,12 @@ def ragged_forward(cfg: TransformerConfig, params, kv,
 
     if cfg.embed_norm:                  # bloom word_embeddings_layernorm
         x = norm(params["ln_embed"], x)
-    rope = None
+    rope = slopes = None
     if cfg.position == "learned":
         x = x + params["pos_embed"]["table"][positions.long()].to(dt)
     elif cfg.position == "alibi":
-        L.alibi_slopes(cfg.num_heads)            # raises: not ported yet
+        # once per step, from the model's head count (never the local Hkv)
+        slopes = L.cached_alibi_slopes(cfg.num_heads, x.device)
     else:
         cos, sin = L.rope_freqs(cfg.rotary_dim, cfg.max_seq_len,
                                 cfg.rope_theta, device=x.device)
@@ -212,7 +216,7 @@ def ragged_forward(cfg: TransformerConfig, params, kv,
         _write_kv(kv_layer, k, v, slots)
         o = paged_attention(kv_layer, q.contiguous(), seq_slot,
                             positions, batch.block_tables, block_size,
-                            max_blocks_per_seq, scale)
+                            max_blocks_per_seq, scale, slopes=slopes)
         o = _mm(o.reshape(n, -1), ap["wo"], dt, contract_dims=2)
         if cfg.attn_out_bias:
             o = o + ap["bo"].to(dt)
@@ -240,8 +244,9 @@ def ragged_forward(cfg: TransformerConfig, params, kv,
 @torch.no_grad()
 def pipelined_ragged_step(cfg: TransformerConfig, params, quant, kv,
                           batch: RaggedBatch, prev_toks: torch.Tensor,
-                          sample_fn: Callable, block_size: int,
-                          max_blocks_per_seq: int, mixed_gemm: bool = False
+                          rng: Optional[torch.Tensor], sample_fn: Callable,
+                          block_size: int, max_blocks_per_seq: int,
+                          mixed_gemm: bool = False
                           ) -> Tuple[torch.Tensor, object]:
     """One serving pipeline stage, entirely on the device: substitute
     deferred feedback tokens from the previous step's on-device samples,
@@ -250,6 +255,13 @@ def pipelined_ragged_step(cfg: TransformerConfig, params, quant, kv,
     ``prev_toks``: [max_seqs] i32, the previous step's sample output
     (still on the device).  ``batch.feedback_src[t] == s`` means token
     ``t``'s id is ``prev_toks[s]``; -1 keeps the host-staged id.
+    ``rng`` is the caller's BASE key (``utils.prng``): each row samples
+    with ``row_keys(rng, uid, context length)``, so sampled values are
+    invariant to scheduling (pipeline depth, chunking, prefix-cache
+    hits).  ``sample_fn(logits, keys)`` consumes the per-row keys.  A
+    greedy sampler takes ``rng=None`` and gets ``keys=None``: the JAX
+    step folds a zero key that XLA then drops, which eager PyTorch
+    would run, so the fold is skipped instead.
     ``quant``/``mixed_gemm`` as in :func:`ragged_forward`.
     Returns (sampled tokens [max_seqs] i32, kv); rows whose
     ``batch.logits_idx`` is -1 are garbage."""
@@ -261,4 +273,6 @@ def pipelined_ragged_step(cfg: TransformerConfig, params, quant, kv,
     logits, kv = ragged_forward(cfg, params, kv, batch, block_size,
                                 max_blocks_per_seq, quant=quant,
                                 mixed_gemm=mixed_gemm)
-    return sample_fn(logits), kv
+    keys = None if rng is None else row_keys(rng, batch.seq_uids,
+                                             batch.context_lens)
+    return sample_fn(logits, keys), kv

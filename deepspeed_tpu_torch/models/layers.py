@@ -1,6 +1,7 @@
 """Functional layers on plain tensors.
 
-Counterpart of ``deepspeed_tpu/models/layers.py:34-183``: the apply
+Counterpart of ``deepspeed_tpu/models/layers.py:34-183`` (ALiBi's
+slopes and bias included): the apply
 functions take the same parameter dictionaries (``{"table"}``,
 ``{"scale", "bias"}``) and the same layouts, so a parameter tree carried
 over from the JAX package runs unchanged.
@@ -33,12 +34,57 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * p["scale"]).to(x.dtype)                  # promotes to f32
 
 
-def alibi_slopes(num_heads: int) -> torch.Tensor:
-    """ALiBi needs the paged-attention kernel's slopes operand, which this
-    port does not have yet (ROADMAP Queue 2, K2 ALiBi variant)."""
-    raise NotImplementedError(
-        "position='alibi' is not ported yet: it needs the ALiBi variant of "
-        "the paged-attention kernel (ROADMAP Queue 2, K2)")
+def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
+    """ALiBi per-head slopes [num_heads] fp32: the geometric sequence from
+    2^(-8/n) for the largest power of two n <= num_heads, padded for a
+    non-power-of-two head count with every other slope of the 2n
+    sequence, as the HF implementation does.  Computed in Python floats
+    and rounded once to fp32, bit for bit the JAX package's."""
+    n = 2 ** math.floor(math.log2(num_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+    slopes = [base ** (i + 1) for i in range(n)]
+    if n < num_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * n) - 3)))
+        slopes += [extra_base ** (2 * i + 1)
+                   for i in range(num_heads - n)]
+    return torch.tensor(slopes, dtype=torch.float32, device=device)
+
+
+_SLOPES = {}
+
+
+def cached_alibi_slopes(num_heads: int, device) -> torch.Tensor:
+    """:func:`alibi_slopes` on ``device``, made once per (head count,
+    device) and shared: read-only.  A fresh tensor per call would copy
+    from the host to the card, which synchronises the stream."""
+    key = (num_heads, str(torch.device(device)))
+    if key not in _SLOPES:
+        _SLOPES[key] = alibi_slopes(num_heads, device=device)
+    return _SLOPES[key]
+
+
+def make_alibi_attention(base=None, head_offset=None,
+                         total_heads: Optional[int] = None):
+    """Wrap an attention fn with the ALiBi bias in its key-position form
+    ``slope_h * j`` (the query-position term is constant along a softmax
+    row and cancels), fed to ``base`` (default :func:`causal_attention`)
+    as ``bias`` [H, 1, Sk].  ``head_offset``/``total_heads`` (a local
+    head block of a sequence-parallel shard) come with the port's
+    sequence parallelism (ROADMAP Queue 1 item 7) and raise here."""
+    if head_offset is not None or total_heads is not None:
+        raise NotImplementedError(
+            "make_alibi_attention(head_offset=, total_heads=) is for "
+            "sequence-parallel head shards, not ported yet (ROADMAP Queue 1 "
+            "item 7, parallel/)")
+    base_fn = base or causal_attention
+
+    def attn(q, k, v, mask=None, **kw):
+        Sk = k.shape[1]
+        slopes = cached_alibi_slopes(q.shape[2], q.device)
+        bias = slopes[:, None, None] * torch.arange(
+            Sk, dtype=torch.float32, device=q.device)[None, None, :]
+        return base_fn(q, k, v, mask=mask, bias=bias, **kw)
+    return attn
 
 
 def rope_freqs(head_dim: int, max_seq: int, theta: float = 10000.0,

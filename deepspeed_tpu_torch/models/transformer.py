@@ -13,8 +13,9 @@ The layer stack is a Python loop over views of the stacked weights
 forward the training loss runs; :func:`apply` is the same forward under
 ``torch.no_grad`` for serving.  The training half: ``lm_loss_fn`` with
 ``rolled_lm_targets`` and ``cross_entropy_loss``, ``_resolve_attention``
-(``attention_impl``) and per-layer remat.  Not ported: MoE
-(``num_experts > 1`` raises), ALiBi, the selective remat policies.
+(``attention_impl``) and per-layer remat.  ALiBi (``position="alibi"``)
+runs through the eager attention with the per-head bias.  Not ported:
+MoE (``num_experts > 1`` raises), the selective remat policies.
 """
 
 from __future__ import annotations
@@ -340,7 +341,11 @@ def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor,
         S = input_ids.shape[1]
         x = x + params["pos_embed"]["table"][:S].to(dt)
     elif cfg.position == "alibi":
-        L.alibi_slopes(cfg.num_heads)            # raises: not ported yet
+        # the default eager attention gains the ALiBi bias (Model's
+        # resolved attention carries it already)
+        if attention_fn is None:
+            attention_fn = L.make_alibi_attention(
+                partial(L.causal_attention, scale=attn_scale(cfg)))
     else:
         cos, sin = L.rope_freqs(cfg.rotary_dim, cfg.max_seq_len,
                                 cfg.rope_theta, device=x.device)
@@ -493,7 +498,8 @@ def _resolve_attention(cfg: TransformerConfig) -> Callable:
     """attention_impl -> callable: ``"flash"`` is the K1 kernels' wrapper;
     ``"xla"`` and ``"xla_flash"`` (an XLA memory schedule of the same
     function, ops/xla_attention.py in the JAX package) are the plain
-    ``causal_attention``."""
+    ``causal_attention``.  ALiBi wraps the eager attention with the
+    per-head bias (the flash kernels have no bias operand)."""
     if cfg.attn_scale is not None and cfg.attention_impl in (
             "flash", "xla_flash"):
         raise ValueError(
@@ -505,7 +511,8 @@ def _resolve_attention(cfg: TransformerConfig) -> Callable:
                 "position='alibi' needs the eager attention "
                 "(attention_impl='xla'): the flash kernels carry no "
                 "additive-bias operand")
-        L.alibi_slopes(cfg.num_heads)            # raises: not ported yet
+        return L.make_alibi_attention(
+            partial(L.causal_attention, scale=attn_scale(cfg)))
     if cfg.attention_impl == "flash":
         from ..ops.flash_attention import flash_attention
         return flash_attention

@@ -12,12 +12,19 @@
 //   scales  [nrows, bs, 2, Hkv] fp32       (the `kv_quant` variant, :78-82)
 //   q / out [T, H, D] bf16
 //   seq_slot, positions [T] i32;  block_tables [max_seqs, tbl_stride] i32
+//   slopes  [H] fp32 or null               (the `alibi` variant, :86-88)
 //
 // Numerics follow the TPU kernel: keys past positions[t] are masked with
 // -1e30, blocks past positions[t] / bs are never visited, the softmax is
 // online in fp32, the final division uses max(l, 1e-30), and query head h
 // reads KV head h / rep.  (The TPU kernel rounds the probabilities to the
 // value dtype before the PV product; this one keeps them in fp32.)
+// ALiBi adds slopes[h] x key position to each score in the TPU kernel's
+// order: s * scale, then + slope * position (each product rounded, no
+// fused multiply-add), then the mask.  The bias reaches ~1.7e3 at BLOOM's
+// first head and position 2047, so a different order would move the low
+// bits of large scores.  ALiBi is a template flag: the instantiations
+// without it are the kernel as it was.
 // Budget-padding tokens (slot 0, position 0) read one block and produce
 // finite garbage.  A quantized row is dequantized as bf16(float(code) x
 // scale), which is the reference's (codes.astype(f32) * scale).astype(q
@@ -50,7 +57,9 @@
 //     launches only 64 thread blocks on 132 SMs.
 //
 // Supported: a bf16, int8 or fp8 e4m3 cache, bf16 q and out, D in {64, 128},
-// 1 <= rep = H / Hkv <= 8, 1 <= bs <= 256.
+// 1 <= rep = H / Hkv <= 8, 1 <= bs <= 256, with or without ALiBi slopes.
+// The bias adds no bytes beyond H slopes and two flops per score, so the
+// bounds above hold for the ALiBi variant too.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -93,10 +102,11 @@ __device__ __forceinline__ void load8(const CodeT* p, float scale, float* f) {
                                                 scale));
 }
 
-template <int D, int REP, typename CodeT>
+template <int D, int REP, typename CodeT, bool ALIBI>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const CodeT* __restrict__ kv,
                        const float* __restrict__ kv_scales,
+                       const float* __restrict__ slopes,
                        const __nv_bfloat16* __restrict__ q,
                        const int* __restrict__ seq_slot,
                        const int* __restrict__ positions,
@@ -143,6 +153,10 @@ paged_attention_kernel(const CodeT* __restrict__ kv,
     m_sh[tid] = kNegInf;
     l_sh[tid] = 0.f;
   }
+  // ALiBi: the group's REP slopes, once per thread block
+  float sl[REP];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) sl[r] = ALIBI ? slopes[g * REP + r] : 0.f;
 
   // elements between consecutive (block, offset) rows; K and V of one row
   // are Hkv * D apart, and head g sits g * D into each
@@ -186,10 +200,16 @@ paged_attention_kernel(const CodeT* __restrict__ kv,
         for (int off = TPK / 2; off > 0; off >>= 1)
           dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], off);
       if (lane == 0 && o < bs) {
-        const bool keep = j * bs + o <= pos;
+        const int key = j * bs + o;
+        const bool keep = key <= pos;
 #pragma unroll
-        for (int r = 0; r < REP; ++r)
-          s_sh[r * bs + o] = keep ? dot[r] * scale : kNegInf;
+        for (int r = 0; r < REP; ++r) {
+          const float sc =
+              ALIBI ? __fadd_rn(__fmul_rn(dot[r], scale),
+                                __fmul_rn(sl[r], static_cast<float>(key)))
+                    : dot[r] * scale;
+          s_sh[r * bs + o] = keep ? sc : kNegInf;
+        }
       }
     }
     __syncthreads();
@@ -263,36 +283,38 @@ paged_attention_kernel(const CodeT* __restrict__ kv,
   }
 }
 
-template <int D, int REP, typename CodeT>
-cudaError_t launch(const void* kv, const void* kv_scales, const void* q,
-                   const void* seq_slot, const void* positions,
+template <int D, int REP, typename CodeT, bool ALIBI>
+cudaError_t launch(const void* kv, const void* kv_scales, const void* slopes,
+                   const void* q, const void* seq_slot, const void* positions,
                    const void* block_tables, void* out, int T, int Hkv,
                    int bs, int nrows, int tbl_stride, int nb, float scale,
                    cudaStream_t stream) {
   constexpr int NG = kThreads / (D / 8);
   const size_t smem = sizeof(float) * ((size_t)REP * bs + (size_t)NG * REP * D);
   dim3 grid(T, Hkv);
-  paged_attention_kernel<D, REP, CodeT><<<grid, kThreads, smem, stream>>>(
+  paged_attention_kernel<D, REP, CodeT, ALIBI>
+      <<<grid, kThreads, smem, stream>>>(
       static_cast<const CodeT*>(kv), static_cast<const float*>(kv_scales),
-      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const float*>(slopes), static_cast<const __nv_bfloat16*>(q),
       static_cast<const int*>(seq_slot), static_cast<const int*>(positions),
       static_cast<const int*>(block_tables),
       static_cast<__nv_bfloat16*>(out), Hkv, bs, nrows, tbl_stride, nb, scale);
   return cudaGetLastError();
 }
 
-template <typename CodeT, int D>
+template <typename CodeT, int D, bool ALIBI>
 cudaError_t launch_rep(int rep, const void* kv, const void* kv_scales,
-                       const void* q, const void* seq_slot,
-                       const void* positions, const void* block_tables,
-                       void* out, int T, int Hkv, int bs, int nrows,
-                       int tbl_stride, int nb, float scale,
+                       const void* slopes, const void* q,
+                       const void* seq_slot, const void* positions,
+                       const void* block_tables, void* out, int T, int Hkv,
+                       int bs, int nrows, int tbl_stride, int nb, float scale,
                        cudaStream_t stream) {
 #define PA_CASE(R)                                                          \
   case R:                                                                   \
-    return launch<D, R, CodeT>(kv, kv_scales, q, seq_slot, positions,      \
-                               block_tables, out, T, Hkv, bs, nrows,       \
-                               tbl_stride, nb, scale, stream);
+    return launch<D, R, CodeT, ALIBI>(kv, kv_scales, slopes, q, seq_slot,  \
+                                      positions, block_tables, out, T,     \
+                                      Hkv, bs, nrows, tbl_stride, nb,      \
+                                      scale, stream);
   switch (rep) {
     PA_CASE(1) PA_CASE(2) PA_CASE(3) PA_CASE(4)
     PA_CASE(5) PA_CASE(6) PA_CASE(7) PA_CASE(8)
@@ -302,47 +324,71 @@ cudaError_t launch_rep(int rep, const void* kv, const void* kv_scales,
 #undef PA_CASE
 }
 
+template <typename CodeT, bool ALIBI>
+cudaError_t launch_alibi(const void* kv, const void* kv_scales,
+                         const void* slopes, const void* q,
+                         const void* seq_slot, const void* positions,
+                         const void* block_tables, void* out, int T, int rep,
+                         int Hkv, int D, int bs, int nrows, int tbl_stride,
+                         int nb, float scale, cudaStream_t stream) {
+  if (D == 128)
+    return launch_rep<CodeT, 128, ALIBI>(rep, kv, kv_scales, slopes, q,
+                                         seq_slot, positions, block_tables,
+                                         out, T, Hkv, bs, nrows, tbl_stride,
+                                         nb, scale, stream);
+  if (D == 64)
+    return launch_rep<CodeT, 64, ALIBI>(rep, kv, kv_scales, slopes, q,
+                                        seq_slot, positions, block_tables,
+                                        out, T, Hkv, bs, nrows, tbl_stride,
+                                        nb, scale, stream);
+  return cudaErrorInvalidValue;
+}
+
 template <typename CodeT>
-cudaError_t launch_d(const void* kv, const void* kv_scales, const void* q,
-                     const void* seq_slot, const void* positions,
-                     const void* block_tables, void* out, int T, int H,
-                     int Hkv, int D, int bs, int nrows, int tbl_stride,
-                     int nb, float scale, cudaStream_t stream) {
+cudaError_t launch_d(const void* kv, const void* kv_scales,
+                     const void* slopes, const void* q, const void* seq_slot,
+                     const void* positions, const void* block_tables,
+                     void* out, int T, int H, int Hkv, int D, int bs,
+                     int nrows, int tbl_stride, int nb, float scale,
+                     cudaStream_t stream) {
   if (T == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0 || bs < 1 || bs > kMaxBlockSize || nb < 1)
     return cudaErrorInvalidValue;
   const int rep = H / Hkv;
   if (rep > kMaxRep) return cudaErrorInvalidValue;
-  if (D == 128)
-    return launch_rep<CodeT, 128>(rep, kv, kv_scales, q, seq_slot, positions,
-                                  block_tables, out, T, Hkv, bs, nrows,
-                                  tbl_stride, nb, scale, stream);
-  if (D == 64)
-    return launch_rep<CodeT, 64>(rep, kv, kv_scales, q, seq_slot, positions,
-                                 block_tables, out, T, Hkv, bs, nrows,
-                                 tbl_stride, nb, scale, stream);
-  return cudaErrorInvalidValue;
+  if (slopes != nullptr)
+    return launch_alibi<CodeT, true>(kv, kv_scales, slopes, q, seq_slot,
+                                     positions, block_tables, out, T, rep,
+                                     Hkv, D, bs, nrows, tbl_stride, nb, scale,
+                                     stream);
+  return launch_alibi<CodeT, false>(kv, kv_scales, slopes, q, seq_slot,
+                                    positions, block_tables, out, T, rep, Hkv,
+                                    D, bs, nrows, tbl_stride, nb, scale,
+                                    stream);
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success).  Launches on
-// `stream` and does not synchronise.
-extern "C" int paged_attention_bf16(const void* kv, const void* q,
-                                    const void* seq_slot,
+// `stream` and does not synchronise.  `slopes`: H fp32 ALiBi slopes in
+// head order, or null for none.
+extern "C" int paged_attention_bf16(const void* kv, const void* slopes,
+                                    const void* q, const void* seq_slot,
                                     const void* positions,
                                     const void* block_tables, void* out,
                                     int T, int H, int Hkv, int D, int bs,
                                     int nrows, int tbl_stride, int nb,
                                     float scale, void* stream) {
   return (int)launch_d<__nv_bfloat16>(
-      kv, nullptr, q, seq_slot, positions, block_tables, out, T, H, Hkv, D,
-      bs, nrows, tbl_stride, nb, scale, static_cast<cudaStream_t>(stream));
+      kv, nullptr, slopes, q, seq_slot, positions, block_tables, out, T, H,
+      Hkv, D, bs, nrows, tbl_stride, nb, scale,
+      static_cast<cudaStream_t>(stream));
 }
 
 // The quantized cache: `kv` holds int8 (code_type 0) or fp8 e4m3 (code_type
 // 1) codes, `kv_scales` their fp32 scales.  Same contract otherwise.
 extern "C" int paged_attention_quant(const void* kv, const void* kv_scales,
+                                     const void* slopes,
                                      const void* q, const void* seq_slot,
                                      const void* positions,
                                      const void* block_tables, void* out,
@@ -353,11 +399,11 @@ extern "C" int paged_attention_quant(const void* kv, const void* kv_scales,
   if (kv_scales == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (code_type == 0)
-    return (int)launch_d<int8_t>(kv, kv_scales, q, seq_slot, positions,
-                                 block_tables, out, T, H, Hkv, D, bs, nrows,
-                                 tbl_stride, nb, scale, s);
+    return (int)launch_d<int8_t>(kv, kv_scales, slopes, q, seq_slot,
+                                 positions, block_tables, out, T, H, Hkv, D,
+                                 bs, nrows, tbl_stride, nb, scale, s);
   if (code_type == 1)
-    return (int)launch_d<__nv_fp8_e4m3>(kv, kv_scales, q, seq_slot,
+    return (int)launch_d<__nv_fp8_e4m3>(kv, kv_scales, slopes, q, seq_slot,
                                         positions, block_tables, out, T, H,
                                         Hkv, D, bs, nrows, tbl_stride, nb,
                                         scale, s);

@@ -21,12 +21,17 @@ package: int8 or fp8 (e4m3) codes ``[blocks+1, bs, 2, Hkv, D]`` with one
 fp32 scale per K/V row ``[blocks+1, bs, 2, Hkv]``.  The plain versions
 dequantize the gathered rows to q's dtype (``_dequant_ctx``); the kernel
 reads the codes and dequantizes each row it reads.
+
+ALiBi (the TPU kernel's ``alibi`` operand): optional fp32 ``slopes``, any
+shape of ``H`` elements reshapeable to ``[Hkv, rep]`` in head order
+``h = hkv * rep + r``, add ``slopes[h] * key_position`` to each score
+after the ``* scale`` and before the mask, for either cache type.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -52,17 +57,20 @@ KVLayer = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _kernel_fn(quant: bool):
+    """The C entry point: (kv, [scales,] slopes, q, seq_slot, positions,
+    block_tables, out) pointers, 8 ints, the scale, [code_type,] stream;
+    a null ``slopes`` pointer means no ALiBi."""
     lib = BUILDER.load()
     if quant:
         fn = lib.paged_attention_quant
         if fn.argtypes is None:
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
         return fn
     fn = lib.paged_attention_bf16
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -97,24 +105,29 @@ def _check(cond: bool, msg: str) -> None:
 def paged_attention(kv_layer: KVLayer, q: torch.Tensor,
                     seq_slot: torch.Tensor, positions: torch.Tensor,
                     block_tables: torch.Tensor, block_size: int,
-                    max_blocks_per_seq: int, scale: float) -> torch.Tensor:
+                    max_blocks_per_seq: int, scale: float,
+                    slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """kv_layer: [blocks+1, bs, 2, Hkv, D] (last row = trash), or a
     quantized ``(codes, scales [blocks+1, bs, 2, Hkv])`` pair; q: [T, H, D];
     seq_slot/positions: [T] i32; block_tables: [max_seqs, >= nb] i32
-    (-1 pad) -> out [T, H, D].  CPU tensors take the plain version; CUDA
+    (-1 pad); ``slopes``: optional ALiBi slopes, H fp32 values in head
+    order -> out [T, H, D].  CPU tensors take the plain version; CUDA
     tensors launch the kernel (bf16 q; a bf16, int8 or fp8 cache) and bump
     ``paged_attention.launches`` (bf16 cache), ``.int8_launches`` or
-    ``.fp8_launches``."""
+    ``.fp8_launches``, and ``.alibi_launches`` as well when the launch
+    carried slopes."""
     if q.device.type == "cpu":
         return paged_attention_plain(kv_layer, q, seq_slot, positions,
                                      block_tables, block_size,
-                                     max_blocks_per_seq, scale)
+                                     max_blocks_per_seq, scale, slopes)
     _check(q.device.type == "cuda", f"unsupported device {q.device}")
     data, scales = _kv_parts(kv_layer)
     operands = [("kv", data), ("seq_slot", seq_slot),
                 ("positions", positions), ("block_tables", block_tables)]
     if scales is not None:
         operands.append(("kv scales", scales))
+    if slopes is not None:
+        operands.append(("slopes", slopes))
     for name, x in operands:
         _check(x.device == q.device, f"{name} on {x.device}, q on {q.device}")
         _check(x.is_contiguous(), f"{name} is not contiguous")
@@ -153,13 +166,18 @@ def paged_attention(kv_layer: KVLayer, q: torch.Tensor,
            f"max_blocks_per_seq {max_blocks_per_seq}")
     _check(data.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0,
            "kv/q must be 16-byte aligned")
+    if slopes is not None:
+        _check(slopes.dtype == torch.float32 and slopes.numel() == H,
+               f"slopes must be {H} fp32 values (Hkv * rep), got "
+               f"{slopes.dtype} {tuple(slopes.shape)}")
     out = torch.empty_like(q)
     if T == 0:
         return out
     ints = (T, H, Hkv, D, bs, nrows, block_tables.shape[1],
             max_blocks_per_seq)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptrs = (q.data_ptr(), seq_slot.data_ptr(), positions.data_ptr(),
+    ptrs = (None if slopes is None else slopes.data_ptr(), q.data_ptr(),
+            seq_slot.data_ptr(), positions.data_ptr(),
             block_tables.data_ptr(), out.data_ptr())
     if scales is None:
         err = _kernel_fn(False)(data.data_ptr(), *ptrs, *ints, float(scale),
@@ -177,19 +195,23 @@ def paged_attention(kv_layer: KVLayer, q: torch.Tensor,
         paged_attention.int8_launches += 1
     else:
         paged_attention.fp8_launches += 1
+    if slopes is not None:
+        paged_attention.alibi_launches += 1
     return out
 
 
 paged_attention.launches = 0          # bf16 cache
 paged_attention.int8_launches = 0     # int8 codes + scales
 paged_attention.fp8_launches = 0      # fp8 e4m3 codes + scales
+paged_attention.alibi_launches = 0    # with ALiBi slopes (either cache)
 
 
 def paged_attention_plain(kv_layer: KVLayer, q: torch.Tensor,
                           seq_slot: torch.Tensor, positions: torch.Tensor,
                           block_tables: torch.Tensor, block_size: int,
-                          max_blocks_per_seq: int,
-                          scale: float) -> torch.Tensor:
+                          max_blocks_per_seq: int, scale: float,
+                          slopes: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Per-token attention over the owning sequence's context by gather
     (port of ``_paged_attention``); switches to the block-at-a-time form
     when the one-shot gather would exceed ``_ONE_SHOT_GATHER_BYTES``."""
@@ -200,7 +222,7 @@ def paged_attention_plain(kv_layer: KVLayer, q: torch.Tensor,
     if T * C * 2 * Hkv * D * data.element_size() > _ONE_SHOT_GATHER_BYTES:
         return paged_attention_chunked(kv_layer, q, seq_slot, positions,
                                        block_tables, block_size,
-                                       max_blocks_per_seq, scale)
+                                       max_blocks_per_seq, scale, slopes)
     rep = H // Hkv
     tables = _tables(block_tables, seq_slot, max_blocks_per_seq, nrows)
     ctx = _gather(data, tables).reshape(T, C, 2, Hkv, D)   # [T, nb, bs, ...]
@@ -212,6 +234,8 @@ def paged_attention_plain(kv_layer: KVLayer, q: torch.Tensor,
     qg = q.reshape(T, Hkv, rep, D)
     s = torch.einsum("thrd,tchd->thrc", qg, k_ctx).float() * scale
     cols = torch.arange(C, device=q.device)[None, :]
+    if slopes is not None:      # ALiBi: slope_h * absolute key position
+        s = s + _alibi(slopes, Hkv, rep, cols)
     valid = cols <= positions[:, None]                  # [T, C]
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
@@ -222,8 +246,9 @@ def paged_attention_plain(kv_layer: KVLayer, q: torch.Tensor,
 def paged_attention_chunked(kv_layer: KVLayer, q: torch.Tensor,
                             seq_slot: torch.Tensor, positions: torch.Tensor,
                             block_tables: torch.Tensor, block_size: int,
-                            max_blocks_per_seq: int,
-                            scale: float) -> torch.Tensor:
+                            max_blocks_per_seq: int, scale: float,
+                            slopes: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """Port of ``_paged_attention_chunked``: one context block per step
     ([T, bs, 2, Hkv, D] gathered) folded into an online softmax — the
     one-shot numerics with memory proportional to T * block_size."""
@@ -246,6 +271,8 @@ def paged_attention_chunked(kv_layer: KVLayer, q: torch.Tensor,
             v = _dequant_ctx(v, sc[:, :, 1], q.dtype)
         s = torch.einsum("thrd,tbhd->thrb", qg, k).float() * scale
         cols = j * bs + offs[None, :]
+        if slopes is not None:
+            s = s + _alibi(slopes, Hkv, rep, cols)
         valid = cols <= positions[:, None]              # [T, bs]
         s = torch.where(valid[:, None, None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -257,6 +284,13 @@ def paged_attention_chunked(kv_layer: KVLayer, q: torch.Tensor,
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.reshape(T, H, D).to(q.dtype)
+
+
+def _alibi(slopes: torch.Tensor, Hkv: int, rep: int,
+           cols: torch.Tensor) -> torch.Tensor:
+    """ALiBi bias [1, Hkv, rep, C] of key positions ``cols`` [1, C]."""
+    return (slopes.float().reshape(Hkv, rep)[None, :, :, None]
+            * cols[:, None, None, :].float())
 
 
 def _tables(block_tables, seq_slot, nb: int, nrows: int) -> torch.Tensor:

@@ -4,7 +4,8 @@ must match the JAX engine TOKEN FOR TOKEN, with the fp32 engines of
 tests/test_inference.py, across prefix cache on/off x pipeline depth
 1/2, prompts longer than the token budget (chunked prefill), a prompt
 sharing another's leading blocks (a prefix-cache hit), a stop token and
-the context limit.  Unsupported configuration values raise."""
+the context limit.  Unsupported configuration values raise; a sampled
+request runs (its seeded streams: tests/test_torch_sampler.py)."""
 
 import dataclasses
 
@@ -148,8 +149,14 @@ def test_bad_values_and_seeded_sampling_raise(models):
     # 'on' with nothing quantized: no layout the kernel family consumes
     with pytest.raises(ValueError, match="mixed_gemm"):
         _port_engine(port, mixed_gemm="on")
-    with pytest.raises(NotImplementedError, match="temperature"):
-        SamplingParams(temperature=0.8)
+    # seeded sampling is ported: a sampled request runs; the sampler
+    # itself raises without keys (the engine always supplies them)
+    from deepspeed_tpu_torch.inference.sampler import sample_rows
+    sp = SamplingParams(temperature=0.8, top_k=20, max_new_tokens=4)
+    with pytest.raises(ValueError, match="keys"):
+        sample_rows(torch.zeros(2, 128), sp)
+    out = _port_engine(port).generate({7: _prompts()[1]}, sp)
+    assert len(out[7]) == 4 and all(0 <= t < 128 for t in out[7])
 
 
 # --- the scheduler and overload policy, in lockstep with the JAX engine ---

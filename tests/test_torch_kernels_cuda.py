@@ -354,3 +354,86 @@ def test_paged_attention_quantized_rejects_what_it_does_not_take(cuda_device):
         paged_attention((codes[..., :32].contiguous(), scales),
                         q[..., :32].contiguous(), *rest)
     torch.cuda.synchronize()
+
+
+# --- the ALiBi variant of paged attention (K2) --------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("bs", [16, 64])
+@pytest.mark.parametrize("H, Hkv, D", [(32, 32, 128), (32, 8, 128),
+                                       (8, 1, 64)],
+                         ids=["bloom-7b1-rep1", "rep4", "rep8"])
+def test_paged_attention_alibi_kernel_matches_plain(cuda_device, H, Hkv, D,
+                                                    bs, code):
+    """ALiBi slopes (the model's, from alibi_slopes(H)) with a bf16, int8
+    or fp8 cache: a prefill chunk, an aliased decode token, a position-0
+    token and a decode token at position 2047, where the bias reaches
+    ~1.7e3 on the first head; atol = rtol = 2e-2.  The launch bumps the
+    cache type's counter and ``alibi_launches``."""
+    from deepspeed_tpu_torch.inference.model import _quantize_kv
+    from deepspeed_tpu_torch.models.layers import alibi_slopes
+    rng = np.random.RandomState(bs + H + Hkv)
+    nb = -(-2048 // bs)
+    nblocks = nb + 16
+    tables = np.full((5, nblocks), -1, np.int32)
+    chunk_blocks = -(-96 // bs)
+    tables[0, :chunk_blocks] = rng.permutation(nblocks)[:chunk_blocks]
+    tables[1, :1] = tables[0, :1]
+    tables[1, 1:-(-120 // bs)] = nblocks - 1
+    tables[2, 0] = tables[0, 0]
+    tables[3, :nb] = rng.randint(0, nblocks, nb)
+    toks = ([(0, p) for p in range(32, 96)] + [(1, 119), (2, 0),
+                                                (3, 2047)])
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(bs + H)
+    kv = torch.randn(nblocks + 1, bs, 2, Hkv, D, device=dev, generator=gen)
+    if code == "bf16":
+        kv = kv.to(torch.bfloat16)
+    else:
+        kv = _quantize_kv(kv, {"int8": torch.int8,
+                               "fp8": torch.float8_e4m3fn}[code])
+    q = torch.randn(len(toks), H, D, device=dev, dtype=torch.bfloat16,
+                    generator=gen)
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)  # noqa: E731
+    args = (kv, q, as_t([s for s, _ in toks]), as_t([p for _, p in toks]),
+            as_t(tables), bs, nb, D ** -0.5, alibi_slopes(H, device=dev))
+    counter = "launches" if code == "bf16" else f"{code}_launches"
+    before = (getattr(paged_attention, counter),
+              paged_attention.alibi_launches)
+    out = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert (getattr(paged_attention, counter),
+            paged_attention.alibi_launches) == (before[0] + 1, before[1] + 1)
+    ref = paged_attention_plain(*args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    # the bias changed the result: the same launch without slopes differs
+    plain = paged_attention_plain(*args[:-1])
+    assert float((plain.float() - ref.float()).abs().max()) > 0.1
+
+
+@pytest.mark.cuda
+def test_paged_attention_rejects_bad_slopes(cuda_device):
+    """Slopes of the wrong dtype, element count or device, or not
+    contiguous, raise before any launch; a bf16 and a quantized cache
+    check them alike."""
+    dev = cuda_device
+    kv = torch.zeros(3, 16, 2, 2, 128, device=dev, dtype=torch.bfloat16)
+    codes = torch.zeros(3, 16, 2, 2, 128, device=dev, dtype=torch.int8)
+    scales = torch.ones(3, 16, 2, 2, device=dev)
+    q = torch.zeros(2, 4, 128, device=dev, dtype=torch.bfloat16)
+    i32 = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa: E731
+    rest = (i32(2), i32(2), i32(2, 2), 16, 2, 0.1)
+    good = torch.ones(2, 2, device=dev)                # [Hkv, rep]
+    for cache in (kv, (codes, scales)):
+        paged_attention(cache, q, *rest, good)
+        with pytest.raises(ValueError, match="slopes"):
+            paged_attention(cache, q, *rest, good.double())
+        with pytest.raises(ValueError, match="slopes"):
+            paged_attention(cache, q, *rest, torch.ones(3, device=dev))
+        with pytest.raises(ValueError, match="slopes"):
+            paged_attention(cache, q, *rest, good.cpu())
+        with pytest.raises(ValueError, match="slopes"):
+            paged_attention(cache, q, *rest, torch.ones(2, 4, device=dev)[:, ::2])
+    torch.cuda.synchronize()

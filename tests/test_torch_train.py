@@ -240,9 +240,10 @@ TINY = {
 }
 
 
-def tiny_models(name, attention_impl="flash", **extra):
-    """The JAX model and the port's, on the same (noised) weights."""
-    preset, over = TINY[name]
+def tiny_models(name, attention_impl="flash", spec=None, **extra):
+    """The JAX model and the port's, on the same (noised) weights.
+    ``spec``: a (preset, overrides) pair in place of ``TINY[name]``."""
+    preset, over = spec or TINY[name]
     jm = jax_build_model(preset, seed=3, attention_impl=attention_impl,
                          **over, **extra)
     r = np.random.RandomState(7)
@@ -413,12 +414,14 @@ def test_engine_runs_on_the_card_unless_asked(monkeypatch):
 STEPS = 8
 
 
-def run_trajectories(name, gas, bf16=False, steps=STEPS):
+def run_trajectories(name, gas, bf16=False, steps=STEPS,
+                     attention_impl="flash", spec=None):
     """The JAX engine and the port's (``device="cpu"``) from the same
-    weights on the same ``synthetic_lm_data`` batches, ``attention_impl=
-    "flash"``, AdamW at bench.py's lr 3e-4, clip 1.0.  Returns per-step
-    (loss, grad_norm, lr) of both and both final masters as numpy lists."""
-    jm, tm = tiny_models(name)
+    weights on the same ``synthetic_lm_data`` batches, ``attention_impl``
+    (default "flash"), AdamW at bench.py's lr 3e-4, clip 1.0.  Returns
+    per-step (loss, grad_norm, lr) of both and both final masters as
+    numpy lists.  ``spec`` as in :func:`tiny_models`."""
+    jm, tm = tiny_models(name, attention_impl=attention_impl, spec=spec)
     config = {"train_batch_size": 2 * gas, "gradient_accumulation_steps": gas,
               "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
               "gradient_clipping": 1.0, "steps_per_print": 1000,
