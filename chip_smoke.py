@@ -6,25 +6,31 @@
     python3 chip_smoke.py --phases device,build,kernel,train
     python3 chip_smoke.py --phases device,build,kernel,serve-quant
     python3 chip_smoke.py --phases device,build,kernel,serve-alibi
+    python3 chip_smoke.py --phases device,build,kernel,train-fp16
 
 Phases, in order; any failure exits non-zero (nothing is caught and
 passed over):
 
 1. device  — the card's name, count, capability, nvidia-smi power limit.
 2. build   — every kernel of the port (paged attention with its int8/fp8
-             cache variant; flash attention forward, dq and dkv; the
-             int8/int4 mixed-input GEMM), built from this checkout's
-             sources with nvcc for sm_90a into build/kernels/, one nvcc per
-             source, all started together.
+             cache variant; flash attention forward, dq and dkv in bf16,
+             fp16 and fp32; the int8/int4 mixed-input GEMM), built from
+             this checkout's sources with nvcc for sm_90a into
+             build/kernels/, one nvcc per source, all started together.
 3. kernel  — each kernel against its plain PyTorch version on the card,
-             in bf16: paged attention at Llama-3-8B and GPT-2 widths on a
+             within NOISE_FACTOR x the noise floor of its dtype: paged
+             attention (bf16) at Llama-3-8B and GPT-2 widths on a
              mixed prefill/decode batch with an aliased block table plus
              the serving path's decode shape, and with int8 and fp8
              caches on the 8B batches; its ALiBi variant at BLOOM-7b1
              width (mixed and decode batches; bf16, int8 and fp8 caches)
-             and on a GQA batch with slopes; flash fwd/dq/dkv (causal) at the
-             GPT-2 training shape, the llama-0.7B training leg of bench.py
-             and Llama-3-8B widths; the int8 and int4 mixed-input GEMM at
+             and on a GQA batch with slopes; flash fwd/dq/dkv (causal) in
+             bf16 at the GPT-2 training shape, the llama-0.7B training leg
+             of bench.py and Llama-3-8B widths, in fp16 at phi-2's training
+             width and the GPT-2 shape, in bf16 and fp16 at gptj-6b (head
+             dim 256), phi3-mini (96) and a tiny width (32), in fp32 at the
+             GPT-2 shape (micro-batch 8) and phi-2's width; the int8 and
+             int4 mixed-input GEMM at
              Llama-3-8B's projection shapes at M = 8 (decode) and 1024 (a
              prefill budget).  Times (CUDA events), bounds, and for flash
              attention the time of PyTorch's scaled_dot_product_attention
@@ -38,6 +44,10 @@ passed over):
              each flash kernel per step, a first-step parity check of
              loss and grad norm against the plain attention, tokens/s,
              MFU, peak memory, host time per step and the device profile.
+4b. train-fp32 — the same model in fp32 (K1's fp32 kernels), micro-batch
+             8, 2 + 3 steps, 12 launches of each flash kernel per step and
+             a first-step parity check against the plain attention within
+             2x the fp32 noise floor (fp32 against fp64).
 5. serve   — Llama-3-8B at full width (random bf16 weights from a seed)
              through InferenceEngine.generate with the pipeline at depth 2
              and the prefix cache on; launch counts, a first-forward check
@@ -61,9 +71,26 @@ passed over):
              Gumbel noise and tokens of the first step and of the first
              step that samples every slot held against the CPU, the
              sampler's cost per step, and a short int8-cache run.
+8. train-fp16 — phi-2 at full width and depth (2.78 B params, 32 layers,
+             32 heads of 80) in fp16 with the dynamic loss scaler, run
+             after BLOOM is freed: ZeRO-1, AdamW lr 3e-4, clip 1.0, seq
+             2048, micro-batch 4, remat_policy="flash", attention_impl=
+             "flash", on synthetic_lm_data through PrefetchingLoader, 2 + 5
+             steps: the reckoned and the measured peak memory, 32 launches
+             of each flash kernel per step, all of the fp16 D 80 variant
+             (the remat policy saves the
+             forward's outputs: no replay), the loss scale and skipped
+             steps, a first-step parity check against the plain attention
+             within 2x the fp16 noise floor, tokens/s, MFU and the device
+             profile.
+
+Every phase prints its wall time ("[time] phase ...").
 
 The line before the last is the card's name and power limit as nvidia-smi
-reports them; the line before that, the per-kernel JSON; the last line,
+reports them; the line before that, the per-kernel JSON (a flash variant's
+``launches`` is the sum over the training phases that ran of what its
+count read, by dtype and the head dim the kernel ran at; null when no
+training phase ran); the last line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -238,45 +265,78 @@ def check_kernel_case(torch, pa, name, case, H, Hkv, D, iters, slopes=None):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-# flash attention cases: (B, H, Hkv, S, D, timing iterations).  GPT-2 is
-# the training phase's shape (micro-batch 32, 12 heads of 64, seq 1024);
-# llama-0.7B is bench.py's long-context training leg (:586-593);
-# Llama-3-8B its serving width at S=4096.
-FLASH_CASES = [("gpt2 train", (32, 12, 12, 1024, 64, 20)),
-               ("llama-0.7B train", (2, 16, 8, 2048, 128, 20)),
-               ("llama3-8b", (1, 32, 8, 4096, 128, 10))]
+# flash attention cases: (name, dtype, (B, H, Hkv, S, D, timing
+# iterations)).  bf16: GPT-2 is the training phase's shape (micro-batch 32,
+# 12 heads of 64, seq 1024); llama-0.7B is bench.py's long-context training
+# leg (:586-593); Llama-3-8B its serving width at S=4096.  fp16: phi-2's
+# training width (phase 8: micro-batch 4, 32 heads of 80, seq 2048) and the
+# GPT-2 shape.  bf16 and fp16 at the other head dims of the presets:
+# gptj-6b (16 heads of 256), phi3-mini (32 of 96, S=4096) and the *-tiny
+# models' 32 (8 heads).  fp32: the GPT-2 shape at phase 4b's micro-batch 8
+# and phi-2's width at B=1.
+FLASH_CASES = [
+    ("gpt2 train", "bfloat16", (32, 12, 12, 1024, 64, 20)),
+    ("llama-0.7B train", "bfloat16", (2, 16, 8, 2048, 128, 20)),
+    ("llama3-8b", "bfloat16", (1, 32, 8, 4096, 128, 10)),
+    ("phi-2 train", "float16", (4, 32, 32, 2048, 80, 10)),
+    ("gpt2 train", "float16", (32, 12, 12, 1024, 64, 10)),
+    *((name, dt, shape) for name, shape in (
+        ("gptj-6b", (1, 16, 16, 2048, 256, 10)),
+        ("phi3-mini", (1, 32, 32, 4096, 96, 10)),
+        ("tiny", (4, 8, 8, 512, 32, 20)))
+      for dt in ("bfloat16", "float16")),
+    ("gpt2 train", "float32", (8, 12, 12, 1024, 64, 5)),
+    ("phi-2 train", "float32", (1, 32, 32, 2048, 80, 5)),
+]
+
+# the case each kernel entry of the JSON line reports: (dtype, head dim) ->
+# the first case of that variant
+FLASH_VARIANTS = {}
+for _name, _dt, _shape in FLASH_CASES:
+    FLASH_VARIANTS.setdefault((_dt, _shape[4]), _name)
 
 # kernel vs plain tolerance: the kernel must land within NOISE_FACTOR x
-# the bf16 noise floor, the distance of the plain version run in bf16
-# (inputs rounded to bf16) from the plain version run in fp32 on the
-# unrounded inputs, per output
+# the noise floor of its dtype, the distance of the plain version run in
+# that dtype (inputs rounded to it) from the plain version one step wider
+# (fp32 for bf16/fp16, fp64 for fp32) on the unrounded inputs, per output
 NOISE_FACTOR = 2.0
 
+# the peak rate of each operand type on one H100 SXM (NVIDIA data sheet;
+# dense): tensor cores for bf16/fp16, the CUDA cores for fp32
+PEAK_FLOPS = {"bfloat16": PEAK_BF16_FLOPS, "float16": PEAK_BF16_FLOPS,
+              "float32": 67e12}
+ELEM_BYTES = {"bfloat16": 2, "float16": 2, "float32": 4}
 
-def flash_bound(B, H, Hkv, S, D, products, in_bf16, in_f32, out_bf16,
-                out_f32):
+
+def flash_bound(B, H, Hkv, S, D, products, in_qk, in_f32, out_qk,
+                out_f32, dtype="bfloat16"):
     """(bound ms, bound_by, bytes, flops) of one flash kernel: ``products``
-    causal matrix products of B*H*S*S/2*D multiply-adds; bytes count each
-    [B,H|Hkv,S,D] bf16 operand ("q" or "k" in the specs) and [B,H,S] fp32
-    row vector once."""
+    causal matrix products of B*H*S*S/2*D multiply-adds at the peak of
+    ``dtype``; bytes count each [B,H|Hkv,S,D] operand ("q" or "k" in the
+    specs) at the element size of ``dtype`` and each [B,H,S] fp32 row
+    vector once."""
     flops = products * 2 * B * H * (S * S // 2) * D
     q_el, kv_el, vec = B * H * S * D, B * Hkv * S * D, B * H * S
 
     def n(spec):
         return sum({"q": q_el, "k": kv_el}[k] for k in spec)
 
-    nbytes = 2 * (n(in_bf16) + n(out_bf16)) + 4 * vec * (in_f32 + out_f32)
+    nbytes = (ELEM_BYTES[dtype] * (n(in_qk) + n(out_qk))
+              + 4 * vec * (in_f32 + out_f32))
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_flops = flops / PEAK_BF16_FLOPS * 1e3
+    t_flops = flops / PEAK_FLOPS[dtype] * 1e3
     return (max(t_bytes, t_flops),
             "bytes" if t_bytes >= t_flops else "operations", nbytes, flops)
 
 
-def _within_noise(torch, name, got, ref_bf16, ref_fp32):
+def _within_noise(torch, name, got, ref, ref_wide):
+    """|got - ref| <= NOISE_FACTOR x |ref - ref_wide| (max over elements,
+    in fp64): ``ref`` is the plain version in the kernel's dtype,
+    ``ref_wide`` the plain version one step wider."""
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: kernel output has non-finite values")
-    noise = float((ref_bf16.float() - ref_fp32.float()).abs().max())
-    err = float((got.float() - ref_bf16.float()).abs().max())
+    noise = float((ref.double() - ref_wide.double()).abs().max())
+    err = float((got.double() - ref.double()).abs().max())
     tol = NOISE_FACTOR * noise
     if err > tol:
         raise AssertionError(f"{name}: kernel disagrees with the plain "
@@ -286,43 +346,49 @@ def _within_noise(torch, name, got, ref_bf16, ref_fp32):
 
 
 def check_flash_case(torch, fa, name, B, H, Hkv, S, D, iters,
-                     device="cuda"):
-    """fwd, dq, dkv (causal) against their plain versions on the same bf16
-    inputs; times of kernels, plain versions and SDPA fwd / bwd."""
+                     dtype="bfloat16", device="cuda"):
+    """fwd, dq, dkv (causal) against their plain versions on the same
+    inputs in ``dtype``; times of kernels, plain versions and SDPA fwd /
+    bwd."""
     import torch.nn.functional as F
+    dt = getattr(torch, dtype)
+    wide = torch.float64 if dt == torch.float32 else torch.float32
     gen = torch.Generator(device=device).manual_seed(S + D)
     f32 = [torch.randn(shape, device=device, generator=gen)
            for shape in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D),
                          (B, H, S, D))]
-    q, k, v, do = (x.to(torch.bfloat16) for x in f32)
+    q, k, v, do = (x.to(dt) for x in f32)
+    xw = [x.to(wide) for x in f32]
+    del f32
     scale = D ** -0.5
     res = {}
     o, lse = fa.flash_fwd(q, k, v, scale, True)
     torch.cuda.synchronize()
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, scale, True)
-    o32, lse32 = fa.flash_fwd_plain(*f32[:3], scale, True)
-    errs = {"o": _within_noise(torch, f"{name} fwd o", o, o_ref, o32),
+    o_w, lse_w = fa.flash_fwd_plain(*xw[:3], scale, True)
+    errs = {"o": _within_noise(torch, f"{name} fwd o", o, o_ref, o_w),
             "lse": _within_noise(torch, f"{name} fwd lse", lse, lse_ref,
-                                 lse32)}
+                                 lse_w)}
     res["flash_fwd"] = max(e for e, _ in errs.values())
     delta = (do.float() * o_ref.float()).sum(-1)
-    delta32 = (f32[3] * o32).sum(-1)
-    del o, lse, o32
+    delta_w = (xw[3] * o_w).sum(-1)
+    del o, lse, o_w
     args = (q, k, v, do, lse_ref, delta, scale, True)
-    args32 = (*f32, lse32, delta32, scale, True)
+    args_w = (*xw, lse_w, delta_w, scale, True)
     dq = fa.flash_dq(*args)
     torch.cuda.synchronize()
-    errs["dq"] = _within_noise(torch, f"{name} dq", dq, fa.flash_dq_plain(*args),
-                               fa.flash_dq_plain(*args32))
+    errs["dq"] = _within_noise(torch, f"{name} dq", dq,
+                               fa.flash_dq_plain(*args),
+                               fa.flash_dq_plain(*args_w))
     res["flash_dq"] = errs["dq"][0]
     del dq
     dk, dv = fa.flash_dkv(*args)
     torch.cuda.synchronize()
-    ref, ref32 = fa.flash_dkv_plain(*args), fa.flash_dkv_plain(*args32)
-    errs["dk"] = _within_noise(torch, f"{name} dk", dk, ref[0], ref32[0])
-    errs["dv"] = _within_noise(torch, f"{name} dv", dv, ref[1], ref32[1])
+    ref, ref_w = fa.flash_dkv_plain(*args), fa.flash_dkv_plain(*args_w)
+    errs["dk"] = _within_noise(torch, f"{name} dk", dk, ref[0], ref_w[0])
+    errs["dv"] = _within_noise(torch, f"{name} dv", dv, ref[1], ref_w[1])
     res["flash_dkv"] = max(errs["dk"][0], errs["dv"][0])
-    del dk, dv, ref, ref32, f32, args32, delta32
+    del dk, dv, ref, ref_w, xw, args_w, delta_w
     torch.cuda.empty_cache()
 
     plain_iters = 3
@@ -349,23 +415,27 @@ def check_flash_case(torch, fa, name, B, H, Hkv, S, D, iters,
     del out, qg, kg, vg
     lib = {"flash_fwd": lib_fwd, "flash_dq": lib_bwd, "flash_dkv": lib_bwd}
     bounds = {
-        "flash_fwd": flash_bound(B, H, Hkv, S, D, 2, "qkk", 0, "q", 1),
-        "flash_dq": flash_bound(B, H, Hkv, S, D, 3, "qkkq", 2, "q", 0),
-        "flash_dkv": flash_bound(B, H, Hkv, S, D, 4, "qkkq", 2, "kk", 0)}
+        "flash_fwd": flash_bound(B, H, Hkv, S, D, 2, "qkk", 0, "q", 1,
+                                 dtype),
+        "flash_dq": flash_bound(B, H, Hkv, S, D, 3, "qkkq", 2, "q", 0,
+                                dtype),
+        "flash_dkv": flash_bound(B, H, Hkv, S, D, 4, "qkkq", 2, "kk", 0,
+                                 dtype)}
     out = {}
     for kname in ("flash_fwd", "flash_dq", "flash_dkv"):
         bound_ms, bound_by, nbytes, flops = bounds[kname]
         out[kname] = dict(max_abs_err=res[kname], ms=t[kname],
                           plain_ms=tp[kname], bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=lib[kname])
-        log(f"[kernel] {name} {kname}: B={B} H={H} Hkv={Hkv} S={S} D={D} "
-            f"max|d|={res[kname]:.3e} kernel_ms={t[kname]:.4f} "
+        log(f"[kernel] {name} {kname} {dtype}: B={B} H={H} Hkv={Hkv} S={S} "
+            f"D={D} max|d|={res[kname]:.3e} kernel_ms={t[kname]:.4f} "
             f"plain_ms={tp[kname]:.4f} bound_ms={bound_ms:.4f} ({bound_by}: "
             f"{nbytes} B, {flops} flop; {flops / t[kname] / 1e9:.1f} "
             f"TFLOP/s achieved) library_ms={lib[kname]:.4f} "
             f"({'SDPA fwd' if kname == 'flash_fwd' else 'SDPA bwd, dq+dkv'})")
-    log(f"[kernel] {name} tolerances (kernel vs bf16 plain, "
-        f"{NOISE_FACTOR} x the bf16 noise floor): " + ", ".join(
+    log(f"[kernel] {name} {dtype} tolerances (kernel vs {dtype} plain, "
+        f"{NOISE_FACTOR} x the {dtype} noise floor against "
+        f"{str(wide)[6:]}): " + ", ".join(
             f"{k} {e:.3e} <= {tol:.3e}" for k, (e, tol) in errs.items()))
     return out
 
@@ -479,33 +549,63 @@ def check_mixed_case(torch, mg, name, kdims, N, M, bits, iters,
 # phase 4 helpers
 # ---------------------------------------------------------------------------
 
-# bench.py's headline training configuration (:145-168): GPT-2-small,
-# seq 1024, micro-batch 32, bf16, ZeRO-1, AdamW lr 3e-4, clip 1.0, no
-# remat; attention_impl="flash" (the configuration that runs K1)
-TRAIN_SEQ = 1024
-TRAIN_MICRO = 32
-TRAIN_WARMUP = 2
-TRAIN_STEPS = 10
+# the training runs (phases 4, 4b and 8), each through
+# deepspeed_tpu_torch.initialize -> train_batch with attention_impl="flash"
+# on synthetic_lm_data batches through PrefetchingLoader; ZeRO-1, AdamW lr
+# 3e-4, clip 1.0.
+#   train       bench.py's headline training configuration (:145-168):
+#               GPT-2-small, seq 1024, micro-batch 32, bf16, no remat
+#   train-fp32  the same model with neither bf16 nor fp16 enabled (fp32:
+#               K1's fp32 kernels), micro-batch 8
+#   train-fp16  phi-2 at full width and depth (32 layers, 32 heads of 80)
+#               in fp16, its published precision, with the dynamic loss
+#               scaler; seq 2048, micro-batch 4, remat with the "flash"
+#               policy (the products against weights and the flash
+#               forward's outputs saved, the rest of each layer recomputed)
+TRAIN_RUNS = {
+    "train": dict(preset="gpt2", precision="bf16", seq=1024, micro=32,
+                  warmup=2, steps=10, remat=False, policy="nothing"),
+    "train-fp32": dict(preset="gpt2", precision="fp32", seq=1024, micro=8,
+                       warmup=2, steps=3, remat=False, policy="nothing"),
+    "train-fp16": dict(preset="phi-2", precision="fp16", seq=2048, micro=4,
+                       warmup=2, steps=5, remat=True, policy="flash"),
+}
 PARITY_MICRO = 4
 
-# first-step parity, flash kernels vs the plain attention (both bf16): the
-# bar is PARITY_FACTOR x the bf16 noise floor measured in the same run, the
-# distance of the plain-attention bf16 step from the same step in fp32
-# (same weights and batch).  Each is one scalar, which can land close to
-# its fp32 value by chance, so the floor never goes below PARITY_FLOOR
-# relative: 2^-12, 1/16 of one bf16 rounding step (2^-8).
+# first-step parity, flash kernels vs the plain attention (both in the
+# run's precision): the bar is PARITY_FACTOR x the noise floor measured in
+# the same run, the distance of the plain-attention step from the same
+# step one precision wider (bf16/fp16 against fp32, fp32 against fp64;
+# same weights and batch).  Each is one scalar, which can land close to its
+# wider value by chance, so the floor never goes below PARITY_FLOOR of the
+# precision, relative: for bf16 2^-12, 1/16 of one bf16 rounding step
+# (2^-8); for fp16 2^-16, as far below as fp16 keeps more bits (11 to
+# bf16's 8, and one more step of margin): 1/32 of one fp16 rounding step
+# (2^-11); for fp32 2^-20, 16 fp32 rounding steps (2^-24) of the scalar:
+# the step's loss and norm are sums of ~10^4 token losses and ~10^8 squared
+# gradients, whose fp32 rounding is that large or larger.  The floors only
+# guard against a noise reading near 0; the kernels' own precision is held
+# case by case in phase 3.
 PARITY_FACTOR = 2.0
-PARITY_FLOOR = 2.0 ** -12
+PARITY_FLOOR = {"bf16": 2.0 ** -12, "fp16": 2.0 ** -16, "fp32": 2.0 ** -20}
 
 
-def train_config(micro, bf16=True):
-    return {"train_micro_batch_size_per_device": micro,
-            "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
-            "bf16": {"enabled": bf16},
-            "zero_optimization": {"stage": 1},
-            "mesh": {"data": -1},
-            "gradient_clipping": 1.0,
-            "steps_per_print": 10_000}
+def train_config(micro, precision="bf16", optimizer="adamw",
+                 scale_power=None):
+    cfg = {"train_micro_batch_size_per_device": micro,
+           "optimizer": {"type": optimizer, "params": {"lr": 3e-4}},
+           "bf16": {"enabled": precision == "bf16"},
+           "fp16": {"enabled": precision == "fp16"},
+           "zero_optimization": {"stage": 1},
+           "mesh": {"data": -1},
+           "gradient_clipping": 1.0,
+           "steps_per_print": 10_000}
+    if scale_power is not None:
+        cfg["fp16"]["initial_scale_power"] = scale_power
+    return cfg
+
+
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
 
 def flash_counts(fa):
@@ -513,84 +613,139 @@ def flash_counts(fa):
             fa.flash_dkv.launches, fa.flash_attention.fallbacks)
 
 
-def train(torch, fa, seed, device=None, **overrides):
-    """GPT-2-small training through the port's public entry points;
-    returns the flash kernels' launch counts over the 12-step run.
+def reckon_peak(cfg, n_params, largest_leaf, micro, seq):
+    """The fp16 remat-"flash" step's card memory from the shapes, in bytes,
+    at its two peaks: the start of the backward and the update."""
+    B, S, dm, dff = micro, seq, cfg.d_model, cfg.d_ff
+    weights = 2 * n_params            # the model's fp16 parameters
+    state = 4 * n_params + 8 * n_params   # fp32 master, AdamW m and v
+    # saved per layer under "flash": the layer input, q, k, v, the flash
+    # output, the attention projection and the MLP output ([B, S, dm]
+    # each), the MLP's first product ([B, S, dff]), all fp16, and the lse
+    acts = cfg.num_layers * (2 * B * S * (7 * dm + dff)
+                             + 4 * B * S * cfg.num_heads)
+    logits = 2 * 2 * B * S * cfg.vocab_size   # fp16 logits and their grad
+    backward = weights + state + 2 * n_params + acts + logits
+    # the update: fp32 grads of every leaf, and for the leaf being updated
+    # its new m and v and ~3 fp32 temporaries
+    update = weights + state + 4 * n_params + 5 * 4 * largest_leaf
+    return backward, update, acts
+
+
+def train(torch, fa, seed, run="train", device=None, **overrides):
+    """One training run of TRAIN_RUNS through the port's public entry
+    points; returns the flash kernels' launch counts over its timed run,
+    by variant: kernel name -> {(dtype name, head dim): launches}.
     ``device`` and ``overrides`` (model-config fields) exist for a CPU
     rehearsal at a tiny size; the chip run passes neither."""
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.models.transformer import tree_leaves
     from deepspeed_tpu_torch.runtime import (DataLoader, PrefetchingLoader,
                                              param_count, synthetic_lm_data)
 
+    spec = TRAIN_RUNS[run]
+    prec = spec["precision"]
+    warmup, steps = spec["warmup"], spec["steps"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    seq = overrides.pop("max_seq_len", TRAIN_SEQ)
-    micro = overrides.pop("micro", TRAIN_MICRO)
+    seq = overrides.pop("max_seq_len", spec["seq"])
+    micro = overrides.pop("micro", spec["micro"])
     t0 = time.perf_counter()
-    model = build_model("gpt2", seed=seed, device=device, max_seq_len=seq,
-                        remat=False, attention_impl="flash", **overrides)
+    model = build_model(
+        spec["preset"], seed=seed, device=device, max_seq_len=seq,
+        remat=spec["remat"], remat_policy=spec["policy"],
+        attention_impl="flash",
+        dtype=torch.float16 if prec == "fp16" else torch.float32,
+        **overrides)
     cfg = model.config
-    engine = ds.initialize(model=model, config=train_config(micro),
-                           device=device)
     n_params = param_count(model.params)
+    if prec == "fp16":
+        largest = max(x.numel() for x in tree_leaves(model.params))
+        bwd, upd, acts = reckon_peak(cfg, n_params, largest, micro, seq)
+        log(f"[{run}] reckoned peak memory: {max(bwd, upd) / 2**30:.2f} GiB "
+            f"(start of the backward {bwd / 2**30:.2f} GiB, of which saved "
+            f"activations {acts / 2**30:.2f}; update {upd / 2**30:.2f} GiB)")
+    engine = ds.initialize(model=model, config=train_config(micro, prec),
+                           device=device)
     tbs = engine.train_batch_size
-    data = synthetic_lm_data(cfg.vocab_size,
-                             tbs * (TRAIN_WARMUP + TRAIN_STEPS + 1), seq,
+    data = synthetic_lm_data(cfg.vocab_size, tbs * (warmup + steps + 1), seq,
                              seed=seed)
     it = iter(PrefetchingLoader(DataLoader(data, tbs), engine))
-    log(f"[train] gpt2: {n_params / 1e6:.2f} M params, {cfg.num_layers} "
-        f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads of "
-        f"{cfg.head_dim}, vocab {cfg.vocab_size}, seq {seq}; bf16, ZeRO-1, "
-        f"AdamW lr 3e-4, clip 1.0, micro-batch {micro}, attention_impl="
-        f"flash; set up in {time.perf_counter() - t0:.2f} s")
+    remat = (f"remat_policy={spec['policy']!r}" if spec["remat"]
+             else "no remat")
+    log(f"[{run}] {spec['preset']}: {n_params / 1e6:.2f} M params, "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+        f"heads of {cfg.head_dim}, vocab {cfg.vocab_size}, seq {seq}; "
+        f"{prec}{' (dynamic loss scale)' if prec == 'fp16' else ''}, ZeRO-1, "
+        f"AdamW lr 3e-4, clip 1.0, micro-batch {micro}, {remat}, "
+        f"attention_impl=flash; set up in {time.perf_counter() - t0:.2f} s")
 
     # the main path: counts to 0 just before, read just after
-    fa.flash_fwd.launches = fa.flash_dq.launches = 0
-    fa.flash_dkv.launches = fa.flash_attention.fallbacks = 0
+    fa.reset_launches()
+    fa.flash_attention.fallbacks = 0
     torch.cuda.reset_peak_memory_stats()
-    metrics, host_ms, per_step = [], [], []
-    for step in range(TRAIN_WARMUP + TRAIN_STEPS):
-        if step == TRAIN_WARMUP:
+    metrics, host_ms, per_step, batches = [], [], [], []
+    for step in range(warmup + steps):
+        if step == warmup:
             torch.cuda.synchronize()
             t_start = time.perf_counter()
         before = flash_counts(fa)
+        batch = next(it)
+        batches.append(batch)
         th = time.perf_counter()
-        metrics.append(engine.train_batch(next(it)))
+        metrics.append(engine.train_batch(batch))
         host_ms.append((time.perf_counter() - th) * 1e3)
         per_step.append(tuple(b - a for a, b in zip(before, flash_counts(fa))))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
     counts = flash_counts(fa)
+    variants = {k: dict(getattr(fa, k).variant_launches) for k in FLASH_KERNELS}
     peak = torch.cuda.max_memory_allocated()
 
     losses = [float(m["loss"]) for m in metrics]
     gnorms = [float(m["grad_norm"]) for m in metrics]
-    log(f"[train] losses {[round(x, 4) for x in losses]}")
-    log(f"[train] grad norms {[round(x, 4) for x in gnorms]}")
-    log(f"[train] flash launches over {len(metrics)} steps: fwd={counts[0]} "
+    applied = [not m["overflow"] for m in metrics]
+    log(f"[{run}] losses {[round(x, 4) for x in losses]}")
+    log(f"[{run}] grad norms {[round(x, 4) for x in gnorms]}")
+    if prec == "fp16":
+        log(f"[{run}] loss scale per step {[m['loss_scale'] for m in metrics]}"
+            f"; skipped (overflow) per step "
+            f"{[int(m['overflow']) for m in metrics]}; engine: "
+            f"{engine.state.skipped} skipped, {engine.state.step} applied")
+        if not any(applied):
+            raise AssertionError("no fp16 step was applied")
+    log(f"[{run}] flash launches over {len(metrics)} steps: fwd={counts[0]} "
         f"dq={counts[1]} dkv={counts[2]}; routed to causal_attention: "
-        f"{counts[3]}; per step {sorted(set(per_step))}")
-    if not all(map(math.isfinite, losses + gnorms)):
+        f"{counts[3]}; per step {sorted(set(per_step))}; by (dtype, head "
+        f"dim) {variants}")
+    if not all(map(math.isfinite, losses + [
+            g for g, ok in zip(gnorms, applied) if ok])):
         raise AssertionError("non-finite loss or grad norm")
     want = (cfg.num_layers, cfg.num_layers, cfg.num_layers, 0)
     if any(p != want for p in per_step):
         raise AssertionError(f"a step did not launch each flash kernel once "
                              f"per layer (want {want} per step, got "
                              f"{per_step})")
+    variant = ({"bf16": "bfloat16", "fp16": "float16", "fp32": "float32"}[prec],
+               fa.kernel_head_dim(cfg.head_dim))
+    if any(v != {variant: n} for v, n in zip(variants.values(), counts)):
+        raise AssertionError(f"the flash launches were not all of the "
+                             f"{variant} variant: {variants}")
 
-    toks = tbs * (seq - 1) * TRAIN_STEPS
+    toks = tbs * (seq - 1) * steps
     tok_s = toks / wall
     flops_per_token = 6 * n_params + 12 * cfg.num_layers * cfg.d_model * (
         seq - 1)                                  # bench.py:207-211
-    mfu = tok_s * flops_per_token / PEAK_BF16_FLOPS
+    peak_flops = PEAK_FLOPS["float32" if prec == "fp32" else "bfloat16"]
+    mfu = tok_s * flops_per_token / peak_flops
     smi = nvidia_smi_line()
-    log(f"[train] {TRAIN_STEPS} steps in {wall:.3f} s "
-        f"({wall / TRAIN_STEPS * 1e3:.1f} ms/step): {tok_s:.0f} tokens/s, "
-        f"MFU {100 * mfu:.2f}% of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s "
+    log(f"[{run}] {steps} steps in {wall:.3f} s "
+        f"({wall / steps * 1e3:.1f} ms/step): {tok_s:.0f} tokens/s, "
+        f"MFU {100 * mfu:.2f}% of {peak_flops / 1e12:.0f} TFLOP/s "
         f"({flops_per_token / 1e6:.1f} MFLOP/token); max_memory_allocated "
         f"{peak / 2**30:.2f} GiB; host time in train_batch "
-        f"{statistics.mean(host_ms[TRAIN_WARMUP:]):.1f} ms/step (first "
+        f"{statistics.mean(host_ms[warmup:]):.1f} ms/step (first "
         f"step {host_ms[0]:.1f} ms) [{smi}]")
 
     def one_step(prof):
@@ -603,14 +758,88 @@ def train(torch, fa, seed, device=None, **overrides):
         prof.stop()
         return dt
 
-    device_profile(torch, one_step, wall / TRAIN_STEPS, tag="train")
+    device_profile(torch, one_step, wall / steps, tag=run)
     del engine, it
-    torch.cuda.empty_cache()
+    free_engines(torch)
 
-    parity(torch, model, data, seed, device)
-    del model
-    torch.cuda.empty_cache()
-    return counts
+    if run == "train":
+        parity(torch, model, data, seed, device)
+    else:
+        k = applied.index(True)       # skipped steps leave the weights
+        parity_step(torch, model, run, batches[k], metrics[k], k, device)
+    del model, batches
+    free_engines(torch)
+    return variants
+
+
+def parity_step(torch, model, run, batch, met, k, device):
+    """The first applied step of a run (step ``k``: the steps before it
+    were skipped and left the weights as they were) against the plain
+    causal_attention on the same weights, batch and loss scale, with the
+    plain attention one precision wider as the noise-floor reference: an
+    engine for fp32 (the reference engines run SGD: the first step's loss
+    and grad norm do not depend on the optimizer, and SGD holds one buffer
+    in place of Adam's two), the loss and the norm of its gradient
+    computed directly in fp64 (the engine computes in at most fp32)."""
+    import dataclasses
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import Model
+    from deepspeed_tpu_torch.runtime.runtime_utils import (tree_leaves,
+                                                           tree_unflatten)
+
+    spec = TRAIN_RUNS[run]
+    prec, micro = spec["precision"], batch["input_ids"].shape[0]
+    got = (float(met["loss"]), float(met["grad_norm"]))
+    power = int(round(math.log2(met["loss_scale"]))) if prec == "fp16" \
+        else None
+
+    def engine_step(precision, policy):
+        m = Model.from_params(dataclasses.replace(
+            model.config, attention_impl="xla", remat=spec["remat"],
+            remat_policy=policy), model.params)
+        eng = ds.initialize(model=m, config=train_config(
+            micro, precision, "sgd", power), device=device)
+        out = eng.train_batch(batch)
+        res = (float(out["loss"]), float(out["grad_norm"]))
+        del eng, out
+        free_engines(torch)
+        return res
+
+    def fp64_step():
+        m = Model.from_params(dataclasses.replace(
+            model.config, attention_impl="xla", remat=True,
+            remat_policy="nothing"), model.params)
+        leaves = [x.detach().double().requires_grad_()
+                  for x in tree_leaves(model.params)]
+        loss = m.loss_fn(tree_unflatten(model.params, leaves),
+                         {"input_ids": batch["input_ids"]})
+        grads = torch.autograd.grad(loss, leaves)
+        norm = torch.sqrt(sum(g.square().sum() for g in grads))
+        res = (float(loss.detach()), float(norm))
+        del leaves, loss, grads
+        free_engines(torch)
+        return res
+
+    ref = engine_step(prec, spec["policy"])
+    if prec == "fp16":
+        # fp32 without the training run's activations saved: the whole
+        # layer is recomputed (no policy changes the numbers)
+        wide, wide_name = engine_step("fp32", "nothing"), "fp32"
+    else:
+        wide, wide_name = fp64_step(), "fp64"
+    floor = PARITY_FLOOR[prec]
+    for i, what in enumerate(("loss", "grad_norm")):
+        noise = abs(ref[i] - wide[i])
+        tol = PARITY_FACTOR * max(noise, floor * abs(wide[i]))
+        log(f"[{run}] parity (micro-batch {micro}, step {k}, the first "
+            f"applied{f', loss scale 2^{power}' if power is not None else ''}"
+            f") {what}: flash {got[i]:.7f} vs plain {ref[i]:.7f} (|d| "
+            f"{abs(got[i] - ref[i]):.3e}); {wide_name} plain {wide[i]:.7f}: "
+            f"noise {noise:.3e}, tol {tol:.3e}")
+        if not math.isfinite(got[i]) or abs(got[i] - ref[i]) > tol:
+            raise AssertionError(f"{run}: first-step {what} with the flash "
+                                 f"kernels disagrees with the plain attention")
 
 
 def parity(torch, model, data, seed, device):
@@ -628,8 +857,8 @@ def parity(torch, model, data, seed, device):
                             ("fp32", "xla", False)):
         m = Model.from_params(dataclasses.replace(
             model.config, attention_impl=impl), model.params)
-        eng = ds.initialize(model=m, config=train_config(PARITY_MICRO, bf16),
-                            device=device)
+        eng = ds.initialize(model=m, config=train_config(
+            PARITY_MICRO, "bf16" if bf16 else "fp32"), device=device)
         met = eng.train_batch(dict(batch))
         res[tag] = (float(met["loss"]), float(met["grad_norm"]))
         del eng
@@ -637,7 +866,7 @@ def parity(torch, model, data, seed, device):
     for i, what in enumerate(("loss", "grad_norm")):
         got, ref, ref32 = res["flash"][i], res["plain"][i], res["fp32"][i]
         noise = abs(ref - ref32)
-        tol = PARITY_FACTOR * max(noise, PARITY_FLOOR * abs(ref32))
+        tol = PARITY_FACTOR * max(noise, PARITY_FLOOR["bf16"] * abs(ref32))
         log(f"[train] parity (micro-batch {PARITY_MICRO}, first step) "
             f"{what}: flash {got:.6f} vs plain {ref:.6f} (|d| "
             f"{abs(got - ref):.3e}); fp32 plain {ref32:.6f}: noise "
@@ -1293,7 +1522,9 @@ def device_profile(torch, run, wall_unprofiled, tag="serve"):
 # kernel-name substrings -> kind, first match wins (a cast is a copy
 # kernel inside an elementwise template, so copies come before elementwise;
 # the port's mixed_gemm_kernel comes before the library GEMMs' "gemm")
-KERNEL_GROUPS = [("flash attention", ("flash_fwd", "flash_dq", "flash_dkv")),
+KERNEL_GROUPS = [("flash attention", ("flash_fwd", "flash_dq", "flash_dkv",
+                                      "fwd32_kernel", "dq32_kernel",
+                                      "dkv32_kernel")),
                  ("paged attention", ("paged_attention",)),
                  ("mixed gemm", ("mixed_gemm",)),
                  ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
@@ -1307,8 +1538,8 @@ KERNEL_GROUPS = [("flash attention", ("flash_fwd", "flash_dq", "flash_dkv")),
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="device,build,kernel,train,serve,serve-quant,"
-                            "serve-alibi")
+                    default="device,build,kernel,train,train-fp32,serve,"
+                            "serve-quant,serve-alibi,train-fp16")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1331,6 +1562,12 @@ def main() -> int:
     mg = importlib.import_module("deepspeed_tpu_torch.ops.mixed_gemm")
     pa = pa_mod.paged_attention
     t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        log(f"[time] phase {name}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
 
     # 1. device
     rep = device_report()
@@ -1340,6 +1577,7 @@ def main() -> int:
     if not rep["sm90"]:
         raise SystemExit("chip_smoke: the kernels are built for sm_90a; "
                          f"this card is {rep['capability']}")
+    phase_done("device")
 
     # 2. build
     if "build" in phases:
@@ -1349,10 +1587,11 @@ def main() -> int:
             log(f"[build] {b.name}: {b.build_seconds:.2f} s; nvcc output:")
             for line in b.build_log.strip().splitlines():
                 log(f"[build]   {line.strip()}")
+        phase_done("build")
 
     # 3. kernels vs plain
-    kern = flash_kern = None
-    qkv_kern, mixed_kern, alibi_kern = {}, {}, {}
+    kern = None
+    qkv_kern, mixed_kern, alibi_kern, flash_kern = {}, {}, {}, {}
     if "kernel" in phases:
         from deepspeed_tpu_torch.models.layers import alibi_slopes
         dev = torch.device("cuda")
@@ -1384,10 +1623,11 @@ def main() -> int:
                     (alibi_kern if alibi else qkv_kern).setdefault(code, res)
             del case
             torch.cuda.empty_cache()
-        for name, (B, H, Hkv, S, D, iters) in FLASH_CASES:
-            res = check_flash_case(torch, fa, name, B, H, Hkv, S, D, iters)
-            if name == FLASH_CASES[0][0]:        # the training shape
-                flash_kern = res
+        for name, dt, (B, H, Hkv, S, D, iters) in FLASH_CASES:
+            res = check_flash_case(torch, fa, name, B, H, Hkv, S, D, iters,
+                                   dt)
+            if FLASH_VARIANTS.get((dt, D)) == name:
+                flash_kern[dt, D] = res
             torch.cuda.empty_cache()
         for bits in (8, 4):
             for name, kdims, N in MIXED_PROJECTIONS:
@@ -1397,13 +1637,16 @@ def main() -> int:
                     if name == "wi" and M == max(MIXED_M):   # a prefill step
                         mixed_kern[bits] = res
                     torch.cuda.empty_cache()
+        phase_done("kernel")
 
-    # 4. the training path
-    flash_launches = {}
-    if "train" in phases:
-        counts = train(torch, fa, args.seed)
-        flash_launches = dict(zip(("flash_fwd", "flash_dq", "flash_dkv"),
-                                  counts))
+    # 4. and 4b. the training path, bf16 and fp32 (GPT-2-small); 8. fp16
+    # (phi-2) runs last.  flash_runs: each training run's flash launches by
+    # kernel and variant, as its counts read
+    flash_runs = []
+    for run in ("train", "train-fp32"):
+        if run in phases:
+            flash_runs.append(train(torch, fa, args.seed, run))
+            phase_done(run)
 
     # 5. and 6. the serving paths, bf16 and quantized, on one model
     launches = None
@@ -1418,20 +1661,46 @@ def main() -> int:
                                               tag, over)
         del model
         torch.cuda.empty_cache()
+        phase_done("serve, serve-quant")
 
     # 7. BLOOM-7b1 with ALiBi, after the Llama model is freed
     alibi_run = {}
     if "serve-alibi" in phases:
         alibi_run = serve_alibi(torch, pa, args.seed)
+        phase_done("serve-alibi")
+
+    # 8. phi-2 in fp16 with the dynamic loss scaler, after BLOOM is freed
+    if "train-fp16" in phases:
+        flash_runs.append(train(torch, fa, args.seed, "train-fp16"))
+        phase_done("train-fp16")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if kern is not None:
         pa_src = "deepspeed_tpu_torch/ops/csrc/paged_attention.cu"
         pa_replaces = "deepspeed_tpu/ops/paged_attention.py:48"
-        flash_src = "deepspeed_tpu_torch/ops/csrc/flash_attention.cu"
+        flash_src = {"bfloat16": "flash_attention.cu",
+                     "float16": "flash_attention_fp16.cu",
+                     "float32": "flash_attention_fp32.cu"}
         replaces = {"flash_fwd": "deepspeed_tpu/ops/flash_attention.py:76",
                     "flash_dq": "deepspeed_tpu/ops/flash_attention.py:173",
                     "flash_dkv": "deepspeed_tpu/ops/flash_attention.py:212"}
+
+        def flash_name(k, dt, d):
+            # bf16 at D 64 keeps the name of the slice that ported it
+            if (dt, d) == ("bfloat16", 64):
+                return k
+            tag = {"bfloat16": "bf16", "float16": "fp16", "float32": "fp32"}
+            return f"{k}_{tag[dt]}_d{d}"
+
+        def flash_entry(k, dt, d):
+            # what the training runs' counts read (null: none ran)
+            launches = (sum(r[k].get((dt, d), 0) for r in flash_runs)
+                        if flash_runs else None)
+            return dict(name=flash_name(k, dt, d), route="cuda",
+                        source=f"deepspeed_tpu_torch/ops/csrc/"
+                               f"{flash_src[dt]}",
+                        replaces=replaces[k], launches=launches,
+                        **flash_kern[dt, d][k])
 
         def quant_launches(run, key):
             return quant_runs[run]["launches"][key] if run in quant_runs \
@@ -1444,9 +1713,8 @@ def main() -> int:
                          launches=quant_launches(run, "kv"),
                          **qkv_kern[code])
                     for code, run in (("int8", "a"), ("fp8", "b"))]
-        entries += [dict(name=k, route="cuda", source=flash_src,
-                         replaces=replaces[k], launches=flash_launches.get(k),
-                         **flash_kern[k]) for k in replaces]
+        entries += [flash_entry(k, dt, d) for dt, d in FLASH_VARIANTS
+                    for k in FLASH_KERNELS]
         entries += [dict(name=f"mixed_matmul_int{bits}", route="cuda",
                          source="deepspeed_tpu_torch/ops/csrc/mixed_gemm.cu",
                          replaces=f"deepspeed_tpu/ops/mixed_gemm.py:{line}",

@@ -13,9 +13,10 @@ The layer stack is a Python loop over views of the stacked weights
 forward the training loss runs; :func:`apply` is the same forward under
 ``torch.no_grad`` for serving.  The training half: ``lm_loss_fn`` with
 ``rolled_lm_targets`` and ``cross_entropy_loss``, ``_resolve_attention``
-(``attention_impl``) and per-layer remat.  ALiBi (``position="alibi"``)
-runs through the eager attention with the per-head bias.  Not ported:
-MoE (``num_experts > 1`` raises), the selective remat policies.
+(``attention_impl``) and per-layer remat with the JAX package's six
+policies (:data:`REMAT_POLICIES`).  ALiBi (``position="alibi"``) runs
+through the eager attention with the per-head bias.  Not ported: MoE
+(``num_experts > 1`` raises).
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..platform.cuda import resolve_device
 from . import layers as L
@@ -329,7 +331,8 @@ def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor,
             dtype=None) -> torch.Tensor:
     """Dense forward -> logits [B, S, vocab], differentiable (the JAX
     ``apply`` without PLD/LTD/MoE).  ``cfg.remat`` recomputes each layer
-    in the backward (``torch.utils.checkpoint``)."""
+    in the backward (``torch.utils.checkpoint``) under
+    ``cfg.remat_policy``."""
     _require_supported(cfg)
     remat = _remat(cfg)
     dt = dtype or params["embed"]["table"].dtype
@@ -352,8 +355,7 @@ def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor,
     for lp in unstack_layers(params["blocks"], cfg.num_layers):
         layer = partial(block_apply, cfg, lp, cos=cos, sin=sin, mask=mask,
                         attention_fn=attention_fn)
-        x = (checkpoint(layer, x, use_reentrant=False) if remat
-             else layer(x))
+        x = remat(layer, x) if remat else layer(x)
     x = _norm(cfg)(params["ln_f"], x)
     if cfg.tie_embeddings:
         return x @ params["embed"]["table"].to(dt).T
@@ -376,27 +378,100 @@ def apply(cfg: TransformerConfig, params, input_ids: torch.Tensor,
 # training: remat, attention choice, loss
 # --------------------------------------------------------------------------
 
-# per-layer recompute policies of the JAX package (transformer.py:119).
-# "nothing" and "everything" both save nothing inside a layer: one
-# torch.utils.checkpoint per layer.  The selective policies save chosen
-# intermediates (dot outputs, the flash output) and are not ported.
-REMAT_POLICIES = {"nothing": "layer", "everything": "layer",
-                  "dots": None, "dots_no_batch": None, "flash": None,
-                  "xla_flash": None}
+_aten = torch.ops.aten
+_MM = (_aten.mm.default, _aten.addmm.default)
+_BMM = (_aten.bmm.default, _aten.baddbmm.default)
 
 
-def _remat(cfg: TransformerConfig) -> bool:
+def _dot(func, args) -> bool:
+    """Any matrix product (``jax.checkpoint_policies.checkpoint_dots``)."""
+    return func in _MM or func in _BMM
+
+
+def _dot_no_batch(func, args) -> bool:
+    """A matrix product without batch dimensions
+    (``checkpoint_dots_with_no_batch_dims``): the projections against
+    weights.  Classified by the operands, not by the op's name alone:
+    ``einsum("bsd,dhk->bshk")`` lowers to a ``bmm`` of batch 1 (or, on
+    some paths, a broadcast weight of batch stride 0), while attention's
+    products are ``bmm`` over a real batch of B x heads."""
+    if func in _MM:
+        return True
+    if func in _BMM:
+        a, b = args[-2], args[-1]
+        return a.shape[0] == 1 or a.stride(0) == 0 or b.stride(0) == 0
+    return False
+
+
+def _named(name: str):
+    """The outputs of one of the port's named ops (the counterpart of
+    ``jax.checkpoint_policies.save_only_these_names``)."""
+    return lambda func, args: func.name() == name
+
+
+def _either(*tests):
+    return lambda func, args: any(t(func, args) for t in tests)
+
+
+@torch.library.custom_op("deepspeed_tpu_torch::attn_out", mutates_args=(),
+                         schema="(Tensor x) -> Tensor")
+def attn_out(x):
+    """Identity (a copy) that names the eager attention's output for the
+    ``xla_flash`` policy, as ``checkpoint_name(o, "attn_out")`` does in the
+    JAX package's XLA attention."""
+    return x.clone()
+
+
+attn_out.register_fake(lambda x: torch.empty_like(x))
+attn_out.register_autograd(lambda ctx, g: g)
+
+
+# per-layer recompute policies of the JAX package (transformer.py:119-135):
+# None = one torch.utils.checkpoint per layer that saves nothing inside it
+# ("nothing" is jax.checkpoint's default, "everything" nothing_saveable:
+# both recompute the whole layer); otherwise the test of what a selective
+# checkpoint saves (MUST_SAVE) instead of recomputing.
+#   dots           every matrix product
+#   dots_no_batch  the products against weights
+#   flash          those, plus the flash forward's (o, lse)
+#                  (deepspeed_tpu_torch::flash_fwd; the JAX policy saves
+#                  flash_out, the output only)
+#   xla_flash      those, plus the attention output of the eager attention
+#                  (deepspeed_tpu_torch::attn_out).  The port's "xla_flash"
+#                  attention is the plain causal_attention, with no custom
+#                  VJP of its own: its backward recomputes the softmax that
+#                  the JAX package's XLA attention keeps as attn_lse.
+# No policy changes the numbers, only what is kept and what is recomputed.
+REMAT_POLICIES = {
+    "nothing": None,
+    "everything": None,
+    "dots": _dot,
+    "dots_no_batch": _dot_no_batch,
+    "flash": _either(_dot_no_batch,
+                     _named("deepspeed_tpu_torch::flash_fwd")),
+    "xla_flash": _either(_dot_no_batch,
+                         _named("deepspeed_tpu_torch::attn_out")),
+}
+
+
+def _remat(cfg: TransformerConfig) -> Optional[Callable]:
+    """None without remat; else ``run(layer, x)``, the layer under a
+    checkpoint of ``cfg.remat_policy``."""
     if not cfg.remat:
-        return False
+        return None
     if cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
                          f"known: {sorted(REMAT_POLICIES)}")
-    if REMAT_POLICIES[cfg.remat_policy] is None:
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} (selective saving) is not "
-            "ported yet (ROADMAP Queue 1 item 4, what is left); "
-            "'nothing' and 'everything' recompute whole layers")
-    return True
+    saves = REMAT_POLICIES[cfg.remat_policy]
+    if saves is None:
+        return partial(checkpoint, use_reentrant=False)
+
+    def policy(ctx, func, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if saves(func, args)
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return partial(checkpoint, use_reentrant=False, context_fn=partial(
+        create_selective_checkpoint_contexts, policy))
 
 
 def rolled_lm_targets(ids: torch.Tensor, mask: Optional[torch.Tensor] = None):
@@ -518,7 +593,18 @@ def _resolve_attention(cfg: TransformerConfig) -> Callable:
         return flash_attention
     if cfg.attention_impl not in ("xla", "xla_flash"):
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
-    return partial(L.causal_attention, scale=attn_scale(cfg))
+    fn = partial(L.causal_attention, scale=attn_scale(cfg))
+    if (cfg.attention_impl, cfg.remat, cfg.remat_policy) == (
+            "xla_flash", True, "xla_flash"):
+        return _named_output(fn)
+    return fn
+
+
+def _named_output(fn: Callable) -> Callable:
+    """``fn`` with its output passed through :func:`attn_out`."""
+    def attn(*args, **kw):
+        return attn_out(fn(*args, **kw))
+    return attn
 
 
 class Model:

@@ -15,7 +15,7 @@ from .paged_attention import paged_attention, paged_attention_plain
 
 # every kernel library of the port (one nvcc each; build_all starts them
 # together)
-BUILDERS = [_paged_attention.BUILDER, _flash_attention.BUILDER,
+BUILDERS = [_paged_attention.BUILDER, *_flash_attention.BUILDERS,
             _mixed_gemm.BUILDER]
 
 __all__ = ["BUILDERS", "BuildError", "CUDAOpBuilder", "build_all",

@@ -47,14 +47,18 @@ def find_nvcc() -> Optional[str]:
 
 class CUDAOpBuilder:
     """One shared library = its sources under ``csrc/`` + nvcc flags.
+    ``headers`` (under ``csrc/``) are the files the sources include: they
+    are not compiled on their own but count in the cache key.
 
     ``build_log`` and ``build_seconds`` hold the last build's compiler
     output (``-Xptxas -v``: registers, shared memory, spills) and wall
     time; both stay empty when the library came from the cache."""
 
-    def __init__(self, name: str, sources: Sequence[str]):
+    def __init__(self, name: str, sources: Sequence[str],
+                 headers: Sequence[str] = ()):
         self.name = name
         self.sources = list(sources)
+        self.headers = list(headers)
         self.build_log = ""
         self.build_seconds = 0.0
         self.command: List[str] = []
@@ -64,7 +68,7 @@ class CUDAOpBuilder:
 
     def library_path(self) -> Path:
         h = hashlib.sha256()
-        for p in self.source_paths():
+        for p in self.source_paths() + [CSRC_DIR / s for s in self.headers]:
             h.update(p.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}_{h.hexdigest()[:16]}.so"

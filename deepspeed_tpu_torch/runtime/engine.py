@@ -11,8 +11,15 @@ path.  One ``train_batch`` is one optimizer step:
    bf16 parameters, then fp32, as in the JAX step);
 3. the epilogue (:1546): unscale, ``all_finite`` (fp16 only), clip;
 4. the update (:1562): ``step + 1``, the optimizer's deltas added to the
-   master (in place: the port owns its master copy), skipped on an fp16
-   overflow, the loss-scaler update and ``lr = schedule(new_step)``.
+   master, skipped on an fp16 overflow, the loss-scaler update and
+   ``lr = schedule(new_step)``.
+
+The port owns its master, moments and gradients, and updates them in
+place where that saves memory: the gradients are cast, unscaled and
+clipped in place, and the update runs one leaf at a time (its delta added
+to the master and its new moments replacing the old as each is made), so
+the step never holds a second copy of the optimizer state or a tree of
+updates.  The arithmetic is the same, element for element.
 
 The JAX engine fuses the step into one jitted program; here it runs
 eagerly.  bf16 and fp32 steps never wait for the device (the metrics stay
@@ -37,7 +44,7 @@ from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from .loss_scaler import LossScaler, LossScaleState, all_finite
 from .lr_schedules import build_schedule, constant
 from .optimizers import Optimizer, build_optimizer
-from .runtime_utils import (clip_by_global_norm, param_count, tree_leaves,
+from .runtime_utils import (clip_by_global_norm_, param_count, tree_leaves,
                             tree_map, tree_unflatten)
 
 PRECISION_DTYPE = {"fp32": torch.float32, "fp16": torch.float16,
@@ -206,10 +213,13 @@ class Engine:
         for g in range(gas):
             mb = {k: v[g] for k, v in batch.items()} if gas > 1 else batch
             loss, aux = self._micro_loss(cparams, mb, rng * gas + g)
-            grads = torch.autograd.grad(loss * scale / gas, leaves,
-                                        allow_unused=True)
-            grads = [torch.zeros_like(p, dtype=torch.float32) if gr is None
-                     else gr.float() for gr, p in zip(grads, leaves)]
+            grads = list(torch.autograd.grad(loss * scale / gas, leaves,
+                                             allow_unused=True))
+            for i, p in enumerate(leaves):     # each 16-bit grad freed as cast
+                gr = grads[i]
+                grads[i] = (torch.zeros_like(p, dtype=torch.float32)
+                            if gr is None else gr.float())
+                del gr
             if acc is None:
                 acc = grads
             else:
@@ -220,10 +230,10 @@ class Engine:
         return loss_sum / gas, aux, acc
 
     def _train_step(self, batch, rng: int) -> Dict[str, Any]:
-        state = self.state
         use_scaling = self.precision == "fp16"
-        scale = state.loss_scale.scale if use_scaling else 1.0
-        cparams = self._compute_params(state.master, requires_grad=True)
+        loss_scale = self.state.loss_scale
+        scale = loss_scale.scale if use_scaling else 1.0
+        cparams = self._compute_params(self.state.master, requires_grad=True)
         loss, aux, grads = self._grads(cparams, batch, rng, scale)
         del cparams
 
@@ -235,26 +245,44 @@ class Engine:
             for gr in grads:
                 gr.div_(denom)
         finite = bool(all_finite(grads)) if use_scaling else True
-        grads, gnorm = clip_by_global_norm(grads, cfg.gradient_clipping)
+        gnorm = clip_by_global_norm_(grads, cfg.gradient_clipping)
 
-        step_next = state.step + 1
-        master, opt_state = state.master, state.opt_state
+        step = self.state.step
         if finite:
-            updates, opt_state = self.optimizer.update(
-                tree_unflatten(master, grads), opt_state, master, step_next)
-            with torch.no_grad():
-                for p, u in zip(tree_leaves(master), tree_leaves(updates)):
-                    p.add_(u)
-        new_step = step_next if finite else state.step
-        self.state = TrainState(
-            step=new_step, master=master, opt_state=opt_state,
-            loss_scale=self.scaler.update(state.loss_scale, not finite),
-            skipped=state.skipped + (0 if finite else 1))
+            self._apply_update(grads, step + 1)
+        del grads
+        new_step = step + 1 if finite else step
+        self.state = self.state._replace(
+            step=new_step,
+            loss_scale=self.scaler.update(loss_scale, not finite),
+            skipped=self.state.skipped + (0 if finite else 1))
         return {"loss": loss, "grad_norm": gnorm,
                 "lr": float(self.lr_schedule(float(new_step))),
-                "loss_scale": float(state.loss_scale.scale),
+                "loss_scale": float(loss_scale.scale),
                 "overflow": int(not finite),
                 **{f"aux/{k}": v for k, v in aux.items()}}
+
+    def _apply_update(self, grads, step: int) -> None:
+        """``optimizer.update_leaf`` one leaf at a time: each leaf's delta
+        is added to the master in place, its new moments replace the old
+        and its gradient is dropped before the next leaf, so the old and
+        the new optimizer state never live side by side."""
+        state = self.state
+        kind, master = type(state.opt_state), state.master
+        fields = [tree_leaves(f) for f in state.opt_state]
+        self.state = state._replace(opt_state=None)
+        del state
+        with torch.no_grad():
+            for i, p in enumerate(tree_leaves(master)):
+                delta, new = self.optimizer.update_leaf(
+                    grads[i], tuple(f[i] for f in fields), p, step)
+                p.add_(delta)
+                del delta
+                for f, x in zip(fields, new):
+                    f[i] = x
+                grads[i] = None
+        self.state = self.state._replace(opt_state=kind(
+            *(tree_unflatten(master, f) for f in fields)))
 
     def train_batch(self, batch, rng: Optional[int] = None) -> Dict[str, Any]:
         """One full optimizer step over ``batch`` (leading dim

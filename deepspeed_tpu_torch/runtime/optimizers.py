@@ -9,6 +9,13 @@ Counterpart of ``deepspeed_tpu/runtime/optimizers.py``: ``Optimizer``,
 applied (a Python int, 1 for the first update); the learning rate and the
 bias corrections are host floats.
 
+Every optimizer here is defined by its update of one leaf,
+``update_leaf(g, state_leaves, p, step) -> (delta, new_state_leaves)``,
+with ``state_leaves`` the leaf's entry in each field of the state; the
+tree ``update`` applies it leaf by leaf.  An optimizer that needs a value
+over all leaves (a global norm, a compressed all-reduce) does not fit that
+form and is not expressed as one.
+
 The 1-bit family (``onebitadam``, ``zerooneadam``, ``onebitlamb``) is not
 ported: it needs the compressed DP all-reduce (ROADMAP Queue 1 item 7).
 """
@@ -26,8 +33,21 @@ Schedule = Callable[[float], float]
 
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
-    update: Callable[[Any, Any, Any, int], Tuple[Any, Any]]
-    # update(grads, state, params, step) -> (updates, new_state)
+    update_leaf: Callable[[Any, Tuple, Any, int], Tuple[Any, Tuple]]
+    # update_leaf(g, state_leaves, p, step) -> (delta, new_state_leaves)
+
+    def update(self, grads, state, params, step: int) -> Tuple[Any, Any]:
+        """(updates, new_state) for whole trees: ``update_leaf`` leaf by
+        leaf; ``updates`` is shaped like ``grads``, each field of the new
+        state too."""
+        fields = [tree_leaves(f) for f in state]
+        outs = [self.update_leaf(g, tuple(f[i] for f in fields), p, step)
+                for i, (g, p) in enumerate(zip(tree_leaves(grads),
+                                               tree_leaves(params)))]
+        updates = tree_unflatten(grads, [d for d, _ in outs])
+        return updates, type(state)(*(
+            tree_unflatten(grads, [new[j] for _, new in outs])
+            for j in range(len(fields))))
 
 
 def _lr_fn(lr) -> Schedule:
@@ -36,15 +56,6 @@ def _lr_fn(lr) -> Schedule:
 
 def _zeros(params):
     return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
-
-
-def _per_leaf(fn, grads, *trees):
-    """Apply ``fn(g, *leaves) -> tuple`` leaf by leaf; returns one tree
-    (shaped like ``grads``) per output."""
-    outs = [fn(*xs) for xs in zip(tree_leaves(grads),
-                                  *(tree_leaves(t) for t in trees))]
-    return tuple(tree_unflatten(grads, [o[i] for o in outs])
-                 for i in range(len(outs[0]) if outs else 0))
 
 
 # --------------------------------------------------------------------------
@@ -66,26 +77,22 @@ def adamw(lr, betas=(0.9, 0.999), eps: float = 1e-8,
     def init(params):
         return AdamState(m=_zeros(params), v=_zeros(params))
 
-    def update(grads, state: AdamState, params, step: int):
+    def update_leaf(g, state, p, step: int):
+        m, v = state
         lr_t = lr_fn(float(step))
         c1 = 1.0 - b1 ** step if bias_correction else 1.0
         c2 = 1.0 - b2 ** step if bias_correction else 1.0
+        g32 = g.float()
+        if not adam_w_mode and weight_decay:              # classic L2
+            g32 = g32 + weight_decay * p.float()
+        m_ = b1 * m + (1 - b1) * g32
+        v_ = b2 * v + (1 - b2) * (g32 * g32)
+        delta = -lr_t * (m_ / c1) / (torch.sqrt(v_ / c2) + eps)
+        if adam_w_mode and weight_decay:                  # decoupled decay
+            delta = delta - lr_t * weight_decay * p.float()
+        return delta, (m_, v_)
 
-        def upd(g, m, v, p):
-            g32 = g.float()
-            if not adam_w_mode and weight_decay:          # classic L2
-                g32 = g32 + weight_decay * p.float()
-            m_ = b1 * m + (1 - b1) * g32
-            v_ = b2 * v + (1 - b2) * (g32 * g32)
-            delta = -lr_t * (m_ / c1) / (torch.sqrt(v_ / c2) + eps)
-            if adam_w_mode and weight_decay:              # decoupled decay
-                delta = delta - lr_t * weight_decay * p.float()
-            return delta, m_, v_
-
-        updates, m, v = _per_leaf(upd, grads, state.m, state.v, params)
-        return updates, AdamState(m=m, v=v)
-
-    return Optimizer(init, update)
+    return Optimizer(init, update_leaf)
 
 
 def adam(lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0, **kw) -> Optimizer:
@@ -107,20 +114,16 @@ def lion(lr, betas=(0.9, 0.99), weight_decay: float = 0.0) -> Optimizer:
     def init(params):
         return LionState(m=_zeros(params))
 
-    def update(grads, state: LionState, params, step: int):
+    def update_leaf(g, state, p, step: int):
+        (m,) = state
         lr_t = lr_fn(float(step))
+        g32 = g.float()
+        delta = -lr_t * torch.sign(b1 * m + (1 - b1) * g32)
+        if weight_decay:
+            delta = delta - lr_t * weight_decay * p.float()
+        return delta, (b2 * m + (1 - b2) * g32,)
 
-        def upd(g, m, p):
-            g32 = g.float()
-            delta = -lr_t * torch.sign(b1 * m + (1 - b1) * g32)
-            if weight_decay:
-                delta = delta - lr_t * weight_decay * p.float()
-            return delta, b2 * m + (1 - b2) * g32
-
-        updates, m = _per_leaf(upd, grads, state.m, params)
-        return updates, LionState(m=m)
-
-    return Optimizer(init, update)
+    return Optimizer(init, update_leaf)
 
 
 # --------------------------------------------------------------------------
@@ -140,20 +143,16 @@ def adagrad(lr, eps: float = 1e-10, weight_decay: float = 0.0,
             lambda p: torch.full_like(p, initial_accumulator,
                                       dtype=torch.float32), params))
 
-    def update(grads, state: AdagradState, params, step: int):
+    def update_leaf(g, state, p, step: int):
+        (a,) = state
         lr_t = lr_fn(float(step))
+        g32 = g.float()
+        if weight_decay:
+            g32 = g32 + weight_decay * p.float()
+        a_ = a + g32 * g32
+        return -lr_t * g32 / (torch.sqrt(a_) + eps), (a_,)
 
-        def upd(g, a, p):
-            g32 = g.float()
-            if weight_decay:
-                g32 = g32 + weight_decay * p.float()
-            a_ = a + g32 * g32
-            return -lr_t * g32 / (torch.sqrt(a_) + eps), a_
-
-        updates, acc = _per_leaf(upd, grads, state.acc, params)
-        return updates, AdagradState(acc=acc)
-
-    return Optimizer(init, update)
+    return Optimizer(init, update_leaf)
 
 
 # --------------------------------------------------------------------------
@@ -169,31 +168,27 @@ def lamb(lr, betas=(0.9, 0.999), eps: float = 1e-6, weight_decay: float = 0.0,
     def init(params):
         return AdamState(m=_zeros(params), v=_zeros(params))
 
-    def update(grads, state: AdamState, params, step: int):
+    def update_leaf(g, state, p, step: int):
+        m, v = state
         lr_t = lr_fn(float(step))
         c1 = 1.0 - b1 ** step
         c2 = 1.0 - b2 ** step
+        g32 = g.float()
+        p32 = p.float()
+        m_ = b1 * m + (1 - b1) * g32
+        v_ = b2 * v + (1 - b2) * (g32 * g32)
+        u = (m_ / c1) / (torch.sqrt(v_ / c2) + eps)
+        if weight_decay:
+            u = u + weight_decay * p32
+        w_norm = torch.linalg.vector_norm(p32)
+        u_norm = torch.linalg.vector_norm(u)
+        trust = torch.where((w_norm > 0) & (u_norm > 0),
+                            torch.clamp(w_norm / u_norm, min_trust,
+                                        max_trust),
+                            torch.ones_like(w_norm))
+        return -lr_t * trust * u, (m_, v_)
 
-        def upd(g, m, v, p):
-            g32 = g.float()
-            p32 = p.float()
-            m_ = b1 * m + (1 - b1) * g32
-            v_ = b2 * v + (1 - b2) * (g32 * g32)
-            u = (m_ / c1) / (torch.sqrt(v_ / c2) + eps)
-            if weight_decay:
-                u = u + weight_decay * p32
-            w_norm = torch.linalg.vector_norm(p32)
-            u_norm = torch.linalg.vector_norm(u)
-            trust = torch.where((w_norm > 0) & (u_norm > 0),
-                                torch.clamp(w_norm / u_norm, min_trust,
-                                            max_trust),
-                                torch.ones_like(w_norm))
-            return -lr_t * trust * u, m_, v_
-
-        updates, m, v = _per_leaf(upd, grads, state.m, state.v, params)
-        return updates, AdamState(m=m, v=v)
-
-    return Optimizer(init, update)
+    return Optimizer(init, update_leaf)
 
 
 # --------------------------------------------------------------------------
@@ -211,21 +206,17 @@ def sgd(lr, momentum: float = 0.0, weight_decay: float = 0.0,
     def init(params):
         return SGDState(mom=_zeros(params))
 
-    def update(grads, state: SGDState, params, step: int):
+    def update_leaf(g, state, p, step: int):
+        (b,) = state
         lr_t = lr_fn(float(step))
+        g32 = g.float()
+        if weight_decay:
+            g32 = g32 + weight_decay * p.float()
+        b_ = momentum * b + g32
+        d = g32 + momentum * b_ if nesterov else b_
+        return -lr_t * d, (b_,)
 
-        def upd(g, b, p):
-            g32 = g.float()
-            if weight_decay:
-                g32 = g32 + weight_decay * p.float()
-            b_ = momentum * b + g32
-            d = g32 + momentum * b_ if nesterov else b_
-            return -lr_t * d, b_
-
-        updates, mom = _per_leaf(upd, grads, state.mom, params)
-        return updates, SGDState(mom=mom)
-
-    return Optimizer(init, update)
+    return Optimizer(init, update_leaf)
 
 
 # --------------------------------------------------------------------------

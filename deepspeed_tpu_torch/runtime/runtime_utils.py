@@ -61,17 +61,28 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
+def clip_by_global_norm_(leaves: List[torch.Tensor], max_norm: float,
+                         norm: torch.Tensor | None = None) -> torch.Tensor:
+    """Scale a list of leaves in place by ``min(1, max_norm / (norm +
+    1e-6))`` (no scaling when ``max_norm`` is 0 or less); returns the norm
+    before clipping (``global_norm`` of the leaves unless given)."""
+    if norm is None:
+        norm = global_norm(leaves)
+    if max_norm and max_norm > 0:
+        factor = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+        for x in leaves:
+            x.mul_(factor)
+    return norm
+
+
 def clip_by_global_norm(tree: Any, max_norm: float,
                         norm: torch.Tensor | None = None
                         ) -> Tuple[Any, torch.Tensor]:
-    """Scale the tree by ``min(1, max_norm / (norm + 1e-6))``; returns the
-    scaled tree and the norm before clipping."""
-    if norm is None:
-        norm = global_norm(tree)
-    if not max_norm or max_norm <= 0:
-        return tree, norm
-    factor = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
-    return tree_map(lambda x: x * factor, tree), norm
+    """:func:`clip_by_global_norm_` on copies of the tree's leaves; returns
+    the scaled tree and the norm before clipping."""
+    leaves = [x.clone() for x in tree_leaves(tree)]
+    norm = clip_by_global_norm_(leaves, max_norm, norm)
+    return tree_unflatten(tree, leaves), norm
 
 
 def param_count(tree: Any) -> int:

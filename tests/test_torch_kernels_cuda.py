@@ -13,12 +13,15 @@ import numpy as np
 import pytest
 import torch
 
+import importlib
+
 from deepspeed_tpu_torch.ops.flash_attention import (FlashAttentionFunction,
                                                      flash_dkv,
                                                      flash_dkv_plain,
                                                      flash_dq, flash_dq_plain,
                                                      flash_fwd,
-                                                     flash_fwd_plain)
+                                                     flash_fwd_plain,
+                                                     kernel_head_dim)
 from deepspeed_tpu_torch.ops.paged_attention import (paged_attention,
                                                      paged_attention_plain)
 
@@ -92,23 +95,60 @@ def test_paged_attention_kernel_rejects_what_it_does_not_take(cuda_device):
     torch.cuda.synchronize()
 
 
-def _flash_case(dev, B, H, Hkv, S, D, seed):
-    """fp32 inputs and their bf16 roundings (q, k, v, dO)."""
+def _flash_case(dev, B, H, Hkv, S, D, seed, dtype=torch.bfloat16):
+    """Inputs one step wider than ``dtype`` (fp32, or fp64 for fp32) and
+    their roundings to ``dtype`` (q, k, v, dO)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    f32 = [torch.randn(shape, device=dev, generator=gen)
-           for shape in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D),
-                         (B, H, S, D))]
-    return f32, [x.to(torch.bfloat16) for x in f32]
+    wide = torch.float64 if dtype == torch.float32 else torch.float32
+    xw = [torch.randn(shape, device=dev, generator=gen).to(wide)
+          for shape in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D),
+                        (B, H, S, D))]
+    return xw, [x.to(dtype) for x in xw]
 
 
-def _assert_within_noise(name, got, ref_bf16, ref_fp32):
-    """|kernel - plain(bf16)| <= 2 x |plain(bf16) - plain(fp32)|: the
-    kernel must be at least as close to the fp32 result as the plain
-    version in bf16 is (the bf16 noise floor, chip_smoke.py's bar)."""
+def _assert_within_noise(name, got, ref, ref_wide):
+    """|kernel - plain| <= 2 x |plain - plain one step wider|: the kernel
+    must be at least as close to the wider result as the plain version in
+    its own dtype is (the noise floor of that dtype, chip_smoke.py's
+    bar)."""
     assert torch.isfinite(got).all(), f"{name}: non-finite values"
-    noise = float((ref_bf16.float() - ref_fp32.float()).abs().max())
-    err = float((got.float() - ref_bf16.float()).abs().max())
+    noise = float((ref.double() - ref_wide.double()).abs().max())
+    err = float((got.double() - ref.double()).abs().max())
     assert err <= 2.0 * noise, f"{name}: max|d| {err} > 2 x noise {noise}"
+
+
+def _check_flash_kernels(dev, B, H, Hkv, S, D, causal, dtype):
+    """fwd, dq and dkv on the card against their plain versions on the
+    same inputs in ``dtype``, within the noise floor of ``dtype``; each
+    wrapper launches its kernel once."""
+    xw, (q, k, v, do) = _flash_case(dev, B, H, Hkv, S, D, S + D, dtype)
+    scale = D ** -0.5
+    wrappers = (flash_fwd, flash_dq, flash_dkv)
+    variant = (str(dtype).removeprefix("torch."), kernel_head_dim(D))
+    before = [(w.launches, w.variant_launches.get(variant, 0))
+              for w in wrappers]
+    o, lse = flash_fwd(q, k, v, scale, causal)
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, scale, causal)
+    o_w, lse_w = flash_fwd_plain(*xw[:3], scale, causal)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == q.shape
+    _assert_within_noise("o", o, o_ref, o_w)
+    _assert_within_noise("lse", lse, lse_ref, lse_w)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    delta_w = (xw[3] * o_w).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, scale, causal)
+    args_w = (*xw, lse_w, delta_w, scale, causal)
+    dq = flash_dq(*args)
+    dk, dv = flash_dkv(*args)
+    torch.cuda.synchronize()
+    _assert_within_noise("dq", dq, flash_dq_plain(*args),
+                         flash_dq_plain(*args_w))
+    for name, got, ref, ref_w in zip(("dk", "dv"), (dk, dv),
+                                     flash_dkv_plain(*args),
+                                     flash_dkv_plain(*args_w)):
+        _assert_within_noise(name, got, ref, ref_w)
+    assert [(w.launches, w.variant_launches.get(variant, 0))
+            for w in wrappers] == [(n + 1, m + 1) for n, m in before]
 
 
 @pytest.mark.cuda
@@ -121,30 +161,49 @@ def test_flash_kernels_match_plain(cuda_device, B, H, Hkv, S, D, causal):
     """fwd, dq and dkv against their plain versions on the same bf16
     inputs, within the bf16 noise floor; S=100 and 192 exercise the
     zero-filled ragged tile."""
-    f32, (q, k, v, do) = _flash_case(cuda_device, B, H, Hkv, S, D, S + D)
-    scale = D ** -0.5
-    before = (flash_fwd.launches, flash_dq.launches, flash_dkv.launches)
-    o, lse = flash_fwd(q, k, v, scale, causal)
-    o_ref, lse_ref = flash_fwd_plain(q, k, v, scale, causal)
-    o32, lse32 = flash_fwd_plain(*f32[:3], scale, causal)
+    _check_flash_kernels(cuda_device, B, H, Hkv, S, D, causal, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("D", [32, 48, 64, 80, 96, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32,
+                                   torch.bfloat16],
+                         ids=["fp16", "fp32", "bf16"])
+def test_flash_kernels_every_dtype_and_head_dim(cuda_device, dtype, D,
+                                                causal):
+    """Every instantiated head dim (32, 64, 80, 96, 128, 256) and one that
+    is zero-padded to the next (48 -> 64), in each dtype, on a GQA batch
+    with a ragged last tile, within the noise floor of the dtype (fp16 and
+    bf16 against fp32, fp32 against fp64)."""
+    _check_flash_kernels(cuda_device, 2, 4, 2, 160, D, causal, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32],
+                         ids=["fp16", "fp32"])
+def test_flash_cuda_tensors_never_reach_a_plain_version(cuda_device,
+                                                        monkeypatch, dtype):
+    """An fp16 or fp32 tensor on the card launches the kernels, through the
+    wrappers and through autograd: the plain versions are never called."""
+    fa = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("flash_fwd_plain", "flash_dq_plain", "flash_dkv_plain"):
+        monkeypatch.setattr(fa, name, refuse)
+    _, (q, k, v, do) = _flash_case(cuda_device, 1, 4, 2, 128, 80, 5, dtype)
+    q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+    before = (fa.flash_fwd.launches, fa.flash_dq.launches,
+              fa.flash_dkv.launches)
+    o = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2))
+    o.backward(do.transpose(1, 2))
     torch.cuda.synchronize()
-    _assert_within_noise("o", o, o_ref, o32)
-    _assert_within_noise("lse", lse, lse_ref, lse32)
-    delta = (do.float() * o_ref.float()).sum(-1)
-    delta32 = (f32[3] * o32).sum(-1)
-    args = (q, k, v, do, lse_ref, delta, scale, causal)
-    args32 = (*f32, lse32, delta32, scale, causal)
-    dq = flash_dq(*args)
-    dk, dv = flash_dkv(*args)
-    torch.cuda.synchronize()
-    _assert_within_noise("dq", dq, flash_dq_plain(*args),
-                         flash_dq_plain(*args32))
-    for name, got, ref, ref32 in zip(("dk", "dv"), (dk, dv),
-                                     flash_dkv_plain(*args),
-                                     flash_dkv_plain(*args32)):
-        _assert_within_noise(name, got, ref, ref32)
-    assert (flash_fwd.launches, flash_dq.launches, flash_dkv.launches) == \
-        tuple(n + 1 for n in before)
+    assert (fa.flash_fwd.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == tuple(n + 1 for n in before)
+    assert q.grad.dtype == dtype and torch.isfinite(q.grad).all()
 
 
 @pytest.mark.cuda
@@ -172,15 +231,49 @@ def test_flash_autograd_runs_the_kernels(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("policy, fwd_per_layer",
+                         [("flash", 1), ("dots_no_batch", 2), ("nothing", 2)])
+def test_remat_policy_flash_saves_the_forward_on_the_card(cuda_device, policy,
+                                                          fwd_per_layer):
+    """A phi-style model in fp16 (head dim 80) trains one step on the card
+    with the flash kernels under remat: the "flash" policy saves the
+    forward op's (o, lse), so the backward launches no second forward; the
+    other policies replay it."""
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.runtime.runtime_utils import (tree_leaves,
+                                                           tree_unflatten)
+    fa = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")
+    m = build_model("phi-tiny", num_layers=2, d_model=320, num_heads=4,
+                    vocab_size=512, device=cuda_device, dtype=torch.float16,
+                    remat=True, remat_policy=policy, attention_impl="flash")
+    leaves = [x.detach().requires_grad_() for x in tree_leaves(m.params)]
+    ids = torch.randint(0, 512, (2, 256), device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(0))
+    before = (fa.flash_fwd.launches, fa.flash_dq.launches,
+              fa.flash_dkv.launches)
+    loss = m.loss_fn(tree_unflatten(m.params, leaves), {"input_ids": ids})
+    grads = torch.autograd.grad(loss * 1024.0, leaves)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches - before[0],
+            fa.flash_dq.launches - before[1],
+            fa.flash_dkv.launches - before[2]) == (2 * fwd_per_layer, 2, 2)
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all()
+                                        for g in grads)
+
+
+@pytest.mark.cuda
 def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
     z = lambda *s, dt=torch.bfloat16: torch.zeros(  # noqa: E731
         *s, device=cuda_device, dtype=dt)
     q, k = z(1, 4, 128, 64), z(1, 2, 128, 64)
     flash_fwd(q, k, k, 0.1)
-    with pytest.raises(ValueError, match="bf16"):
-        flash_fwd(q.float(), k.float(), k.float(), 0.1)
+    with pytest.raises(ValueError, match="bf16, fp16 or fp32"):
+        flash_fwd(q.double(), k.double(), k.double(), 0.1)
+    with pytest.raises(ValueError, match="is torch.float16, q is"):
+        flash_fwd(q, k.half(), k, 0.1)
     with pytest.raises(ValueError, match="head_dim"):
-        flash_fwd(z(1, 4, 128, 32), z(1, 2, 128, 32), z(1, 2, 128, 32), 0.1)
+        flash_fwd(z(1, 4, 128, 320), z(1, 2, 128, 320), z(1, 2, 128, 320),
+                  0.1)
     with pytest.raises(ValueError, match="contiguous"):
         flash_fwd(z(1, 128, 4, 64).transpose(1, 2), k, k, 0.1)
     with pytest.raises(ValueError, match="multiple"):

@@ -309,12 +309,18 @@ def test_attention_impl_mapping_and_unported_remat():
     with pytest.raises(ValueError, match="attn_scale"):
         Model.from_params(dataclasses.replace(tm.config, attn_scale=1.0),
                           tm.params)
+    # the selective remat policies run (tests/test_torch_remat.py holds
+    # them bitwise against no remat and counts what they recompute)
+    batch = {"input_ids": torch.zeros(1, 8, dtype=torch.long)}
+    ref = tm.loss_fn(tm.params, batch)
     for policy in ("dots", "dots_no_batch", "flash", "xla_flash"):
         m = Model.from_params(dataclasses.replace(
             tm.config, remat=True, remat_policy=policy), tm.params)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            m.loss_fn(m.params, {"input_ids": torch.zeros(1, 8,
-                                                          dtype=torch.long)})
+        torch.testing.assert_close(m.loss_fn(m.params, batch), ref)
+    with pytest.raises(ValueError, match="remat_policy"):
+        Model.from_params(dataclasses.replace(
+            tm.config, remat=True, remat_policy="bogus"), tm.params).loss_fn(
+                tm.params, batch)
 
 
 # ---------------------------------------------------------------------------
@@ -415,12 +421,14 @@ STEPS = 8
 
 
 def run_trajectories(name, gas, bf16=False, steps=STEPS,
-                     attention_impl="flash", spec=None):
+                     attention_impl="flash", spec=None, fp16=None):
     """The JAX engine and the port's (``device="cpu"``) from the same
     weights on the same ``synthetic_lm_data`` batches, ``attention_impl``
-    (default "flash"), AdamW at bench.py's lr 3e-4, clip 1.0.  Returns
-    per-step (loss, grad_norm, lr) of both and both final masters as
-    numpy lists.  ``spec`` as in :func:`tiny_models`."""
+    (default "flash"), AdamW at bench.py's lr 3e-4, clip 1.0; ``fp16``
+    (the fp16 config's fields besides ``enabled``) trains in fp16 with the
+    loss scaler.  Returns per-step (loss, grad_norm, lr, loss_scale,
+    overflow) of both and both final masters as numpy lists.  ``spec`` as
+    in :func:`tiny_models`."""
     jm, tm = tiny_models(name, attention_impl=attention_impl, spec=spec)
     config = {"train_batch_size": 2 * gas, "gradient_accumulation_steps": gas,
               "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
@@ -428,6 +436,8 @@ def run_trajectories(name, gas, bf16=False, steps=STEPS,
               "mesh": {"data": 1}}
     if bf16:
         config["bf16"] = {"enabled": True}
+    if fp16 is not None:
+        config["fp16"] = {"enabled": True, **fp16}
     # one JAX device (the test suite's virtual CPU mesh has eight)
     topo = MeshTopology.build(MeshConfig(data=1), devices=jax.devices()[:1])
     je = jds.initialize(model=jm, config=dict(config), topology=topo)
@@ -439,8 +449,9 @@ def run_trajectories(name, gas, bf16=False, steps=STEPS,
         batch = {"input_ids": data[s * n:(s + 1) * n]}
         jmet = je.train_batch(dict(batch))
         tmet = te.train_batch(dict(batch))
-        jtraj.append([float(jmet[k]) for k in ("loss", "grad_norm", "lr")])
-        ttraj.append([float(tmet[k]) for k in ("loss", "grad_norm", "lr")])
+        keys = ("loss", "grad_norm", "lr", "loss_scale", "overflow")
+        jtraj.append([float(jmet[k]) for k in keys])
+        ttraj.append([float(tmet[k]) for k in keys])
     jp = {jax.tree_util.keystr(p): np.asarray(x) for p, x in
           jax.tree_util.tree_flatten_with_path(je.state.master)[0]}
     tp = {}
@@ -453,7 +464,8 @@ def run_trajectories(name, gas, bf16=False, steps=STEPS,
             tp[pre] = t.numpy()
 
     walk(te.state.master)
-    assert te.state.step == je.state.step == steps
+    assert te.state.step == int(je.state.step)
+    assert te.state.step == steps - int(sum(row[4] for row in ttraj))
     return np.asarray(jtraj), np.asarray(ttraj), jp, tp
 
 
