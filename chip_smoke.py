@@ -16,7 +16,8 @@ passed over):
              cache variant; flash attention forward, dq and dkv in bf16,
              fp16 and fp32; the int8/int4 mixed-input GEMM), built from
              this checkout's sources with nvcc for sm_90a into
-             build/kernels/, one nvcc per source, all started together.
+             build/kernels/, one nvcc per source, all started together;
+             each library's own build seconds and nvcc -Xptxas -v output.
 3. kernel  — each kernel against its plain PyTorch version on the card,
              within NOISE_FACTOR x the noise floor of its dtype: paged
              attention (bf16) at Llama-3-8B and GPT-2 widths on a
@@ -35,7 +36,12 @@ passed over):
              prefill budget).  Times (CUDA events), bounds, and for flash
              attention the time of PyTorch's scaled_dot_product_attention
              as a yardstick (for the GEMM, a dense bf16 torch.matmul of
-             the same shape, as context).
+             the same shape, as context).  Each flash line names the
+             design that ran (wgmma: fwd and dkv at D <= 128 in bf16/fp16;
+             wmma: dq, and D 256; fp32), its TFLOP/s, its ratio to SDPA,
+             the host microseconds per call (tensor maps included) and its
+             library's build seconds; dkv must be bitwise equal on a
+             second run.
 4. train   — GPT-2-small at full width and depth (bf16, ZeRO-1, AdamW,
              clip 1.0, micro-batch 32, seq 1024, attention_impl="flash":
              bench.py's training configuration) through
@@ -345,6 +351,28 @@ def _within_noise(torch, name, got, ref, ref_wide):
     return err, tol
 
 
+def flash_design(kname, dtype, D):
+    """Which kernel design a flash variant runs (the entry points' dispatch
+    by head dim): "wgmma" (csrc/flash_attention_sm90.cuh), "wmma"
+    (csrc/flash_attention.cuh) or "fp32" (csrc/flash_attention_fp32.cu)."""
+    if dtype == "float32":
+        return "fp32"
+    return "wgmma" if kname != "flash_dq" and D != 256 else "wmma"
+
+
+def host_us_per_call(torch, fn, calls: int = 20) -> float:
+    """Host microseconds per call of ``fn`` (a kernel wrapper: checks,
+    tensor-map encoding, the launch), with the card still busy on earlier
+    calls; synchronised after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
 def check_flash_case(torch, fa, name, B, H, Hkv, S, D, iters,
                      dtype="bfloat16", device="cuda"):
     """fwd, dq, dkv (causal) against their plain versions on the same
@@ -383,7 +411,11 @@ def check_flash_case(torch, fa, name, B, H, Hkv, S, D, iters,
     res["flash_dq"] = errs["dq"][0]
     del dq
     dk, dv = fa.flash_dkv(*args)
+    dk2, dv2 = fa.flash_dkv(*args)
     torch.cuda.synchronize()
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        raise AssertionError(f"{name} dkv: two runs on equal inputs differ")
+    del dk2, dv2
     ref, ref_w = fa.flash_dkv_plain(*args), fa.flash_dkv_plain(*args_w)
     errs["dk"] = _within_noise(torch, f"{name} dk", dk, ref[0], ref_w[0])
     errs["dv"] = _within_noise(torch, f"{name} dv", dv, ref[1], ref_w[1])
@@ -392,10 +424,12 @@ def check_flash_case(torch, fa, name, B, H, Hkv, S, D, iters,
     torch.cuda.empty_cache()
 
     plain_iters = 3
-    t = {"flash_fwd": time_ms(torch, lambda: fa.flash_fwd(q, k, v, scale),
-                              iters),
-         "flash_dq": time_ms(torch, lambda: fa.flash_dq(*args), iters),
-         "flash_dkv": time_ms(torch, lambda: fa.flash_dkv(*args), iters)}
+    calls = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, scale),
+             "flash_dq": lambda: fa.flash_dq(*args),
+             "flash_dkv": lambda: fa.flash_dkv(*args)}
+    t = {kname: time_ms(torch, fn, iters) for kname, fn in calls.items()}
+    host_us = {kname: host_us_per_call(torch, fn)
+               for kname, fn in calls.items()}
     tp = {"flash_fwd": time_ms(
               torch, lambda: fa.flash_fwd_plain(q, k, v, scale, True),
               plain_iters, warmup=1),
@@ -422,17 +456,24 @@ def check_flash_case(torch, fa, name, B, H, Hkv, S, D, iters,
         "flash_dkv": flash_bound(B, H, Hkv, S, D, 4, "qkkq", 2, "kk", 0,
                                  dtype)}
     out = {}
+    build_s = fa._KERNEL_DTYPES[dt][1].build_seconds
     for kname in ("flash_fwd", "flash_dq", "flash_dkv"):
         bound_ms, bound_by, nbytes, flops = bounds[kname]
         out[kname] = dict(max_abs_err=res[kname], ms=t[kname],
                           plain_ms=tp[kname], bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=lib[kname])
+        ratio = (t[kname] / lib_fwd if kname == "flash_fwd"
+                 else (t["flash_dq"] + t["flash_dkv"]) / lib_bwd)
         log(f"[kernel] {name} {kname} {dtype}: B={B} H={H} Hkv={Hkv} S={S} "
-            f"D={D} max|d|={res[kname]:.3e} kernel_ms={t[kname]:.4f} "
+            f"D={D} design={flash_design(kname, dtype, D)} "
+            f"max|d|={res[kname]:.3e} kernel_ms={t[kname]:.4f} "
             f"plain_ms={tp[kname]:.4f} bound_ms={bound_ms:.4f} ({bound_by}: "
             f"{nbytes} B, {flops} flop; {flops / t[kname] / 1e9:.1f} "
             f"TFLOP/s achieved) library_ms={lib[kname]:.4f} "
-            f"({'SDPA fwd' if kname == 'flash_fwd' else 'SDPA bwd, dq+dkv'})")
+            f"({'SDPA fwd' if kname == 'flash_fwd' else 'SDPA bwd, dq+dkv'}"
+            f"; {'kernel' if kname == 'flash_fwd' else 'dq+dkv'}/SDPA "
+            f"{ratio:.2f}x) host_us={host_us[kname]:.1f} per call "
+            f"(wrapper, tensor maps, launch) library_build_s={build_s:.2f}")
     log(f"[kernel] {name} {dtype} tolerances (kernel vs {dtype} plain, "
         f"{NOISE_FACTOR} x the {dtype} noise floor against "
         f"{str(wide)[6:]}): " + ", ".join(
@@ -1047,7 +1088,7 @@ def check_prefix_and_cow(eng, prompts, sp, tag):
         raise AssertionError(f"{tag}: no prefix-cache hit on the shared "
                              "prompts")
     eng.put(100, prompts[0])
-    eng.step(sp)
+    eng.step(sampling=sp)
     q = eng.query(100)
     log(f"[{tag}] query(repeat of prompt 0) -> status={q['status']} "
         f"cached_tokens={q['cached_tokens']}")
@@ -1523,8 +1564,8 @@ def device_profile(torch, run, wall_unprofiled, tag="serve"):
 # kernel inside an elementwise template, so copies come before elementwise;
 # the port's mixed_gemm_kernel comes before the library GEMMs' "gemm")
 KERNEL_GROUPS = [("flash attention", ("flash_fwd", "flash_dq", "flash_dkv",
-                                      "fwd32_kernel", "dq32_kernel",
-                                      "dkv32_kernel")),
+                                      "flash90::", "fwd32_kernel",
+                                      "dq32_kernel", "dkv32_kernel")),
                  ("paged attention", ("paged_attention",)),
                  ("mixed gemm", ("mixed_gemm",)),
                  ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
@@ -1696,9 +1737,10 @@ def main() -> int:
             # what the training runs' counts read (null: none ran)
             launches = (sum(r[k].get((dt, d), 0) for r in flash_runs)
                         if flash_runs else None)
+            src = ("flash_attention_sm90.cuh"
+                   if flash_design(k, dt, d) == "wgmma" else flash_src[dt])
             return dict(name=flash_name(k, dt, d), route="cuda",
-                        source=f"deepspeed_tpu_torch/ops/csrc/"
-                               f"{flash_src[dt]}",
+                        source=f"deepspeed_tpu_torch/ops/csrc/{src}",
                         replaces=replaces[k], launches=launches,
                         **flash_kern[dt, d][k])
 

@@ -179,12 +179,20 @@ class InferenceEngine:
     the CPU when the model was built with ``device="cpu"``)."""
 
     def __init__(self, model: Model, config: Optional[InferenceConfig] = None,
-                 quant_tree=None):
-        """``quant_tree``: a pre-built quantized tree (the second output of
+                 topology=None, *, quant_tree=None):
+        """The positional order is the reference's (``model, config,
+        topology``).  ``topology``: the device mesh of a sharded engine;
+        one device takes none, and anything else raises.  ``quant_tree``:
+        a pre-built quantized tree (the second output of
         ``quantization.quantize_model_params``, e.g. carried over from a
         quantized checkpoint with ``models.quant_tree_from_numpy``);
         ``model.params`` must then be the matching dense remainder, and
         ``weight_quant`` is not re-applied."""
+        if topology is not None:
+            raise NotImplementedError(
+                f"InferenceEngine(topology={topology!r}): a sharded engine "
+                "is not ported yet (ROADMAP Queue 1 item 6, multi-GPU); "
+                "one device takes topology=None")
         self.model = model
         self.cfg: TransformerConfig = model.config
         self.icfg = config or InferenceConfig()
@@ -640,8 +648,8 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     # dispatch / collect
     # ------------------------------------------------------------------
-    def step(self, sampling: SamplingParams = SamplingParams(),
-             rng: Optional[torch.Tensor] = None) -> Dict[int, int]:
+    def step(self, rng: Optional[torch.Tensor] = None,
+             sampling: SamplingParams = SamplingParams()) -> Dict[int, int]:
         """Run one engine step; returns {uid: next_token} for sequences
         whose last pending token was consumed.  Strict-sync form of the
         pipeline: dispatch, then read straight back.  ``rng``: the base

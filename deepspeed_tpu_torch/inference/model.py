@@ -175,7 +175,7 @@ def ragged_forward(cfg: TransformerConfig, params, kv,
     _require_supported(cfg)
     if batch.verify_idx is not None:
         raise NotImplementedError("speculative verify batches are not "
-                                  "ported yet (ROADMAP Queue 1, item 5)")
+                                  "ported yet (ROADMAP Queue 1, item 1)")
     n = batch.n_tokens
     x, table, dt = _embed_rows(params, quant, batch.token_ids[:n],
                                cfg.tie_embeddings)

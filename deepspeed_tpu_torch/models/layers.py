@@ -70,12 +70,12 @@ def make_alibi_attention(base=None, head_offset=None,
     row and cancels), fed to ``base`` (default :func:`causal_attention`)
     as ``bias`` [H, 1, Sk].  ``head_offset``/``total_heads`` (a local
     head block of a sequence-parallel shard) come with the port's
-    sequence parallelism (ROADMAP Queue 1 item 7) and raise here."""
+    sequence parallelism (ROADMAP Queue 1 item 6) and raise here."""
     if head_offset is not None or total_heads is not None:
         raise NotImplementedError(
             "make_alibi_attention(head_offset=, total_heads=) is for "
             "sequence-parallel head shards, not ported yet (ROADMAP Queue 1 "
-            "item 7, parallel/)")
+            "item 6, parallel/)")
     base_fn = base or causal_attention
 
     def attn(q, k, v, mask=None, **kw):

@@ -367,9 +367,11 @@ def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor,
 
 @torch.no_grad()
 def apply(cfg: TransformerConfig, params, input_ids: torch.Tensor,
-          mask: Optional[torch.Tensor] = None, dtype=None,
-          attention_fn: Optional[Callable] = None) -> torch.Tensor:
-    """:func:`forward` without autograd (the serving path's dense forward)."""
+          mask: Optional[torch.Tensor] = None,
+          attention_fn: Optional[Callable] = None, dtype=None) -> torch.Tensor:
+    """:func:`forward` without autograd (the serving path's dense forward);
+    the positional order is the reference's (``mask, attention_fn,
+    dtype``)."""
     return forward(cfg, params, input_ids, mask=mask,
                    attention_fn=attention_fn, dtype=dtype)
 
@@ -556,7 +558,7 @@ def lm_loss_fn(cfg: TransformerConfig,
     if pld or ltd_keep is not None:
         raise NotImplementedError(
             "progressive layer drop / random-LTD are not ported yet "
-            "(ROADMAP Queue 1 item 8, data_pipeline)")
+            "(ROADMAP Queue 1 item 7, data_pipeline)")
 
     def loss_fn(params, batch, rng=None):
         ids = batch["input_ids"]

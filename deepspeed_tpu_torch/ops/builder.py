@@ -17,6 +17,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
@@ -119,7 +120,10 @@ class CUDAOpBuilder:
 
 def build_all(builders: Sequence[CUDAOpBuilder], force: bool = False) -> None:
     """Build every library at once: one nvcc per library, all started
-    together, then wait for each (``force`` rebuilds cached ones)."""
+    together, each waited for on a thread of its own, so that every
+    ``build_seconds`` is that library's own wall time (``force`` rebuilds
+    cached ones)."""
     procs = [(b, b.start(force)) for b in builders]
-    for b, p in procs:
-        b.finish(p)
+    with ThreadPoolExecutor(max_workers=max(1, len(procs))) as pool:
+        for f in [pool.submit(b.finish, p) for b, p in procs]:
+            f.result()

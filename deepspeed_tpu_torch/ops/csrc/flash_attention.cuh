@@ -10,6 +10,10 @@
 //   flash_dq   <- `_dq_kernel`  (:173, pallas_call in `_bwd` :283)
 //   flash_dkv  <- `_dkv_kernel` (:212, pallas_call in `_bwd` :311)
 //
+// Which design runs which head dim (a dispatch by D in the entry points):
+//   * fwd and dkv at D 32, 64, 80, 96, 128: the wgmma / TMA / warp-
+//     specialised kernels of flash_attention_sm90.cuh (see its note);
+//   * fwd and dkv at D 256, and dq at every D: the WMMA kernels below.
 // Layouts (all contiguous; T is the element type):
 //   q, do, o, dq   [B, H,   S, D] T
 //   k, v, dk, dv   [B, Hkv, S, D] T         (GQA: query head h reads KV head
@@ -32,10 +36,11 @@
 // products bound it: fwd 2, dq 3, dkv 4 matrix products of B*H*S*S/2*D
 // multiply-adds each (causal).
 //
-// Design (simple first): tiles of 64 query rows x 64 key rows, 4 warps per
-// block, each warp owning 16 rows of the block's output tile.  The matrix
-// products run on the tensor cores through WMMA (16x16x16, fp32
-// accumulate); the softmax runs on CUDA cores with two lanes per row.
+// Design of the WMMA kernels (dq at every D; fwd and dkv at D 256): tiles
+// of 64 query rows x 64 key rows, 4 warps per block, each warp owning 16
+// rows of the block's output tile.  The matrix products run on the tensor
+// cores through WMMA (16x16x16, fp32 accumulate); the softmax runs on CUDA
+// cores with two lanes per row.
 //   * fwd: one block per (q tile, head, batch); the loop over KV tiles (up
 //     to the diagonal when causal) replaces the TPU's sequential grid axis.
 //     The O accumulator lives in shared memory (fp32) so that each row can
@@ -51,14 +56,14 @@
 //     the launcher runs the kernel twice, once for dv (2 products) and once
 //     for dk (3 products): 5 products in place of 4.
 //   * Tiles past S (S not a multiple of 64) are zero-filled and masked.
-//   * Head dims: 32, 64, 80, 96, 128, 256 (every multiple of 16 is a whole
-//     number of WMMA tiles); the wrapper zero-pads any other D <= 256 up to
-//     the next of these.
+//   * Head dims: 32, 64, 80, 96, 128, 256; the wrapper zero-pads any other
+//     D <= 256 up to the next of these.
 //
-// What this design leaves on the table (work for later): no wgmma/TMA, no
-// double-buffered (cp.async) tile loads, WMMA operands re-read from shared
-// memory for every product, O round-tripped through shared memory every KV
-// tile, and at most two blocks per SM (shared memory 30-190 KB a block).
+// What the WMMA design leaves on the table (dq is the next redesign): no
+// wgmma/TMA, no double-buffered tile loads, WMMA operands re-read from
+// shared memory for every product, O round-tripped through shared memory
+// every KV tile (fwd), and at most two blocks per SM (shared memory 30-190
+// KB a block).
 
 #pragma once
 
@@ -69,6 +74,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "flash_attention_sm90.cuh"
 
 namespace flash16 {
 
@@ -586,22 +593,19 @@ cudaError_t dkv_pass(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// D = 256: dk and dv accumulators do not fit the registers together, so
+// the WMMA kernel runs twice, once for dv and once for dk
 template <typename T, int D, bool C>
 cudaError_t dkv_launch(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int H, int Hkv, int S,
                        float scale, cudaStream_t st) {
-  if constexpr (D <= 128) {
-    return dkv_pass<T, D, C, true, true>(q, k, v, dout, lse, delta, dk, dv, B,
-                                         H, Hkv, S, scale, st);
-  } else {
-    // D = 256: dk and dv accumulators do not fit the registers together
-    cudaError_t e = dkv_pass<T, D, C, false, true>(
-        q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, S, scale, st);
-    if (e != cudaSuccess) return e;
-    return dkv_pass<T, D, C, true, false>(q, k, v, dout, lse, delta, dk, dv,
-                                          B, H, Hkv, S, scale, st);
-  }
+  static_assert(D == 256, "D <= 128 runs flash90::dkv_kernel");
+  cudaError_t e = dkv_pass<T, D, C, false, true>(
+      q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, S, scale, st);
+  if (e != cudaSuccess) return e;
+  return dkv_pass<T, D, C, true, false>(q, k, v, dout, lse, delta, dk, dv, B,
+                                        H, Hkv, S, scale, st);
 }
 
 inline bool bad_shape(int B, int H, int Hkv, int S) {
@@ -631,8 +635,13 @@ int fwd_entry(const void* q, const void* k, const void* v, void* o, void* lse,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)with_head_dim(D, [&](auto d) {
     constexpr int DD = decltype(d)::value;
-    return causal ? fwd_launch<T, DD, true>(q, k, v, o, lse, B, H, Hkv, S, scale, st)
-                  : fwd_launch<T, DD, false>(q, k, v, o, lse, B, H, Hkv, S, scale, st);
+    if constexpr (DD == 256)
+      return causal ? fwd_launch<T, DD, true>(q, k, v, o, lse, B, H, Hkv, S, scale, st)
+                    : fwd_launch<T, DD, false>(q, k, v, o, lse, B, H, Hkv, S, scale, st);
+    else
+      return causal
+          ? flash90::fwd_launch<T, DD, true>(q, k, v, o, lse, B, H, Hkv, S, scale, st)
+          : flash90::fwd_launch<T, DD, false>(q, k, v, o, lse, B, H, Hkv, S, scale, st);
   });
 }
 
@@ -659,9 +668,16 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* dout,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)with_head_dim(D, [&](auto d) {
     constexpr int DD = decltype(d)::value;
-    return causal
-        ? dkv_launch<T, DD, true>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, S, scale, st)
-        : dkv_launch<T, DD, false>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, S, scale, st);
+    if constexpr (DD == 256)
+      return causal
+          ? dkv_launch<T, DD, true>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, S, scale, st)
+          : dkv_launch<T, DD, false>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, S, scale, st);
+    else
+      return causal
+          ? flash90::dkv_launch<T, DD, true>(q, k, v, dout, lse, delta, dk, dv, B, H,
+                                             Hkv, S, scale, st)
+          : flash90::dkv_launch<T, DD, false>(q, k, v, dout, lse, delta, dk, dv, B, H,
+                                              Hkv, S, scale, st);
   });
 }
 

@@ -4,11 +4,13 @@ plain versions, the autograd seam and the drop-in ``attention_fn``.
 Counterpart of ``deepspeed_tpu/ops/flash_attention.py`` (the Pallas TPU
 kernels ``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel`` behind the
 custom VJP ``_flash``), which take any float dtype and any head dim.  The
-kernels are CUDA C++: the tensor-core kernels of bf16 and fp16 in
-``csrc/flash_attention.cuh`` (entry points in ``flash_attention.cu`` and
-``flash_attention_fp16.cu``) and the CUDA-core kernels of fp32 in
+kernels are CUDA C++: in bf16 and fp16 on the tensor cores, the forward
+and dk/dv at D <= 128 in ``csrc/flash_attention_sm90.cuh`` (wgmma, TMA,
+warp specialisation) and dq, and D 256, in ``csrc/flash_attention.cuh``
+(WMMA), behind the entry points of ``flash_attention.cu`` and
+``flash_attention_fp16.cu``; in fp32 on the CUDA cores, in
 ``csrc/flash_attention_fp32.cu`` (see the notes at their tops for their
-design and what bounds them), three libraries built by ``ops/builder.py``
+design and what bounds them): three libraries built by ``ops/builder.py``
 at first use and bound through ``ctypes``.
 
 * :func:`flash_fwd`, :func:`flash_dq`, :func:`flash_dkv` are the kernel
@@ -64,7 +66,8 @@ NEG_INF = -1e30
 # D <= 256 is zero-padded to the next of these
 HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 
-_HEADER = ["flash_attention.cuh"]
+_HEADER = ["flash_attention.cuh", "flash_attention_sm90.cuh", "sm90.cuh",
+           "sm90_wgmma.cuh"]
 BUILDER = CUDAOpBuilder("flash_attention", ["flash_attention.cu"], _HEADER)
 BUILDER_FP16 = CUDAOpBuilder("flash_attention_fp16",
                              ["flash_attention_fp16.cu"], _HEADER)

@@ -50,16 +50,16 @@ from .runtime_utils import (clip_by_global_norm_, param_count, tree_leaves,
 PRECISION_DTYPE = {"fp32": torch.float32, "fp16": torch.float16,
                    "bf16": torch.bfloat16}
 
-_MULTI = "ROADMAP Queue 1 item 7 (multi-GPU training breadth)"
-_HOST = "ROADMAP Queue 1 item 6 (host layers: telemetry, monitor)"
-_AUX = "ROADMAP Queue 1 item 8 (aux subsystems)"
+_MULTI = "ROADMAP Queue 1 item 6 (multi-GPU training breadth)"
+_HOST = "ROADMAP Queue 1 item 5 (host layers: telemetry, monitor)"
+_AUX = "ROADMAP Queue 1 item 7 (aux subsystems)"
 
 
 class TrainState(NamedTuple):
     """Everything that persists across steps."""
     step: int                  # optimizer steps applied
     master: Any                # fp32 master params
-    opt_state: Any             # optimizer moments (fp32)
+    opt_state: Any             # optimizer moments (fp32 or moment_dtype)
     loss_scale: LossScaleState
     skipped: int               # overflow-skipped steps
 

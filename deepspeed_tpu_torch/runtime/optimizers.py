@@ -5,9 +5,12 @@ Counterpart of ``deepspeed_tpu/runtime/optimizers.py``: ``Optimizer``,
 ``sgd`` and ``build_optimizer`` (:277), in plain tensor ops.
 ``update(grads, state, params, step) -> (updates, new_state)`` returns
 *deltas* to add to the fp32 master parameters, as in the JAX package
-(:76-97); moments are fp32.  ``step`` is the optimizer step about to be
-applied (a Python int, 1 for the first update); the learning rate and the
-bias corrections are host floats.
+(:76-97); moments are fp32 unless ``moment_dtype`` says otherwise
+(``adamw``, ``adam``, ``lion``: the update runs in fp32 and rounds the
+new moments to that dtype, as the reference does at :93 and :132).
+``step`` is the optimizer step about to be applied (a Python int, 1 for
+the first update); the learning rate and the bias corrections are host
+floats.
 
 Every optimizer here is defined by its update of one leaf,
 ``update_leaf(g, state_leaves, p, step) -> (delta, new_state_leaves)``,
@@ -17,7 +20,7 @@ over all leaves (a global norm, a compressed all-reduce) does not fit that
 form and is not expressed as one.
 
 The 1-bit family (``onebitadam``, ``zerooneadam``, ``onebitlamb``) is not
-ported: it needs the compressed DP all-reduce (ROADMAP Queue 1 item 7).
+ported: it needs the compressed DP all-reduce (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -54,8 +57,18 @@ def _lr_fn(lr) -> Schedule:
     return lr if callable(lr) else (lambda _: float(lr))
 
 
-def _zeros(params):
-    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+def _zeros(params, dtype=torch.float32):
+    return tree_map(lambda p: torch.zeros_like(p, dtype=dtype), params)
+
+
+def _moment_dtype(dtype) -> torch.dtype:
+    """A ``moment_dtype`` as a torch dtype: a torch dtype, or its name as
+    a JSON config spells it (``"bfloat16"``)."""
+    out = getattr(torch, dtype, None) if isinstance(dtype, str) else dtype
+    if not isinstance(out, torch.dtype) or not out.is_floating_point:
+        raise ValueError(f"moment_dtype={dtype!r}: expected a floating "
+                         "torch dtype or its name (e.g. 'bfloat16')")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -69,16 +82,20 @@ class AdamState(NamedTuple):
 
 def adamw(lr, betas=(0.9, 0.999), eps: float = 1e-8,
           weight_decay: float = 0.01, adam_w_mode: bool = True,
-          bias_correction: bool = True) -> Optimizer:
-    """AdamW (``adam_w_mode=True``, decoupled decay) or Adam with L2."""
+          bias_correction: bool = True,
+          moment_dtype=torch.float32) -> Optimizer:
+    """AdamW (``adam_w_mode=True``, decoupled decay) or Adam with L2;
+    the moments are stored in ``moment_dtype``."""
     b1, b2 = betas
     lr_fn = _lr_fn(lr)
+    moment_dtype = _moment_dtype(moment_dtype)
 
     def init(params):
-        return AdamState(m=_zeros(params), v=_zeros(params))
+        return AdamState(m=_zeros(params, moment_dtype),
+                         v=_zeros(params, moment_dtype))
 
     def update_leaf(g, state, p, step: int):
-        m, v = state
+        m, v = (x.float() for x in state)
         lr_t = lr_fn(float(step))
         c1 = 1.0 - b1 ** step if bias_correction else 1.0
         c2 = 1.0 - b2 ** step if bias_correction else 1.0
@@ -90,7 +107,7 @@ def adamw(lr, betas=(0.9, 0.999), eps: float = 1e-8,
         delta = -lr_t * (m_ / c1) / (torch.sqrt(v_ / c2) + eps)
         if adam_w_mode and weight_decay:                  # decoupled decay
             delta = delta - lr_t * weight_decay * p.float()
-        return delta, (m_, v_)
+        return delta, (m_.to(moment_dtype), v_.to(moment_dtype))
 
     return Optimizer(init, update_leaf)
 
@@ -107,21 +124,23 @@ class LionState(NamedTuple):
     m: Any
 
 
-def lion(lr, betas=(0.9, 0.99), weight_decay: float = 0.0) -> Optimizer:
+def lion(lr, betas=(0.9, 0.99), weight_decay: float = 0.0,
+         moment_dtype=torch.float32) -> Optimizer:
     b1, b2 = betas
     lr_fn = _lr_fn(lr)
+    moment_dtype = _moment_dtype(moment_dtype)
 
     def init(params):
-        return LionState(m=_zeros(params))
+        return LionState(m=_zeros(params, moment_dtype))
 
     def update_leaf(g, state, p, step: int):
-        (m,) = state
+        m = state[0].float()
         lr_t = lr_fn(float(step))
         g32 = g.float()
         delta = -lr_t * torch.sign(b1 * m + (1 - b1) * g32)
         if weight_decay:
             delta = delta - lr_t * weight_decay * p.float()
-        return delta, (b2 * m + (1 - b2) * g32,)
+        return delta, ((b2 * m + (1 - b2) * g32).to(moment_dtype),)
 
     return Optimizer(init, update_leaf)
 
@@ -228,7 +247,7 @@ def _onebit(name):
         raise NotImplementedError(
             f"optimizer {name!r} (1-bit compressed communication) is not "
             "ported yet: it needs the compressed DP all-reduce (ROADMAP "
-            "Queue 1 item 7, multi-GPU training breadth)")
+            "Queue 1 item 6, multi-GPU training breadth)")
     return build
 
 

@@ -256,7 +256,7 @@ def test_flash_with_alibi_raises_and_shards_are_not_ported():
             Model.from_params(dataclasses.replace(tm.config,
                                                   attention_impl=impl),
                               tm.params)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         make_alibi_attention(total_heads=8)
 
 

@@ -180,6 +180,49 @@ def test_flash_kernels_every_dtype_and_head_dim(cuda_device, dtype, D,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("S", [1024, 1000], ids=["tiled", "ragged"])
+@pytest.mark.parametrize("rep", [1, 2, 4])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_sm90_fwd_and_dkv_match_plain_and_dkv_is_deterministic(
+        cuda_device, dtype, D, rep, S, causal):
+    """The wgmma / TMA forward and dk/dv (every head dim they run: 32, 64,
+    80, 96, 128) against their plain versions on the same inputs, within
+    2x the noise floor of the dtype: GQA rep 1, 2 and 4; S a multiple of
+    the 128-row tiles and S ragged (1000: TMA's zero fill, masked); causal
+    and full.  B 3 x 8 KV heads gives the persistent forward more (q
+    tile, head) items than the card has SMs, so blocks take several.  dk
+    and dv are bitwise equal on a second run (no atomics)."""
+    B, Hkv = 3, 8
+    H = Hkv * rep
+    xw, (q, k, v, do) = _flash_case(cuda_device, B, H, Hkv, S, D,
+                                    S + D + rep, dtype)
+    scale = D ** -0.5
+    before = (flash_fwd.launches, flash_dkv.launches)
+    o, lse = flash_fwd(q, k, v, scale, causal)
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, scale, causal)
+    o_w, lse_w = flash_fwd_plain(*xw[:3], scale, causal)
+    torch.cuda.synchronize()
+    _assert_within_noise("o", o, o_ref, o_w)
+    _assert_within_noise("lse", lse, lse_ref, lse_w)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    delta_w = (xw[3] * o_w).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, scale, causal)
+    dk, dv = flash_dkv(*args)
+    dk2, dv2 = flash_dkv(*args)
+    torch.cuda.synchronize()
+    assert (flash_fwd.launches, flash_dkv.launches) == (before[0] + 1,
+                                                        before[1] + 2)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    for name, got, ref, ref_w in zip(
+            ("dk", "dv"), (dk, dv), flash_dkv_plain(*args),
+            flash_dkv_plain(*xw, lse_w, delta_w, scale, causal)):
+        _assert_within_noise(name, got, ref, ref_w)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float32],
                          ids=["fp16", "fp32"])
 def test_flash_cuda_tensors_never_reach_a_plain_version(cuda_device,

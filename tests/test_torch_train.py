@@ -113,7 +113,7 @@ def test_optimizer_matches_jax(name):
 
 def test_onebit_optimizers_raise():
     for name in ("onebitadam", "zerooneadam", "onebitlamb"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             build_optimizer(name, 1e-3, {})
 
 
@@ -363,30 +363,30 @@ def test_prefetching_loader_stages_for_the_engine():
 # ---------------------------------------------------------------------------
 
 UNPORTED = {
-    "dp": ({"mesh": {"data": 2}}, "item 7"),
-    "fsdp": ({"mesh": {"fsdp": 2}}, "item 7"),
-    "tensor": ({"tensor_parallel": {"size": 2}}, "item 7"),
-    "pipeline": ({"pipeline": {"stages": 2}}, "item 7"),
-    "sequence": ({"sequence_parallel": {"size": 2}}, "item 7"),
+    "dp": ({"mesh": {"data": 2}}, "item 6"),
+    "fsdp": ({"mesh": {"fsdp": 2}}, "item 6"),
+    "tensor": ({"tensor_parallel": {"size": 2}}, "item 6"),
+    "pipeline": ({"pipeline": {"stages": 2}}, "item 6"),
+    "sequence": ({"sequence_parallel": {"size": 2}}, "item 6"),
     "offload": ({"zero_optimization": {"stage": 1, "offload_optimizer": {
-        "device": "cpu"}}}, "item 7"),
+        "device": "cpu"}}}, "item 6"),
     "nvme": ({"zero_optimization": {"stage": 3, "offload_param": {
-        "device": "nvme"}}}, "item 7"),
+        "device": "nvme"}}}, "item 6"),
     "onebit": ({"optimizer": {"type": "onebitadam", "params": {}}},
-               "item 7"),
+               "item 6"),
     "qgz": ({"zero_optimization": {"zero_quantized_gradients": True}},
-            "item 7"),
+            "item 6"),
     "qwz": ({"zero_optimization": {"zero_quantized_weights": True}},
-            "item 7"),
-    "comm_overlap": ({"comm": {"overlap": True}}, "item 7"),
-    "sparse_grads": ({"sparse_gradients": True}, "item 7"),
-    "pld": ({"progressive_layer_drop": {"enabled": True}}, "item 8"),
-    "curriculum": ({"curriculum_learning": {"enabled": True}}, "item 8"),
-    "random_ltd": ({"data_efficiency": {"enabled": True}}, "item 8"),
-    "moq": ({"quantize_training": {"enabled": True}}, "item 8"),
-    "flops_profiler": ({"flops_profiler": {"enabled": True}}, "item 8"),
-    "telemetry": ({"telemetry": {"trace": True}}, "item 6"),
-    "monitor": ({"csv_monitor": {"enabled": True}}, "item 6"),
+            "item 6"),
+    "comm_overlap": ({"comm": {"overlap": True}}, "item 6"),
+    "sparse_grads": ({"sparse_gradients": True}, "item 6"),
+    "pld": ({"progressive_layer_drop": {"enabled": True}}, "item 7"),
+    "curriculum": ({"curriculum_learning": {"enabled": True}}, "item 7"),
+    "random_ltd": ({"data_efficiency": {"enabled": True}}, "item 7"),
+    "moq": ({"quantize_training": {"enabled": True}}, "item 7"),
+    "flops_profiler": ({"flops_profiler": {"enabled": True}}, "item 7"),
+    "telemetry": ({"telemetry": {"trace": True}}, "item 5"),
+    "monitor": ({"csv_monitor": {"enabled": True}}, "item 5"),
 }
 
 
