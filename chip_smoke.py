@@ -37,11 +37,12 @@ passed over):
              attention the time of PyTorch's scaled_dot_product_attention
              as a yardstick (for the GEMM, a dense bf16 torch.matmul of
              the same shape, as context).  Each flash line names the
-             design that ran (wgmma: fwd and dkv at D <= 128 in bf16/fp16;
-             wmma: dq, and D 256; fp32), its TFLOP/s, its ratio to SDPA,
-             the host microseconds per call (tensor maps included) and its
-             library's build seconds; dkv must be bitwise equal on a
-             second run.
+             design that ran (wgmma: fwd, dq and dkv at D <= 128 in
+             bf16/fp16; wmma: D 256; fp32-rb: the fp32 dk/dv; fp32: the
+             fp32 fwd and dq), its TFLOP/s, its ratio to SDPA, the host
+             microseconds per call (tensor maps included) and its
+             library's build seconds; dq and dkv must be bitwise equal on
+             a second run.
 4. train   — GPT-2-small at full width and depth (bf16, ZeRO-1, AdamW,
              clip 1.0, micro-batch 32, seq 1024, attention_impl="flash":
              bench.py's training configuration) through
@@ -353,11 +354,13 @@ def _within_noise(torch, name, got, ref, ref_wide):
 
 def flash_design(kname, dtype, D):
     """Which kernel design a flash variant runs (the entry points' dispatch
-    by head dim): "wgmma" (csrc/flash_attention_sm90.cuh), "wmma"
-    (csrc/flash_attention.cuh) or "fp32" (csrc/flash_attention_fp32.cu)."""
+    by head dim): "wgmma" (csrc/flash_attention_sm90.cuh: fwd, dq and dkv
+    at D <= 128), "wmma" (csrc/flash_attention.cuh: D 256), "fp32-rb" (the
+    register-blocked fp32 dk/dv) or "fp32" (the fp32 fwd and dq; both in
+    csrc/flash_attention_fp32.cu)."""
     if dtype == "float32":
-        return "fp32"
-    return "wgmma" if kname != "flash_dq" and D != 256 else "wmma"
+        return "fp32-rb" if kname == "flash_dkv" else "fp32"
+    return "wgmma" if D != 256 else "wmma"
 
 
 def host_us_per_call(torch, fn, calls: int = 20) -> float:
@@ -404,7 +407,11 @@ def check_flash_case(torch, fa, name, B, H, Hkv, S, D, iters,
     args = (q, k, v, do, lse_ref, delta, scale, True)
     args_w = (*xw, lse_w, delta_w, scale, True)
     dq = fa.flash_dq(*args)
+    dq2 = fa.flash_dq(*args)
     torch.cuda.synchronize()
+    if not torch.equal(dq, dq2):
+        raise AssertionError(f"{name} dq: two runs on equal inputs differ")
+    del dq2
     errs["dq"] = _within_noise(torch, f"{name} dq", dq,
                                fa.flash_dq_plain(*args),
                                fa.flash_dq_plain(*args_w))
@@ -1719,9 +1726,6 @@ def main() -> int:
     if kern is not None:
         pa_src = "deepspeed_tpu_torch/ops/csrc/paged_attention.cu"
         pa_replaces = "deepspeed_tpu/ops/paged_attention.py:48"
-        flash_src = {"bfloat16": "flash_attention.cu",
-                     "float16": "flash_attention_fp16.cu",
-                     "float32": "flash_attention_fp32.cu"}
         replaces = {"flash_fwd": "deepspeed_tpu/ops/flash_attention.py:76",
                     "flash_dq": "deepspeed_tpu/ops/flash_attention.py:173",
                     "flash_dkv": "deepspeed_tpu/ops/flash_attention.py:212"}
@@ -1737,8 +1741,10 @@ def main() -> int:
             # what the training runs' counts read (null: none ran)
             launches = (sum(r[k].get((dt, d), 0) for r in flash_runs)
                         if flash_runs else None)
-            src = ("flash_attention_sm90.cuh"
-                   if flash_design(k, dt, d) == "wgmma" else flash_src[dt])
+            # the file that holds the kernel the variant ran
+            src = {"wgmma": "flash_attention_sm90.cuh",
+                   "wmma": "flash_attention.cuh"}.get(
+                       flash_design(k, dt, d), "flash_attention_fp32.cu")
             return dict(name=flash_name(k, dt, d), route="cuda",
                         source=f"deepspeed_tpu_torch/ops/csrc/{src}",
                         replaces=replaces[k], launches=launches,

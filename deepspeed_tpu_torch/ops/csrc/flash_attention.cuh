@@ -11,9 +11,9 @@
 //   flash_dkv  <- `_dkv_kernel` (:212, pallas_call in `_bwd` :311)
 //
 // Which design runs which head dim (a dispatch by D in the entry points):
-//   * fwd and dkv at D 32, 64, 80, 96, 128: the wgmma / TMA / warp-
+//   * fwd, dq and dkv at D 32, 64, 80, 96, 128: the wgmma / TMA / warp-
 //     specialised kernels of flash_attention_sm90.cuh (see its note);
-//   * fwd and dkv at D 256, and dq at every D: the WMMA kernels below.
+//   * fwd, dq and dkv at D 256: the WMMA kernels below.
 // Layouts (all contiguous; T is the element type):
 //   q, do, o, dq   [B, H,   S, D] T
 //   k, v, dk, dv   [B, Hkv, S, D] T         (GQA: query head h reads KV head
@@ -36,7 +36,7 @@
 // products bound it: fwd 2, dq 3, dkv 4 matrix products of B*H*S*S/2*D
 // multiply-adds each (causal).
 //
-// Design of the WMMA kernels (dq at every D; fwd and dkv at D 256): tiles
+// Design of the WMMA kernels (fwd, dq and dkv at D 256): tiles
 // of 64 query rows x 64 key rows, 4 warps per block, each warp owning 16
 // rows of the block's output tile.  The matrix products run on the tensor
 // cores through WMMA (16x16x16, fp32 accumulate); the softmax runs on CUDA
@@ -59,7 +59,7 @@
 //   * Head dims: 32, 64, 80, 96, 128, 256; the wrapper zero-pads any other
 //     D <= 256 up to the next of these.
 //
-// What the WMMA design leaves on the table (dq is the next redesign): no
+// What the WMMA design leaves on the table (D 256 has no main path yet): no
 // wgmma/TMA, no double-buffered tile loads, WMMA operands re-read from
 // shared memory for every product, O round-tripped through shared memory
 // every KV tile (fwd), and at most two blocks per SM (shared memory 30-190
@@ -564,6 +564,7 @@ cudaError_t dq_launch(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int B, int H, int Hkv, int S, float scale,
                       cudaStream_t st) {
+  static_assert(D == 256, "D <= 128 runs flash90::dq_kernel");
   const int smem = Layout<D>::DQ_SMEM;
   cudaError_t e = set_smem(flash_dq_kernel<T, D, C>, smem);
   if (e != cudaSuccess) return e;
@@ -653,9 +654,16 @@ int dq_entry(const void* q, const void* k, const void* v, const void* dout,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)with_head_dim(D, [&](auto d) {
     constexpr int DD = decltype(d)::value;
-    return causal
-        ? dq_launch<T, DD, true>(q, k, v, dout, lse, delta, dq, B, H, Hkv, S, scale, st)
-        : dq_launch<T, DD, false>(q, k, v, dout, lse, delta, dq, B, H, Hkv, S, scale, st);
+    if constexpr (DD == 256)
+      return causal
+          ? dq_launch<T, DD, true>(q, k, v, dout, lse, delta, dq, B, H, Hkv, S, scale, st)
+          : dq_launch<T, DD, false>(q, k, v, dout, lse, delta, dq, B, H, Hkv, S, scale, st);
+    else
+      return causal
+          ? flash90::dq_launch<T, DD, true>(q, k, v, dout, lse, delta, dq, B, H, Hkv,
+                                            S, scale, st)
+          : flash90::dq_launch<T, DD, false>(q, k, v, dout, lse, delta, dq, B, H, Hkv,
+                                             S, scale, st);
   });
 }
 

@@ -1,38 +1,41 @@
-// Flash attention forward and dk/dv for Hopper (sm_90a) with wgmma, TMA
-// and warp specialisation, templated on the 16-bit element type (bf16 or
-// fp16) and the head dim D in {32, 64, 80, 96, 128}.  flash_attention.cuh
-// dispatches to these from the entry points flash_fwd_<tag> and
-// flash_dkv_<tag>; D = 256 and dq keep the WMMA kernels there.
+// Flash attention forward, dq and dk/dv for Hopper (sm_90a) with wgmma,
+// TMA and warp specialisation, templated on the 16-bit element type (bf16
+// or fp16) and the head dim D in {32, 64, 80, 96, 128}.
+// flash_attention.cuh dispatches to these from the entry points
+// flash_fwd_<tag>, flash_dq_<tag> and flash_dkv_<tag>; D = 256 keeps the
+// WMMA kernels there.
 //
-// Replaces two TPU kernels of deepspeed_tpu/ops/flash_attention.py:
+// Replaces the three TPU kernels of deepspeed_tpu/ops/flash_attention.py:
 //   fwd_kernel  <- `_fwd_kernel` (:76, pallas_call in `_fwd` :137)
+//   dq_kernel   <- `_dq_kernel`  (:173, pallas_call in `_bwd` :283)
 //   dkv_kernel  <- `_dkv_kernel` (:212, pallas_call in `_bwd` :311)
 // The numerics are those of flash_attention.cuh's header: scores in fp32,
 // masked entries at -1e30, P (and dS) rounded to the element type before
 // their products, the division by max(l, 1e-30), lse = m + log(max(l,
-// 1e-30)); dk = scale * dS^T Q, dv = P^T dO.  No atomics: the result does
-// not depend on the order blocks run in.
+// 1e-30)); dq = scale * dS K, dk = scale * dS^T Q, dv = P^T dO.  No
+// atomics: the result does not depend on the order blocks run in.
 //
 // The bound on an H100 (989 TFLOP/s bf16/fp16 dense, 3.35 TB/s): at the
 // training shapes (S = 1024..4096) the work per byte is ~S/2-fold, so the
-// tensor cores bound both: the forward does 2 and dk/dv 4 matrix products
-// of B*H*S*S/2*D multiply-adds each (causal).
+// tensor cores bound all three: the forward does 2, dq 3 and dk/dv 4
+// matrix products of B*H*S*S/2*D multiply-adds each (causal).
 //
 // What the design does about it:
 //   * Every product is a wgmma (64-row warpgroup tiles, fp32 sums in
-//     registers): S = Q K^T and dP^T = V dO^T with both operands in shared
-//     memory; O += P V, dV += P^T dO and dK += dS^T Q with P / dS
-//     converted in registers to wgmma's A fragment and the second operand
-//     read MN-major (transposed) from shared memory.  Nothing round-trips
-//     through shared memory: the online softmax runs on the accumulator's
-//     own layout (each thread holds 2 rows; a row's values sit in one quad
-//     of lanes), and O (fwd) / dK, dV (dkv) stay in registers for the
-//     whole loop.
+//     registers): S = Q K^T, dP = dO V^T and dP^T = V dO^T with both
+//     operands in shared memory; O += P V, dQ += dS K, dV += P^T dO and
+//     dK += dS^T Q with P / dS converted in registers to wgmma's A
+//     fragment and the second operand read MN-major (transposed) from
+//     shared memory (dq reads one K tile both ways).  Nothing round-trips
+//     through shared memory: the online softmax (and the backward's P and
+//     dS) runs on the accumulator's own layout (each thread holds 2 rows;
+//     a row's values sit in one quad of lanes), and O (fwd) / dQ (dq) /
+//     dK, dV (dkv) stay in registers for the whole loop.
 //   * Warp specialisation: warpgroup 0 is the producer (one thread issues
-//     TMA loads into 2-stage rings, with mbarrier completion; in dkv its
-//     first warp also stages lse and delta), warpgroups 1 and 2 consume,
-//     64 rows each; setmaxnreg moves registers from the producer (40) to
-//     the consumers (232).
+//     TMA loads into 2-stage rings, with mbarrier completion; in dq and
+//     dkv its first warp also stages lse and delta), warpgroups 1 and 2
+//     consume, 64 rows each; setmaxnreg moves registers from the producer
+//     (40) to the consumers (232).
 //   * fwd: 128 query rows x 128-key tiles; a persistent grid (one block
 //     per SM) walks the (q tile, head, batch) work list, longest causal
 //     rows first, so the next tile's Q and K/V loads overlap this tile's
@@ -40,6 +43,13 @@
 //     K slot is released once S is computed, a V slot once PV is.  The
 //     two consumer warpgroups take turns to issue their S products (named
 //     barriers), so one's softmax overlaps the other's products.
+//   * dq: 128 query rows x 64-key tiles (S, dP and dQ all live in
+//     registers: 128-key tiles spill at D <= 80 and ran slower); one block
+//     per (q tile, head, batch), longest causal rows first (a persistent
+//     grid ran slower).  K and V have rings of their own: a V slot is
+//     released once dP is computed, a K slot once dQ += dS K is.  The
+//     producer warp stages the rows' lse (in log2 units) and delta beside
+//     Q and dO.  A warpgroup skips the tiles past its own diagonal.
 //   * dkv: 128 keys x 64 query rows; one block per (KV tile, KV head,
 //     batch), streaming the GQA group's rep heads x q tiles from the
 //     diagonal down (causal).
@@ -63,7 +73,9 @@
 // D 128, little at D 64); one block per SM (registers); 2-stage rings;
 // the epilogues store from registers (no TMA store); D = 80 loads
 // 32-byte boxes (more TMA requests per byte than 128-byte rows); dkv is
-// not persistent.
+// not persistent; dq's two warpgroups take no turns (a ping-pong ran
+// slower), and a tile's dQ product is waited for before the next tile's S
+// and dP.
 
 #pragma once
 
@@ -443,7 +455,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 32);                  // the producer warp's lanes
+      mbar_init(&full[s], 33);                  // lane 0's expect_tx + 32 lanes
       mbar_init(&empty[s], 8);
     }
     mbar_init(kvbar, 1);
@@ -485,7 +497,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
         ls[t] = row < S ? lse[at] * kLog2e : 0.f;  // log2 units
         ls[BQ + t] = row < S ? delta[at] : 0.f;
       }
-      if (lane != 0) mbar_arrive(&full[s]);
+      mbar_arrive(&full[s]);                    // this lane's rows are written
     }
     return;
   }
@@ -578,6 +590,213 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
+// backward: dq
+// ---------------------------------------------------------------------------
+
+// Barriers of dq (shared memory after the rows): K and V rings as in the
+// forward; Q, dO and the rows arrive once
+struct DqBars {
+  uint64_t full_k[kStages], empty_k[kStages];
+  uint64_t full_v[kStages], empty_v[kStages];
+  uint64_t q_full;
+};
+
+template <int D>
+struct DqLayout {
+  static constexpr int BQ = 128;                 // query rows (2 x 64)
+  // keys per tile: S, dP (BK / 2 fp32 each) and dQ (D / 2) live in
+  // registers together; 128 keys spill at D <= 80 and ran slower
+  static constexpr int BK = 64;
+  static constexpr int BW = box_width<D>();
+  static constexpr int NB = D / BW;
+  static constexpr int Q_BOX = BQ * BW * 2;
+  static constexpr int KV_BOX = BK * BW * 2;
+  static constexpr int Q_BYTES = NB * Q_BOX;     // the Q or the dO tile
+  static constexpr int KV_BYTES = NB * KV_BOX;   // one K or V tile
+  static constexpr int ROWS = 2 * Q_BYTES + kStages * 2 * KV_BYTES;  // lse, delta
+  static constexpr int BARS = ROWS + 2 * BQ * 4;
+  static constexpr int SMEM = 1024 + BARS + sizeof(DqBars);
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
+
+// dq: one block per (q tile of 128 rows, head, batch), longest causal rows
+// first; per KV tile of the GQA head, S = Q K^T and dP = dO V^T from shared
+// memory, P and dS on the accumulators' layout, dQ += dS K with dS from
+// registers and K read MN-major from the tile the S product read K-major.
+// dQ stays in registers for the whole loop.
+template <typename T, int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+          const __grid_constant__ CUtensorMap tm_k,
+          const __grid_constant__ CUtensorMap tm_v,
+          const __grid_constant__ CUtensorMap tm_do,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          T* __restrict__ dq, int B, int H, int Hkv, int S, float scale) {
+  using L = DqLayout<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, BW = L::BW;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  DqBars& bar = *reinterpret_cast<DqBars*>(smem + L::BARS);
+  float* rows = reinterpret_cast<float*>(smem + L::ROWS);  // lse (log2), delta
+  auto k_tile = [&](int s) { return smem + 2 * L::Q_BYTES + s * 2 * L::KV_BYTES; };
+  auto v_tile = [&](int s) { return k_tile(s) + L::KV_BYTES; };
+
+  const int n_q = (S + BQ - 1) / BQ;
+  const int n_k = (S + BK - 1) / BK;
+  const FwdTile w(blockIdx.x, n_q, H, B * H);
+  const int bh = w.b * H + w.h;
+  // KV tiles up to the diagonal of query rows [row, row + n)
+  auto kv_tiles = [&](int row, int n) {
+    return CAUSAL ? min((row + n - 1) / BK, n_k - 1) + 1 : n_k;
+  };
+  const int n_tiles = kv_tiles(w.i * BQ, BQ);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bar.full_k[s], 1);
+      mbar_init(&bar.full_v[s], 1);
+      mbar_init(&bar.empty_k[s], 8);            // one arrive per consumer warp
+      mbar_init(&bar.empty_v[s], 8);
+    }
+    // lane 0's expect_tx, then every producer lane once its rows are written
+    mbar_init(&bar.q_full, 33);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  if (wg == 0) {
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x >= 32) return;
+    const int bg = w.b * Hkv + w.h / (H / Hkv);
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&bar.q_full, 2 * L::Q_BYTES);
+      for (int nb = 0; nb < L::NB; ++nb) {
+        tma_load_3d(smem + nb * L::Q_BOX, &tm_q, &bar.q_full, nb * BW,
+                    w.i * BQ, bh);
+        tma_load_3d(smem + L::Q_BYTES + nb * L::Q_BOX, &tm_do, &bar.q_full,
+                    nb * BW, w.i * BQ, bh);
+      }
+    }
+    for (int x = lane; x < BQ; x += 32) {       // rows past S read as 0
+      const int row = w.i * BQ + x;
+      const size_t at = (size_t)bh * S + row;
+      rows[x] = row < S ? lse[at] * kLog2e : 0.f;   // log2 units
+      rows[BQ + x] = row < S ? delta[at] : 0.f;
+    }
+    mbar_arrive(&bar.q_full);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      const uint32_t free_parity = ((j / kStages) & 1) ^ 1;
+      mbar_wait(&bar.empty_k[s], free_parity);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&bar.full_k[s], L::KV_BYTES);
+        for (int nb = 0; nb < L::NB; ++nb)
+          tma_load_3d(k_tile(s) + nb * L::KV_BOX, &tm_k, &bar.full_k[s],
+                      nb * BW, j * BK, bg);
+      }
+      mbar_wait(&bar.empty_v[s], free_parity);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&bar.full_v[s], L::KV_BYTES);
+        for (int nb = 0; nb < L::NB; ++nb)
+          tma_load_3d(v_tile(s) + nb * L::KV_BOX, &tm_v, &bar.full_v[s],
+                      nb * BW, j * BK, bg);
+      }
+    }
+    return;
+  }
+
+  // Consumers: per KV tile, S = Q K^T and dP = dO V^T, P and dS, dQ += dS K.
+  regs_alloc<kConsumerRegs>();
+  const int cw = wg - 1;                        // which 64 query rows
+  const int r = cw * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;  // row in tile
+  const int cq = (lane % 4) * 2;                // first column of each block
+  const uint32_t q_addr = smem_addr(smem);
+  const uint32_t do_addr = q_addr + L::Q_BYTES;
+  const float scale2 = scale * kLog2e;          // exp(x) = 2^(x log2 e)
+  const int row_min = w.i * BQ + cw * 64;       // this warpgroup's first row
+  // tiles past this warpgroup's diagonal (causal, BK < BQ) are all masked
+  const int n_mine = kv_tiles(row_min, 64);
+  const int row0 = w.i * BQ + r;                // query rows row0, row0 + 8
+  float acc[D / 2];
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+
+  mbar_wait(&bar.q_full, 0);
+  const float ls[2] = {rows[r], rows[r + 8]};
+  const float dl[2] = {rows[BQ + r], rows[BQ + r + 8]};
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const uint32_t parity = (j / kStages) & 1;
+    mbar_wait(&bar.full_k[s], parity);
+    if (j >= n_mine) {                          // nothing to add: free the slots
+      mbar_wait(&bar.full_v[s], parity);
+      if (lane == 0) {
+        mbar_arrive(&bar.empty_k[s]);
+        mbar_arrive(&bar.empty_v[s]);
+      }
+      continue;
+    }
+    const uint32_t k_addr = smem_addr(k_tile(s));
+    const uint32_t v_addr = smem_addr(v_tile(s));
+    float sc[BK / 2], dp[BK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)                        // S = Q K^T
+      wgmma_ss<T, BK>(sc, desc_kmajor<BW>(q_addr, L::Q_BOX, cw * 64, k),
+                      desc_kmajor<BW>(k_addr, L::KV_BOX, 0, k), k > 0);
+    wgmma_commit();
+    mbar_wait(&bar.full_v[s], parity);
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)                        // dP = dO V^T
+      wgmma_ss<T, BK>(dp, desc_kmajor<BW>(do_addr, L::Q_BOX, cw * 64, k),
+                      desc_kmajor<BW>(v_addr, L::KV_BOX, 0, k), k > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+
+    const int key0 = j * BK;
+    if (key0 + BK > S || (CAUSAL && key0 + BK - 1 > row_min)) {
+#pragma unroll
+      for (int x = 0; x < BK / 2; ++x) {
+        const int col = key0 + (x / 4) * 8 + cq + (x & 1);
+        const int row = row0 + ((x & 2) ? 8 : 0);
+        sc[x] = (col >= S || (CAUSAL && col > row))
+                    ? 0.f
+                    : exp2_approx(fmaf(sc[x], scale2, -ls[(x >> 1) & 1]));
+      }
+    } else {
+#pragma unroll
+      for (int x = 0; x < BK / 2; ++x)
+        sc[x] = exp2_approx(fmaf(sc[x], scale2, -ls[(x >> 1) & 1]));
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    if (lane == 0) mbar_arrive(&bar.empty_v[s]);
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x)
+      dp[x] = sc[x] * (dp[x] - dl[(x >> 1) & 1]);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) to_a_frag<T, BK>(dp, kk, da[kk]);
+
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)                    // dQ += dS K
+      wgmma_rs<T, D>(acc, da[kk], desc_mnmajor<BW>(k_addr, L::KV_BOX, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&bar.empty_k[s]);
+  }
+
+  store_acc<T, D>(dq + ((size_t)bh * S + (size_t)w.i * BQ) * D, acc, r, cq,
+                  S - w.i * BQ, scale, scale);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -614,6 +833,31 @@ cudaError_t fwd_launch(const void* q, const void* k, const void* v, void* o,
   const unsigned grid = (unsigned)(n_work < sms ? n_work : sms);
   fwd_kernel<T, D, C><<<grid, kThreads, L::SMEM, st>>>(mq, mk, mv, static_cast<T*>(o),
                               static_cast<float*>(lse), B, H, Hkv, S, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D, bool C>
+cudaError_t dq_launch(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, int B, int H, int Hkv, int S, float scale,
+                      cudaStream_t st) {
+  using L = DqLayout<D>;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t e;
+  if ((e = make_map_3d<L::BW>(&mq, q, is_fp16<T>(), D, S, B * H, L::BQ)) ||
+      (e = make_map_3d<L::BW>(&mdo, dout, is_fp16<T>(), D, S, B * H, L::BQ)) ||
+      (e = make_map_3d<L::BW>(&mk, k, is_fp16<T>(), D, S, B * Hkv, L::BK)) ||
+      (e = make_map_3d<L::BW>(&mv, v, is_fp16<T>(), D, S, B * Hkv, L::BK)))
+    return e;
+  e = cudaFuncSetAttribute(dq_kernel<T, D, C>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (e != cudaSuccess) return e;
+  // one block per (q tile, head, batch): it beat a persistent grid
+  const unsigned grid = (unsigned)((S + L::BQ - 1) / L::BQ) * B * H;
+  dq_kernel<T, D, C><<<grid, kThreads, L::SMEM, st>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dq), B, H, Hkv, S,
+      scale);
   return cudaGetLastError();
 }
 

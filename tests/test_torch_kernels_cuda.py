@@ -223,6 +223,72 @@ def test_sm90_fwd_and_dkv_match_plain_and_dkv_is_deterministic(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("S", [1024, 1000], ids=["tiled", "ragged"])
+@pytest.mark.parametrize("rep", [1, 2, 4])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_sm90_dq_matches_plain_and_is_deterministic(cuda_device, dtype, D,
+                                                    rep, S, causal):
+    """The wgmma / TMA dq (every head dim it runs: 32, 64, 80, 96, 128)
+    against its plain version on the same inputs, within 2x the noise
+    floor of the dtype, with the parametrisation of the forward and dk/dv
+    above: GQA rep 1, 2, 4; S tiled and ragged (TMA's zero fill, masked;
+    lse and delta rows past S); causal and full; more work items than
+    SMs.  dq is bitwise equal on a second run (no atomics)."""
+    B, Hkv = 3, 8
+    H = Hkv * rep
+    xw, (q, k, v, do) = _flash_case(cuda_device, B, H, Hkv, S, D,
+                                    S + D + rep, dtype)
+    scale = D ** -0.5
+    o_ref, lse = flash_fwd_plain(q, k, v, scale, causal)
+    o_w, lse_w = flash_fwd_plain(*xw[:3], scale, causal)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    delta_w = (xw[3] * o_w).sum(-1)
+    args = (q, k, v, do, lse, delta, scale, causal)
+    before = flash_dq.launches
+    dq = flash_dq(*args)
+    dq2 = flash_dq(*args)
+    torch.cuda.synchronize()
+    assert flash_dq.launches == before + 2
+    assert dq.dtype == dtype and dq.shape == q.shape
+    assert torch.equal(dq, dq2)
+    _assert_within_noise("dq", dq, flash_dq_plain(*args),
+                         flash_dq_plain(*xw, lse_w, delta_w, scale, causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128, 256])
+def test_fp32_dkv_matches_plain_and_is_deterministic(cuda_device, D,
+                                                     causal):
+    """The register-blocked fp32 dk/dv at every head dim (two cp.async
+    stages at D <= 128, one at D 256) on a GQA batch with a ragged last
+    tile and many streamed query tiles: within 2x the fp32 noise floor
+    (against fp64), and bitwise equal on a second run (no atomics)."""
+    B, H, Hkv, S = 2, 8, 2, 1000
+    xw, (q, k, v, do) = _flash_case(cuda_device, B, H, Hkv, S, D, S + D,
+                                    torch.float32)
+    scale = D ** -0.5
+    o_ref, lse = flash_fwd_plain(q, k, v, scale, causal)
+    o_w, lse_w = flash_fwd_plain(*xw[:3], scale, causal)
+    delta = (do * o_ref).sum(-1)
+    delta_w = (xw[3] * o_w).sum(-1)
+    args = (q, k, v, do, lse, delta, scale, causal)
+    before = flash_dkv.launches
+    dk, dv = flash_dkv(*args)
+    dk2, dv2 = flash_dkv(*args)
+    torch.cuda.synchronize()
+    assert flash_dkv.launches == before + 2
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    for name, got, ref, ref_w in zip(
+            ("dk", "dv"), (dk, dv), flash_dkv_plain(*args),
+            flash_dkv_plain(*xw, lse_w, delta_w, scale, causal)):
+        _assert_within_noise(name, got, ref, ref_w)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float32],
                          ids=["fp16", "fp32"])
 def test_flash_cuda_tensors_never_reach_a_plain_version(cuda_device,
