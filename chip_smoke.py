@@ -38,8 +38,8 @@ passed over):
              as a yardstick (for the GEMM, a dense bf16 torch.matmul of
              the same shape, as context).  Each flash line names the
              design that ran (wgmma: fwd, dq and dkv at D <= 128 in
-             bf16/fp16; wmma: D 256; fp32-rb: the fp32 dk/dv; fp32: the
-             fp32 fwd and dq), its TFLOP/s, its ratio to SDPA, the host
+             bf16/fp16; wmma: D 256; fp32-rb: the fp32 dk/dv; fp32-rbq:
+             the fp32 fwd and dq), its TFLOP/s, its ratio to SDPA, the host
              microseconds per call (tensor maps included) and its
              library's build seconds; dq and dkv must be bitwise equal on
              a second run.
@@ -356,10 +356,11 @@ def flash_design(kname, dtype, D):
     """Which kernel design a flash variant runs (the entry points' dispatch
     by head dim): "wgmma" (csrc/flash_attention_sm90.cuh: fwd, dq and dkv
     at D <= 128), "wmma" (csrc/flash_attention.cuh: D 256), "fp32-rb" (the
-    register-blocked fp32 dk/dv) or "fp32" (the fp32 fwd and dq; both in
+    register-blocked fp32 dk/dv, keys resident) or "fp32-rbq" (the
+    register-blocked fp32 fwd and dq, queries resident; both in
     csrc/flash_attention_fp32.cu)."""
     if dtype == "float32":
-        return "fp32-rb" if kname == "flash_dkv" else "fp32"
+        return "fp32-rb" if kname == "flash_dkv" else "fp32-rbq"
     return "wgmma" if D != 256 else "wmma"
 
 

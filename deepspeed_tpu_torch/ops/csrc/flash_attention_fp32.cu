@@ -16,58 +16,69 @@
 // kernel (and the plain version) computes in fp32: no TF32, whose 10
 // mantissa bits would be another result.  Rounding P and dS "to the input
 // dtype" is the identity here.  exp and log are the accurate expf / logf.
+// No atomics: every output is bitwise deterministic.
 //
 // What bounds it on an H100: the products, on the CUDA cores (67 TFLOP/s
 // fp32 dense, not the tensor cores): fwd 2, dq 3, dkv 4 matrix products of
 // B*H*S*S/2*D multiply-adds each (causal), with 4-byte operands.
 //
-// Design of the forward and dq (simple first): 256 threads a block in a
-// 16 x 16 grid (ty, tx).  A block owns BM = 64 query rows and streams K/V
-// BN rows at a time (64; 32 at D = 256, where four tiles of 64 rows would
-// not fit the shared memory).  Thread (ty, tx) keeps a TM x TN micro-tile of
-// the scores in registers (rows ty*TM.., columns tx + 16 n) and a TM x D/16
-// micro-tile of its output (columns tx + 16 n), so the accumulators never
-// leave the registers; the softmax's row max and sum are reduced over the
-// 16 lanes of a half-warp with shuffles.  Tiles sit in shared memory with
-// an odd row stride (D + 1): reading a column across 16 rows hits 16 banks.
-// The probability (or dS) tile goes through shared memory between the two
-// products; the half-warp that writes a row is the one that reads it, so a
-// __syncwarp orders them.  Tiles past S are zero-filled and masked.  What
-// it leaves on the table: one or two blocks per SM (64-210 KB of shared
-// memory), scalar shared-memory loads (0.5-0.75 loads a multiply-add in the
-// score products), no double-buffered tile loads.
-//
-// Design of dk/dv (register-blocked, as a SIMT GEMM is built): 256
-// threads in a 16 x 16 grid; a block owns BM keys (K and V resident) and
-// streams the GQA group's rep heads x query tiles of BN rows from the
-// diagonal down (causal), one block per (key tile, KV head, batch), no
-// atomics.  At D <= 80 BM = 128 and each thread owns an 8 x 4 micro-tile of
-// the scores (BN 64; 8 x 3 and BN 48 at D 80, so that two stages fit); at
-// D >= 96, where dK and dV would not fit the registers, BM = 64 and 4 x 2
-// (BN 32).  See struct Rb.
+// Design of all three (register-blocked, as a SIMT GEMM is built): 256
+// threads a block in a 16 x 16 grid (rg, cg).  A block keeps one side's
+// tile resident and streams the other's; each thread holds a TM x TN
+// micro-tile of the scores and a TM x D / 16 micro-tile of each output in
+// registers, so the accumulators never leave them.
 //   * Every tile row is D + 4 floats: 16-byte aligned with an odd number of
 //     16-byte chunks, so a float4 read of 8 consecutive rows (or 8
-//     consecutive chunks of one row) hits distinct banks.
-//   * S^T = K Q^T and dP^T = V dO^T read each thread's key and query rows
-//     as float4s along D: 12 float4 loads per 128 multiply-adds (8 x 4),
-//     each load shared by the lanes of a warp that need it.
-//   * P^T and dS^T go to shared memory as [query][key] (a conflict-free
-//     scalar store), so dV += P^T dO and dK += dS^T Q read a thread's keys
-//     as float4s (4 keys each) a query row and its D / 16 columns of dO
-//     and Q as float4s (64 e + 4 cg; D 80, 96 and 32 add a float or
-//     float2): 6 loads per 64 multiply-adds at D 64.  dK and dV stay in
-//     registers.
-//   * cp.async double-buffers the streamed tiles: the next query tile's
-//     Q, dO, lse and delta load while this one computes (one stage at
-//     D 256, whose tiles leave room for one: 212 KB).
-//   * The key tiles are the slowest grid dimension, so the blocks with the
-//     most causal work start first and the shortest fill the tail.
+//     consecutive chunks of one row) hits distinct banks.  The score
+//     products (rb_abt) read each thread's rows as float4s along D: TM + TN
+//     loads per 4 TM TN multiply-adds.
+//   * The probabilities (and dS) go through shared memory transposed, so
+//     that the second product reads 4 consecutive output rows of a thread
+//     as one float4 a streamed row, and its D / 16 output columns of that
+//     row as float4s (64 e + 4 cg; D 80, 96 and 32 add a float or float2).
+//   * cp.async loads the next streamed tile while this one computes.
+//   * The resident tiles are the slowest grid dimension, longest causal
+//     work first, so the shortest blocks fill the tail.
 //   * Tiles inside S and below the diagonal skip the mask.
-// What it leaves on the table (measured on an H100: ~50% of the CUDA
-// cores' rate at D 64): one block an SM (208 KB of shared memory at D 64)
-// and 254 registers, so shared-memory latency and the two barriers a tile
-// are poorly hidden; the diagonal tiles' masked half (~11% of the work at
-// S 1024); the accurate expf (~5%); scalar stores of P^T and dS^T.
+//
+// Forward and dq (struct Rq): a block owns BM = 16 TM query rows (Q; dq
+// also dO, and lse and delta in registers) of one head and streams its KV
+// head's keys BN = 16 TN at a time from key 0 to the diagonal (causal).
+// Thread (rg, cg) = (tid / 16, tid % 16) holds the scores of the TM
+// consecutive queries TM rg + i and of keys cg + 16 j.  The 16 threads of
+// a query row are one half-warp, so the online softmax's row max is 4
+// shuffles (each thread keeps its part of the row sum, reduced once at the
+// end); a quarter-warp shares one row thread, so its float4 reads of Q
+// (dO) are one address.  The thread's score rows are its output rows:
+// P^T (dS^T) is stored [key][query], 4 of a thread's rows of a key as one
+// conflict-free float4, and the softmax's correction exp(m_old - m_new)
+// and the final 1 / l scale the thread's own accumulators (no exchange
+// through shared memory).  The forward holds one K and one V tile: K_j
+// loads while P_{j-1} V_{j-1} computes and V_j while S_j does, which
+// leaves room for 8 x 8 micro-tiles (BN 128) at D <= 64; dq, which reads
+// K in both phases, double-buffers K and V.  TM 8 (BM 128) to D 128 and 4
+// at D 256 (see Rq for TN).
+//
+// dk/dv (struct Rb): a block owns BM keys (K and V resident) and streams
+// the GQA group's rep heads x query tiles of BN rows from the diagonal
+// down (causal), one block per (key tile, KV head, batch), two cp.async
+// stages (one at D 256).  At D <= 80 BM = 128 and each thread owns an
+// 8 x 4 micro-tile of the scores (BN 64; 8 x 3 and BN 48 at D 80, so that
+// two stages fit); at D >= 96, where dK and dV would not fit the
+// registers, BM = 64 and 4 x 2 (BN 32).  S^T = K Q^T and dP^T = V dO^T;
+// P^T and dS^T go to shared memory as [query][key] (a scalar store), dV +=
+// P^T dO and dK += dS^T Q.
+//
+// What it leaves on the table (measured on an H100: 48-57% of the CUDA
+// cores' rate at D 64 and 80): shared memory.  A float4 read takes four
+// passes of the shared-memory pipe (128 bytes a cycle) whatever lanes
+// share an address, so a product reads 1.5 bytes a multiply-add at 8 x 4
+// micro-tiles (1 at 8 x 8), where the cores need 1 or less; larger tiles
+// run out of registers (254 at D 64) and one block an SM (172-208 KB of
+// shared memory at D 64) leaves 8 warps to hide the latency and the
+// barriers.
+// The diagonal tiles' masked half (~11% of the work at S 1024) and the
+// accurate expf stay: skipping the masked keys per warp was slower.
 //
 // Supported: D in {32, 64, 80, 96, 128, 256}, any S >= 1, H % Hkv == 0.
 
@@ -78,83 +89,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // 16 x 16: ty owns rows, tx columns
+constexpr int kThreads = 256;   // 16 x 16: rg owns rows, cg columns
 constexpr float kNegInf = -1e30f;
-
-template <int D>
-struct Cfg {
-  static_assert(D % 16 == 0 && D >= 16 && D <= 256, "head dim");
-  static constexpr int BM = 64;                  // rows a block owns
-  static constexpr int BN = D > 128 ? 32 : 64;   // rows streamed per step
-  static constexpr int TM = BM / 16;             // micro-tile rows
-  static constexpr int TN = BN / 16;             // micro-tile score columns
-  static constexpr int TD = D / 16;              // micro-tile output columns
-  static constexpr int LD = D + 1;               // q/k/v/do tile row stride
-  static constexpr int LP = BN + 1;              // P / dS tile row stride
-  static constexpr int FWD_SMEM = 4 * ((BM + 2 * BN) * LD + BM * LP);
-  static constexpr int DQ_SMEM = 4 * ((2 * BM + 2 * BN) * LD + BM * LP);
-  static_assert(FWD_SMEM <= 232448 && DQ_SMEM <= 232448,
-                "shared memory of one block");
-};
-
-// `rows` rows of D floats from global (row stride D) into shared memory (row
-// stride D + 1); rows at or past rows_valid are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_rows(float* dst,
-                                          const float* __restrict__ src,
-                                          int rows, int rows_valid) {
-  constexpr int LD = D + 1;
-  for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
-    const int r = idx / D;
-    const int c = idx - r * D;
-    dst[r * LD + c] = r < rows_valid ? src[idx] : 0.f;
-  }
-}
-
-// s[i][n] = A[i] . B[16 n] over D: A points at this thread's first row, B at
-// its first column's row (both stride D + 1 in shared memory).
-template <int D, int TM, int TN>
-__device__ __forceinline__ void tile_abt(const float* a, const float* b,
-                                         float (&s)[TM][TN]) {
-  constexpr int LD = D + 1;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int n = 0; n < TN; ++n) s[i][n] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float av[TM], bv[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) av[i] = a[i * LD + d];
-#pragma unroll
-    for (int n = 0; n < TN; ++n) bv[n] = b[n * 16 * LD + d];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int n = 0; n < TN; ++n) s[i][n] = fmaf(av[i], bv[n], s[i][n]);
-  }
-}
-
-// acc[i][n] += sum_c P[i][c] * V[c][16 n] over c < BN: P points at this
-// thread's first row (stride BN + 1), V at its first column (stride D + 1).
-template <int D, int TM, int BN>
-__device__ __forceinline__ void tile_ab_acc(const float* p, const float* v,
-                                            float (&acc)[TM][D / 16]) {
-  constexpr int LD = D + 1;
-  constexpr int LP = BN + 1;
-#pragma unroll 2
-  for (int c = 0; c < BN; ++c) {
-    float pv[TM];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) pv[i] = p[i * LP + c];
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      const float x = v[c * LD + n * 16];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) acc[i][n] = fmaf(pv[i], x, acc[i][n]);
-    }
-  }
-}
+constexpr int kMaxSmem = 232448;   // shared memory one block may use
 
 // reduce over the 16 lanes of this half-warp
 __device__ __forceinline__ float half_warp_max(float x) {
@@ -170,189 +107,6 @@ __device__ __forceinline__ float half_warp_sum(float x) {
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
-
-// ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads)
-fwd32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o,
-             float* __restrict__ lse, int H, int Hkv, int S, float scale) {
-  using C = Cfg<D>;
-  constexpr int BM = C::BM, BN = C::BN, TM = C::TM, TN = C::TN, TD = C::TD;
-  constexpr int LD = C::LD, LP = C::LP;
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // BM x LD
-  float* Ks = Qs + BM * LD;         // BN x LD
-  float* Vs = Ks + BN * LD;         // BN x LD
-  float* Ps = Vs + BN * LD;         // BM x LP
-
-  const int n_q = (S + BM - 1) / BM;
-  const int n_k = (S + BN - 1) / BN;
-  const int i = n_q - 1 - (int)blockIdx.x;    // longest causal rows first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int g = h / (H / Hkv);
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int row0 = i * BM + ty * TM;          // this thread's first q row
-
-  const size_t bh = (size_t)b * H + h;
-  const size_t bg = (size_t)b * Hkv + g;
-  const float* kb = k + bg * S * D;
-  const float* vb = v + bg * S * D;
-  load_rows<D>(Qs, q + (bh * S + (size_t)i * BM) * D, BM, min(BM, S - i * BM));
-
-  float acc[TM][TD];
-  float m[TM], l[TM];
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int n = 0; n < TD; ++n) acc[r][n] = 0.f;
-  }
-
-  const int j_last = CAUSAL ? min((i * BM + BM - 1) / BN, n_k - 1) : n_k - 1;
-  for (int j = 0; j <= j_last; ++j) {
-    __syncthreads();                          // previous K/V tiles consumed
-    const int rows = min(BN, S - j * BN);
-    load_rows<D>(Ks, kb + (size_t)j * BN * D, BN, rows);
-    load_rows<D>(Vs, vb + (size_t)j * BN * D, BN, rows);
-    __syncthreads();
-
-    float s[TM][TN];
-    tile_abt<D, TM, TN>(Qs + ty * TM * LD, Ks + tx * LD, s);   // S = Q K^T
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int n = 0; n < TN; ++n) {
-        const int col = j * BN + tx + 16 * n;
-        float x = s[r][n] * scale;
-        if (col >= S || (CAUSAL && col > row0 + r)) x = kNegInf;
-        s[r][n] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[r], half_warp_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < TN; ++n) {
-        const float p = expf(s[r][n] - m_new);
-        Ps[(ty * TM + r) * LP + tx + 16 * n] = p;
-        sum += p;
-      }
-      const float corr = expf(m[r] - m_new);
-      l[r] = l[r] * corr + half_warp_sum(sum);
-      m[r] = m_new;
-#pragma unroll
-      for (int n = 0; n < TD; ++n) acc[r][n] *= corr;
-    }
-    __syncwarp();
-    tile_ab_acc<D, TM, BN>(Ps + ty * TM * LP, Vs + tx, acc);    // O += P V
-  }
-
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const int row = row0 + r;
-    if (row >= S) continue;
-    const float lc = fmaxf(l[r], 1e-30f);
-    float* og = o + (bh * S + row) * D + tx;
-#pragma unroll
-    for (int n = 0; n < TD; ++n) og[16 * n] = acc[r][n] / lc;
-    if (tx == 0) lse[bh * S + row] = m[r] + logf(lc);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward: dq
-// ---------------------------------------------------------------------------
-
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads)
-dq32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            float* __restrict__ dq, int H, int Hkv, int S, float scale) {
-  using C = Cfg<D>;
-  constexpr int BM = C::BM, BN = C::BN, TM = C::TM, TN = C::TN, TD = C::TD;
-  constexpr int LD = C::LD, LP = C::LP;
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // BM x LD
-  float* dOs = Qs + BM * LD;        // BM x LD
-  float* Ks = dOs + BM * LD;        // BN x LD
-  float* Vs = Ks + BN * LD;         // BN x LD
-  float* dSs = Vs + BN * LD;        // BM x LP
-
-  const int n_q = (S + BM - 1) / BM;
-  const int n_k = (S + BN - 1) / BN;
-  const int i = n_q - 1 - (int)blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int g = h / (H / Hkv);
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int row0 = i * BM + ty * TM;
-
-  const size_t bh = (size_t)b * H + h;
-  const size_t bg = (size_t)b * Hkv + g;
-  const float* kb = k + bg * S * D;
-  const float* vb = v + bg * S * D;
-  const int qrows = min(BM, S - i * BM);
-  load_rows<D>(Qs, q + (bh * S + (size_t)i * BM) * D, BM, qrows);
-  load_rows<D>(dOs, dout + (bh * S + (size_t)i * BM) * D, BM, qrows);
-  float lse_r[TM], delta_r[TM];
-  float acc[TM][TD];
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const bool ok = row0 + r < S;
-    lse_r[r] = ok ? lse[bh * S + row0 + r] : 0.f;
-    delta_r[r] = ok ? delta[bh * S + row0 + r] : 0.f;
-#pragma unroll
-    for (int n = 0; n < TD; ++n) acc[r][n] = 0.f;
-  }
-
-  const int j_last = CAUSAL ? min((i * BM + BM - 1) / BN, n_k - 1) : n_k - 1;
-  for (int j = 0; j <= j_last; ++j) {
-    __syncthreads();
-    const int rows = min(BN, S - j * BN);
-    load_rows<D>(Ks, kb + (size_t)j * BN * D, BN, rows);
-    load_rows<D>(Vs, vb + (size_t)j * BN * D, BN, rows);
-    __syncthreads();
-
-    float s[TM][TN], dp[TM][TN];
-    tile_abt<D, TM, TN>(Qs + ty * TM * LD, Ks + tx * LD, s);    // S = Q K^T
-    tile_abt<D, TM, TN>(dOs + ty * TM * LD, Vs + tx * LD, dp);  // dP = dO V^T
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-#pragma unroll
-      for (int n = 0; n < TN; ++n) {
-        const int col = j * BN + tx + 16 * n;
-        const int row = row0 + r;
-        const bool ok = row < S && col < S && !(CAUSAL && col > row);
-        const float p = ok ? expf(s[r][n] * scale - lse_r[r]) : 0.f;
-        dSs[(ty * TM + r) * LP + tx + 16 * n] = p * (dp[r][n] - delta_r[r]);
-      }
-    }
-    __syncwarp();
-    tile_ab_acc<D, TM, BN>(dSs + ty * TM * LP, Ks + tx, acc);   // dQ += dS K
-  }
-
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const int row = row0 + r;
-    if (row >= S) continue;
-    float* dg = dq + (bh * S + row) * D + tx;
-#pragma unroll
-    for (int n = 0; n < TD; ++n) dg[16 * n] = acc[r][n] * scale;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward: dk, dv (register-blocked)
-// ---------------------------------------------------------------------------
 
 // cp.async global -> shared of 16 or 4 bytes, zero-filled past src_bytes
 // (0: nothing is read, the destination is zeroed)
@@ -380,16 +134,30 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// The register-blocked layout.  256 threads in a 16 x 16 grid (rg, cg); a
-// block owns BM = 16 TM keys (K, V resident) and streams BN = 16 TN query
-// rows a step (Q, dO, lse, delta; two stages but at D 256, whose tiles
-// leave room for one).  Thread (rg, cg) holds the TM x TN scores of keys
-// rg + 16 i and queries cg + 16 j, and the TM x D / 16 sums of dK and dV of
-// keys 4 rg + 64 h + r (h < TM / 4, r < 4) and the columns of cg.  TM 8 at
-// D <= 80 (TN 4, or 3 at D 80 so that two stages fit), else 4 (TN 2): the
-// sums of dK and dV take 2 TM D / 16 registers.  Every tile row is D + 4
-// floats (16-byte aligned, an odd number of 16-byte chunks), P^T and dS^T
-// rows BM + 4.
+// `rows` rows of D floats from global (row stride D) into shared memory
+// (row stride D + 4) by cp.async; rows at or past rows_valid are zeroed
+template <int D>
+__device__ __forceinline__ void cp_async_rows(float* dst,
+                                              const float* __restrict__ src,
+                                              int rows, int rows_valid) {
+  for (int idx = threadIdx.x; idx < rows * (D / 4); idx += kThreads) {
+    const int r = idx / (D / 4);
+    const int c = (idx % (D / 4)) * 4;
+    const bool ok = r < rows_valid;
+    cp_async16(dst + r * (D + 4) + c, src + (ok ? (size_t)r * D + c : 0),
+               ok ? 16 : 0);
+  }
+}
+
+// The dk/dv register blocking.  A block owns BM = 16 TM keys (K, V
+// resident) and streams BN = 16 TN query rows a step (Q, dO, lse, delta;
+// two stages but at D 256, whose tiles leave room for one).  Thread (rg,
+// cg) holds the TM x TN scores of keys rg + 16 i and queries cg + 16 j, and
+// the TM x D / 16 sums of dK and dV of keys 4 rg + 64 h + r (h < TM / 4,
+// r < 4) and the columns of cg.  TM 8 at D <= 80 (TN 4, or 3 at D 80 so
+// that two stages fit), else 4 (TN 2): the sums of dK and dV take
+// 2 TM D / 16 registers.  Every tile row is D + 4 floats (16-byte aligned,
+// an odd number of 16-byte chunks), P^T and dS^T rows BM + 4.
 template <int D>
 struct Rb {
   static_assert(D % 16 == 0 && D >= 32 && D <= 256, "head dim");
@@ -406,7 +174,37 @@ struct Rb {
   // CR more (a float2 at 64 C4 + 2 cg, or a float at 64 C4 + cg)
   static constexpr int C4 = D / 64;
   static constexpr int CR = (D % 64) / 16;
-  static_assert(SMEM <= 232448, "shared memory of one block");
+  static_assert(SMEM <= kMaxSmem, "shared memory of one block");
+};
+
+// The forward's and dq's register blocking, Rb's sibling with queries
+// resident.  A block owns BM = 16 TM query rows (Q; dq also dO) and
+// streams BN = 16 TN keys a step.  Thread (rg, cg) holds the TM x TN scores
+// of queries TM rg + i and keys cg + 16 j, and the TM x D / 16 sums of O
+// (dQ) of the same queries.  TM 8 to D 128 (the one accumulator takes
+// TM D / 16 registers), 4 at D 256.  The forward streams through one K
+// and one V tile: TN 8 at D <= 64, 4 above (8 x 8 runs out of registers at
+// D 80); dq through two stages of K and V: TN 4, or 3 and 2 at D 96 and
+// D 128 so that two stages fit, and one stage at D 256.  P^T (dS^T) rows
+// are BM + 4 floats.
+template <int D, bool DQ>
+struct Rq {
+  static_assert(D % 16 == 0 && D >= 32 && D <= 256, "head dim");
+  static constexpr int TM = D > 128 ? 4 : 8;
+  static constexpr int TN =
+      DQ ? (D >= 128 ? 2 : D == 96 ? 3 : 4) : (D <= 64 ? 8 : 4);
+  static constexpr int BM = 16 * TM;
+  static constexpr int BN = 16 * TN;
+  static constexpr int LD = D + 4;
+  static constexpr int LP = BM + 4;
+  static constexpr int RES = (DQ ? 2 : 1) * BM * LD;   // Q (and dO)
+  static constexpr int STAGE = 2 * BN * LD;            // K, V
+  // dq double-buffers K and V where two stages fit (all but D 256); the
+  // forward holds one K and one V tile
+  static constexpr int STAGES =
+      DQ && 4 * (RES + 2 * STAGE + BN * LP) <= kMaxSmem ? 2 : 1;
+  static constexpr int SMEM = 4 * (RES + STAGES * STAGE + BN * LP);
+  static_assert(TM % 4 == 0 && SMEM <= kMaxSmem, "shared memory of one block");
 };
 
 // the thread's output columns of one row (cg: its column thread, 0-15)
@@ -448,10 +246,10 @@ __device__ __forceinline__ void rb_store_cols(float* row, int cg,
     row[64 * R::C4 + cg] = x[4 * R::C4] * mul;
 }
 
-// s[i][j] = A[16 i] . B[16 j] over D (rows of stride D + 4 in shared
+// s[i][j] = A[SA i] . B[16 j] over D (rows of stride D + 4 in shared
 // memory; `a` and `b` point at the thread's first row of each), read as
 // float4s along D: TM + TN loads per 4 TM TN multiply-adds
-template <int D, int TM, int TN>
+template <int D, int TM, int TN, int SA = 16>
 __device__ __forceinline__ void rb_abt(const float* a, const float* b,
                                        float (&s)[TM][TN]) {
   constexpr int LD = D + 4;
@@ -464,7 +262,7 @@ __device__ __forceinline__ void rb_abt(const float* a, const float* b,
     float4 av[TM], bv[TN];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + 16 * i * LD + d);
+      av[i] = *reinterpret_cast<const float4*>(a + SA * i * LD + d);
 #pragma unroll
     for (int j = 0; j < TN; ++j)
       bv[j] = *reinterpret_cast<const float4*>(b + 16 * j * LD + d);
@@ -477,6 +275,29 @@ __device__ __forceinline__ void rb_abt(const float* a, const float* b,
         s[i][j] = fmaf(av[i].z, bv[j].z, s[i][j]);
         s[i][j] = fmaf(av[i].w, bv[j].w, s[i][j]);
       }
+  }
+}
+
+// acc[r][x] += sum_c At[c][r] B[c][col x] over the BN rows c of B (row
+// stride D + 4): At is [c][output row] with rows of LP floats, `at` points
+// at the thread's first row (its TM rows consecutive: TM / 4 float4s)
+template <int D, int TM, int BN, int LP>
+__device__ __forceinline__ void rb_ab_acc(const float* at, const float* bs,
+                                          int cg, float (&acc)[TM][D / 16]) {
+#pragma unroll 8
+  for (int c = 0; c < BN; ++c) {
+    float pv[TM];
+#pragma unroll
+    for (int h = 0; h < TM / 4; ++h) {
+      const float4 p4 = *reinterpret_cast<const float4*>(at + c * LP + 4 * h);
+      pv[4 * h] = p4.x, pv[4 * h + 1] = p4.y, pv[4 * h + 2] = p4.z, pv[4 * h + 3] = p4.w;
+    }
+    float bv[D / 16];
+    rb_load_cols<D>(bs + c * (D + 4), cg, bv);
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int x = 0; x < D / 16; ++x) acc[r][x] = fmaf(pv[r], bv[x], acc[r][x]);
   }
 }
 
@@ -511,6 +332,224 @@ __device__ __forceinline__ void rb_ab_acc2(
       }
   }
 }
+
+// The thread's TM x TN tile of P (or dS) into P^T [key][query] (rows of LP
+// floats; `pt` points at the thread's first query): 4 of its consecutive
+// rows of a key are one float4
+template <int TM, int TN, int LP>
+__device__ __forceinline__ void rq_store_pt(float* pt, int cg,
+                                            const float (&s)[TM][TN]) {
+#pragma unroll
+  for (int j = 0; j < TN; ++j)
+#pragma unroll
+    for (int h = 0; h < TM / 4; ++h)
+      *reinterpret_cast<float4*>(pt + (cg + 16 * j) * LP + 4 * h) =
+          make_float4(s[4 * h][j], s[4 * h + 1][j], s[4 * h + 2][j],
+                      s[4 * h + 3][j]);
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, 1)
+fwd32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, int H, int Hkv, int S, float scale) {
+  using R = Rq<D, false>;
+  constexpr int TM = R::TM, TN = R::TN, BM = R::BM, BN = R::BN;
+  constexpr int LD = R::LD, LP = R::LP;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* Qs = smem;                             // BM x LD (the block's rows)
+  float* Pt = Qs + R::RES;                      // BN x LP: P^T, [key][query]
+  float* stages = Pt + BN * LP;                 // K, V
+
+  const int n_q = (S + BM - 1) / BM;
+  const int n_k = (S + BN - 1) / BN;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (n_q - 1 - (int)blockIdx.z) * BM;   // the causal longest first
+  const int g = h / (H / Hkv);
+  const int rg = threadIdx.x / 16;              // a half-warp shares rows
+  const int cg = threadIdx.x % 16;
+  const int r0 = q0 + TM * rg;                  // the thread's first row
+
+  const size_t bh = (size_t)b * H + h;
+  const size_t bg = (size_t)b * Hkv + g;
+  const float* kb = k + bg * S * D;
+  const float* vb = v + bg * S * D;
+  // one K and one V tile: K_j loads while P_{j-1} V_{j-1} computes, V_j
+  // while S_j does
+  float* Ks = stages;                           // BN x LD
+  float* Vs = Ks + BN * LD;                     // BN x LD
+  auto load_rows = [&](float* dst, const float* src, int j) {
+    cp_async_rows<D>(dst, src + (size_t)j * BN * D, BN, min(BN, S - j * BN));
+    cp_async_commit();
+  };
+  cp_async_rows<D>(Qs, q + (bh * S + q0) * D, BM, min(BM, S - q0));
+  load_rows(Ks, kb, 0);                         // with Q
+
+  // m: the row max so far; l: this thread's part of the row sum
+  float acc[TM][D / 16], m[TM], l[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int x = 0; x < D / 16; ++x) acc[i][x] = 0.f;
+  }
+
+  const int n_j = CAUSAL ? min((q0 + BM - 1) / BN + 1, n_k) : n_k;
+  for (int j = 0; j < n_j; ++j) {
+    cp_async_wait_all();
+    __syncthreads();              // K_j landed; P_{j-1} V_{j-1} done: Vs, Pt free
+    load_rows(Vs, vb, j);
+    // a tile inside S and below the diagonal needs no mask
+    const bool masked = (j + 1) * BN > S || (CAUSAL && (j + 1) * BN - 1 > q0);
+    float s[TM][TN];
+    rb_abt<D, TM, TN, 1>(Qs + TM * rg * LD, Ks + cg * LD, s); // S = Q K^T
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = r0 + i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int jj = 0; jj < TN; ++jj) {
+        const int col = j * BN + cg + 16 * jj;
+        float x = s[i][jj] * scale;
+        if (masked && (col >= S || (CAUSAL && col > row))) x = kNegInf;
+        s[i][jj] = x;
+        mx = fmaxf(mx, x);
+      }
+      const float m_new = fmaxf(m[i], half_warp_max(mx));
+      const float corr = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < TN; ++jj) {
+        const float p = expf(s[i][jj] - m_new);
+        s[i][jj] = p;
+        sum += p;
+      }
+      l[i] = l[i] * corr + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int x = 0; x < D / 16; ++x) acc[i][x] *= corr;
+    }
+    rq_store_pt<TM, TN, LP>(Pt + TM * rg, cg, s);
+    cp_async_wait_all();
+    __syncthreads();              // V_j landed, P^T written; S_j done: Ks free
+    if (j + 1 < n_j) load_rows(Ks, kb, j + 1);
+    rb_ab_acc<D, TM, BN, LP>(Pt + TM * rg, Vs, cg, acc);      // O += P V
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = r0 + i;
+    const float lc = fmaxf(half_warp_sum(l[i]), 1e-30f);
+    if (row >= S) continue;
+    rb_store_cols<D>(o + (bh * S + row) * D, cg, acc[i], 1.f / lc);
+    if (cg == 0) lse[bh * S + row] = m[i] + logf(lc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward: dq
+// ---------------------------------------------------------------------------
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, 1)
+dq32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            float* __restrict__ dq, int H, int Hkv, int S, float scale) {
+  using R = Rq<D, true>;
+  constexpr int TM = R::TM, TN = R::TN, BM = R::BM, BN = R::BN;
+  constexpr int LD = R::LD, LP = R::LP;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* Qs = smem;                             // BM x LD (the block's rows)
+  float* dOs = Qs + BM * LD;                    // BM x LD
+  float* dSt = Qs + R::RES;                     // BN x LP: dS^T, [key][query]
+  float* stages = dSt + BN * LP;                // STAGES x (K, V)
+
+  const int n_q = (S + BM - 1) / BM;
+  const int n_k = (S + BN - 1) / BN;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (n_q - 1 - (int)blockIdx.z) * BM;   // the causal longest first
+  const int g = h / (H / Hkv);
+  const int rg = threadIdx.x / 16;
+  const int cg = threadIdx.x % 16;
+  const int r0 = q0 + TM * rg;
+
+  const size_t bh = (size_t)b * H + h;
+  const size_t bg = (size_t)b * Hkv + g;
+  const int qrows = min(BM, S - q0);
+  cp_async_rows<D>(Qs, q + (bh * S + q0) * D, BM, qrows);
+  cp_async_rows<D>(dOs, dout + (bh * S + q0) * D, BM, qrows);
+  auto load_stage = [&](int j, int st) {
+    float* Ks = stages + st * R::STAGE;
+    const int rows = min(BN, S - j * BN);
+    cp_async_rows<D>(Ks, k + (bg * S + (size_t)j * BN) * D, BN, rows);
+    cp_async_rows<D>(Ks + BN * LD, v + (bg * S + (size_t)j * BN) * D, BN, rows);
+    cp_async_commit();
+  };
+
+  float lse_r[TM], delta_r[TM], acc[TM][D / 16];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = r0 + i;
+    lse_r[i] = row < S ? lse[bh * S + row] : 0.f;
+    delta_r[i] = row < S ? delta[bh * S + row] : 0.f;
+#pragma unroll
+    for (int x = 0; x < D / 16; ++x) acc[i][x] = 0.f;
+  }
+
+  const int n_j = CAUSAL ? min((q0 + BM - 1) / BN + 1, n_k) : n_k;
+  if (R::STAGES == 2) load_stage(0, 0);         // with Q and dO
+  for (int j = 0; j < n_j; ++j) {
+    const int st = R::STAGES == 2 ? j & 1 : 0;
+    if (R::STAGES == 1) {
+      __syncthreads();
+      load_stage(j, 0);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if (R::STAGES == 2 && j + 1 < n_j) load_stage(j + 1, st ^ 1);
+
+    const float* Ks = stages + st * R::STAGE;
+    const float* Vs = Ks + BN * LD;
+    const bool masked = (j + 1) * BN > S || (CAUSAL && (j + 1) * BN - 1 > q0);
+    float s[TM][TN], dp[TM][TN];
+    rb_abt<D, TM, TN, 1>(Qs + TM * rg * LD, Ks + cg * LD, s);     // S = Q K^T
+    rb_abt<D, TM, TN, 1>(dOs + TM * rg * LD, Vs + cg * LD, dp);   // dP = dO V^T
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = r0 + i;
+#pragma unroll
+      for (int jj = 0; jj < TN; ++jj) {
+        const int col = j * BN + cg + 16 * jj;
+        const bool ok = !masked || (col < S && !(CAUSAL && col > row));
+        const float p = ok ? expf(s[i][jj] * scale - lse_r[i]) : 0.f;
+        s[i][jj] = p * (dp[i][jj] - delta_r[i]);               // dS
+      }
+    }
+    rq_store_pt<TM, TN, LP>(dSt + TM * rg, cg, s);
+    __syncthreads();
+    rb_ab_acc<D, TM, BN, LP>(dSt + TM * rg, Ks, cg, acc);     // dQ += dS K
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = r0 + i;
+    if (row < S) rb_store_cols<D>(dq + (bh * S + row) * D, cg, acc[i], scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward: dk, dv
+// ---------------------------------------------------------------------------
 
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -656,14 +695,19 @@ cudaError_t set_smem(K kernel, int smem) {
                               smem);
 }
 
+// The resident tiles (query tiles of the forward and dq, key tiles of
+// dk/dv) are the slowest grid dimension: the blocks with the most causal
+// work start first, the shortest fill the tail.
+
 template <int D, bool C>
 cudaError_t fwd_launch(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int H, int Hkv, int S, float scale,
                        cudaStream_t st) {
-  const int smem = Cfg<D>::FWD_SMEM;
+  using R = Rq<D, false>;
+  const int smem = R::SMEM;
   cudaError_t e = set_smem(fwd32_kernel<D, C>, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((S + Cfg<D>::BM - 1) / Cfg<D>::BM, H, B);
+  dim3 grid(H, B, (S + R::BM - 1) / R::BM);
   fwd32_kernel<D, C><<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
@@ -676,10 +720,11 @@ cudaError_t dq_launch(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int B, int H, int Hkv, int S, float scale,
                       cudaStream_t st) {
-  const int smem = Cfg<D>::DQ_SMEM;
+  using R = Rq<D, true>;
+  const int smem = R::SMEM;
   cudaError_t e = set_smem(dq32_kernel<D, C>, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((S + Cfg<D>::BM - 1) / Cfg<D>::BM, H, B);
+  dim3 grid(H, B, (S + R::BM - 1) / R::BM);
   dq32_kernel<D, C><<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
@@ -693,12 +738,11 @@ cudaError_t dkv_launch(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int H, int Hkv, int S,
                        float scale, cudaStream_t st) {
-  const int smem = Rb<D>::SMEM;
+  using R = Rb<D>;
+  const int smem = R::SMEM;
   cudaError_t e = set_smem(dkv32_kernel<D, C>, smem);
   if (e != cudaSuccess) return e;
-  // key tiles in the slowest grid dimension: the blocks of the first
-  // (with the most causal work) start first, the shortest fill the tail
-  dim3 grid(Hkv, B, (S + Rb<D>::BM - 1) / Rb<D>::BM);
+  dim3 grid(Hkv, B, (S + R::BM - 1) / R::BM);
   dkv32_kernel<D, C><<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),

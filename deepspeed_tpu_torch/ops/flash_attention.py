@@ -9,8 +9,8 @@ dq and dk/dv at D <= 128 in ``csrc/flash_attention_sm90.cuh`` (wgmma, TMA,
 warp specialisation) and D 256 in ``csrc/flash_attention.cuh`` (WMMA),
 behind the entry points of ``flash_attention.cu`` and
 ``flash_attention_fp16.cu``; in fp32 on the CUDA cores, in
-``csrc/flash_attention_fp32.cu`` (dk/dv register-blocked; see the notes at
-their tops for their design and what bounds them): three libraries built
+``csrc/flash_attention_fp32.cu`` (all three register-blocked; see the notes
+at their tops for their design and what bounds them): three libraries built
 by ``ops/builder.py`` at first use and bound through ``ctypes``.
 
 * :func:`flash_fwd`, :func:`flash_dq`, :func:`flash_dkv` are the kernel

@@ -69,14 +69,16 @@ def test_chip_smoke_names_the_design_the_entry_points_run(dtype, D):
     design = _chip_smoke().flash_design
     if dtype == "float32":
         src = (CSRC_DIR / "flash_attention_fp32.cu").read_text()
-        # fwd and dq keep the 16 x 16 design (Cfg); dk/dv is register-
-        # blocked (Rb), at every head dim
-        for kind, cfg in (("fwd", "Cfg<D>"), ("dq", "Cfg<D>"),
-                          ("dkv", "Rb<D>")):
+        # all three register-blocked at every head dim: fwd and dq with the
+        # query tiles resident (Rq), dk/dv with the key tiles (Rb)
+        for kind, cfg, name in (("fwd", "Rq<D, false>", "fp32-rbq"),
+                                ("dq", "Rq<D, true>", "fp32-rbq"),
+                                ("dkv", "Rb<D>", "fp32-rb")):
             body = _function_body(src, f"cudaError_t {kind}_launch(")
-            assert f"const int smem = {cfg}::" in body
-            assert design(f"flash_{kind}", dtype, D) == (
-                "fp32-rb" if kind == "dkv" else "fp32")
+            assert f"using R = {cfg};" in body
+            assert "const int smem = R::SMEM;" in body
+            assert f"{kind}32_kernel<D, C><<<" in body
+            assert design(f"flash_{kind}", dtype, D) == name
         return
     src = (CSRC_DIR / "flash_attention.cuh").read_text()
     for kind in KINDS:

@@ -289,6 +289,41 @@ def test_fp32_dkv_matches_plain_and_is_deterministic(cuda_device, D,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128, 256])
+def test_fp32_fwd_and_dq_match_plain_and_are_deterministic(cuda_device, D,
+                                                           causal):
+    """The register-blocked fp32 forward and dq at every head dim (query
+    tiles resident, K/V streamed through two cp.async stages, one for dq
+    at D 256) on the dk/dv test's GQA batch (a ragged last tile, many
+    streamed key tiles): o, lse and dq within 2x the fp32 noise floor
+    (against fp64), each bitwise equal on a second run (no atomics)."""
+    B, H, Hkv, S = 2, 8, 2, 1000
+    xw, (q, k, v, do) = _flash_case(cuda_device, B, H, Hkv, S, D, S + D,
+                                    torch.float32)
+    scale = D ** -0.5
+    before = (flash_fwd.launches, flash_dq.launches)
+    o, lse = flash_fwd(q, k, v, scale, causal)
+    o2, lse2 = flash_fwd(q, k, v, scale, causal)
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, scale, causal)
+    o_w, lse_w = flash_fwd_plain(*xw[:3], scale, causal)
+    delta = (do * o_ref).sum(-1)
+    delta_w = (xw[3] * o_w).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, scale, causal)
+    dq = flash_dq(*args)
+    dq2 = flash_dq(*args)
+    torch.cuda.synchronize()
+    assert (flash_fwd.launches, flash_dq.launches) == (before[0] + 2,
+                                                       before[1] + 2)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(dq, dq2)
+    _assert_within_noise("o", o, o_ref, o_w)
+    _assert_within_noise("lse", lse, lse_ref, lse_w)
+    _assert_within_noise("dq", dq, flash_dq_plain(*args),
+                         flash_dq_plain(*xw, lse_w, delta_w, scale, causal))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float32],
                          ids=["fp16", "fp32"])
 def test_flash_cuda_tensors_never_reach_a_plain_version(cuda_device,

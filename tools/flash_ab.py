@@ -2,15 +2,16 @@
 in turns (A, B, B, A per round), so that two versions of a kernel compare
 within one run on one card.
 
-    python3 tools/flash_ab.py DIR_A DIR_B [--rounds 2]
+    python3 tools/flash_ab.py DIR_A DIR_B [--rounds 2] [--dtypes float32]
 
 Each turn is a fresh process that imports ``deepspeed_tpu_torch`` and
 ``chip_smoke`` from one checkout (which builds its kernels into its own
-``build/kernels/``) and times dq and dk/dv with CUDA events at the main
-paths' shapes of ``chip_smoke.FLASH_CASES`` (bf16 GPT-2 and Llama-3-8B,
-fp16 phi-2, fp32 GPT-2 and phi-2 width).  It prints one line a turn and,
-last, the mean of each (checkout, case, kernel) over its turns.  Only
-CUDA: without a card every turn fails.
+``build/kernels/``) and times the forward, dq and dk/dv with CUDA events
+at the main paths' shapes of ``chip_smoke.FLASH_CASES`` (bf16 GPT-2 and
+Llama-3-8B, fp16 phi-2, fp32 GPT-2 and phi-2 width; ``--dtypes float32``
+keeps the fp32 ones).  It prints one line a turn and, last, the mean of
+each (checkout, case, kernel) over its turns.  Only CUDA: without a card
+every turn fails.
 """
 
 import argparse
@@ -23,15 +24,16 @@ from pathlib import Path
 CASES = [("gpt2 train", "bfloat16"), ("llama3-8b", "bfloat16"),
          ("phi-2 train", "float16"), ("gpt2 train", "float32"),
          ("phi-2 train", "float32")]
-KERNELS = ("flash_dq", "flash_dkv")
+KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
 
 def emit(line: str) -> None:
     print(line, flush=True)  # tpulint: disable=print  (CLI output)
 
 
-def time_checkout(root: str) -> dict:
-    """ms per call of dq and dkv at each case, from the checkout ``root``."""
+def time_checkout(root: str, dtypes) -> dict:
+    """ms per call of each of KERNELS at each case of ``dtypes``, from the
+    checkout ``root``."""
     sys.path.insert(0, root)
     import importlib
 
@@ -39,10 +41,12 @@ def time_checkout(root: str) -> dict:
     cs = importlib.import_module("chip_smoke")
     fa = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")
     builder = importlib.import_module("deepspeed_tpu_torch.ops.builder")
-    builder.build_all(fa.BUILDERS)        # at once; cached after the first
+    # the libraries of ``dtypes`` at once; cached after the first turn
+    builder.build_all({fa._KERNEL_DTYPES[getattr(torch, dt)][1]
+                       for dt in dtypes})
     out = {}
     for name, dt, (B, H, Hkv, S, D, iters) in cs.FLASH_CASES:
-        if (name, dt) not in CASES:
+        if (name, dt) not in CASES or dt not in dtypes:
             continue
         gen = torch.Generator(device="cuda").manual_seed(S + D)
         dtype = getattr(torch, dt)
@@ -51,11 +55,13 @@ def time_checkout(root: str) -> dict:
                                                 (B, Hkv, S, D), (B, H, S, D)))
         o, lse = fa.flash_fwd(q, k, v, D ** -0.5, True)
         delta = (do.float() * o.float()).sum(-1)
-        args = (q, k, v, do, lse, delta, D ** -0.5, True)
+        args = {"flash_fwd": (q, k, v, D ** -0.5, True),
+                "flash_dq": (q, k, v, do, lse, delta, D ** -0.5, True)}
+        args["flash_dkv"] = args["flash_dq"]
         for kname in KERNELS:
-            fn = getattr(fa, kname)
+            fn, a = getattr(fa, kname), args[kname]
             out[f"{name} {dt} {kname}"] = cs.time_ms(
-                torch, lambda: fn(*args), iters)
+                torch, lambda: fn(*a), iters)
         del q, k, v, do, o, lse, delta
         torch.cuda.empty_cache()
     return out
@@ -65,10 +71,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("dirs", nargs="*")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--dtypes", default=",".join(sorted({d for _, d in CASES})),
+                    help="comma-separated dtypes of the cases to time")
     ap.add_argument("--time", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time:
-        emit(json.dumps(time_checkout(args.time)))
+        emit(json.dumps(time_checkout(args.time, args.dtypes.split(","))))
         return 0
     if len(args.dirs) != 2:
         ap.error("two checkouts to compare")
@@ -77,7 +85,8 @@ def main() -> int:
     for _ in range(args.rounds):
         for d in (a, b, b, a):
             res = subprocess.run(
-                [sys.executable, __file__, "--time", str(Path(d).resolve())],
+                [sys.executable, __file__, "--time", str(Path(d).resolve()),
+                 "--dtypes", args.dtypes],
                 capture_output=True, text=True)
             if res.returncode != 0:
                 emit(f"{d}: exit {res.returncode}\n{res.stderr[-4000:]}")
