@@ -32,11 +32,17 @@ passed over):
              dim 256), phi3-mini (96) and a tiny width (32), in fp32 at the
              GPT-2 shape (micro-batch 8) and phi-2's width; the int8 and
              int4 mixed-input GEMM at
-             Llama-3-8B's projection shapes at M = 8 (decode) and 1024 (a
-             prefill budget).  Times (CUDA events), bounds, and for flash
-             attention the time of PyTorch's scaled_dot_product_attention
-             as a yardstick (for the GEMM, a dense bf16 torch.matmul of
-             the same shape, as context).  Each flash line names the
+             Llama-3-8B's five projection shapes (wi, mlp wo, wq, wk, attn
+             wo) at M = 8 (decode) and 1024 (a prefill budget), each line
+             naming the design that ran (decode: split-K on mma.sync;
+             prefill: wgmma), its GB/s and share of the byte bound (M 8) or
+             TFLOP/s and ratio to a dense bf16 torch.matmul of the same
+             shape (M 1024, context only), the host microseconds a call,
+             and a second call's bits equal to the first's.  Times (CUDA
+             events; K3's with its calls queued behind a sleep kernel, as
+             a decode call's host time exceeds its kernel time), bounds,
+             and for flash attention the time of PyTorch's
+             scaled_dot_product_attention as a yardstick.  Each flash line names the
              design that ran (wgmma: fwd, dq and dkv at D <= 128 in
              bf16/fp16; wmma: D 256; fp32-rb: the fp32 dk/dv; fp32-rbq:
              the fp32 fwd and dq), its TFLOP/s, its ratio to SDPA, the host
@@ -63,10 +69,11 @@ passed over):
              weights and embeddings with an int8 cache (bench.py's
              llama8b_serving_bench configuration without decode bursts),
              (b) int4 weights with an fp8 cache; launch counts of the
-             mixed-input GEMM and the quantized paged attention, a
-             first-forward check against the plain path on the same
-             quantized weights and cache, TTFT, token rates, resident
-             bytes and the device profile.
+             mixed-input GEMM (by design) and the quantized paged
+             attention, a first-forward check against the plain path on
+             the same quantized weights and cache, TTFT, token rates,
+             resident bytes, the device profile (K3's two kernels as two
+             kinds) and K3's device ms a decode and a prefill step.
 7. serve-alibi — BLOOM-7b1 at full width and depth (ALiBi, random bf16
              weights from a seed), run after the Llama model is freed,
              at phase 5's traffic and engine: a first-forward check
@@ -97,7 +104,8 @@ The line before the last is the card's name and power limit as nvidia-smi
 reports them; the line before that, the per-kernel JSON (a flash variant's
 ``launches`` is the sum over the training phases that ran of what its
 count read, by dtype and the head dim the kernel ran at; null when no
-training phase ran); the last line,
+training phase ran; K3 has an entry per weight type and design, timed at
+wi, with the launches of that design in phase 6); the last line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -229,6 +237,30 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# cycles of the sleep kernel a queued call waits behind (~0.1 ms at the
+# H100's ~2 GHz: more than any wrapper's host time a call)
+SLEEP_CYCLES_PER_CALL = 200_000
+
+
+def device_ms(torch, fn, iters: int, warmup: int = 2) -> float:
+    """Device ms a call of ``fn``, with the calls queued behind a sleep
+    kernel that outlasts their enqueue, so that they run back to back
+    however slow the host is (CUDA events around the calls alone time
+    the host when it is slower than the kernel)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -525,12 +557,16 @@ def check_quant_kv_case(torch, pa, name, case, code, H, Hkv, D, iters,
 
 
 # mixed-input GEMM cases: Llama-3-8B's projections (contraction dims, N) —
-# mlp wi (and wg), mlp wo, wk (and wv), the attention output [32, 128] ->
-# 4096 with one scale per head — at a decode step (M = 8) and a full
+# mlp wi (and wg), mlp wo, wq, wk (and wv), the attention output [32, 128]
+# -> 4096 with one scale per head — at a decode step (M = 8) and a full
 # prefill budget (M = 1024)
 MIXED_PROJECTIONS = [("wi", (4096,), 14336), ("mlp wo", (14336,), 4096),
-                     ("wk", (4096,), 1024), ("attn wo", (32, 128), 4096)]
+                     ("wq", (4096,), 4096), ("wk", (4096,), 1024),
+                     ("attn wo", (32, 128), 4096)]
 MIXED_M = (8, 1024)
+# the kernel of each K3 design (csrc/mixed_gemm.cu), as the profiler names it
+MIXED_KERNELS = {"decode": "mixed_gemm_decode_kernel",
+                 "prefill": "mixed_gemm_prefill_kernel"}
 
 
 def mixed_bound(M, K, N, bits):
@@ -549,9 +585,11 @@ def check_mixed_case(torch, mg, name, kdims, N, M, bits, iters,
     """The int8 / int4 mixed-input GEMM at one projection shape: kernel vs
     the plain version on the same bf16 x and quantized weight, within
     NOISE_FACTOR x the bf16 noise floor (x @ dequant(w) in fp32 on the
-    unrounded x); times of the kernel, the plain version and a dense bf16
-    torch.matmul of the same shape (context: no single PyTorch call
-    computes this function)."""
+    unrounded x), and bitwise equal on a second call; times of the kernel,
+    the plain version and a dense bf16 torch.matmul of the same shape
+    (context: no single PyTorch call computes this function; kernel and
+    matmul by ``device_ms``), the host microseconds a call, and the design
+    that ran."""
     from deepspeed_tpu_torch.ops.quant import (_quantize_leading,
                                                dequantize, quantize_rowwise4)
     gen = torch.Generator(device=device).manual_seed(M + N + bits)
@@ -568,30 +606,43 @@ def check_mixed_case(torch, mg, name, kdims, N, M, bits, iters,
     kern = mg.mixed_matmul_2d if bits == 8 else mg.mixed4_matmul_2d
     plain = mg.mixed_matmul_2d_plain if bits == 8 else \
         mg.mixed4_matmul_2d_plain
+    design = mg.design_for(M)
     out = mg.mixed_matmul(x, qt, contract_dims=len(kdims)).reshape(M, N)
+    again = kern(x, data, s)
     torch.cuda.synchronize()
+    tag = f"{name} int{bits} M={M}"
+    if not torch.equal(out, again):
+        raise AssertionError(f"{tag}: a second call gave other bits")
     ref = plain(x, data, s)
     ref32 = x32 @ dequantize(qt, torch.float32).reshape(K, N)
-    err, tol = _within_noise(torch, f"{name} int{bits} M={M}", out, ref,
-                             ref32)
+    err, tol = _within_noise(torch, tag, out, ref, ref32)
     del ref32
-    kernel_ms = time_ms(torch, lambda: kern(x, data, s), iters)
+    kernel_ms = device_ms(torch, lambda: kern(x, data, s), iters)
+    host_us = host_us_per_call(torch, lambda: kern(x, data, s))
     plain_ms = time_ms(torch, lambda: plain(x, data, s), max(2, iters // 10),
                        warmup=1)
     wd = dequantize(qt, torch.bfloat16).reshape(K, N)
-    dense_ms = time_ms(torch, lambda: x @ wd, iters)
+    dense_ms = device_ms(torch, lambda: x @ wd, iters)
     del wd
     bound_ms, bound_by, nbytes, flops = mixed_bound(M, K, N, bits)
-    log(f"[kernel] mixed gemm int{bits} {name} M={M} K={K} N={N}: "
-        f"max|d|={err:.3e} <= {tol:.3e} ({NOISE_FACTOR} x the bf16 noise "
-        f"floor) kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+    if bound_by == "bytes":
+        rate = (f"{nbytes / kernel_ms / 1e6:.1f} GB/s, {bound_ms / kernel_ms:.1%}"
+                f" of the byte bound (half the bound "
+                f"{'reached' if kernel_ms <= 2 * bound_ms else 'missed'})")
+    else:
+        rate = (f"{flops / kernel_ms / 1e9:.1f} TFLOP/s, "
+                f"{kernel_ms / dense_ms:.2f}x the dense bf16 torch.matmul")
+    log(f"[kernel] mixed gemm int{bits} {name} M={M} K={K} N={N} "
+        f"design={design}: max|d|={err:.3e} <= {tol:.3e} ({NOISE_FACTOR} x "
+        f"the bf16 noise floor), bitwise equal on a second call; "
+        f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
         f"bound_ms={bound_ms:.4f} ({bound_by}: {nbytes} B, {flops} flop; "
-        f"{flops / kernel_ms / 1e9:.1f} TFLOP/s, {nbytes / kernel_ms / 1e6:.1f}"
-        f" GB/s achieved) dense bf16 torch.matmul {dense_ms:.4f} ms "
-        f"(context); library_ms: n/a (no single PyTorch call)")
+        f"{rate}) host {host_us:.1f} us/call; dense bf16 torch.matmul "
+        f"{dense_ms:.4f} ms (context); library_ms: n/a (no single PyTorch "
+        f"call)")
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                dense_bf16_matmul_ms=dense_ms)
+                design=design, dense_bf16_matmul_ms=dense_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -1148,8 +1199,8 @@ def serve_rates(torch, make_engine, prompts, ttft, tag):
         f"(ms): schedule {tm['schedule_ms'] / n:.3f}, stage "
         f"{tm['stage_ms'] / n:.3f}, enqueue {tm['device_ms'] / n:.3f}, "
         f"wait {tm['wait_ms'] / n:.3f}, readback {tm['readback_ms'] / n:.3f}")
-    device_profile(torch, lambda prof: run(SERVE_NEW_TOKENS, prof)[0], t_all,
-                   tag=tag)
+    rates["device_ms_by_kind"] = device_profile(
+        torch, lambda prof: run(SERVE_NEW_TOKENS, prof)[0], t_all, tag=tag)
     return rates
 
 
@@ -1289,6 +1340,8 @@ def serve_quant(torch, pa, mg, model, prompts, tag, over):
     sp = SamplingParams(max_new_tokens=SERVE_NEW_TOKENS)
     # the main path: counts to 0 just before, read just after
     mg.mixed_matmul_2d.launches = mg.mixed4_matmul_2d.launches = 0
+    for fn in (mg.mixed_matmul_2d, mg.mixed4_matmul_2d):
+        fn.design_launches = dict.fromkeys(MIXED_KERNELS, 0)
     pa.launches = pa.int8_launches = pa.fp8_launches = 0
     t0 = time.perf_counter()
     out = eng.generate(dict(enumerate(prompts)), sp)
@@ -1297,14 +1350,17 @@ def serve_quant(torch, pa, mg, model, prompts, tag, over):
     launches = dict(k3=k3.launches, k3_other=k3_other.launches,
                     kv=getattr(pa, kv_attr),
                     other_pa=pa.launches + pa.int8_launches
-                    + pa.fp8_launches - getattr(pa, kv_attr))
+                    + pa.fp8_launches - getattr(pa, kv_attr),
+                    **k3.design_launches)
     steps = int(eng.timings["steps"])
     L = cfg.num_layers
     log(f"[{tag}] generate: 8 x 512-token prompts, {SERVE_NEW_TOKENS} new "
         f"tokens each, {steps} steps in {wall:.3f} s; mixed gemm int"
         f"{8 if int8 else 4} launches={launches['k3']} "
         f"({PROJECTIONS_PER_LAYER} x {L} layers x {steps} steps = "
-        f"{PROJECTIONS_PER_LAYER * L * steps}); paged_attention "
+        f"{PROJECTIONS_PER_LAYER * L * steps}: decode design "
+        f"{launches['decode']}, prefill design {launches['prefill']}); "
+        f"paged_attention "
         f"{over['kv_quant']} cache launches={launches['kv']} ({L} x {steps} = "
         f"{L * steps}); other variants: {launches['k3_other']} GEMM, "
         f"{launches['other_pa']} attention")
@@ -1327,6 +1383,26 @@ def serve_quant(torch, pa, mg, model, prompts, tag, over):
         prompts, ttft, tag)
     del dense, quant
     torch.cuda.empty_cache()
+    # K3's device time a step of each kind (the profiled run repeats the
+    # main run's schedule on a fresh engine: the same steps)
+    by_kind = rates.pop("device_ms_by_kind") or {}
+    if "mixed gemm other" in by_kind:
+        raise AssertionError(f"{tag}: the profile shows a K3 kernel that is "
+                             f"neither design's: {by_kind}")
+    per_step = {}
+    for design in MIXED_KERNELS:
+        n = launches[design] / (PROJECTIONS_PER_LAYER * L)
+        per_step[design] = (by_kind.get(f"mixed gemm {design}", 0.0) / n
+                            if n else None)
+    log(f"[{tag}] K3 device time a step: decode "
+        + (f"{per_step['decode']:.3f} ms" if per_step["decode"] is not None
+           else "n/a")
+        + f" ({launches['decode'] // (PROJECTIONS_PER_LAYER * L)} steps), "
+        f"prefill "
+        + (f"{per_step['prefill']:.3f} ms" if per_step["prefill"] is not None
+           else "n/a")
+        + f" ({launches['prefill'] // (PROJECTIONS_PER_LAYER * L)} steps)")
+    rates["k3_ms_per_step"] = per_step
     return dict(launches=launches, first_forward=ffwd,
                 weight_bytes=dense_bytes + quant_bytes, **rates)
 
@@ -1535,7 +1611,8 @@ def device_profile(torch, run, wall_unprofiled, tag="serve"):
     torch.profiler (``run(prof)`` returns its wall seconds), and the
     device busy share: that device time over the same run's wall time
     WITHOUT the profiler (``wall_unprofiled``; the profiler slows the host
-    several times over)."""
+    several times over).  Returns the device ms by kind (KERNEL_GROUPS),
+    empty when the profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                    acc_events=True)
@@ -1551,7 +1628,7 @@ def device_profile(torch, run, wall_unprofiled, tag="serve"):
     if total_us <= 0:
         log(f"[{tag}] device busy share: not measured (the profiler "
             "recorded no device time)")
-        return
+        return {}
     log(f"[{tag}] device time {total_us / 1e3:.1f} ms; busy share "
         f"{100 * total_us / 1e6 / wall_unprofiled:.1f}% of the unprofiled "
         f"{wall_unprofiled * 1e3:.1f} ms wall ({wall * 1e3:.1f} ms under the "
@@ -1566,16 +1643,19 @@ def device_profile(torch, run, wall_unprofiled, tag="serve"):
     log(f"[{tag}] device time by kind: " + ", ".join(
         f"{g} {us / 1e3:.2f} ms ({100 * us / total_us:.1f}%)"
         for g, us in sorted(groups.items(), key=lambda kv: -kv[1])))
+    return {g: us / 1e3 for g, us in groups.items()}
 
 
 # kernel-name substrings -> kind, first match wins (a cast is a copy
 # kernel inside an elementwise template, so copies come before elementwise;
-# the port's mixed_gemm_kernel comes before the library GEMMs' "gemm")
+# the port's two K3 kernels come before the library GEMMs' "gemm", and any
+# other name with "mixed_gemm" in it would show as "mixed gemm other")
 KERNEL_GROUPS = [("flash attention", ("flash_fwd", "flash_dq", "flash_dkv",
                                       "flash90::", "fwd32_kernel",
                                       "dq32_kernel", "dkv32_kernel")),
                  ("paged attention", ("paged_attention",)),
-                 ("mixed gemm", ("mixed_gemm",)),
+                 *[(f"mixed gemm {d}", (k,)) for d, k in MIXED_KERNELS.items()],
+                 ("mixed gemm other", ("mixed_gemm",)),
                  ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
                  ("copies and casts", ("copy",)),
                  ("reductions", ("reduce",)),
@@ -1683,8 +1763,8 @@ def main() -> int:
                 for M in MIXED_M:
                     res = check_mixed_case(torch, mg, name, kdims, N, M, bits,
                                            iters=50 if M <= 8 else 10)
-                    if name == "wi" and M == max(MIXED_M):   # a prefill step
-                        mixed_kern[bits] = res
+                    if name == "wi":          # a decode and a prefill step
+                        mixed_kern[bits, res.pop("design")] = res
                     torch.cuda.empty_cache()
         phase_done("kernel")
 
@@ -1764,12 +1844,17 @@ def main() -> int:
                     for code, run in (("int8", "a"), ("fp8", "b"))]
         entries += [flash_entry(k, dt, d) for dt, d in FLASH_VARIANTS
                     for k in FLASH_KERNELS]
-        entries += [dict(name=f"mixed_matmul_int{bits}", route="cuda",
+        # K3: one entry per (bits, design); the prefill design keeps the
+        # name of the slice that ported it
+        entries += [dict(name=f"mixed_matmul_int{bits}"
+                         + ("" if design == "prefill" else f"_{design}"),
+                         route="cuda",
                          source="deepspeed_tpu_torch/ops/csrc/mixed_gemm.cu",
                          replaces=f"deepspeed_tpu/ops/mixed_gemm.py:{line}",
-                         launches=quant_launches(run, "k3"),
-                         **mixed_kern[bits])
-                    for bits, line, run in ((8, 49, "a"), (4, 125, "b"))]
+                         launches=quant_launches(run, design),
+                         **mixed_kern[bits, design])
+                    for bits, line, run in ((8, 49, "a"), (4, 125, "b"))
+                    for design in ("decode", "prefill")]
         entries += [dict(name=name, route="cuda", source=pa_src,
                          replaces=pa_replaces,
                          launches=alibi_run.get(key), **alibi_kern[code])

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, named barriers,
-// TMA tile loads, wgmma shared-memory descriptors and fences, setmaxnreg,
-// and the host-side encoding of TMA tensor maps.  Shared by the kernels
-// that use wgmma and TMA (flash_attention_sm90.cuh); the wgmma instructions
-// themselves are in sm90_wgmma.cuh.
+// TMA tile loads and bulk copies, wgmma shared-memory descriptors and
+// fences, setmaxnreg, and the host-side encoding of TMA tensor maps.
+// Shared by the kernels that use wgmma and TMA (flash_attention_sm90.cuh,
+// mixed_gemm.cu); the wgmma instructions themselves are in sm90_wgmma.cuh.
 //
 // Shared-memory tiles ("boxes"): a tile of R rows x C 16-bit columns is
 // held as C / BW boxes of R rows x BW columns, each box R * BW * 2 bytes,
@@ -85,6 +85,34 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// a box of a 2-d tensor map at coordinates (c0 innermost, c1)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16; both ends 16-byte aligned)
+// from global memory; completion counts them on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// this thread's shared-memory writes become visible to the async proxy
+// (a wgmma that reads them), once the threads also meet at a barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // --- wgmma -------------------------------------------------------------------
@@ -218,6 +246,26 @@ inline cudaError_t make_map_3d(CUtensorMap* map, const void* base, bool fp16,
                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                   3, const_cast<void*>(base), dims, strides, box, estr,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, Swizzle<BW>::map,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the map of a contiguous row-major [rows, cols] tensor of `dtype`
+// (elem_bytes each; a row's bytes a multiple of 16), read in boxes of
+// box_rows x box_cols with `swizzle`; elements out of bounds read as zeros
+inline cudaError_t make_map_2d(CUtensorMap* map, const void* base,
+                               CUtensorMapDataType dtype, int elem_bytes,
+                               int cols, int rows, int box_cols, int box_rows,
+                               CUtensorMapSwizzle swizzle) {
+  auto fn = encode_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  CUresult r = fn(map, dtype, 2, const_cast<void*>(base), dims, strides, box,
+                  estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

@@ -1,10 +1,11 @@
-"""What the flash-attention libraries are built from and which kernel each
-variant runs, read from the sources on the CPU (the kernels themselves run
-only on the card: tests/test_torch_kernels_cuda.py).
+"""What the kernel libraries are built from and which kernel each
+flash-attention variant runs, read from the sources on the CPU (the
+kernels themselves run only on the card: tests/test_torch_kernels_cuda.py).
 
-* Each library's cache key covers every header its sources include,
-  directly or through another header: a header left out would leave a
-  stale library in ``build/kernels/`` after an edit.
+* Each library's cache key (every builder of ``ops.BUILDERS``) covers
+  every header its sources include, directly or through another header:
+  a header left out would leave a stale library in ``build/kernels/``
+  after an edit.
 * The design that ``chip_smoke.py`` names for a (kernel, dtype, head dim)
   is the one the C entry points dispatch to.
 """
@@ -17,6 +18,7 @@ from pathlib import Path
 
 import pytest
 
+from deepspeed_tpu_torch.ops import BUILDERS
 from deepspeed_tpu_torch.ops.builder import CSRC_DIR
 
 # the module (the package re-exports its function under the same name)
@@ -53,7 +55,7 @@ def _function_body(src, signature):
     return src[start:src.index("\n}\n", start)]
 
 
-@pytest.mark.parametrize("builder", fa.BUILDERS, ids=lambda b: b.name)
+@pytest.mark.parametrize("builder", BUILDERS, ids=lambda b: b.name)
 def test_cache_key_covers_every_included_header(builder):
     included = set()
     for source in builder.sources:

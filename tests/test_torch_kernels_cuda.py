@@ -430,10 +430,11 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
 
 # --- the mixed-input GEMM (K3) ----------------------------------------------
 
-# Llama-3-8B's projections (K, N, contract_dims): mlp wi/wg, mlp wo, wk/wv,
-# and the attention output [32, 128] -> 4096 with one scale per head
+# Llama-3-8B's projections (K, N, contract_dims): mlp wi/wg, mlp wo, wq,
+# wk/wv, and the attention output [32, 128] -> 4096 with one scale per head
 LLAMA3_8B_PROJECTIONS = {"wi": ((4096,), 14336), "mlp_wo": ((14336,), 4096),
-                         "wk": ((4096,), 1024), "attn_wo": ((32, 128), 4096)}
+                         "wq": ((4096,), 4096), "wk": ((4096,), 1024),
+                         "attn_wo": ((32, 128), 4096)}
 
 
 def _mixed_case(dev, kdims, N, M, bits, seed):
@@ -451,12 +452,14 @@ def _mixed_case(dev, kdims, N, M, bits, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
-@pytest.mark.parametrize("M", [8, 77, 1024])
+@pytest.mark.parametrize("M", [1, 8, 16, 64, 65, 77, 300, 1024])
 @pytest.mark.parametrize("proj", sorted(LLAMA3_8B_PROJECTIONS))
 def test_mixed_gemm_kernels_match_plain(cuda_device, proj, M, bits):
     """K3 at Llama-3-8B's projection shapes against the plain version on
     the same bf16 inputs, within 2x the bf16 noise floor (the plain
-    version in bf16 against x @ dequant(w) in fp32 on the unrounded x)."""
+    version in bf16 against x @ dequant(w) in fp32 on the unrounded x).
+    M spans both designs, the threshold between them and the prefill
+    design's 128- and 256-row tiles (ragged at M 300)."""
     from deepspeed_tpu_torch.ops import mixed_gemm as mg
     from deepspeed_tpu_torch.ops.quant import dequantize
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -497,6 +500,96 @@ def test_mixed_gemm_kernel_ragged_tiles(cuda_device, bits):
     ref = plain(x, qt.data.reshape(-1, 48), qt.scale.reshape(-1))
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_mixed_gemm_prefill_ragged_tiles(cuda_device, bits):
+    """The prefill design where M, N and (int8) K do not fill a tile:
+    M 77, N 48, K 96 (a last stage of 32 code rows) or 128 (int4)."""
+    from deepspeed_tpu_torch.ops import mixed_gemm as mg
+    K = 96 if bits == 8 else 128
+    x32, x, qt = _mixed_case(cuda_device, (K,), 48, 77, bits, 2)
+    assert mg.design_for(77) == "prefill"
+    got = mg.mixed_matmul(x, qt)
+    plain = mg.mixed4_matmul_2d_plain if bits == 4 else \
+        mg.mixed_matmul_2d_plain
+    ref = plain(x, qt.data.reshape(-1, 48), qt.scale.reshape(-1))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+def _one_hot_case(dev, bits, seed, N=256):
+    """(data, fp32 scales) whose every code row holds every code: int8
+    [256, N] with code (k + n) mod 256, int4 [256, N] bytes (k + n) mod 256
+    (both nibbles take all 16 values), K 256 or 512; scales spread over
+    2^-20..2^20 with mantissas that bf16 rounds."""
+    K = 256 if bits == 8 else 512
+    k = np.arange(256)[:, None]
+    n = np.arange(N)[None, :]
+    data = torch.from_numpy(((k + n) % 256).astype(np.uint8).view(np.int8))
+    rng = np.random.RandomState(seed)
+    scale = (rng.uniform(1.0, 2.0, K) * 2.0 ** rng.randint(-20, 21, K))
+    return (data.to(dev), torch.from_numpy(scale.astype(np.float32)).to(dev),
+            K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M, N", [(8, 256), (32, 256), (128, 256),
+                                  (300, 16384)],
+                         ids=["decode8", "decode32", "prefill128",
+                              "prefill256"])
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_mixed_gemm_dequantizes_every_code_bitwise(cuda_device, bits, M, N):
+    """x of one-hot rows, fp32 out: each output row is one dequantized
+    weight row whatever the order of the sums, so every int8 code (every
+    int4 code in both nibbles) at every contraction row and a spread of
+    scales must equal the plain version bit for bit, in both designs (the
+    prefill design at 128- and 256-row tiles)."""
+    from deepspeed_tpu_torch.ops import mixed_gemm as mg
+    data, scale, K = _one_hot_case(cuda_device, bits, M + bits, N)
+    if M > 128:
+        sms = torch.cuda.get_device_properties(
+            cuda_device).multi_processor_count
+        assert mg.prefill_rows(M, N, sms) == 256
+    kern = mg.mixed_matmul_2d if bits == 8 else mg.mixed4_matmul_2d
+    plain = mg.mixed_matmul_2d_plain if bits == 8 else \
+        mg.mixed4_matmul_2d_plain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for k0 in range(0, K, M):
+        rows = torch.arange(k0, min(k0 + M, K), device=cuda_device)
+        x = torch.zeros(M, K, device=cuda_device, dtype=torch.bfloat16)
+        x[torch.arange(len(rows), device=cuda_device), rows] = 1
+        before = dict(kern.design_launches)
+        got = kern(x, data, scale, out_dtype=torch.float32)
+        ref = plain(x, data, scale, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert kern.design_launches[mg.design_for(M)] == \
+            before[mg.design_for(M)] + 1
+        bad = (got != ref).nonzero()
+        assert bad.numel() == 0, (
+            f"int{bits} {mg.design_for(M)}: {bad.shape[0]} outputs differ, "
+            f"first at {bad[0].tolist()}: {got[tuple(bad[0])].item()} vs "
+            f"{ref[tuple(bad[0])].item()}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 32])
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_mixed_gemm_decode_split_is_deterministic(cuda_device, bits, M):
+    """The decode design sums its split-K partials in a fixed order: a
+    second call gives the same bits (wk and mlp wo, split > 1)."""
+    from deepspeed_tpu_torch.ops import mixed_gemm as mg
+    for kdims, N in (((4096,), 1024), ((14336,), 4096)):
+        _, x, qt = _mixed_case(cuda_device, kdims, N, M, bits, M)
+        assert mg.design_for(M) == "decode"
+        assert mg.decode_split(M, kdims[0], N, bits == 4,
+                               torch.cuda.get_device_properties(
+                                   cuda_device).multi_processor_count) > 1
+        first = mg.mixed_matmul(x, qt, out_dtype=torch.float32)
+        second = mg.mixed_matmul(x, qt, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

@@ -1,17 +1,25 @@
-"""Time the port's flash-attention kernels from two checkouts on one card,
-in turns (A, B, B, A per round), so that two versions of a kernel compare
-within one run on one card.
+"""Time the port's kernels from two checkouts on one card, in turns (A,
+B, B, A per round), so that two versions of a kernel compare within one
+run on one card.
 
     python3 tools/flash_ab.py DIR_A DIR_B [--rounds 2] [--dtypes float32]
+    python3 tools/flash_ab.py DIR_A DIR_B --family mixed [--M 8,1024]
 
 Each turn is a fresh process that imports ``deepspeed_tpu_torch`` and
 ``chip_smoke`` from one checkout (which builds its kernels into its own
-``build/kernels/``) and times the forward, dq and dk/dv with CUDA events
-at the main paths' shapes of ``chip_smoke.FLASH_CASES`` (bf16 GPT-2 and
-Llama-3-8B, fp16 phi-2, fp32 GPT-2 and phi-2 width; ``--dtypes float32``
-keeps the fp32 ones).  It prints one line a turn and, last, the mean of
-each (checkout, case, kernel) over its turns.  Only CUDA: without a card
-every turn fails.
+``build/kernels/``) and times with CUDA events.  ``--family flash`` (the
+default): the forward, dq and dk/dv at the main paths' shapes of
+``chip_smoke.FLASH_CASES`` (bf16 GPT-2 and Llama-3-8B, fp16 phi-2, fp32
+GPT-2 and phi-2 width; ``--dtypes float32`` keeps the fp32 ones).
+``--family mixed``: the int8 and int4 mixed-input GEMM (K3) at
+Llama-3-8B's five projections (wi, mlp wo, wq, wk, attn wo) at M 8 (a
+decode step) and 1024 (a prefill budget), on random codes and scales
+made from a seed, through ``mixed_matmul_2d`` / ``mixed4_matmul_2d``
+(the API every checkout since the port's third slice has), each call
+queued behind a sleep kernel so that the host's time a call does not
+stretch the kernel's.  It prints
+one line a turn and, last, the mean of each (checkout, case, kernel)
+over its turns.  Only CUDA: without a card every turn fails.
 """
 
 import argparse
@@ -25,6 +33,10 @@ CASES = [("gpt2 train", "bfloat16"), ("llama3-8b", "bfloat16"),
          ("phi-2 train", "float16"), ("gpt2 train", "float32"),
          ("phi-2 train", "float32")]
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+# K3: (name, K, N) of Llama-3-8B's projections
+MIXED_CASES = [("wi", 4096, 14336), ("mlp wo", 14336, 4096),
+               ("wq", 4096, 4096), ("wk", 4096, 1024),
+               ("attn wo", 4096, 4096)]
 
 
 def emit(line: str) -> None:
@@ -67,16 +79,68 @@ def time_checkout(root: str, dtypes) -> dict:
     return out
 
 
+def queued_ms(torch, fn, iters: int) -> float:
+    """Device ms a call of ``fn``, the calls queued behind a sleep kernel
+    that outlasts their enqueue (a call's host time can exceed a decode
+    step's kernel time)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000 * iters)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_mixed(root: str, ms) -> dict:
+    """ms per call of the int8 and int4 mixed-input GEMM at MIXED_CASES x
+    ``ms``, from the checkout ``root``."""
+    sys.path.insert(0, root)
+    import importlib
+
+    import torch
+    mg = importlib.import_module("deepspeed_tpu_torch.ops.mixed_gemm")
+    mg.BUILDER.load()
+    out = {}
+    for bits in (8, 4):
+        kern = mg.mixed_matmul_2d if bits == 8 else mg.mixed4_matmul_2d
+        for name, K, N in MIXED_CASES:
+            gen = torch.Generator(device="cuda").manual_seed(K + N + bits)
+            rows = K if bits == 8 else K // 2
+            data = torch.randint(-128, 128, (rows, N), device="cuda",
+                                 generator=gen, dtype=torch.int8)
+            s = torch.rand(K, device="cuda", generator=gen) / 64
+            for M in ms:
+                x = torch.randn(M, K, device="cuda", generator=gen).to(
+                    torch.bfloat16)
+                out[f"int{bits} {name} M={M}"] = queued_ms(
+                    torch, lambda: kern(x, data, s), 50 if M <= 64 else 10)
+            del data
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("dirs", nargs="*")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--dtypes", default=",".join(sorted({d for _, d in CASES})),
                     help="comma-separated dtypes of the cases to time")
+    ap.add_argument("--family", choices=("flash", "mixed"), default="flash")
+    ap.add_argument("--M", default="8,1024",
+                    help="comma-separated M of the mixed cases")
     ap.add_argument("--time", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time:
-        emit(json.dumps(time_checkout(args.time, args.dtypes.split(","))))
+        times = (time_mixed(args.time, [int(m) for m in args.M.split(",")])
+                 if args.family == "mixed"
+                 else time_checkout(args.time, args.dtypes.split(",")))
+        emit(json.dumps(times))
         return 0
     if len(args.dirs) != 2:
         ap.error("two checkouts to compare")
@@ -86,7 +150,8 @@ def main() -> int:
         for d in (a, b, b, a):
             res = subprocess.run(
                 [sys.executable, __file__, "--time", str(Path(d).resolve()),
-                 "--dtypes", args.dtypes],
+                 "--dtypes", args.dtypes, "--family", args.family,
+                 "--M", args.M],
                 capture_output=True, text=True)
             if res.returncode != 0:
                 emit(f"{d}: exit {res.returncode}\n{res.stderr[-4000:]}")
