@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases device,build,kernel,train
     python3 chip_smoke.py --phases device,build,kernel,serve-quant
     python3 chip_smoke.py --phases device,build,kernel,serve-alibi
+    python3 chip_smoke.py --phases device,build,kernel,serve-mqa
     python3 chip_smoke.py --phases device,build,kernel,train-fp16
 
 Phases, in order; any failure exits non-zero (nothing is caught and
@@ -25,7 +26,14 @@ passed over):
              the serving path's decode shape, and with int8 and fp8
              caches on the 8B batches; its ALiBi variant at BLOOM-7b1
              width (mixed and decode batches; bf16, int8 and fp8 caches)
-             and on a GQA batch with slopes; flash fwd/dq/dkv (causal) in
+             and on a GQA batch with slopes; at every other head dim and
+             GQA ratio a preset serves (phi-2's 80, phi3-mini's 96,
+             gptj-6b's 256, falcon-7b's 71 heads over 1 KV head), mixed
+             and decode; each K2 line names the designs and plan items
+             that ran (chunk tiles, split decode tiles), its device ms
+             (calls queued behind a sleep kernel), bound, plain ms and host
+             us a call, and a second call's bits equal to the first's;
+             flash fwd/dq/dkv (causal) in
              bf16 at the GPT-2 training shape, the llama-0.7B training leg
              of bench.py and Llama-3-8B widths, in fp16 at phi-2's training
              width and the GPT-2 shape, in bf16 and fp16 at gptj-6b (head
@@ -85,9 +93,16 @@ passed over):
              Gumbel noise and tokens of the first step and of the first
              step that samples every slot held against the CPU, the
              sampler's cost per step, and a short int8-cache run.
+7b. serve-mqa — falcon-7b at full width and depth (32 layers, d_model
+             4544, 71 query heads of 64 over 1 KV head, parallel block;
+             random bf16 weights from a seed), run after BLOOM is freed,
+             at phase 5's traffic and engine: the first-forward check
+             against the dense forward, paged-attention launches = layers x
+             steps (K2's chunk tiles and split single-token tiles at rep
+             71), TTFT, token rates and the device profile.
 8. train-fp16 — phi-2 at full width and depth (2.78 B params, 32 layers,
              32 heads of 80) in fp16 with the dynamic loss scaler, run
-             after BLOOM is freed: ZeRO-1, AdamW lr 3e-4, clip 1.0, seq
+             after falcon is freed: ZeRO-1, AdamW lr 3e-4, clip 1.0, seq
              2048, micro-batch 4, remat_policy="flash", attention_impl=
              "flash", on synthetic_lm_data through PrefetchingLoader, 2 + 5
              steps: the reckoned and the measured peak memory, 32 launches
@@ -105,7 +120,9 @@ reports them; the line before that, the per-kernel JSON (a flash variant's
 ``launches`` is the sum over the training phases that ran of what its
 count read, by dtype and the head dim the kernel ran at; null when no
 training phase ran; K3 has an entry per weight type and design, timed at
-wi, with the launches of that design in phase 6); the last line,
+wi, with the launches of that design in phase 6; K2's entries name the
+designs their timed batch ran, ``design``, and paged_attention_mqa, timed
+on the falcon-7b mixed batch, carries serve-mqa's launches); the last line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -269,6 +286,89 @@ def device_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+# K2 cases: (name, (H, Hkv, D, bs, blocks, iterations), ALiBi).  Llama-3-8B,
+# GPT-2 and BLOOM-7b1 widths (BLOOM: MHA, 32 heads of 128); a GQA batch
+# with slopes; every other head dim and GQA ratio a preset serves: phi-2
+# (32 heads of 80), phi3-mini (32 of 96), gptj-6b (16 of 256) and falcon-7b
+# (71 heads over 1 KV head, D 64), each on the mixed and the decode batch.
+# The quantized caches run on the 8B and BLOOM mixed batches and the 8B
+# decode batch
+K2_CASES = [("llama3-8b mixed", (32, 8, 128, 64, 512, 20), False),
+            ("gpt2 mixed", (12, 12, 64, 64, 512, 20), False),
+            ("llama3-8b decode", (32, 8, 128, 64, 512, 100), False),
+            ("bloom-7b1 mixed", (32, 32, 128, 64, 512, 10), True),
+            ("bloom-7b1 decode", (32, 32, 128, 64, 512, 100), True),
+            ("gqa rep4 mixed", (32, 8, 128, 64, 512, 10), True),
+            ("phi-2 mixed", (32, 32, 80, 64, 512, 10), False),
+            ("phi-2 decode", (32, 32, 80, 64, 512, 100), False),
+            ("phi3-mini mixed", (32, 32, 96, 64, 512, 10), False),
+            ("phi3-mini decode", (32, 32, 96, 64, 512, 100), False),
+            ("gptj-6b mixed", (16, 16, 256, 64, 512, 10), False),
+            ("gptj-6b decode", (16, 16, 256, 64, 512, 100), False),
+            ("falcon-7b mixed", (71, 1, 64, 64, 512, 20), False),
+            ("falcon-7b decode", (71, 1, 64, 64, 512, 100), False)]
+
+
+def k2_plan(torch, case, H, Hkv):
+    """The designs and work items K2's plan gives this batch (the plan
+    kernel's PyTorch twin, on the host copies of the batch): (design
+    label, items by design, split items)."""
+    from deepspeed_tpu_torch.ops import paged_attention as _  # noqa: F401
+    pam = sys.modules["deepspeed_tpu_torch.ops.paged_attention"]
+    rep = H // Hkv
+    sms = (torch.cuda.get_device_properties(0).multi_processor_count
+           if torch.cuda.is_available() else 132)
+    items = pam.plan_plain(case["slots_np"], case["pos_np"], rep,
+                           case["block_size"], case["max_blocks_per_seq"],
+                           pam.items_target(Hkv, sms))
+    by = pam.designs_of(items, rep)
+    label = "+".join(d for d in pam.DESIGNS if by[d])
+    return label, by, int((items[:, 6] > 1).sum())
+
+
+def k2_report(torch, pa, name, args, case, H, Hkv, D, iters, kv_bytes=2):
+    """Times and plan of one K2 case whose output was already checked:
+    kernel ms (calls queued behind a sleep kernel: a decode call's host
+    time exceeds its kernel time), plain ms, host us a call, the bound
+    and the designs the plan gave; raises if a second call's bits differ
+    from the first's."""
+    from deepspeed_tpu_torch.ops.paged_attention import (
+        paged_attention_plain)
+    out = pa(*args)
+    again = pa(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: a second call gave other bits")
+    # the calls share one plan, as a step's layers do; the plan kernel
+    # alone is timed beside them
+    kernel_ms = device_ms(torch, lambda: pa(*args), iters)
+    pam = sys.modules["deepspeed_tpu_torch.ops.paged_attention"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan_args = (args[2], args[3], H // Hkv, args[5], args[6],
+                 pam.items_target(Hkv, sms))
+    buf = pam.launch_plan(*plan_args)
+    plan_ms = device_ms(torch, lambda: pam.launch_plan(*plan_args, buf),
+                        iters)
+    host_us = host_us_per_call(torch, lambda: pa(*args))
+    plain_ms = time_ms(torch, lambda: paged_attention_plain(*args),
+                       max(2, iters // 10), warmup=1)
+    bound_ms, bound_by, nbytes, flops = attention_bound(case, H, Hkv, D,
+                                                        kv_bytes)
+    design, by, splits = k2_plan(torch, case, H, Hkv)
+    text = (f"design={design} (plan items: {by['chunk']} chunk, "
+            f"{by['decode']} decode, {splits} of them split) "
+            f"kernel_ms={kernel_ms:.4f} (plan reused, as by a step's "
+            f"layers; the plan kernel alone {plan_ms * 1e3:.1f} us) "
+            f"plain_ms={plain_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by}: {nbytes} B, {flops} flop; "
+            f"{bound_ms / kernel_ms:.1%} of the bound) host "
+            f"{host_us:.1f} us/call; bitwise equal on a second call; "
+            f"library_ms: n/a")
+    return text, dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, library_ms=None, design=design,
+                      plan_ms=plan_ms)
+
+
 def check_kernel_case(torch, pa, name, case, H, Hkv, D, iters, slopes=None):
     """One bf16 case of paged attention (with ALiBi ``slopes`` if given)
     against its plain version on the same inputs."""
@@ -286,22 +386,17 @@ def check_kernel_case(torch, pa, name, case, H, Hkv, D, iters, slopes=None):
     diff = (out.float() - ref.float()).abs()
     max_err = float(diff.max())
     bad = diff > KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()
-    kernel_ms = time_ms(torch, lambda: pa(*args), iters)
-    plain_ms = time_ms(torch, lambda: paged_attention_plain(*args),
-                       max(2, iters // 10), warmup=1)
-    bound_ms, bound_by, nbytes, flops = attention_bound(case, H, Hkv, D)
-    T = case["q"].shape[0]
-    log(f"[kernel] {name}{' alibi' if slopes is not None else ''}: T={T} "
-        f"H={H} Hkv={Hkv} D={D} bs={case['block_size']} max|d|={max_err:.3e} "
-        f"(atol=rtol={KERNEL_ATOL}) kernel_ms={kernel_ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}: "
-        f"{nbytes} B, {flops} flop) library_ms: n/a")
     if bool(bad.any()):
         raise AssertionError(
             f"{name}: kernel disagrees with the plain version on "
             f"{int(bad.sum())} elements (max |d| {max_err})")
-    return dict(max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    del out, ref, diff, bad
+    text, res = k2_report(torch, pa, name, args, case, H, Hkv, D, iters)
+    T = case["q"].shape[0]
+    log(f"[kernel] {name}{' alibi' if slopes is not None else ''}: T={T} "
+        f"H={H} Hkv={Hkv} D={D} bs={case['block_size']} max|d|={max_err:.3e} "
+        f"(atol=rtol={KERNEL_ATOL}) {text}")
+    return dict(max_abs_err=max_err, **res)
 
 
 # flash attention cases: (name, dtype, (B, H, Hkv, S, D, timing
@@ -541,19 +636,14 @@ def check_quant_kv_case(torch, pa, name, case, code, H, Hkv, D, iters,
     ref = paged_attention_plain(kv, q, *rest)
     ref32 = paged_attention_plain(kv, q.float(), *rest)
     err, tol = _within_noise(torch, f"{name} {code}", out, ref, ref32)
-    kernel_ms = time_ms(torch, lambda: pa(kv, q, *rest), iters)
-    plain_ms = time_ms(torch, lambda: paged_attention_plain(kv, q, *rest),
-                       max(2, iters // 10), warmup=1)
-    bound_ms, bound_by, nbytes, flops = attention_bound(case, H, Hkv, D,
-                                                        kv_bytes=1)
+    del out, ref, ref32
+    text, res = k2_report(torch, pa, f"{name} {code}", (kv, q, *rest), case,
+                          H, Hkv, D, iters, kv_bytes=1)
     log(f"[kernel] {name} {code} cache{' alibi' if slopes is not None else ''}"
         f": T={q.shape[0]} H={H} Hkv={Hkv} "
         f"D={D} max|d|={err:.3e} <= {tol:.3e} ({NOISE_FACTOR} x the bf16 "
-        f"noise floor) kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-        f"bound_ms={bound_ms:.4f} ({bound_by}: {nbytes} B, {flops} flop) "
-        f"library_ms: n/a")
-    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        f"noise floor) {text}")
+    return dict(max_abs_err=err, **res)
 
 
 # mixed-input GEMM cases: Llama-3-8B's projections (contraction dims, N) —
@@ -1635,14 +1725,18 @@ def device_profile(torch, run, wall_unprofiled, tag="serve"):
         f"profiler); top kernels by device time:")
     for us, count, key in sorted(rows, reverse=True)[:10]:
         log(f"[{tag}]   {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
-    groups = {}
-    for us, _, key in rows:
+    groups, paged = {}, []
+    for us, count, key in rows:
         name = next((g for g, subs in KERNEL_GROUPS
                      if any(s in key for s in subs)), "other")
         groups[name] = groups.get(name, 0.0) + us
+        if name == "paged attention":
+            paged.append(f"{key[:80]} {count}x {us / 1e3:.2f} ms")
     log(f"[{tag}] device time by kind: " + ", ".join(
         f"{g} {us / 1e3:.2f} ms ({100 * us / total_us:.1f}%)"
         for g, us in sorted(groups.items(), key=lambda kv: -kv[1])))
+    if paged:
+        log(f"[{tag}] paged attention's kernels: " + "; ".join(paged))
     return {g: us / 1e3 for g, us in groups.items()}
 
 
@@ -1668,7 +1762,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="device,build,kernel,train,train-fp32,serve,"
-                            "serve-quant,serve-alibi,train-fp16")
+                            "serve-quant,serve-alibi,serve-mqa,train-fp16")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1721,20 +1815,11 @@ def main() -> int:
     # 3. kernels vs plain
     kern = None
     qkv_kern, mixed_kern, alibi_kern, flash_kern = {}, {}, {}, {}
+    mqa_kern = {}
     if "kernel" in phases:
         from deepspeed_tpu_torch.models.layers import alibi_slopes
         dev = torch.device("cuda")
-        # (name, (H, Hkv, D, bs, blocks, iterations), ALiBi): Llama-3-8B,
-        # GPT-2 and BLOOM-7b1 widths (BLOOM: MHA, 32 heads of 128); a GQA
-        # batch with slopes; the quantized caches on the 8B and BLOOM
-        # mixed batches
-        cases = [("llama3-8b mixed", (32, 8, 128, 64, 512, 20), False),
-                 ("gpt2 mixed", (12, 12, 64, 64, 512, 20), False),
-                 ("llama3-8b decode", (32, 8, 128, 64, 512, 100), False),
-                 ("bloom-7b1 mixed", (32, 32, 128, 64, 512, 10), True),
-                 ("bloom-7b1 decode", (32, 32, 128, 64, 512, 100), True),
-                 ("gqa rep4 mixed", (32, 8, 128, 64, 512, 10), True)]
-        for name, (H, Hkv, D, bs, nblk, iters), alibi in cases:
+        for name, (H, Hkv, D, bs, nblk, iters), alibi in K2_CASES:
             make = decode_batch if "decode" in name else mixed_batch
             case = make(torch, H, Hkv, D, bs, nblk, args.seed, dev)
             slopes = alibi_slopes(H, device=dev) if alibi else None
@@ -1742,6 +1827,8 @@ def main() -> int:
                                     slopes)
             if alibi:
                 alibi_kern.setdefault("bf16", res)
+            elif name.startswith("falcon-7b"):
+                mqa_kern.setdefault("bf16", res)
             elif kern is None:
                 kern = res
             if name in ("llama3-8b mixed", "llama3-8b decode",
@@ -1798,7 +1885,18 @@ def main() -> int:
         alibi_run = serve_alibi(torch, pa, args.seed)
         phase_done("serve-alibi")
 
-    # 8. phi-2 in fp16 with the dynamic loss scaler, after BLOOM is freed
+    # 7b. falcon-7b (71 query heads over 1 KV head), after BLOOM is freed
+    mqa_launches = None
+    if "serve-mqa" in phases:
+        model, prompts = serving_model(torch, "falcon-7b", args.seed,
+                                       tag="serve-mqa")
+        mqa_launches = serve(torch, pa, model, prompts,
+                             tag="serve-mqa")["launches"]
+        del model
+        free_engines(torch)
+        phase_done("serve-mqa")
+
+    # 8. phi-2 in fp16 with the dynamic loss scaler, after falcon is freed
     if "train-fp16" in phases:
         flash_runs.append(train(torch, fa, args.seed, "train-fp16"))
         phase_done("train-fp16")
@@ -1862,6 +1960,9 @@ def main() -> int:
                         ("paged_attention_alibi", "bf16", "alibi_launches"),
                         ("paged_attention_alibi_int8kv", "int8",
                          "int8_launches"))]
+        entries += [dict(name="paged_attention_mqa", route="cuda",
+                         source=pa_src, replaces=pa_replaces,
+                         launches=mqa_launches, **mqa_kern["bf16"])]
         print(json.dumps({"kernels": entries}), flush=True)
     print(rep["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

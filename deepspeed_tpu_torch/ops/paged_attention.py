@@ -1,14 +1,19 @@
 """Paged attention: the Hopper kernel, its wrapper and its plain version.
 
 Counterpart of ``deepspeed_tpu/ops/paged_attention.py`` (the Pallas TPU
-kernel ``_kernel``).  The kernel is CUDA C++ in ``csrc/paged_attention.cu``
-(see the note at its top for its design and what bounds it), built by
-``ops/builder.py`` at first use and bound through ``ctypes``.
+kernel ``_kernel``).  The kernels are CUDA C++ in
+``csrc/paged_attention.cu`` (see the note at its top for the two designs,
+the plan and what bounds them), built by ``ops/builder.py`` at first use
+and bound through ``ctypes``.
 
 :func:`paged_attention` is the wrapper the serving forward calls: for
 tensors on the CPU it runs :func:`paged_attention_plain`; for tensors on
-a CUDA device it checks every operand and launches the kernel, or raises.
-It never falls back from the kernel to the plain version.
+a CUDA device it checks every operand and launches the plan kernel and
+the work kernel, or raises.  It never falls back from the kernel to the
+plain version.  :func:`plan_plain` is the plan kernel's PyTorch twin
+(which tokens go to the chunk design and which to the decode design, and
+how a tile splits along its KV blocks); :func:`design_for` names the
+design of a run, :func:`shape_error` the widths the kernel refuses.
 
 :func:`paged_attention_plain` ports the JAX package's two XLA
 formulations (``deepspeed_tpu/inference/model.py``): the one-shot gather
@@ -20,7 +25,8 @@ A quantized cache travels as a ``(codes, scales)`` tuple, as in the JAX
 package: int8 or fp8 (e4m3) codes ``[blocks+1, bs, 2, Hkv, D]`` with one
 fp32 scale per K/V row ``[blocks+1, bs, 2, Hkv]``.  The plain versions
 dequantize the gathered rows to q's dtype (``_dequant_ctx``); the kernel
-reads the codes and dequantizes each row it reads.
+reads the codes and dequantizes each key tile once, for every query row
+of the tile.
 
 ALiBi (the TPU kernel's ``alibi`` operand): optional fp32 ``slopes``, any
 shape of ``H`` elements reshapeable to ``[Hkv, rep]`` in head order
@@ -31,7 +37,8 @@ after the ``* scale`` and before the mask, for either cache type.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple, Union
+import functools
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -43,10 +50,23 @@ NEG_INF = -1e30
 # elements; past this many BYTES the chunked online-softmax path runs
 _ONE_SHOT_GATHER_BYTES = 512 * 1024 * 1024
 
-# what the kernel takes (csrc/paged_attention.cu)
-HEAD_DIMS = (64, 128)
-MAX_REP = 8
+# what the kernel takes (csrc/paged_attention.cu): every head dim of the
+# presets (one template instance each), any GQA ratio up to MAX_REP (the
+# largest held against the plain version on the card), 1 <= bs <= 256
+HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+MAX_REP = 128
 MAX_BLOCK_SIZE = 256
+
+# the two designs of csrc/paged_attention.cu and their tiles' query rows:
+# a run of at most DECODE_ROWS (token, head) rows is one decode tile (the
+# four warps split its keys), a longer run is cut into CHUNK_ROWS-row chunk
+# tiles (a warp a 16-row slice)
+DESIGNS = ("chunk", "decode")
+CHUNK_ROWS = 64
+DECODE_ROWS = 16
+# an item: t0, n, row0, b0, b1, split, nsplit, slot (the plan kernel's)
+ITEM_INTS = 8
+_HEADER_INTS = 8
 
 # code dtype of a quantized cache -> the kernel's code_type
 KV_CODE_TYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
@@ -56,24 +76,156 @@ BUILDER = CUDAOpBuilder("paged_attention", ["paged_attention.cu"])
 KVLayer = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
 
-def _kernel_fn(quant: bool):
-    """The C entry point: (kv, [scales,] slopes, q, seq_slot, positions,
-    block_tables, out) pointers, 8 ints, the scale, [code_type,] stream;
-    a null ``slopes`` pointer means no ALiBi."""
-    lib = BUILDER.load()
-    if quant:
-        fn = lib.paged_attention_quant
-        if fn.argtypes is None:
-            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-        return fn
-    fn = lib.paged_attention_bf16
+def design_for(n_tokens: int, rep: int) -> str:
+    """The design a run of ``n_tokens`` consecutive tokens of one sequence
+    takes at ``rep`` query heads a KV head: "decode" when its rows fit one
+    16-row tile, else "chunk"."""
+    return "decode" if n_tokens * rep <= DECODE_ROWS else "chunk"
+
+
+def items_target(Hkv: int, sms: int) -> int:
+    """Work items a KV head the plan aims for: two blocks an SM over the
+    Hkv heads, rounded down so that they run as one wave (rounded up,
+    BLOOM's 32 heads made 9 x 32 = 288 blocks, two waves on 132 SMs, and
+    its decode batch ran 1.4x slower under tools/flash_ab.py)."""
+    return max(1, 2 * sms // Hkv)
+
+
+def max_items(T: int, rep: int, target: int) -> int:
+    """A bound on the items the plan writes for T tokens: a tile a run
+    (at most T runs) plus ceil(T rep / 64) more for chunk runs, and the
+    splits' extra items, at most 2 x target (each split tile reads more
+    than w* = ceil(W / target) blocks and gets fewer than 2 x its blocks /
+    w* items).  The partial slots are bounded by 2 x target too."""
+    return T + -(-T * rep // CHUNK_ROWS) + 2 * target
+
+
+def items_offset(T: int) -> int:
+    """Where the items start in the plan workspace (int32): after the
+    header and the run_start, item_off and slot_off scratch of T + 1."""
+    return _HEADER_INTS + (3 * (T + 1) + 3) // 4 * 4
+
+
+def _blocks_for(pos: int, bs: int, nb: int) -> int:
+    return 0 if pos < 0 else min(pos // bs + 1, nb)
+
+
+def plan_plain(seq_slot, positions, rep: int, bs: int, nb: int,
+               target: int) -> torch.Tensor:
+    """The plan kernel's twin (``paged_attention_plan_kernel``): the work
+    items, int32 [n_items, ITEM_INTS], of tokens with these slots and
+    positions.  Runs: tokens adjacent in the batch with the same slot and
+    consecutive positions.  A run of rows = n x rep <= 16 is one decode
+    tile, a longer one ceil(rows / 64) chunk tiles.  W sums the runs'
+    tiles x the blocks of their deepest token; the tiles of a decode run
+    or of a single token are split into ceil(blocks / w*) ranges of
+    blocks (w* = ceil(W / target)), evened out; each split tile's items
+    take consecutive workspace slots."""
+    slots = [int(x) for x in seq_slot]
+    pos = [int(x) for x in positions]
+    T = len(pos)
+    starts = [t for t in range(T) if t == 0 or slots[t] != slots[t - 1]
+              or pos[t] != pos[t - 1] + 1] + [T]
+    runs = []
+    for t0, t1 in zip(starts, starts[1:]):
+        n = t1 - t0
+        rows = n * rep
+        decode = rows <= DECODE_ROWS
+        tiles = 1 if decode else -(-rows // CHUNK_ROWS)
+        runs.append((t0, n, rows, decode, tiles,
+                     _blocks_for(pos[t1 - 1], bs, nb), decode or n == 1))
+    W = sum(tiles * nblk for _, _, _, _, tiles, nblk, _ in runs)
+    wstar = max(1, -(-W // target))
+    items, n_slots = [], 0
+    for t0, n, rows, decode, tiles, nblk, splittable in runs:
+        nsplit, bps = 1, nblk
+        if splittable and nblk > wstar:
+            bps = -(-nblk // -(-nblk // wstar))
+            nsplit = -(-nblk // bps)
+        tr = DECODE_ROWS if decode else CHUNK_ROWS
+        for k in range(tiles):
+            row0 = k * tr
+            for s in range(nsplit):
+                if nsplit > 1:
+                    b0, b1 = s * bps, min(s * bps + bps, nblk)
+                    slot = n_slots + k * nsplit + s
+                else:
+                    last = min(n - 1, (row0 + min(tr, rows - row0) - 1)
+                               // rep)
+                    b0, b1 = 0, _blocks_for(pos[t0 + last], bs, nb)
+                    slot = -1
+                items.append((t0, n, row0, b0, b1, s, nsplit, slot))
+        if nsplit > 1:
+            n_slots += tiles * nsplit
+    return torch.tensor(items, dtype=torch.int32).reshape(-1, ITEM_INTS)
+
+
+def designs_of(items: torch.Tensor, rep: int) -> dict:
+    """Items by design, of a plan from :func:`plan_plain`."""
+    out = dict.fromkeys(DESIGNS, 0)
+    for n in items[:, 1].tolist():
+        out[design_for(n, rep)] += 1
+    return out
+
+
+def _kernel_fn(name: str):
+    """A C entry of the library: ``paged_attention_bf16`` (kv, slopes, q,
+    seq_slot, positions, block_tables, out, plan, counters, partials
+    pointers, 12 ints, the scale, stream), ``paged_attention_quant`` (the
+    same with the scales pointer second and the code type before the
+    stream) or ``paged_attention_plan`` (seq_slot, positions, plan
+    pointers, 6 ints, stream).  A null ``slopes`` pointer means no ALiBi."""
+    fn = getattr(BUILDER.load(), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_void_p])
+        ptrs = {"paged_attention_bf16": 10, "paged_attention_quant": 11,
+                "paged_attention_plan": 3}[name]
+        if name == "paged_attention_plan":
+            tail = [ctypes.c_int] * 6
+        else:
+            tail = [ctypes.c_int] * 12 + [ctypes.c_float]
+            if name == "paged_attention_quant":
+                tail.append(ctypes.c_int)
+        fn.argtypes = [ctypes.c_void_p] * ptrs + tail + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# (device index, stream) -> (plan, counters, partials): the plan's int32
+# workspace, the split counters (zero between calls: the kernel's last
+# block of each split tile resets its own) and the fp32 partials.  Launches
+# on one stream run in order, so they may share all three; kept across
+# calls, as zeroing fresh counters would add a launch to every call
+_workspaces: Dict[Tuple[int, int], List[torch.Tensor]] = {}
+# (device index, stream) -> what the plan workspace holds the plan of: the
+# seq_slot and positions tensors themselves (held, so that no other tensor
+# takes their ids) with their version counters, the widths, the workspace
+# address.  A call that matches skips the plan kernel: the layers of one
+# step share one plan
+_planned: Dict[Tuple[int, int], tuple] = {}
+
+
+def _workspace(device, stream: int, plan_ints: int, counter_ints: int,
+               partial_floats: int) -> List[torch.Tensor]:
+    key = (device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None:
+        ws = [torch.empty(0, dtype=torch.int32, device=device),
+              torch.zeros(0, dtype=torch.int32, device=device),
+              torch.empty(0, dtype=torch.float32, device=device)]
+        _workspaces[key] = ws
+    if ws[0].numel() < plan_ints:
+        ws[0] = torch.empty(plan_ints, dtype=torch.int32, device=device)
+    if ws[1].numel() < counter_ints:
+        ws[1] = torch.zeros(counter_ints, dtype=torch.int32, device=device)
+    if ws[2].numel() < partial_floats:
+        ws[2] = torch.empty(partial_floats, dtype=torch.float32,
+                            device=device)
+    return ws
 
 
 def _kv_parts(kv_layer: KVLayer):
@@ -97,6 +249,18 @@ def _dequant_ctx(data: torch.Tensor, scales: torch.Tensor,
     return (data.float() * scales[..., None]).to(dt)
 
 
+def shape_error(H: int, Hkv: int, D: int, bs: int) -> Optional[str]:
+    """Why the kernel does not take these widths (query heads, KV heads,
+    head dim, block size), or None."""
+    if D not in HEAD_DIMS:
+        return f"head_dim {D} not in {HEAD_DIMS}"
+    if Hkv < 1 or H % Hkv or not 1 <= H // Hkv <= MAX_REP:
+        return f"H={H}, Hkv={Hkv}: need H % Hkv == 0 and rep <= {MAX_REP}"
+    if not 1 <= bs <= MAX_BLOCK_SIZE:
+        return f"block_size {bs} not in 1..{MAX_BLOCK_SIZE}"
+    return None
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"paged_attention kernel: {msg}")
@@ -112,10 +276,10 @@ def paged_attention(kv_layer: KVLayer, q: torch.Tensor,
     seq_slot/positions: [T] i32; block_tables: [max_seqs, >= nb] i32
     (-1 pad); ``slopes``: optional ALiBi slopes, H fp32 values in head
     order -> out [T, H, D].  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (bf16 q; a bf16, int8 or fp8 cache) and bump
-    ``paged_attention.launches`` (bf16 cache), ``.int8_launches`` or
-    ``.fp8_launches``, and ``.alibi_launches`` as well when the launch
-    carried slopes."""
+    tensors launch the plan and the work kernel (bf16 q; a bf16, int8 or
+    fp8 cache) and bump ``paged_attention.launches`` (bf16 cache),
+    ``.int8_launches`` or ``.fp8_launches``, and ``.alibi_launches`` as
+    well when the launch carried slopes: one count a call."""
     if q.device.type == "cpu":
         return paged_attention_plain(kv_layer, q, seq_slot, positions,
                                      block_tables, block_size,
@@ -151,10 +315,8 @@ def paged_attention(kv_layer: KVLayer, q: torch.Tensor,
     _check(two == 2 and Dk == D and bs == block_size,
            f"kv {tuple(data.shape)} vs q {tuple(q.shape)}, "
            f"block_size {block_size}")
-    _check(D in HEAD_DIMS, f"head_dim {D} not in {HEAD_DIMS}")
-    _check(H % Hkv == 0 and 1 <= H // Hkv <= MAX_REP,
-           f"H={H}, Hkv={Hkv}: need H % Hkv == 0 and rep <= {MAX_REP}")
-    _check(1 <= bs <= MAX_BLOCK_SIZE, f"block_size {bs} > {MAX_BLOCK_SIZE}")
+    why = shape_error(H, Hkv, D, bs)
+    _check(why is None, why)
     for name, x in (("seq_slot", seq_slot), ("positions", positions),
                     ("block_tables", block_tables)):
         _check(x.dtype == torch.int32, f"{name} must be int32, got {x.dtype}")
@@ -173,22 +335,39 @@ def paged_attention(kv_layer: KVLayer, q: torch.Tensor,
     out = torch.empty_like(q)
     if T == 0:
         return out
-    ints = (T, H, Hkv, D, bs, nrows, block_tables.shape[1],
-            max_blocks_per_seq)
+    rep = H // Hkv
+    sms = _sm_count(q.device.index)
+    target = items_target(Hkv, sms)
+    bound = max_items(T, rep, target)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    plan, counters, partials = _workspace(
+        q.device, stream, items_offset(T) + ITEM_INTS * bound,
+        2 * target * Hkv, 2 * target * Hkv * CHUNK_ROWS * (D + 2))
+    ws_key = (q.device.index, stream)
+    planned = (seq_slot, seq_slot._version, positions, positions._version,
+               rep, bs, max_blocks_per_seq, target, plan.data_ptr())
+    held = _planned.get(ws_key)
+    replan = (held is None or held[0] is not seq_slot
+              or held[2] is not positions or held[1] != planned[1]
+              or held[3:] != planned[3:])
     ptrs = (None if slopes is None else slopes.data_ptr(), q.data_ptr(),
             seq_slot.data_ptr(), positions.data_ptr(),
-            block_tables.data_ptr(), out.data_ptr())
+            block_tables.data_ptr(), out.data_ptr(), plan.data_ptr(),
+            counters.data_ptr(), partials.data_ptr())
+    ints = (T, H, Hkv, D, bs, nrows, block_tables.shape[1],
+            max_blocks_per_seq, bound, target, sms, int(replan))
     if scales is None:
-        err = _kernel_fn(False)(data.data_ptr(), *ptrs, *ints, float(scale),
-                                stream)
+        err = _kernel_fn("paged_attention_bf16")(
+            data.data_ptr(), *ptrs, *ints, float(scale), stream)
     else:
-        err = _kernel_fn(True)(data.data_ptr(), scales.data_ptr(), *ptrs,
-                               *ints, float(scale),
-                               KV_CODE_TYPES[data.dtype], stream)
+        err = _kernel_fn("paged_attention_quant")(
+            data.data_ptr(), scales.data_ptr(), *ptrs, *ints, float(scale),
+            KV_CODE_TYPES[data.dtype], stream)
     if err != 0:
+        _planned.pop(ws_key, None)
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {err}")
+    _planned[ws_key] = planned
     if scales is None:
         paged_attention.launches += 1
     elif data.dtype == torch.int8:
@@ -204,6 +383,42 @@ paged_attention.launches = 0          # bf16 cache
 paged_attention.int8_launches = 0     # int8 codes + scales
 paged_attention.fp8_launches = 0      # fp8 e4m3 codes + scales
 paged_attention.alibi_launches = 0    # with ALiBi slopes (either cache)
+
+
+def launch_plan(seq_slot: torch.Tensor, positions: torch.Tensor, rep: int,
+                bs: int, nb: int, target: int,
+                plan: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the plan kernel alone on the card (CUDA int32 [T] operands)
+    into ``plan`` (a fresh int32 workspace when None) and return the
+    workspace, not synchronised: for timing the plan and for
+    :func:`plan_device`."""
+    T = seq_slot.shape[0]
+    bound = max_items(T, rep, target)
+    if plan is None:
+        plan = torch.full((items_offset(T) + ITEM_INTS * bound,), -7,
+                          dtype=torch.int32, device=seq_slot.device)
+    stream = torch.cuda.current_stream(seq_slot.device).cuda_stream
+    err = _kernel_fn("paged_attention_plan")(
+        seq_slot.data_ptr(), positions.data_ptr(), plan.data_ptr(), T, rep,
+        bs, nb, bound, target, stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention plan launch failed: "
+                           f"cudaError {err}")
+    return plan
+
+
+def plan_device(seq_slot: torch.Tensor, positions: torch.Tensor, rep: int,
+                bs: int, nb: int, target: int) -> torch.Tensor:
+    """The plan kernel's items, int32 [n_items, ITEM_INTS] on the host,
+    for holding the device plan against :func:`plan_plain`; it
+    synchronises."""
+    T = seq_slot.shape[0]
+    host = launch_plan(seq_slot, positions, rep, bs, nb, target).cpu()
+    if int(host[3]) != 0:
+        raise RuntimeError("paged_attention plan: more items than the bound")
+    n = int(host[0])
+    start = items_offset(T)
+    return host[start:start + ITEM_INTS * n].reshape(n, ITEM_INTS)
 
 
 def paged_attention_plain(kv_layer: KVLayer, q: torch.Tensor,

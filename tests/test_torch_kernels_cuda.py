@@ -75,24 +75,202 @@ def test_paged_attention_kernel_matches_plain(cuda_device, H, Hkv, D, bs):
 
 @pytest.mark.cuda
 def test_paged_attention_kernel_rejects_what_it_does_not_take(cuda_device):
+    """Every head dim of the presets (32 .. 256) and GQA ratios up to
+    MAX_REP launch; a head dim outside HEAD_DIMS, a ratio past MAX_REP, a
+    non-bf16 q or cache and int64 indices raise before any launch."""
     kv = torch.zeros(3, 16, 2, 2, 128, device=cuda_device,
                      dtype=torch.bfloat16)
     q = torch.zeros(2, 4, 128, device=cuda_device, dtype=torch.bfloat16)
     i32 = lambda *s: torch.zeros(*s, dtype=torch.int32, device=cuda_device)  # noqa: E731
     ok = (kv, q, i32(2), i32(2), i32(2, 2), 16, 2, 0.1)
     paged_attention(*ok)
+    paged_attention(kv[..., :32].contiguous(), q[..., :32].contiguous(),
+                    *ok[2:])
     with pytest.raises(ValueError, match="bf16"):
         paged_attention(kv.float(), q.float(), *ok[2:])
     with pytest.raises(ValueError, match="head_dim"):
-        paged_attention(kv[..., :32].contiguous(), q[..., :32].contiguous(),
+        paged_attention(kv[..., :48].contiguous(), q[..., :48].contiguous(),
                         *ok[2:])
+    rep = pa_mod.MAX_REP + 1
     with pytest.raises(ValueError, match="rep"):
         paged_attention(kv[:, :, :, :1].contiguous(),
-                        torch.zeros(2, 16, 128, device=cuda_device,
+                        torch.zeros(2, rep, 128, device=cuda_device,
                                     dtype=torch.bfloat16), *ok[2:])
     with pytest.raises(ValueError, match="int32"):
         paged_attention(kv, q, i32(2).long(), *ok[3:])
     torch.cuda.synchronize()
+
+
+# --- K2's two designs and its plan ------------------------------------------
+
+pa_mod = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")
+
+
+def _paged_layout(bs, long_ctx, chunk, seed):
+    """Block tables and (slot, position) tokens of a batch that runs both
+    designs: a chunk starting mid-block, a decode token whose table aliases
+    the chunk's first block and then reads out-of-range entries (the trash
+    row), a position-0 token, a long-context decode token, a verify window
+    of 3 and two tokens of sequence 0 that are not adjacent to its chunk."""
+    rng = np.random.RandomState(seed)
+    nb = -(-long_ctx // bs)
+    nblocks = nb + 8
+    tables = np.full((6, nb + 2), -1, np.int32)
+    cb = -(-(8 + chunk) // bs)
+    tables[0, :cb] = rng.permutation(nblocks)[:cb]
+    tables[1, :1] = tables[0, :1]
+    tables[1, 1:-(-120 // bs)] = nblocks + 50
+    tables[2, 0] = tables[0, 0]
+    tables[3, :nb] = rng.randint(0, nblocks, nb)
+    tables[4, :nb] = rng.randint(0, nblocks, nb)
+    toks = ([(0, p) for p in range(8, 8 + chunk)]
+            + [(1, 119), (2, 0), (3, long_ctx - 1)]
+            + [(4, p) for p in range(20, 23)] + [(0, 3), (0, 5)])
+    return tables, toks, nb, nblocks
+
+
+def _paged_operands(dev, H, Hkv, D, bs, code, alibi, seed, long_ctx=600,
+                    chunk=70):
+    from deepspeed_tpu_torch.inference.model import _quantize_kv
+    from deepspeed_tpu_torch.models.layers import alibi_slopes
+    tables, toks, nb, nblocks = _paged_layout(bs, long_ctx, chunk, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kv = torch.randn(nblocks + 1, bs, 2, Hkv, D, device=dev, generator=gen)
+    if code == "bf16":
+        kv = kv.to(torch.bfloat16)
+    else:
+        kv = _quantize_kv(kv, {"int8": torch.int8,
+                               "fp8": torch.float8_e4m3fn}[code])
+    q = torch.randn(len(toks), H, D, device=dev, dtype=torch.bfloat16,
+                    generator=gen)
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)  # noqa: E731
+    # the plain version's tables: an entry past the cache is a -1 pad
+    ref_tables = np.where(tables > nblocks, -1, tables)
+    rest = (as_t([s for s, _ in toks]), as_t([p for _, p in toks]))
+    slopes = alibi_slopes(H, device=dev) if alibi else None
+    return ((kv, q, *rest, as_t(tables), bs, nb, D ** -0.5, slopes),
+            (kv, q, *rest, as_t(ref_tables), bs, nb, D ** -0.5, slopes))
+
+
+_PAGED_REPS = {1: 4, 4: 2, 7: 2, 8: 1, 71: 1}      # rep -> Hkv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [16, 64, 256])
+@pytest.mark.parametrize("rep", sorted(_PAGED_REPS))
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128, 256])
+def test_paged_attention_designs_match_plain_every_shape(cuda_device, D, rep,
+                                                         bs):
+    """Both designs (chunk tiles and split decode tiles; rep 71 runs its
+    single tokens as split chunk tiles) on a bf16, int8 and fp8 cache,
+    each without and with ALiBi, at every head dim of the presets, GQA
+    ratios 1-71 and block sizes 16-256: atol = rtol = 2e-2 against the
+    plain version, one launch counted per call, and a second call's
+    bits equal to the first's."""
+    Hkv = _PAGED_REPS[rep]
+    H = Hkv * rep
+    for code in ("bf16", "int8", "fp8"):
+        for alibi in (False, True):
+            args, ref_args = _paged_operands(cuda_device, H, Hkv, D, bs,
+                                             code, alibi, seed=D + rep + bs)
+            items = pa_mod.plan_plain(args[2].cpu(), args[3].cpu(), rep, bs,
+                                      args[6], pa_mod.items_target(
+                                          Hkv, pa_mod._sm_count(0)))
+            ran = pa_mod.designs_of(items, rep)
+            assert ran["chunk"] > 0 and (ran["decode"] > 0) == (rep <= 16)
+            counter = "launches" if code == "bf16" else f"{code}_launches"
+            before = getattr(paged_attention, counter)
+            out = paged_attention(*args)
+            torch.cuda.synchronize()
+            assert getattr(paged_attention, counter) == before + 1
+            ref = paged_attention_plain(*ref_args)
+            torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                                       rtol=2e-2, msg=lambda m: (
+                                           f"{code} alibi={alibi}: {m}"))
+            again = paged_attention(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(out, again), f"{code} alibi={alibi}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [1, 16, 24, 64, 256])
+@pytest.mark.parametrize("rep", [1, 4, 71])
+def test_paged_attention_edge_layouts(cuda_device, rep, bs):
+    """A chunk run of 70 tokens straddling the 64-row tile edge (rep 1)
+    and starting mid-block, an aliased table, -1 and out-of-range entries,
+    a position-0 token, an 8192-token decode, a verify window and tokens of
+    one sequence that are not adjacent; D 64, bf16."""
+    Hkv = 1 if rep != 4 else 2
+    args, ref_args = _paged_operands(cuda_device, rep * Hkv, Hkv, 64, bs,
+                                     "bf16", False, seed=bs + rep,
+                                     long_ctx=8192)
+    out = paged_attention(*args)
+    torch.cuda.synchronize()
+    ref = paged_attention_plain(*ref_args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert torch.equal(out, paged_attention(*args))
+
+
+@pytest.mark.cuda
+def test_paged_attention_reuses_a_plan_only_for_unchanged_inputs(
+        cuda_device):
+    """Calls on the same seq_slot and positions tensors (the layers of one
+    step) run on one plan; positions changed in place, another batch in
+    between and other widths plan afresh.  Every output matches the plain
+    version."""
+    args, ref_args = _paged_operands(cuda_device, 8, 2, 64, 16, "bf16",
+                                     False, seed=11)
+    first = paged_attention(*args)
+    assert torch.equal(first, paged_attention(*args))
+    other, other_ref = _paged_operands(cuda_device, 8, 2, 64, 16, "bf16",
+                                       False, seed=12, long_ctx=300,
+                                       chunk=20)
+    for a, r in ((other, other_ref), (args, ref_args)):
+        torch.testing.assert_close(paged_attention(*a).float(),
+                                   paged_attention_plain(*r).float(),
+                                   atol=2e-2, rtol=2e-2)
+    positions = args[3]
+    positions[-3:] -= 1                    # in place: its version moves on
+    moved = paged_attention(*args)
+    torch.testing.assert_close(moved.float(),
+                               paged_attention_plain(*ref_args).float(),
+                               atol=2e-2, rtol=2e-2)
+    assert not torch.equal(moved, first)
+    narrow = (args[0][:, :, :, :1].contiguous(), args[1][:, :4].contiguous(),
+              *args[2:])
+    narrow_ref = (narrow[0], narrow[1], *ref_args[2:])
+    torch.testing.assert_close(paged_attention(*narrow).float(),
+                               paged_attention_plain(*narrow_ref).float(),
+                               atol=2e-2, rtol=2e-2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep, Hkv", [(1, 32), (4, 8), (71, 1)])
+def test_paged_attention_device_plan_equals_plan_plain(cuda_device, rep,
+                                                        Hkv):
+    """The plan kernel's items equal its PyTorch twin's, int for int, on
+    the edge layout, a serving-like mixed batch (two 512-token chunks and
+    12 decode tokens), a decode-only batch and a 9000-token prefill (past
+    the tokens whose scratch the plan keeps in shared memory)."""
+    dev = cuda_device
+    sms = pa_mod._sm_count(0)
+    _, toks, nb, _ = _paged_layout(64, 8192, 70, 0)
+    mixed = ([(0, p) for p in range(512)] + [(1, p) for p in range(256, 768)]
+             + [(2 + i, c - 1) for i, c in enumerate(
+                 [1, 2, 63, 64, 65, 200, 511, 777, 1024, 1500, 2047, 2048])])
+    decode = [(i, 512 + 4 * i) for i in range(8)]
+    long_run = [(0, p) for p in range(9000)] + [(1, 40)]
+    for layout, nb in ((toks, nb), (mixed, 32), (decode, 16),
+                       (long_run, 141)):
+        slots = torch.as_tensor([s for s, _ in layout], dtype=torch.int32)
+        pos = torch.as_tensor([p for _, p in layout], dtype=torch.int32)
+        target = pa_mod.items_target(Hkv, sms)
+        want = pa_mod.plan_plain(slots, pos, rep, 64, nb, target)
+        got = pa_mod.plan_device(slots.to(dev), pos.to(dev), rep, 64, nb,
+                                 target)
+        assert torch.equal(got, want)
 
 
 def _flash_case(dev, B, H, Hkv, S, D, seed, dtype=torch.bfloat16):
@@ -680,9 +858,11 @@ def test_paged_attention_quantized_rejects_what_it_does_not_take(cuda_device):
         paged_attention((codes, scales[..., :1].contiguous()), q, *rest)
     with pytest.raises(ValueError, match="bf16 q"):
         paged_attention((codes, scales), q.float(), *rest)
+    paged_attention((codes[..., :32].contiguous(), scales),
+                    q[..., :32].contiguous(), *rest)
     with pytest.raises(ValueError, match="head_dim"):
-        paged_attention((codes[..., :32].contiguous(), scales),
-                        q[..., :32].contiguous(), *rest)
+        paged_attention((codes[..., :48].contiguous(), scales),
+                        q[..., :48].contiguous(), *rest)
     torch.cuda.synchronize()
 
 

@@ -262,3 +262,34 @@ def test_quantized_cache_counts_no_launch_on_cpu():
     paged_attention(pkv, *args, bs, NB, scale)
     assert (paged_attention.launches, paged_attention.int8_launches,
             paged_attention.fp8_launches) == before
+
+
+# --- every head dim the kernel now takes, and an MQA group of 8 ---------------
+
+@pytest.mark.parametrize("cache", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("D, H, Hkv", [(32, 4, 2), (80, 4, 2), (96, 4, 2),
+                                       (256, 4, 2), (64, 8, 1)],
+                         ids=["d32", "d80", "d96", "d256", "mqa-rep8"])
+def test_plain_matches_jax_kernel_every_head_dim(D, H, Hkv, cache):
+    """The plain version (the card kernel's reference) against the JAX
+    Pallas kernel (interpret mode) at D 32, 80, 96 and 256 and an MQA rep
+    of 8, bf16 q with a bf16 cache or an int8 / fp8 one (quantized by the
+    JAX package and carried over bit for bit): the bar of
+    tests/test_paged_attention.py (2e-2)."""
+    kv, batch, bs = jax_tests._mixed_batch(Hkv=Hkv, D=D, seed=D + H)
+    q = jnp.asarray(np.random.RandomState(D).randn(
+        batch.token_ids.shape[0], H, D), jnp.bfloat16)
+    scale = 1.0 / np.sqrt(D)
+    _, q_t, slot_t, pos_t, tab_t = _torch_args(kv, q, batch, torch.bfloat16)
+    if cache == "bf16":
+        jkv = kv.astype(jnp.bfloat16)
+        pkv = _torch_args(jkv, q, batch, torch.bfloat16)[0]
+    else:
+        jkv, pkv = _quantized(kv, cache)
+    out = paged_attention(pkv, q_t, slot_t, pos_t, tab_t, bs, NB, scale)
+    assert out.dtype == torch.bfloat16 and out.shape == (q.shape[0], H, D)
+    ref = jax_pallas_paged_attention(jkv, q, batch.seq_slot, batch.positions,
+                                     batch.block_tables, bs, NB, scale)
+    valid = np.asarray(batch.token_valid)
+    np.testing.assert_allclose(_f32(out)[valid], _f32(ref)[valid],
+                               atol=2e-2, rtol=2e-2)

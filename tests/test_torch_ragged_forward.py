@@ -5,9 +5,11 @@ arrays and the same starting KV cache, step after step: a prefill step,
 a step mixing a chunked-prefill continuation, a decode and a new prompt,
 then a decode-only step.
 
-Shapes: a tiny llama (GQA, rope, rmsnorm, gated silu MLP, untied head)
-and a tiny gpt2 (learned positions, layernorm, gelu_new, tied
-embeddings, biases).  Every weight gets seeded noise so biases and norm
+Shapes: a tiny llama (GQA, rope, rmsnorm, gated silu MLP, untied head),
+a tiny gpt2 (learned positions, layernorm, gelu_new, tied
+embeddings, biases), a tiny falcon (MQA: one KV head, parallel block,
+tied embeddings) and a tiny phi (partial rotary, parallel block, biased
+head; head dim 32).  Every weight gets seeded noise so biases and norm
 scales are not at their trivial init values.
 
 Tolerance: fp32, atol = rtol = 1e-4 — the same arithmetic, but sums are
@@ -43,6 +45,14 @@ MODELS = {
                                  max_seq_len=128)),
     "gpt2": ("gpt2", dict(vocab_size=128, num_layers=2, d_model=64,
                           num_heads=4, max_seq_len=64)),
+    # the families whose widths the card's paged attention took last: MQA
+    # with a parallel block (4 query heads over 1 KV head), and partial
+    # rotary with a parallel block and a biased head at head dim 32
+    "falcon": ("falcon-tiny", dict(vocab_size=128, num_layers=2,
+                                   d_model=128, num_heads=4,
+                                   max_seq_len=128)),
+    "phi": ("phi-tiny", dict(vocab_size=128, num_layers=2, d_model=128,
+                             num_heads=4, max_seq_len=128)),
 }
 
 

@@ -4,6 +4,7 @@ run on one card.
 
     python3 tools/flash_ab.py DIR_A DIR_B [--rounds 2] [--dtypes float32]
     python3 tools/flash_ab.py DIR_A DIR_B --family mixed [--M 8,1024]
+    python3 tools/flash_ab.py DIR_A DIR_B --family paged
 
 Each turn is a fresh process that imports ``deepspeed_tpu_torch`` and
 ``chip_smoke`` from one checkout (which builds its kernels into its own
@@ -17,7 +18,13 @@ decode step) and 1024 (a prefill budget), on random codes and scales
 made from a seed, through ``mixed_matmul_2d`` / ``mixed4_matmul_2d``
 (the API every checkout since the port's third slice has), each call
 queued behind a sleep kernel so that the host's time a call does not
-stretch the kernel's.  It prints
+stretch the kernel's.  ``--family paged``: paged attention (K2) at
+phase 3's cases (``PAGED_CASES``: the mixed prefill/decode batch and the
+decode batch of ``chip_smoke.mixed_batch`` / ``decode_batch``, which
+every checkout since the port's first slice has) with a bf16, int8 or
+fp8 cache and ALiBi where the model has it, through ``paged_attention``,
+queued the same way; a case a checkout's wrapper refuses (a head dim or
+GQA ratio it does not take) reads null.  It prints
 one line a turn and, last, the mean of each (checkout, case, kernel)
 over its turns.  Only CUDA: without a card every turn fails.
 """
@@ -37,6 +44,27 @@ KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 MIXED_CASES = [("wi", 4096, 14336), ("mlp wo", 14336, 4096),
                ("wq", 4096, 4096), ("wk", 4096, 1024),
                ("attn wo", 4096, 4096)]
+
+
+# K2: (name, (H, Hkv, D), ALiBi, cache) of chip_smoke phase 3's cases
+PAGED_CASES = [("llama3-8b mixed", (32, 8, 128), False, "bf16"),
+               ("llama3-8b mixed", (32, 8, 128), False, "int8"),
+               ("llama3-8b mixed", (32, 8, 128), False, "fp8"),
+               ("gpt2 mixed", (12, 12, 64), False, "bf16"),
+               ("llama3-8b decode", (32, 8, 128), False, "bf16"),
+               ("llama3-8b decode", (32, 8, 128), False, "int8"),
+               ("llama3-8b decode", (32, 8, 128), False, "fp8"),
+               ("bloom-7b1 mixed", (32, 32, 128), True, "bf16"),
+               ("bloom-7b1 mixed", (32, 32, 128), True, "int8"),
+               ("bloom-7b1 decode", (32, 32, 128), True, "bf16"),
+               ("gqa rep4 mixed", (32, 8, 128), True, "bf16"),
+               ("phi-2 mixed", (32, 32, 80), False, "bf16"),
+               ("phi-2 decode", (32, 32, 80), False, "bf16"),
+               ("phi3-mini mixed", (32, 32, 96), False, "bf16"),
+               ("gptj-6b mixed", (16, 16, 256), False, "bf16"),
+               ("gptj-6b decode", (16, 16, 256), False, "bf16"),
+               ("falcon-7b mixed", (71, 1, 64), False, "bf16"),
+               ("falcon-7b decode", (71, 1, 64), False, "bf16")]
 
 
 def emit(line: str) -> None:
@@ -125,21 +153,62 @@ def time_mixed(root: str, ms) -> dict:
     return out
 
 
+def time_paged(root: str) -> dict:
+    """ms per call of paged attention at PAGED_CASES (None where the
+    checkout's wrapper refuses the widths), from the checkout ``root``."""
+    sys.path.insert(0, root)
+    import importlib
+
+    import torch
+    cs = importlib.import_module("chip_smoke")
+    pa = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")
+    from deepspeed_tpu_torch.inference.model import _quantize_kv
+    from deepspeed_tpu_torch.models.layers import alibi_slopes
+    pa.BUILDER.load()
+    out = {}
+    for name, (H, Hkv, D), alibi, cache in PAGED_CASES:
+        make = cs.decode_batch if "decode" in name else cs.mixed_batch
+        case = make(torch, H, Hkv, D, 64, 512, 0, "cuda")
+        kv = case["kv"]
+        if cache != "bf16":
+            kv = _quantize_kv(kv, {"int8": torch.int8,
+                                   "fp8": torch.float8_e4m3fn}[cache])
+        args = (kv, case["q"], case["seq_slot"], case["positions"],
+                case["block_tables"], 64, case["max_blocks_per_seq"],
+                case["scale"], alibi_slopes(H, device="cuda") if alibi
+                else None)
+        key = f"{name} {cache}{' alibi' if alibi else ''}"
+        try:
+            pa.paged_attention(*args)
+        except ValueError:
+            out[key] = None
+            continue
+        out[key] = queued_ms(torch, lambda: pa.paged_attention(*args),
+                             100 if "decode" in name else 20)
+        del case, kv, args
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("dirs", nargs="*")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--dtypes", default=",".join(sorted({d for _, d in CASES})),
                     help="comma-separated dtypes of the cases to time")
-    ap.add_argument("--family", choices=("flash", "mixed"), default="flash")
+    ap.add_argument("--family", choices=("flash", "mixed", "paged"),
+                    default="flash")
     ap.add_argument("--M", default="8,1024",
                     help="comma-separated M of the mixed cases")
     ap.add_argument("--time", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time:
-        times = (time_mixed(args.time, [int(m) for m in args.M.split(",")])
-                 if args.family == "mixed"
-                 else time_checkout(args.time, args.dtypes.split(",")))
+        if args.family == "mixed":
+            times = time_mixed(args.time, [int(m) for m in args.M.split(",")])
+        elif args.family == "paged":
+            times = time_paged(args.time)
+        else:
+            times = time_checkout(args.time, args.dtypes.split(","))
         emit(json.dumps(times))
         return 0
     if len(args.dirs) != 2:
@@ -158,10 +227,12 @@ def main() -> int:
                 return 1
             times = json.loads(res.stdout.strip().splitlines()[-1])
             runs[d].append(times)
-            emit(f"{d}: " + ", ".join(f"{k} {v:.4f}"
-                                      for k, v in times.items()))
+            emit(f"{d}: " + ", ".join(
+                f"{k} {'n/a' if v is None else f'{v:.4f}'}"
+                for k, v in times.items()))
     for d, rs in runs.items():
-        mean = {k: sum(r[k] for r in rs) / len(rs) for k in rs[0]}
+        mean = {k: None if rs[0][k] is None
+                else sum(r[k] for r in rs) / len(rs) for k in rs[0]}
         emit(f"mean {d} ({len(rs)} turns): " + json.dumps(mean))
     return 0
 
