@@ -7,6 +7,8 @@
     python3 chip_smoke.py --phases device,build,kernel,serve-quant
     python3 chip_smoke.py --phases device,build,kernel,serve-alibi
     python3 chip_smoke.py --phases device,build,kernel,serve-mqa
+    python3 chip_smoke.py --phases device,build,kernel,serve-burst
+    python3 chip_smoke.py --phases device,build,kernel,serve-spec
     python3 chip_smoke.py --phases device,build,kernel,train-fp16
 
 Phases, in order; any failure exits non-zero (nothing is caught and
@@ -69,6 +71,14 @@ passed over):
              8, 2 + 3 steps, 12 launches of each flash kernel per step and
              a first-step parity check against the plain attention within
              2x the fp32 noise floor (fp32 against fp64).
+   Serving (phases 5-7c) runs every step and every burst as a replay
+             of a CUDA graph the engine captured (InferenceEngine's graph
+             cache): each measured run follows a warm-up run on the same
+             engine that captures its graphs (then the prefix cache,
+             timings and TTFTs are reset), checks that it captured nothing
+             and replayed a graph for every step and burst, and prints
+             the captures, replays, capture ms and the host's enqueue ms
+             a decode step and a prefill step.
 5. serve   — Llama-3-8B at full width (random bf16 weights from a seed)
              through InferenceEngine.generate with the pipeline at depth 2
              and the prefix cache on; launch counts, a first-forward check
@@ -82,6 +92,15 @@ passed over):
              the same quantized weights and cache, TTFT, token rates,
              resident bytes, the device profile (K3's two kernels as two
              kinds) and K3's device ms a decode and a prefill step.
+6c. serve-burst — the same model in bench.py's llama8b_serving_bench
+             configuration (:744-758, decode_burst=8): int8 weights and
+             embeddings, an int8 cache, phase 5's prompts prefilled by
+             step() and decoded by 4 decode_burst() calls of 8 iterations
+             (each one graph); K3 launches = 7 x layers x (prefill steps
+             + burst iterations), paged attention only in the prefill
+             steps, the first burst's tokens against a step() loop from
+             the same state (equal but at near-ties of the teacher-forced
+             logits), decode tok/s against phase 6 (a).
 7. serve-alibi — BLOOM-7b1 at full width and depth (ALiBi, random bf16
              weights from a seed), run after the Llama model is freed,
              at phase 5's traffic and engine: a first-forward check
@@ -100,6 +119,13 @@ passed over):
              against the dense forward, paged-attention launches = layers x
              steps (K2's chunk tiles and split single-token tiles at rep
              71), TTFT, token rates and the device profile.
+7c. serve-spec — GPT-2 at full width and depth (random bf16 weights)
+             in bench.py's spec_decode_serving_bench (:1111-1187): 8
+             prompts of 64 tokens (4-6 token motifs repeated), 96 greedy
+             new tokens, budget 256, 256 blocks of 64, depth 1, drafts of
+             at most 4, speculation off then on: identical streams, fewer
+             steps with it on, paged-attention launches = layers x steps,
+             the acceptance rate and tok/s both ways.
 8. train-fp16 — phi-2 at full width and depth (2.78 B params, 32 layers,
              32 heads of 80) in fp16 with the dynamic loss scaler, run
              after falcon is freed: ZeRO-1, AdamW lr 3e-4, clip 1.0, seq
@@ -1123,6 +1149,7 @@ def first_forward_check(torch, model, prompts, tag="serve"):
     if bool((must & ~agree).any()):
         raise AssertionError(f"{tag}: first-forward top-1 disagrees where "
                              "the reference margin exceeds the tolerance")
+    return tol
 
 
 def serving_model(torch, name, seed, tag="serve", device=None, **overrides):
@@ -1191,6 +1218,7 @@ def serve(torch, pa, model, prompts, tag="serve"):
     sp = SamplingParams(max_new_tokens=SERVE_NEW_TOKENS)
     eng = InferenceEngine(model, icfg)
     log(f"[{tag}] KV cache {tree_bytes(eng.state.kv) / 1e9:.3f} GB")
+    warm_graphs(torch, eng, prompts, (SERVE_NEW_TOKENS,), tag)
     # the main path: counts to 0 just before, read just after
     pa.launches = pa.alibi_launches = 0
     t0 = time.perf_counter()
@@ -1204,6 +1232,7 @@ def serve(torch, pa, model, prompts, tag="serve"):
         f"{launches}, with ALiBi slopes={alibi_launches} ({cfg.num_layers} "
         f"layers x {steps} steps = {cfg.num_layers * steps})")
     check_tokens(out, cfg, SERVE_NEW_TOKENS, tag)
+    check_replayed(eng.timings, tag)
     if launches != cfg.num_layers * steps or launches == 0 \
             or alibi_launches != (launches if alibi else 0):
         raise AssertionError(f"{tag}: the serving path did not run the "
@@ -1216,6 +1245,64 @@ def serve(torch, pa, model, prompts, tag="serve"):
     rates = serve_rates(torch, lambda: InferenceEngine(model, icfg), prompts,
                         ttft, tag)
     return dict(launches=launches, alibi_launches=alibi_launches, **rates)
+
+
+def fresh_run(eng) -> None:
+    """Leave a warmed engine as a fresh one would run: no prefix-cache
+    entries, zeroed timings and TTFTs (its graphs stay captured)."""
+    eng.state.reset_prefix_cache()
+    eng.reset_timings()
+    eng.ttft_ms.clear()
+
+
+def warm_graphs(torch, eng, prompts, new_tokens, tag):
+    """Run the traffic once per ``new_tokens`` count, capturing every
+    graph the measured runs replay (no capture may land in a measured
+    window), then leave the engine as fresh."""
+    from deepspeed_tpu_torch.inference import SamplingParams
+    t0 = time.perf_counter()
+    captured = capture_ms = replays = 0
+    for n in new_tokens:
+        fresh_run(eng)
+        eng.generate(dict(enumerate(prompts)), SamplingParams(
+            max_new_tokens=n))
+        tm = eng.timings
+        captured += tm["compiles"]
+        capture_ms += tm["compile_ms"]
+        replays += tm["graph_replays"]
+    torch.cuda.synchronize()
+    log(f"[{tag}] warm-up: {len(new_tokens)} run(s) in "
+        f"{time.perf_counter() - t0:.3f} s captured {int(captured)} CUDA "
+        f"graphs in {capture_ms:.1f} ms (warm-up included), "
+        f"{int(replays)} replays; graphs held "
+        f"{len(eng._graphs)} step + {len(eng._burst_graphs)} burst")
+    fresh_run(eng)
+
+
+def check_replayed(tm, tag, captures_ok=False):
+    """Every step and burst of a run replayed a graph, captured before
+    the run (a measured run) or in it (``captures_ok``)."""
+    log(f"[{tag}] graphs: {int(tm['compiles'])} captured in this run "
+        f"({tm['compile_ms']:.1f} ms), {int(tm['graph_replays'])} replays "
+        f"for {int(tm['steps'])} steps and {int(tm['bursts'])} bursts; "
+        + enqueue_line(tm))
+    if (tm["compiles"] and not captures_ok) \
+            or tm["graph_replays"] != tm["steps"] + tm["bursts"]:
+        raise AssertionError(f"{tag}: a step or burst of the run did not "
+                             f"replay a graph (warmed: {not captures_ok}): "
+                             f"{tm}")
+
+
+def enqueue_line(tm) -> str:
+    """The host's enqueue ms a decode step and a prefill step."""
+    dec = tm["decode_steps"]
+    pre = tm["steps"] - dec
+    return (f"enqueue a decode step "
+            + (f"{tm['decode_device_ms'] / dec:.3f} ms ({int(dec)} steps)"
+               if dec else "n/a")
+            + ", a prefill step "
+            + (f"{(tm['device_ms'] - tm['decode_device_ms']) / pre:.3f} ms "
+               f"({int(pre)} steps)" if pre else "n/a"))
 
 
 def check_tokens(out, cfg, n_new, tag):
@@ -1252,8 +1339,11 @@ def serve_rates(torch, make_engine, prompts, ttft, tag):
     peak memory, host phases per step and the device profile."""
     from deepspeed_tpu_torch.inference import SamplingParams
 
+    e = make_engine()
+    warm_graphs(torch, e, prompts, (1, SERVE_NEW_TOKENS), tag)
+
     def run(n_new, profiler=None):
-        e = make_engine()
+        fresh_run(e)
         torch.cuda.synchronize()
         t = time.perf_counter()
         if profiler is not None:
@@ -1266,8 +1356,7 @@ def serve_rates(torch, make_engine, prompts, ttft, tag):
             profiler.stop()
         computed = e.timings["prompt_tokens"] - e.timings["cached_tokens"]
         tm = dict(e.timings)
-        del e
-        free_engines(torch)
+        check_replayed(tm, f"{tag} rates, {n_new} new")
         return dt, computed, tm
 
     t_pre, computed, _ = run(1)
@@ -1288,9 +1377,16 @@ def serve_rates(torch, make_engine, prompts, ttft, tag):
     log(f"[{tag}] host phases per step over {int(tm['steps'])} steps "
         f"(ms): schedule {tm['schedule_ms'] / n:.3f}, stage "
         f"{tm['stage_ms'] / n:.3f}, enqueue {tm['device_ms'] / n:.3f}, "
-        f"wait {tm['wait_ms'] / n:.3f}, readback {tm['readback_ms'] / n:.3f}")
+        f"wait {tm['wait_ms'] / n:.3f}, readback {tm['readback_ms'] / n:.3f}"
+        f"; {enqueue_line(tm)}")
+    rates["enqueue_ms"] = dict(
+        decode=tm["decode_device_ms"] / max(tm["decode_steps"], 1),
+        prefill=(tm["device_ms"] - tm["decode_device_ms"])
+        / max(tm["steps"] - tm["decode_steps"], 1))
     rates["device_ms_by_kind"] = device_profile(
         torch, lambda prof: run(SERVE_NEW_TOKENS, prof)[0], t_all, tag=tag)
+    del e
+    free_engines(torch)
     return rates
 
 
@@ -1428,6 +1524,7 @@ def serve_quant(torch, pa, mg, model, prompts, tag, over):
                     else (mg.mixed4_matmul_2d, mg.mixed_matmul_2d))
     kv_attr = f"{over['kv_quant']}_launches"
     sp = SamplingParams(max_new_tokens=SERVE_NEW_TOKENS)
+    warm_graphs(torch, eng, prompts, (SERVE_NEW_TOKENS,), tag)
     # the main path: counts to 0 just before, read just after
     mg.mixed_matmul_2d.launches = mg.mixed4_matmul_2d.launches = 0
     for fn in (mg.mixed_matmul_2d, mg.mixed4_matmul_2d):
@@ -1455,6 +1552,7 @@ def serve_quant(torch, pa, mg, model, prompts, tag, over):
         f"{L * steps}); other variants: {launches['k3_other']} GEMM, "
         f"{launches['other_pa']} attention")
     check_tokens(out, cfg, SERVE_NEW_TOKENS, tag)
+    check_replayed(eng.timings, tag)
     if launches["k3"] != PROJECTIONS_PER_LAYER * L * steps or steps == 0 \
             or launches["kv"] != L * steps or launches["k3_other"] \
             or launches["other_pa"]:
@@ -1495,6 +1593,297 @@ def serve_quant(torch, pa, mg, model, prompts, tag, over):
     rates["k3_ms_per_step"] = per_step
     return dict(launches=launches, first_forward=ffwd,
                 weight_bytes=dense_bytes + quant_bytes, **rates)
+
+
+# ---------------------------------------------------------------------------
+# serve-burst and serve-spec helpers
+# ---------------------------------------------------------------------------
+
+# bench.py's llama8b_serving_bench engine (:752-758): int8 weights and
+# embeddings, an int8 cache, decode bursts of 8
+BURST_ENGINE = dict(token_budget=1024, max_seqs=8, kv_block_size=64,
+                    num_kv_blocks=128, kv_quant="int8", weight_quant="int8",
+                    quantize_embeddings=True, decode_burst=8)
+BURST_ROUNDS = 4            # bench.py's decode_rounds
+
+
+def serve_burst(torch, pa, mg, model, prompts, decode_ref=None):
+    """serve-burst: Llama-3-8B int8 (weights, embeddings, cache) prefills
+    phase 5's 8 prompts by step() and decodes through decode_burst() (8
+    iterations a burst, one CUDA graph), after a warm-up pass and a
+    stepwise pass from the same state.  Checks: tokens in range; the
+    measured pass replays warmed graphs only; K3 launches = 7 x layers x
+    (prefill steps + burst iterations), paged attention = layers x
+    prefill steps (none inside a burst); the first burst's tokens equal a
+    step() loop's from the same state, except after a near-tie
+    (:func:`check_near_ties`: the burst's attention is plain torch over a
+    dense snapshot, the step's is K2).
+    ``decode_ref``: phase 6 (a)'s decode tok/s, for the log."""
+    from deepspeed_tpu_torch.inference import (InferenceConfig,
+                                               InferenceEngine,
+                                               SamplingParams)
+    tag = "serve-burst"
+    cfg = model.config
+    L = cfg.num_layers
+    torch.cuda.empty_cache()
+    eng = InferenceEngine(model, InferenceConfig(**BURST_ENGINE))
+    log(f"[{tag}] {BURST_ENGINE}: resident weights "
+        f"{(tree_bytes(eng.params) + tree_bytes(eng._quant)) / 1e9:.3f} GB, "
+        f"KV cache {tree_bytes(eng.state.kv) / 1e9:.3f} GB")
+    _, tol = quant_first_forward_check(torch, eng, prompts, tag)
+    sp = SamplingParams(max_new_tokens=1 << 30)
+    uids = range(len(prompts))
+
+    def prefill():
+        for uid in uids:
+            eng.put(uid, list(prompts[uid]))
+        first, steps = {}, 0
+        while len(first) < len(prompts):
+            first.update(eng.step(sampling=sp))
+            steps += 1
+        return first, steps
+
+    def bursts(first, rounds):
+        last = dict(first)
+        out = []
+        for _ in range(rounds):
+            for uid in uids:
+                eng.put(uid, [last[uid]])
+            got = eng.decode_burst(sampling=sp)
+            out.append(got)
+            last = {u: t[-1] for u, t in got.items()}
+        return out
+
+    def finish():
+        for uid in uids:
+            eng.flush(uid)
+        torch.cuda.synchronize()
+        fresh_run(eng)
+
+    t0 = time.perf_counter()
+    first, _ = prefill()
+    bursts(first, 2)
+    finish()
+    log(f"[{tag}] warm-up pass in {time.perf_counter() - t0:.3f} s: graphs "
+        f"{len(eng._graphs)} step + {len(eng._burst_graphs)} burst")
+    # the stepwise reference: 8 step() iterations from the prefill state
+    first, _ = prefill()
+    stepwise = {u: [] for u in uids}
+    cur = dict(first)
+    for _ in range(BURST_ENGINE["decode_burst"]):
+        for uid in uids:
+            eng.put(uid, [cur[uid]])
+        cur = eng.step(sampling=sp)
+        for uid, t in cur.items():
+            stepwise[uid].append(t)
+    finish()
+
+    # the main path: counts to 0 just before, read just after
+    mg.mixed_matmul_2d.launches = mg.mixed4_matmul_2d.launches = 0
+    mg.mixed_matmul_2d.design_launches = dict.fromkeys(MIXED_KERNELS, 0)
+    pa.launches = pa.int8_launches = pa.fp8_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first_m, pre_steps = prefill()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rounds = bursts(first_m, BURST_ROUNDS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    k3, k2 = mg.mixed_matmul_2d.launches, pa.int8_launches
+    other = (mg.mixed4_matmul_2d.launches + pa.launches + pa.fp8_launches)
+    tm = dict(eng.timings)
+    iters = int(tm["burst_iterations"])
+    produced = sum(len(t) for r in rounds for t in r.values())
+    decode_tok_s = produced / (t2 - t1)
+    log(f"[{tag}] prefill: {pre_steps} steps in {t1 - t0:.3f} s; decode: "
+        f"{BURST_ROUNDS} bursts x {BURST_ENGINE['decode_burst']} "
+        f"iterations, {produced} tokens in {t2 - t1:.3f} s = "
+        f"{decode_tok_s:.1f} tok/s ({decode_tok_s / 8:.1f} a sequence; "
+        + (f"phase 6 (a), stepwise: {decode_ref:.1f} tok/s" if decode_ref
+           else "phase 6 (a) not run") + ")")
+    log(f"[{tag}] launches: mixed gemm int8 {k3} (7 x {L} x ({pre_steps} "
+        f"prefill steps + {iters} burst iterations) = "
+        f"{7 * L * (pre_steps + iters)}; decode design "
+        f"{mg.mixed_matmul_2d.design_launches['decode']}, prefill design "
+        f"{mg.mixed_matmul_2d.design_launches['prefill']}); paged attention "
+        f"int8 {k2} ({L} x {pre_steps} prefill steps = {L * pre_steps}); "
+        f"other variants {other}")
+    check_replayed(tm, tag)
+    for r in rounds:
+        check_tokens(r, cfg, BURST_ENGINE["decode_burst"], tag)
+    if k3 != 7 * L * (pre_steps + iters) or k2 != L * pre_steps or other \
+            or iters != BURST_ROUNDS * BURST_ENGINE["decode_burst"]:
+        raise AssertionError(f"{tag}: the launch counts do not match "
+                             "prefill steps + burst iterations")
+    # the first burst against the stepwise loop from the same state
+    burst0 = rounds[0]
+    if first_m != first:
+        raise AssertionError(f"{tag}: the prefill's first tokens differ "
+                             "between two passes")
+    same = sum(a == b for u in uids for a, b in zip(burst0[u], stepwise[u]))
+    log(f"[{tag}] first burst vs a step() loop from the same state: "
+        f"{same} of {8 * len(prompts)} tokens equal")
+    check_near_ties(torch, eng, {u: list(prompts[u]) + [first_m[u]]
+                                 for u in uids}, burst0, stepwise, tol,
+                    f"{tag} first burst vs step() loop")
+    finish()
+
+    def profiled_bursts(prof):
+        """The same pass again, the bursts under the profiler."""
+        first, _ = prefill()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prof.start()
+        bursts(first, BURST_ROUNDS)
+        torch.cuda.synchronize()
+        prof.stop()
+        finish()
+        return time.perf_counter() - t
+
+    device_profile(torch, profiled_bursts, t2 - t1, tag=f"{tag} bursts")
+    del eng
+    free_engines(torch)
+    return dict(decode_tok_s=decode_tok_s, k3=k3, k2=k2,
+                prefill_steps=pre_steps, burst_iterations=iters)
+
+
+def check_near_ties(torch, eng, contexts, got, want, tol, tag):
+    """Streams ``got`` and ``want`` ({uid: tokens}) continue the same
+    ``contexts``.  Where one diverges, the two tokens at the first
+    divergence must both lie within ``tol`` (the bf16 noise tolerance)
+    of the best logit of the teacher-forced forward there (one ragged
+    forward of each context and the common tokens before the
+    divergence, on a fresh cache with the engine's weights): a near-tie,
+    where two bf16 paths that sum in other orders may pick either."""
+    from deepspeed_tpu_torch.inference.model import ragged_forward
+    from deepspeed_tpu_torch.inference.ragged.state import (KVCacheConfig,
+                                                            StateManager)
+    diverged = {u: next(j for j, (a, b) in enumerate(zip(got[u], want[u]))
+                        if a != b)
+                for u in got if got[u] != want[u]}
+    log(f"[{tag}]: {len(got) - len(diverged)} of {len(got)} streams "
+        f"identical")
+    if not diverged:
+        return
+    cfg = eng.cfg
+    bs = eng.icfg.kv_block_size
+    seqs = {u: contexts[u] + got[u][:j] for u, j in diverged.items()}
+    nblk = sum(-(-len(t) // bs) for t in seqs.values())
+    sm = StateManager(KVCacheConfig(
+        cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, block_size=bs,
+        num_blocks=nblk, dtype=eng.icfg.kv_dtype,
+        quant=eng.icfg.kv_quant or "none", device=eng.device),
+        max_seqs=len(seqs))
+    batch = sm.build_batch(list(seqs.items()), sum(map(len, seqs.values())))
+    logits, _ = ragged_forward(cfg, eng.params, sm.kv, batch, bs,
+                               -(-max(map(len, seqs.values())) // bs),
+                               quant=eng._quant,
+                               mixed_gemm=eng._mixed_gemm_active)
+    gaps = {}
+    for u, j in diverged.items():
+        row = logits[sm.slot(u)]
+        best = float(row.max())
+        gaps[u] = (j, [round(best - float(row[t[j]]), 4)
+                       for t in (got[u], want[u])])
+    del sm
+    log(f"[{tag}] first divergences (uid: index, how far each stream's "
+        f"token lies below the best teacher-forced logit; tol {tol:.4f}): "
+        f"{gaps}")
+    if any(max(g) > tol for _, g in gaps.values()):
+        raise AssertionError(f"{tag}: the streams diverge where the logits "
+                             "are not a near-tie")
+
+
+# bench.py's spec_decode_serving_bench (:1111-1187): GPT-2, 8 prompts of
+# 64 tokens, each a 4-6 token motif repeated, 96 greedy new tokens, the
+# sync driver, drafts of at most 4
+SPEC_ENGINE = dict(token_budget=256, max_seqs=8, kv_block_size=64,
+                   num_kv_blocks=256, pipeline_depth=1, spec_max_draft=4)
+SPEC_PROMPT_LEN = 64
+SPEC_NEW_TOKENS = 96
+
+
+def serve_spec(torch, pa, seed, device=None, **overrides):
+    """serve-spec: GPT-2 at full width and depth (random bf16 weights from
+    ``seed``), speculation off then on, each after a warm-up run.  Checks:
+    the two token streams identical; fewer steps with speculation on;
+    paged-attention launches = layers x steps (verify steps launch it);
+    every measured step a replay.  Bitwise identity is not attainable in
+    bf16: a verify row runs its GEMMs at another M and K2 splits its keys
+    by the batch's work, so the two modes sum in other orders; a stream
+    may diverge only at a near-tie (:func:`check_near_ties`).
+    ``device``/``overrides`` as in :func:`serving_model`."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference import (InferenceConfig,
+                                               InferenceEngine,
+                                               SamplingParams)
+    from deepspeed_tpu_torch.models import build_model
+    tag = "serve-spec"
+    model = build_model("gpt2", seed=seed, dtype=torch.bfloat16,
+                        device=device, **dict(dict(max_seq_len=1024),
+                                              **overrides))
+    cfg = model.config
+    r = np.random.RandomState(0)
+    prompts = []
+    for uid in range(SPEC_ENGINE["max_seqs"]):
+        motif = [int(x) for x in r.randint(0, cfg.vocab_size, 4 + uid % 3)]
+        reps = -(-SPEC_PROMPT_LEN // len(motif))
+        prompts.append((motif * reps)[:SPEC_PROMPT_LEN])
+    sp = SamplingParams(max_new_tokens=SPEC_NEW_TOKENS)
+    tol = first_forward_check(torch, model, prompts, tag)
+    res, streams = {}, {}
+    for mode in ("off", "on"):
+        eng = InferenceEngine(model, InferenceConfig(**SPEC_ENGINE,
+                                                     spec_decode=mode))
+        warm_graphs(torch, eng, prompts, (SPEC_NEW_TOKENS,),
+                    f"{tag} {mode}")
+        pa.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams[mode] = eng.generate(dict(enumerate(prompts)), sp)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        tm = dict(eng.timings)
+        steps = int(tm["steps"])
+        produced = sum(len(v) for v in streams[mode].values())
+        res[mode] = dict(tok_s=produced / dt, steps=steps,
+                         launches=pa.launches)
+        acc = (tm["spec_accepted_tokens"] / tm["spec_drafted_tokens"]
+               if tm["spec_drafted_tokens"] else None)
+        if mode == "on":
+            res["acceptance_rate"] = acc
+            res["mean_accepted"] = (tm["spec_accepted_tokens"]
+                                    / max(tm["spec_windows"], 1))
+        log(f"[{tag}] spec {mode}: {produced} tokens in {steps} steps, "
+            f"{dt:.3f} s = {produced / dt:.1f} tok/s; paged_attention "
+            f"launches={pa.launches} ({cfg.num_layers} x {steps} = "
+            f"{cfg.num_layers * steps}); windows "
+            f"{int(tm['spec_windows'])}, drafted "
+            f"{int(tm['spec_drafted_tokens'])}, accepted "
+            f"{int(tm['spec_accepted_tokens'])}, rejected "
+            f"{int(tm['spec_rejected_tokens'])}"
+            + (f", acceptance rate {acc:.3f}" if acc is not None else ""))
+        check_replayed(tm, f"{tag} {mode}")
+        check_tokens(streams[mode], cfg, SPEC_NEW_TOKENS, tag)
+        if pa.launches != cfg.num_layers * steps or steps == 0:
+            raise AssertionError(f"{tag} {mode}: paged attention did not "
+                                 "run in every layer of every step")
+        del eng
+        free_engines(torch)
+    log(f"[{tag}] steps {res['off']['steps']} -> {res['on']['steps']}; "
+        f"decode tok/s {res['off']['tok_s']:.1f} -> {res['on']['tok_s']:.1f}"
+        f" ({res['on']['tok_s'] / res['off']['tok_s']:.2f}x)")
+    ref = InferenceEngine(model, InferenceConfig(**SPEC_ENGINE))
+    check_near_ties(torch, ref, dict(enumerate(prompts)), streams["on"],
+                    streams["off"], tol, f"{tag} on vs off")
+    del ref
+    if res["on"]["steps"] >= res["off"]["steps"]:
+        raise AssertionError(f"{tag}: speculation took no fewer steps")
+    del model
+    free_engines(torch)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1656,6 +2045,8 @@ def serve_alibi(torch, pa, seed, device=None, **overrides):
         log(f"[{tag}] sampled generate {ALIBI_SAMPLING}, rng=PRNGKey({seed}),"
             f" pipeline depth {depth}: {steps} steps in {wall:.3f} s; "
             f"request 0 -> {streams[depth][0][:12]}...")
+        check_replayed(eng.timings, f"{tag} sampled, depth {depth}",
+                       captures_ok=True)
         check_tokens(streams[depth], cfg, SERVE_NEW_TOKENS, tag)
         del eng
         free_engines(torch)
@@ -1674,11 +2065,14 @@ def serve_alibi(torch, pa, seed, device=None, **overrides):
     # the ALiBi kernel on the int8 cache, in every layer of every step
     eng = InferenceEngine(model, InferenceConfig(**SERVE_ENGINE,
                                                  kv_quant="int8"))
+    warm_graphs(torch, eng, prompts, (ALIBI_INT8_NEW_TOKENS,),
+                f"{tag} int8")
     pa.launches = pa.int8_launches = pa.fp8_launches = 0
     pa.alibi_launches = 0
     out = eng.generate(dict(enumerate(prompts)), SamplingParams(
         max_new_tokens=ALIBI_INT8_NEW_TOKENS))
     torch.cuda.synchronize()
+    check_replayed(eng.timings, f"{tag} int8")
     steps = int(eng.timings["steps"])
     res["int8_launches"] = pa.int8_launches
     log(f"[{tag}] int8 cache ({tree_bytes(eng.state.kv) / 1e9:.3f} GB): "
@@ -1762,7 +2156,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="device,build,kernel,train,train-fp32,serve,"
-                            "serve-quant,serve-alibi,serve-mqa,train-fp16")
+                            "serve-quant,serve-burst,serve-alibi,serve-mqa,"
+                            "serve-spec,train-fp16")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1864,10 +2259,11 @@ def main() -> int:
             flash_runs.append(train(torch, fa, args.seed, run))
             phase_done(run)
 
-    # 5. and 6. the serving paths, bf16 and quantized, on one model
+    # 5., 6. and 6c. the serving paths, bf16, quantized and in decode
+    # bursts, on one model
     launches = None
     quant_runs = {}
-    if phases & {"serve", "serve-quant"}:
+    if phases & {"serve", "serve-quant", "serve-burst"}:
         model, prompts = serving_model(torch, "llama3-8b", args.seed)
         if "serve" in phases:
             launches = serve(torch, pa, model, prompts)["launches"]
@@ -1875,9 +2271,13 @@ def main() -> int:
             for tag, over in QUANT_RUNS:
                 quant_runs[tag] = serve_quant(torch, pa, mg, model, prompts,
                                               tag, over)
+        if "serve-burst" in phases:
+            serve_burst(torch, pa, mg, model, prompts, decode_ref=(
+                quant_runs["a"]["decode_tok_s"] if "a" in quant_runs
+                else None))
         del model
         torch.cuda.empty_cache()
-        phase_done("serve, serve-quant")
+        phase_done("serve, serve-quant, serve-burst")
 
     # 7. BLOOM-7b1 with ALiBi, after the Llama model is freed
     alibi_run = {}
@@ -1895,6 +2295,11 @@ def main() -> int:
         del model
         free_engines(torch)
         phase_done("serve-mqa")
+
+    # 7c. speculative decoding on GPT-2, spec off then on
+    if "serve-spec" in phases:
+        serve_spec(torch, pa, args.seed)
+        phase_done("serve-spec")
 
     # 8. phi-2 in fp16 with the dynamic loss scaler, after falcon is freed
     if "train-fp16" in phases:

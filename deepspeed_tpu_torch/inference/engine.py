@@ -6,18 +6,21 @@ driver and the dispatch-ahead pipeline), ``flush``, ``cancel``,
 ``query``, the SplitFuse scheduler with prefix-cache admission and the
 overload policy (priorities, deadlines, bounded admission, preemption),
 the copy-on-write drain, the power-of-two context bucketing of each
-step's block bound, and quantized serving: int8/int4 weights
+step's block bound, quantized serving: int8/int4 weights
 (``weight_quant``, ``quantize_embeddings``, or a pre-built ``quant_tree``)
 through the mixed-input GEMM (``mixed_gemm``) and an int8/fp8 KV cache
-(``kv_quant``), and seeded sampling (``rng=`` on ``step`` and
-``generate``) with the JAX engine's key stream.
+(``kv_quant``), seeded sampling (``rng=`` on ``step`` and ``generate``)
+with the JAX engine's key stream, decode bursts (``decode_burst``: the
+``decode_burst()`` method, and ``generate`` at ``decode_burst > 1``) and
+model-free speculative decoding (``spec_decode="on"``: prompt-lookup
+drafts, one verify step a window, the longest matching prefix accepted).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item when its config field is set away from the default): the
-attention-implementation probe, failure domains and the watchdog,
-telemetry (tracing, device telemetry, anomaly detection, SLOs,
-captures), speculative decoding, decode bursts, the KV tier, the fp6/fp12
-minifloat weight layouts, KV offload, weight streaming and tensor
+attention-implementation probe, failure domains and the watchdog
+(Queue 1 item 1b), telemetry (tracing, device telemetry, anomaly
+detection, SLOs, captures), the KV tier, the fp6/fp12 minifloat weight
+layouts, KV offload (Queue 1 item 4), weight streaming and tensor
 parallelism.
 
 API:
@@ -25,47 +28,77 @@ API:
     eng.put(uid, prompt_tokens)      # enqueue / continue a request
     out = eng.step()                 # one SplitFuse step -> {uid: token}
     eng.generate(prompts, sampling, rng=PRNGKey(seed))  # convenience loop
+    eng.decode_burst(steps)          # pure decode, steps tokens a request
     eng.flush(uid)                   # free a finished sequence
 
 Sampling keys (``utils.prng``, bit for bit the JAX package's threefry
 keys): a caller's key is the base key of every step of the call; without
 one, a sampler that needs a key takes the next ``split`` of the engine's
-own stream (``PRNGKey(0)`` at construction), one per dispatched step.
-Each row then samples with ``fold_in(fold_in(base, uid), position)``, so
-a seeded stream does not depend on pipeline depth, chunking or
-prefix-cache hits.
+own stream (``PRNGKey(0)`` at construction), one per dispatched step
+(and one per burst).  Each row then samples with ``fold_in(fold_in(base,
+uid), position)``, so a seeded stream does not depend on pipeline depth,
+chunking, prefix-cache hits, bursts or speculation.
 
-Pipelining on the card: a step's sampled tokens are copied into a pinned
-host buffer right after the sample (non-blocking) and an event is
-recorded behind the copy; the collect waits on that event only.  A
-blocking ``.cpu()`` of step N after step N+1 was enqueued would wait for
-step N+1 too and silently serialise the pipeline.
+Fixed shapes: a step computes its scheduled tokens padded up to a token
+bucket (powers of two from ``max_seqs``, or ``max_seqs`` x the verify
+width, up to ``token_budget``) over a power-of-two context bucket; the
+padding tokens are invalid and write only the trash block.  On the CPU
+the padded step runs eagerly.  On the card every step and every burst is
+a CUDA graph (the counterpart of the JAX engine's compiled-step cache):
+captured once per (token bucket, context bucket, sampler[, verify
+width]) — or (steps, sampler, prefix bucket) for a burst — on an
+engine-owned stream after one eager warm-up there, then replayed with
+its inputs copied into static device buffers (the staged batch, the
+previous step's tokens, the base key).  A failed capture or replay
+raises; nothing falls back to eager launches.  ``timings`` counts the
+captures (``compiles``, ``compile_ms``, ``compile_retraces`` for a key
+captured again after its graph was evicted) and ``graph_replays``; the
+kernels' launch counters move on every replay by what the capture
+counted.
+
+Pipelining on the card: a step's sampled tokens are copied from the
+graph's output into a ring of ``pipeline_depth + 1`` device buffers and
+from there into a ring of pinned host buffers (non-blocking), and an
+event is recorded behind the copy; the collect waits on that event only.
+A blocking ``.cpu()`` of step N after step N+1 was enqueued would wait
+for step N+1 too and silently serialise the pipeline.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from collections import OrderedDict, deque
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, \
+    Tuple
 
 import numpy as np
 import torch
 
 from ..models.transformer import Model, TransformerConfig, tree_map
-from ..ops.mixed_gemm import flat_kn, shape_error
+from ..ops import mixed_gemm as _mixed_gemm_mod
+from ..ops.mixed_gemm import flat_kn
+from ..ops.mixed_gemm import held_workspaces as _mixed_workspaces
+from ..ops.mixed_gemm import shape_error
+from ..ops.paged_attention import forget_plan
+from ..ops.paged_attention import held_workspaces as _paged_workspaces
 from ..ops.quant import (WEIGHT_QUANT_BITS, QuantizedTensor,
                          is_mixed_gemm_layout, is_rowwise_int4)
+from ..utils.logging import logger
 from ..utils.prng import PRNGKey, split
-from .model import pipelined_ragged_step
+from . import model as _model_mod
+from .model import (decode_burst_forward, pipelined_ragged_step,
+                    scatter_tail, snapshot_prefix)
 from .overload import (AdmissionVerdict, OverloadConfig, RequestMeta,
                        admission_decision, effective_priority,
                        select_victim)
 from .quantization import (DENSE_ONLY_GROUPS, contract_dims,
                            quantize_model_params)
 from .ragged.state import (FEEDBACK_TOKEN, BatchStager, KVCacheConfig,
-                           StateManager)
+                           StateManager, batch_from_flat)
 from .sampler import SamplingParams, sample_rows
+from .spec_decode import NgramProposer
 
 
 @dataclasses.dataclass
@@ -134,10 +167,9 @@ _UNSUPPORTED = {
                   "is chosen by the tensors' device, there is no probe"),
     "weight_quant": ((None, "int8", "int4"), "ROADMAP Queue 1, quantized "
                      "serving: the fp6/fp12 minifloat layouts"),
-    "kv_offload": ((False,), "ROADMAP Queue 1, multi-GPU training "
-                   "breadth (offload)"),
+    "kv_offload": ((False,), "ROADMAP Queue 1 item 4, offload on one "
+                   "card"),
     "weight_stream": ((None,), _HOST),
-    "decode_burst": ((1,), "ROADMAP Queue 1, decode bursts"),
     "kv_donate": (("auto", "on"), "in-place KV updates (no 'off')"),
     "comm_overlap": (("auto", "off"), "ROADMAP Queue 1, multi-GPU "
                      "training breadth (tensor parallelism)"),
@@ -147,31 +179,101 @@ _UNSUPPORTED = {
     "anomaly": (("auto", "off"), _HOST),
     "anomaly_cfg": ((None,), _HOST),
     "profile": ((None,), _HOST),
-    "spec_decode": (("auto", "off"), "ROADMAP Queue 1, speculative "
-                    "decoding"),
-    "failure": ((None,), "ROADMAP Queue 1, failure domains"),
+    "failure": ((None,), "ROADMAP Queue 1 item 1b, failure domains"),
     "kv_tier": (("auto", "off"), _HOST),
     "slo": (("auto", "off"), _HOST),
     "slo_objectives": ((None,), _HOST),
 }
 
+# retained CUDA graphs (the JAX engine's executable-cache bounds)
+_MAX_STEP_GRAPHS = 16
+_MAX_BURST_GRAPHS = 8
+
 
 class _InFlight(NamedTuple):
-    """One dispatched-but-unread serving step: the on-device [max_seqs]
-    sample tensor, its host copy and the event recorded behind that
-    copy, the (uid, slot) emission list frozen at dispatch time, the
-    dispatch sequence number, and every uid it scheduled tokens for."""
+    """One dispatched-but-unread serving step: the on-device sample
+    tensor ([max_seqs], or [max_seqs, W] on a speculating engine), its
+    host copy and the event recorded behind that copy, the (uid, slot)
+    emission list frozen at dispatch time, the dispatch sequence number,
+    every uid it scheduled tokens for, the draft windows it verifies and
+    the stop token of its sampler."""
     toks: torch.Tensor
     host: torch.Tensor
     event: Optional[torch.cuda.Event]
     emit: Tuple[Tuple[int, int], ...]
     sid: int
     uids: Tuple[int, ...] = ()
+    drafts: Tuple[Tuple[int, Tuple[int, ...]], ...] = ()
+    stop: Optional[int] = None
 
 
 _TIMINGS = ("schedule_ms", "stage_ms", "device_ms", "wait_ms",
             "readback_ms", "steps", "prompt_tokens", "cached_tokens",
-            "prefix_hits", "generated_tokens")
+            "prefix_hits", "generated_tokens", "decode_steps",
+            "decode_device_ms", "bursts", "burst_iterations", "compiles",
+            "compile_ms", "compile_retraces", "graph_replays",
+            "spec_drafted_tokens", "spec_accepted_tokens",
+            "spec_rejected_tokens", "spec_windows")
+
+
+def _launch_counted():
+    """The kernel wrappers whose launch counters a graph's replay moves:
+    looked up where the serving forward looks them up, at call time."""
+    return (_model_mod.paged_attention, _mixed_gemm_mod.mixed_matmul_2d,
+            _mixed_gemm_mod.mixed4_matmul_2d)
+
+
+def launch_counts(fns) -> Dict[tuple, object]:
+    """The integer counters (and dicts of them) on each function object
+    of ``fns``, by (function, attribute)."""
+    out = {}
+    for fn in fns:
+        for name, v in vars(fn).items():
+            if isinstance(v, int) and not isinstance(v, bool):
+                out[fn, name] = v
+            elif isinstance(v, dict) and v and all(
+                    isinstance(x, int) for x in v.values()):
+                out[fn, name] = dict(v)
+    return out
+
+
+def launch_delta(before: Dict[tuple, object],
+                 after: Dict[tuple, object]) -> Dict[tuple, object]:
+    """What the counters moved between two :func:`launch_counts`."""
+    out = {}
+    for k, v in after.items():
+        b = before.get(k)
+        if isinstance(v, dict):
+            b = b if isinstance(b, dict) else {}
+            d = {n: c - b.get(n, 0) for n, c in v.items()
+                 if c != b.get(n, 0)}
+            if d:
+                out[k] = d
+        elif v != (b or 0):
+            out[k] = v - (b or 0)
+    return out
+
+
+def add_launches(delta: Dict[tuple, object], sign: int = 1) -> None:
+    """Move the counters by ``sign`` x ``delta``: a replay adds what its
+    capture counted (the capture itself launched nothing: sign -1)."""
+    for (fn, name), d in delta.items():
+        cur = getattr(fn, name)
+        if isinstance(d, dict):
+            for n, c in d.items():
+                cur[n] = cur.get(n, 0) + sign * c
+        else:
+            setattr(fn, name, cur + sign * d)
+
+
+class _Graph:
+    """A captured step or burst: the graph, its output tensor, the
+    launch counts one replay stands for, and the kernel workspaces it
+    captured (held, so that no later growth frees them)."""
+    __slots__ = ("graph", "out", "delta", "keep")
+
+    def __init__(self, graph, out, delta, keep):
+        self.graph, self.out, self.delta, self.keep = graph, out, delta, keep
 
 
 class InferenceEngine:
@@ -214,6 +316,9 @@ class InferenceEngine:
                              "expected 'auto', 'on', or 'off'")
         if self.icfg.pipeline_depth < 1:
             raise ValueError("pipeline_depth must be >= 1")
+        if self.icfg.decode_burst < 1:
+            raise ValueError("decode_burst must be >= 1")
+        self._setup_spec_decode()
         self.device = model.device
         max_len = self.icfg.max_seq_len or self.cfg.max_seq_len
         # a sequence can never hold more blocks than the pool has
@@ -259,10 +364,22 @@ class InferenceEngine:
                                    self.icfg.max_seqs,
                                    self.icfg.num_kv_blocks,
                                    depth=max(2, self.icfg.pipeline_depth),
-                                   pin=self._cuda)
-        self._zero_toks = torch.zeros(self.icfg.max_seqs, dtype=torch.int32,
+                                   n_verify=self._n_verify, pin=self._cuda)
+        # a speculating engine's steps return [S, W] windows, so the
+        # feedback operand (and its step-0 zero fallback) is too
+        self._toks_shape = ((self.icfg.max_seqs,) if self._n_verify == 1
+                            else (self.icfg.max_seqs, self._n_verify))
+        self._zero_toks = torch.zeros(self._toks_shape, dtype=torch.int32,
                                       device=self.device)
         self._last_toks: Optional[torch.Tensor] = None
+        # CUDA graphs: (token bucket, context bucket, sampler key[, verify
+        # width]) -> step graph, (steps, sampler key, prefix bucket) ->
+        # burst graph, both LRU; every key ever captured (retraces)
+        self._graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
+        self._burst_graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
+        self._captured_ever: set = set()
+        if self._cuda:
+            self._setup_graph_buffers()
         # the engine's own key stream (a sampler without a caller key);
         # kept on the device: a per-step host-to-card copy would stall
         # the pipeline
@@ -286,6 +403,56 @@ class InferenceEngine:
         self.ttft_ms: Dict[int, float] = {}
         self.timings: Dict[str, float] = dict.fromkeys(_TIMINGS, 0)
         self.state.on_release = self._on_state_release
+
+    def _setup_spec_decode(self) -> None:
+        """Resolve ``spec_decode`` to a proposer (or None) and the fixed
+        verify-window width ``_n_verify`` (``spec_max_draft + 1`` when
+        on, else 1).  "auto" resolves off, as in the reference."""
+        mode = self.icfg.spec_decode
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(f"spec_decode={mode!r}: expected 'auto', "
+                             "'on', or 'off'")
+        if mode == "on" and self.icfg.decode_burst > 1:
+            raise ValueError(
+                "spec_decode='on' with decode_burst > 1: both multi-token"
+                " the decode path (bursts device-side); pick one")
+        self._spec: Optional[NgramProposer] = None
+        self._n_verify = 1
+        if mode == "on":
+            if self.icfg.spec_max_draft < 1:
+                raise ValueError("spec_max_draft must be >= 1")
+            self._spec = NgramProposer(self.icfg.spec_max_draft)
+            self._n_verify = self.icfg.spec_max_draft + 1
+        self._sched_drafts: Dict[int, List[int]] = {}
+
+    def _setup_graph_buffers(self) -> None:
+        """The card's graph state, made once: the engine's stream (every
+        warm-up, capture and replay runs on it), one memory pool for the
+        engine's graphs, the static inputs a replay reads (the staged
+        batch, the previous step's tokens, the base key), and the rings
+        the sampled tokens leave through (``pipeline_depth + 1`` device
+        buffers, pinned host buffers and events)."""
+        dev = self.device
+        self._stream = torch.cuda.Stream(device=dev)
+        self._pool = torch.cuda.graph_pool_handle()
+        self._flat_dev = self._stager.device_buffer(dev)
+        self._prev_dev = torch.zeros(self._toks_shape, dtype=torch.int32,
+                                     device=dev)
+        self._key_dev = torch.zeros(2, dtype=torch.int64, device=dev)
+        n = self.icfg.pipeline_depth + 1
+        self._ring_dev = [torch.zeros(self._toks_shape, dtype=torch.int32,
+                                      device=dev) for _ in range(n)]
+        self._ring_host = [torch.zeros(self._toks_shape, dtype=torch.int32,
+                                       pin_memory=True) for _ in range(n)]
+        self._ring_events = [torch.cuda.Event() for _ in range(n)]
+        self._ring_i = 0
+        # one burst's inputs: block tables [S, blocks], base context,
+        # fed token and uid bits [S] each, staged in one pinned buffer
+        S, nb = self.icfg.max_seqs, self.icfg.num_kv_blocks
+        self._burst_host = torch.zeros(S * (nb + 3), dtype=torch.int32,
+                                       pin_memory=True)
+        self._burst_dev = torch.zeros(S * (nb + 3), dtype=torch.int32,
+                                      device=dev)
 
     def _mixed_gemm_refusal(self) -> Optional[str]:
         """Why the resident quantized weights cannot take the mixed-input
@@ -316,10 +483,17 @@ class InferenceEngine:
 
     def reset_timings(self) -> None:
         """Zero the per-phase milliseconds (host scheduling, batch
-        staging, the step's enqueue, the wait for a collected step's
-        tokens, their host read) and the token counters
-        (``prompt_tokens``, ``cached_tokens`` — prompt tokens served
-        from the prefix cache, ``prefix_hits``, ``generated_tokens``)."""
+        staging, the step's enqueue — ``device_ms``, of which
+        ``decode_device_ms`` over the ``decode_steps`` whose rows are all
+        single decode tokens — the wait for a collected step's tokens,
+        their host read), the token counters (``prompt_tokens``,
+        ``cached_tokens`` — prompt tokens served from the prefix cache,
+        ``prefix_hits``, ``generated_tokens``), the bursts and their
+        iterations, the graph counters (``compiles``, ``compile_ms``,
+        ``compile_retraces``, ``graph_replays``) and the speculation
+        counters (``spec_windows`` resolved, ``spec_drafted_tokens`` =
+        ``spec_accepted_tokens`` + ``spec_rejected_tokens``).  The graphs
+        themselves stay captured."""
         self.timings = dict.fromkeys(_TIMINGS, 0)
 
     # ------------------------------------------------------------------
@@ -373,6 +547,10 @@ class InferenceEngine:
         self._open[uid] = now
         self._forgotten.pop(uid, None)
         self._pending.setdefault(uid, []).extend(toks)
+        if self._spec is not None:
+            # the prompt seeds the prompt-lookup history (emitted tokens
+            # are observed at collect)
+            self._spec.observe(uid, toks)
         return AdmissionVerdict(
             True, "degraded" if action == "degrade" else "queued",
             evicted_uids=victims)
@@ -408,6 +586,8 @@ class InferenceEngine:
         self._deadline_uids.discard(uid)
         self._preempt_gen.pop(uid, None)
         self._ctx_exhausted.discard(uid)
+        if self._spec is not None:
+            self._spec.forget(uid)
         if uid in self._open:
             self._record_closed(uid, status)
 
@@ -476,6 +656,7 @@ class InferenceEngine:
         bs = self.icfg.kv_block_size
         ocfg = self.ocfg
         now = time.perf_counter()
+        self._sched_drafts = {}
         self._reap_deadlines(now)
         reserved_blocks = 0
         reserved_slots = 0
@@ -511,20 +692,37 @@ class InferenceEngine:
                     seq = self.state.seqs[uid]
                     needs_slot = False     # match_prefix claimed the slot
                     ctx_rem = self.state.context_remaining(uid)
+            draft: List[int] = []
+            if (self._spec is not None and seq is not None
+                    and len(toks) == 1 and toks[0] >= 0
+                    and not seq.draft_len):
+                # a decoding row with a concrete fed token mines a draft
+                # window from its own history; drafts consume budget and
+                # blocks like a chunked prefill
+                limit = min(self._n_verify - 1, budget - 1, ctx_rem - 1)
+                if limit > 0:
+                    draft = self._spec.propose(uid, toks[0], limit)
             n = min(len(toks), budget, ctx_rem)
             if len(toks) > 1 and ocfg.prefill_chunk is not None:
                 n = min(n, ocfg.prefill_chunk)
+            nw = n + len(draft)       # the scheduled window, drafts included
             avail = self.state.allocator.free_blocks - reserved_blocks
             need = 0
-            while n > 0:
+            while nw > 0:
                 seen = seq.seen_tokens if seq else 0
                 have = len(seq.blocks) if seq else 0
-                need = max(0, -(-(seen + n) // bs) - have)
+                need = max(0, -(-(seen + nw) // bs) - have)
                 if need <= avail:
                     break
-                n //= 2
-            if n <= 0 and not cached:
-                return "starved"
+                nw //= 2
+            if nw <= 0:
+                if not cached:
+                    return "starved"
+                draft, n = [], 0
+            elif nw <= n:
+                draft, n = [], nw     # pool pressure ate the window
+            else:
+                del draft[nw - n:]
             tm = self.timings
             tm["prompt_tokens"] += prompt_len
             if cached:
@@ -534,10 +732,12 @@ class InferenceEngine:
                 # matched but the pool can't take the uncached remainder
                 # yet: the sequence keeps its aliased blocks and waits
                 return "ok"
-            sched.append((uid, toks[:n]))
+            sched.append((uid, toks[:n] + draft))
             sched_uids.add(uid)
+            if draft:
+                self._sched_drafts[uid] = draft
             del toks[:n]
-            budget -= n
+            budget -= n + len(draft)
             reserved_blocks += need
             if needs_slot:
                 reserved_slots += 1
@@ -670,6 +870,15 @@ class InferenceEngine:
         rng = rng.to(self.device)
         return lambda: rng
 
+    def token_bucket(self, n_tokens: int) -> int:
+        """The token count a step of ``n_tokens`` is padded to: the least
+        power-of-two multiple of ``max_seqs`` (x the verify width on a
+        speculating engine) that holds it, at most ``token_budget``."""
+        b = self.icfg.max_seqs * self._n_verify
+        while b < n_tokens:
+            b *= 2
+        return min(b, self.icfg.token_budget)
+
     def _dispatch(self, sampling: SamplingParams,
                   rng=None) -> Optional[_InFlight]:
         """Schedule, stage and launch one serving step WITHOUT reading
@@ -697,9 +906,54 @@ class InferenceEngine:
         while mbs < need:
             mbs *= 2
         mbs = min(mbs, self.max_blocks_per_seq)
+        bucket = self.token_bucket(sum(len(t) for _, t in sched))
+        decode = all(uid in self.state.seqs and len(toks) == 1 + len(
+            self._sched_drafts.get(uid, ())) for uid, toks in sched)
         t1 = time.perf_counter()
-        batch = self.state.build_batch(sched, self.icfg.token_budget,
-                                       stager=self._stager)
+        if self._cuda:
+            # the engine's stream follows whatever the caller queued
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self._stream):
+                toks, host, event, t2 = self._launch_step(
+                    sched, sampling, rng, bucket, mbs)
+            torch.cuda.current_stream(self.device).wait_stream(self._stream)
+        else:
+            toks, host, event, t2 = self._launch_step(sched, sampling, rng,
+                                                      bucket, mbs)
+        t3 = time.perf_counter()
+        self._last_toks = toks
+        tm = self.timings
+        tm["schedule_ms"] += (t1 - t0) * 1e3
+        tm["stage_ms"] += (t2 - t1) * 1e3
+        tm["device_ms"] += (t3 - t2) * 1e3
+        tm["steps"] += 1
+        if decode:
+            tm["decode_steps"] += 1
+            tm["decode_device_ms"] += (t3 - t2) * 1e3
+        uids = tuple(uid for uid, _ in sched)
+        emit = tuple((uid, self.state.slot(uid)) for uid in uids
+                     if not self._pending.get(uid))
+        for uid in uids:
+            self._inflight_sched[uid] = self._inflight_sched.get(uid, 0) + 1
+        self._dispatch_seq += 1
+        return _InFlight(toks=toks, host=host, event=event, emit=emit,
+                         sid=self._dispatch_seq, uids=uids,
+                         drafts=tuple((u, tuple(d)) for u, d in
+                                      self._sched_drafts.items()),
+                         stop=sampling.stop_token)
+
+    def _launch_step(self, sched, sampling: SamplingParams, rng,
+                     bucket: int, mbs: int):
+        """Stage the batch and run the padded step: eagerly on the CPU,
+        as a replay of its CUDA graph on the card (captured at the first
+        step of its key).  Returns (tokens, their host copy, the event
+        behind that copy or None, the time staging ended)."""
+        cuda = self._cuda
+        batch = self.state.build_batch(
+            sched, self.icfg.token_budget, stager=self._stager,
+            draft_lens={u: len(d) for u, d in self._sched_drafts.items()},
+            n_verify=self._n_verify,
+            out=self._flat_dev if cuda else None)
         self._drain_cow()       # COW copies land before the step's write
         t2 = time.perf_counter()
         if callable(rng):
@@ -711,35 +965,120 @@ class InferenceEngine:
         rng = rng.to(self.device) if sampling.needs_rng else None
         prev = self._last_toks if self._last_toks is not None \
             else self._zero_toks
-        toks, self.state.kv = pipelined_ragged_step(
-            self.cfg, self.params, self._quant, self.state.kv, batch, prev,
-            rng, lambda logits, keys: sample_rows(logits, sampling, keys),
-            bs_blk, mbs, mixed_gemm=self._mixed_gemm_active)
-        if self._cuda:
-            # start the token readback now, behind the sample on the
-            # stream; _collect waits on this event only
-            host = torch.empty(toks.shape, dtype=toks.dtype,
-                               pin_memory=True)
-            host.copy_(toks, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-        else:
-            host, event = toks, None
-        t3 = time.perf_counter()
-        self._last_toks = toks
-        tm = self.timings
-        tm["schedule_ms"] += (t1 - t0) * 1e3
-        tm["stage_ms"] += (t2 - t1) * 1e3
-        tm["device_ms"] += (t3 - t2) * 1e3
-        tm["steps"] += 1
-        uids = tuple(uid for uid, _ in sched)
-        emit = tuple((uid, self.state.slot(uid)) for uid in uids
-                     if not self._pending.get(uid))
-        for uid in uids:
-            self._inflight_sched[uid] = self._inflight_sched.get(uid, 0) + 1
-        self._dispatch_seq += 1
-        return _InFlight(toks=toks, host=host, event=event, emit=emit,
-                         sid=self._dispatch_seq, uids=uids)
+        sample_fn = self._sample_fn(sampling)
+        mixed = self._mixed_gemm_active
+        if not cuda:
+            toks, _ = pipelined_ragged_step(
+                self.cfg, self.params, self._quant, self.state.kv,
+                batch._replace(n_tokens=bucket), prev, rng, sample_fn,
+                self.icfg.kv_block_size, mbs, mixed_gemm=mixed)
+            return toks, toks, None, t2
+        self._prev_dev.copy_(prev)
+        if rng is not None:
+            self._key_dev.copy_(rng)
+        shape_key = (self.icfg.token_budget, self.icfg.max_seqs,
+                     self.icfg.num_kv_blocks, self._stager.n_verify)
+        n_seqs, n_verify = batch.n_seqs, self._n_verify
+        key_in = self._key_dev if rng is not None else None
+
+        def run():
+            b = batch_from_flat(self._flat_dev, shape_key, bucket, n_seqs,
+                                n_verify)
+            toks, _ = pipelined_ragged_step(
+                self.cfg, self.params, self._quant, self.state.kv, b,
+                self._prev_dev, key_in, sample_fn, self.icfg.kv_block_size,
+                mbs, mixed_gemm=mixed)
+            return toks
+
+        key = ("p", bucket, mbs, sampling.sampler_key) + (
+            (n_verify,) if n_verify > 1 else ())
+        g = self._graph_for(self._graphs, _MAX_STEP_GRAPHS, key, run)
+        self._replay(g)
+        i = self._ring_i
+        self._ring_i = (i + 1) % len(self._ring_dev)
+        toks = self._ring_dev[i]
+        toks.copy_(g.out)
+        # start the token readback now, behind the sample on the
+        # stream; _collect waits on this event only
+        host = self._ring_host[i]
+        host.copy_(toks, non_blocking=True)
+        event = self._ring_events[i]
+        event.record(self._stream)
+        return toks, host, event, t2
+
+    @staticmethod
+    def _sample_fn(sampling: SamplingParams) -> Callable:
+        return lambda logits, keys: sample_rows(logits, sampling, keys)
+
+    def _graph_for(self, cache: "OrderedDict[tuple, _Graph]", bound: int,
+                   key: tuple, run: Callable[[], torch.Tensor]) -> _Graph:
+        """The graph of ``key`` in ``cache`` (LRU, at most ``bound``),
+        captured from ``run`` when missing.  A key captured before whose
+        graph was evicted is a retrace: counted and warned about, as the
+        JAX engine does for a recompile."""
+        g = cache.pop(key, None)
+        if g is None:
+            if len(cache) >= bound:
+                cache.popitem(last=False)
+            tm = self.timings
+            if key in self._captured_ever:
+                tm["compile_retraces"] += 1
+                logger.warning(
+                    "serving graph %r CAPTURED AGAIN (retrace #%d): the "
+                    "graph cache is churning — LRU thrash or shape churn",
+                    key, int(tm["compile_retraces"]))
+            self._captured_ever.add(key)
+            t0 = time.perf_counter()
+            g = self._capture(run)
+            tm["compiles"] += 1
+            tm["compile_ms"] += (time.perf_counter() - t0) * 1e3
+        cache[key] = g
+        return g
+
+    def _capture(self, run: Callable[[], torch.Tensor]) -> _Graph:
+        """Warm ``run`` up once on the engine's stream (libraries load,
+        the kernels' workspaces and plans are made, caches fill: the
+        eager launches count as launches), then capture it into a CUDA
+        graph in the engine's pool.  The capture launches nothing, so
+        the launch counters it moved are moved back and kept as the
+        graph's delta, which every replay adds.  Raises if the capture
+        fails."""
+        s = self._stream
+        dev, sid = self.device, s.cuda_stream
+        fns = _launch_counted()
+        forget_plan(dev, sid)
+        with torch.cuda.stream(s):
+            run()
+        before = launch_counts(fns)
+        graph = torch.cuda.CUDAGraph()
+        # the first paged-attention call of the graph must plan
+        forget_plan(dev, sid)
+        # no collection may run inside the capture: an unreachable engine
+        # freed there (its graphs, pools, pinned buffers) makes CUDA calls
+        # that invalidate it; collect now, then hold the collector off
+        gc.collect()
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, stream=s):
+                out = run()
+        finally:
+            if gc_was_on:
+                gc.enable()
+        delta = launch_delta(before, launch_counts(fns))
+        add_launches(delta, -1)
+        forget_plan(dev, sid)
+        keep = _paged_workspaces(dev, sid) + _mixed_workspaces(dev, sid)
+        return _Graph(graph, out, delta, keep)
+
+    def _replay(self, g: _Graph) -> None:
+        """Replay a captured graph on the engine's stream and count its
+        kernels' launches; the replay rewrote the paged-attention plan
+        workspace, so the wrapper forgets what it held."""
+        g.graph.replay()
+        add_launches(g.delta)
+        forget_plan(self.device, self._stream.cuda_stream)
+        self.timings["graph_replays"] += 1
 
     def _drain_cow(self) -> None:
         """Run queued copy-on-write block copies (a prefix-cache match
@@ -764,12 +1103,21 @@ class InferenceEngine:
         ``st``'s token copy (its event), then reads the host buffer."""
         if st.event is not None:
             st.event.synchronize()
-        return st.host.numpy().copy()
+        return st.host.cpu().numpy().copy()
 
     def _collect(self, st: _InFlight) -> Dict[int, List[int]]:
         """Read one in-flight step's tokens back and emit them (a list
-        per uid); patches any still-deferred feedback marker THIS step
-        owns to the concrete value."""
+        per uid: one token for a plain row, up to ``1 + spec_max_draft``
+        for a resolved verify window); patches any still-deferred
+        feedback marker THIS step owns to the concrete value.
+
+        Speculative acceptance happens here: a drafting row's column
+        ``j`` is the model's token after window position ``j``, so the
+        drafts are compared against columns ``0..k-1``; ``a`` leading
+        matches emit ``a + 1`` tokens and ``resolve_draft`` rewinds the
+        KV write cursor over the rejected tail.  A stop token inside the
+        window truncates the emission where the stepwise engine would
+        have stopped feeding."""
         for uid in st.uids:
             n = self._inflight_sched.get(uid, 0) - 1
             if n > 0:
@@ -781,42 +1129,213 @@ class InferenceEngine:
         t2 = time.perf_counter()
         tm = self.timings
         tm["wait_ms"] += (t2 - t0) * 1e3
+        spec = self._n_verify > 1
+        drafts = dict(st.drafts)
         out: Dict[int, List[int]] = {}
         for uid, slot in st.emit:
-            emitted = [int(toks_np[slot])]
+            row = toks_np[slot]            # [W] on a speculating engine
             seq = self.state.seqs.get(uid)
-            if seq is not None and self.state._slots.get(uid) == slot:
+            live = seq is not None and self.state._slots.get(uid) == slot
+            d = drafts.get(uid)
+            if d:
+                a = 0
+                while a < len(d) and int(row[a]) == d[a]:
+                    a += 1
+                emitted = [int(row[j]) for j in range(a + 1)]
+                if st.stop is not None and st.stop in emitted:
+                    emitted = emitted[:emitted.index(st.stop) + 1]
+                if live:
+                    # commit the fed token and the emitted tokens already
+                    # in KV (all but the last sample); rewind the rest
+                    self.state.resolve_draft(uid, len(emitted) - 1)
+                    tm["spec_windows"] += 1
+                    tm["spec_drafted_tokens"] += len(d)
+                    tm["spec_accepted_tokens"] += len(emitted) - 1
+                    tm["spec_rejected_tokens"] += len(d) - (len(emitted)
+                                                            - 1)
+            else:
+                emitted = [int(row[0] if spec else row)]
+            if live:
                 seq.tokens.extend(emitted)
                 tm["generated_tokens"] += len(emitted)
                 if uid not in self.ttft_ms and uid in self._open:
                     self.ttft_ms[uid] = (t2 - self._open[uid]) * 1e3
+                if self._spec is not None:
+                    self._spec.observe(uid, emitted)
             out[uid] = emitted
             if self._fb_step.get(uid) == st.sid:
                 self._fb_step.pop(uid)
                 p = self._pending.get(uid)
                 if p and p[0] == FEEDBACK_TOKEN:
+                    # markers are never speculated for drafting rows, so
+                    # the last emitted token is column 0's sample
                     p[0] = emitted[-1]
         tm["readback_ms"] += (time.perf_counter() - t2) * 1e3
         return out
+
+    # ------------------------------------------------------------------
+    # decode bursts
+    # ------------------------------------------------------------------
+    def decode_burst(self, steps: Optional[int] = None,
+                     sampling: SamplingParams = SamplingParams(),
+                     rng: Optional[torch.Tensor] = None
+                     ) -> Dict[int, List[int]]:
+        """Run ``steps`` decode iterations with no host step between
+        them: each sampled token feeds the next forward on the device,
+        and the tokens come back in one read.  Every pending request
+        must be a single-token continuation of a live sequence (pure
+        decode); the burst is capped by context headroom, shrunk until
+        its KV reservation fits the free pool (a single ``step`` when it
+        shrinks to 1), its blocks are reserved ahead, and a sequence
+        whose stop token lands inside it is truncated there.  On the
+        card the burst is one CUDA graph of (steps, sampler, prefix
+        bucket).  Returns {uid: [token, ...]}."""
+        steps = steps or max(1, self.icfg.decode_burst)
+        pending = {u: t for u, t in self._pending.items() if t}
+        if not pending:
+            return {}
+        if any(len(t) != 1 or t[0] < 0 or u not in self.state.seqs
+               for u, t in pending.items()):
+            raise ValueError("decode_burst requires every pending request "
+                             "to be a single-token continuation (with a "
+                             "concrete, non-deferred token id); use "
+                             "step() for prefill")
+        st = self.state
+        steps = min([steps] + [st.context_remaining(u) for u in pending])
+        bs_blk = self.icfg.kv_block_size
+        while steps > 1:
+            need = sum(st.seqs[u].blocks_needed(steps, bs_blk)
+                       for u in pending)
+            if need <= st.allocator.free_blocks:
+                break
+            steps -= 1
+        if steps <= 1:
+            out = self.step(rng=rng, sampling=sampling)
+            return {u: [t] for u, t in out.items()}
+        for uid in pending:
+            if not st.reserve_ahead(uid, steps):
+                raise RuntimeError(      # unreachable after the fit check
+                    f"uid {uid}: cannot reserve {steps} tokens of KV")
+        if rng is None:
+            self._rng, rng = split(self._rng)
+        t0 = time.perf_counter()
+        if self._cuda:
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self._stream):
+                toks_np, t1 = self._launch_burst(pending, steps, sampling,
+                                                 rng)
+            torch.cuda.current_stream(self.device).wait_stream(self._stream)
+        else:
+            toks_np, t1 = self._launch_burst(pending, steps, sampling, rng)
+        t2 = time.perf_counter()
+        tm = self.timings
+        tm["device_ms"] += (t1 - t0) * 1e3
+        tm["wait_ms"] += (t2 - t1) * 1e3
+        tm["bursts"] += 1
+        tm["burst_iterations"] += steps
+        out: Dict[int, List[int]] = {}
+        for uid in pending:
+            seq_toks = [int(t) for t in toks_np[:, st.slot(uid)]]
+            adv = steps
+            if sampling.stop_token is not None \
+                    and sampling.stop_token in seq_toks:
+                # truncate at the stop token: KV rows committed = the fed
+                # token + the sampled tokens before the stop
+                i = seq_toks.index(sampling.stop_token)
+                seq_toks = seq_toks[:i + 1]
+                adv = i + 1
+            st.seqs[uid].tokens.extend(seq_toks)
+            tm["generated_tokens"] += len(seq_toks)
+            # the burst wrote `steps` KV rows (the fed token + the first
+            # steps - 1 samples); only the pre-stop prefix is committed
+            st.advance(uid, adv)
+            self._pending[uid] = []
+            out[uid] = seq_toks
+        return out
+
+    def _launch_burst(self, pending: Dict[int, List[int]], steps: int,
+                      sampling: SamplingParams, rng: torch.Tensor):
+        """Stage one burst's inputs and run it (eagerly on the CPU, a
+        graph replay on the card); returns (tokens [steps, S] on the
+        host, the time the launch was enqueued)."""
+        self._drain_cow()       # queued COW copies precede burst writes
+        S, nb = self.icfg.max_seqs, self.icfg.num_kv_blocks
+        flat = (self._burst_host.numpy() if self._cuda
+                else np.empty(S * (nb + 3), np.int32))
+        tables = flat[:S * nb].reshape(S, nb)
+        base, tok0, uid_bits = (flat[S * nb + i * S:S * nb + (i + 1) * S]
+                                for i in range(3))
+        tables.fill(-1)
+        base.fill(0)
+        tok0.fill(0)
+        uid_bits.fill(0)
+        st = self.state
+        for uid, toks in pending.items():
+            slot = st.slot(uid)
+            seq = st.seqs[uid]
+            base[slot] = seq.seen_tokens
+            tok0[slot] = toks[0]
+            uid_bits.view(np.uint32)[slot] = np.uint32(uid & 0xFFFFFFFF)
+            tables[slot, :len(seq.blocks)] = seq.blocks
+        # prefix bucket: doubling block-aligned sizes, so a long context
+        # makes O(log) burst graphs, not one per 256 tokens of growth
+        bs = self.icfg.kv_block_size
+        chunk = bs * max(1, -(-256 // bs))
+        cap = self.max_blocks_per_seq * bs
+        P = chunk
+        while P < min(int(base.max()), cap):
+            P *= 2
+        P = int(min(P, cap))
+        key_in = rng.to(self.device) if sampling.needs_rng else None
+        sample_fn = self._sample_fn(sampling)
+        mixed = self._mixed_gemm_active
+
+        def run_on(buf, key):
+            t = buf[:S * nb].reshape(S, nb)
+            b, k0, u = (buf[S * nb + i * S:S * nb + (i + 1) * S]
+                        for i in range(3))
+            prefix = snapshot_prefix(st.kv, t, P, bs)
+            toks, tail = decode_burst_forward(
+                self.cfg, self.params, prefix, b, k0, steps, sample_fn, key,
+                uids=u, quant=self._quant, mixed_gemm=mixed)
+            scatter_tail(st.kv, tail, t, b, bs)
+            return toks
+
+        if not self._cuda:
+            toks = run_on(torch.from_numpy(flat).to(self.device), key_in)
+            return toks.cpu().numpy(), time.perf_counter()
+        self._burst_dev.copy_(self._burst_host, non_blocking=True)
+        if key_in is not None:
+            self._key_dev.copy_(key_in)
+        key_dev = self._key_dev if key_in is not None else None
+        g = self._graph_for(
+            self._burst_graphs, _MAX_BURST_GRAPHS,
+            ("b", steps, sampling.sampler_key, P),
+            lambda: run_on(self._burst_dev, key_dev))
+        self._replay(g)
+        t1 = time.perf_counter()
+        return g.out.cpu().numpy(), t1
 
     # ------------------------------------------------------------------
     def generate(self, prompts: Dict[int, Sequence[int]],
                  sampling: SamplingParams = SamplingParams(),
                  rng: Optional[torch.Tensor] = None
                  ) -> Dict[int, List[int]]:
-        """Run all prompts to max_new_tokens/stop.  ``pipeline_depth >=
-        2`` (the default) keeps steps in flight: host scheduling,
-        staging and token readback overlap device compute, and the
-        sampled tokens feed the next step on the device.  ``rng``: the
-        base key of every step (``utils.prng.PRNGKey(seed)``), or None
-        for the engine's own stream."""
+        """Run all prompts to max_new_tokens/stop.  With ``decode_burst >
+        1``, decode-only rounds run as bursts (the sync driver);
+        otherwise ``pipeline_depth >= 2`` (the default) keeps steps in
+        flight: host scheduling, staging and token readback overlap
+        device compute, and the sampled tokens feed the next step on the
+        device.  ``rng``: the base key of every step
+        (``utils.prng.PRNGKey(seed)``), or None for the engine's own
+        stream."""
         done: Dict[int, List[int]] = {}
         active = set()
         for uid, p in prompts.items():
             done[uid] = []
             if self.put(uid, p):
                 active.add(uid)
-        if self.icfg.pipeline_depth >= 2:
+        if self.icfg.decode_burst <= 1 and self.icfg.pipeline_depth >= 2:
             return self._generate_pipelined(done, active, sampling, rng)
         return self._generate_sync(done, active, sampling, rng)
 
@@ -836,15 +1355,34 @@ class InferenceEngine:
     def _generate_sync(self, done: Dict[int, List[int]], active: set,
                        sampling: SamplingParams,
                        rng: Optional[torch.Tensor]) -> Dict[int, List[int]]:
-        """Strict step-at-a-time driver (``pipeline_depth=1``)."""
+        """Strict step-at-a-time driver (``pipeline_depth=1``, and the
+        burst dispatcher when ``decode_burst > 1``)."""
         i = 0
         draw = self._rng_drawer(rng)
         while active:
             active -= self._drain_reaped()
             if not active:
                 break
-            st = self._dispatch(sampling, draw)
-            outs = self._collect(st) if st is not None else {}
+            pending = {u: t for u, t in self._pending.items() if t}
+            decode_only = pending and all(
+                len(t) == 1 and u in self.state.seqs
+                for u, t in pending.items())
+            burst = 1
+            if decode_only and self.icfg.decode_burst > 1:
+                # uids fed outside this call have no 'done' row: they
+                # force single steps; bursts run only at the full
+                # configured width (a shrinking tail would capture one
+                # graph per remaining count)
+                room = min((sampling.max_new_tokens - len(done[u])
+                            for u in pending if u in done), default=0)
+                burst = (self.icfg.decode_burst
+                         if room >= self.icfg.decode_burst else 1)
+            if burst > 1:
+                outs = self.decode_burst(burst, sampling=sampling,
+                                         rng=draw() if draw else None)
+            else:
+                st = self._dispatch(sampling, draw)
+                outs = self._collect(st) if st is not None else {}
             for uid in list(self._ctx_exhausted):
                 if uid in active:
                     active.discard(uid)
@@ -868,7 +1406,11 @@ class InferenceEngine:
         continuing decodes ride the FEEDBACK_TOKEN marker, so their ids
         come from step N's on-device samples — and only then reads step
         N's tokens back.  A sequence that stops at step N already has a
-        speculative token in flight at N+1, which is discarded."""
+        speculative token in flight at N+1, which is discarded.  With
+        speculation on, a verify window's row and a row whose stream is
+        predictable (``NgramProposer.lookahead``) take no marker: their
+        collect puts the concrete token, on which the next schedule can
+        anchor a draft window."""
         depth = self.icfg.pipeline_depth
         inflight: deque = deque()
         finishing: set = set()    # ctx-exhausted, last token still in flight
@@ -888,9 +1430,14 @@ class InferenceEngine:
                         finishing.add(uid)
                 if st is None:
                     break
+                draft_uids = {u for u, _ in st.drafts}
                 for uid, _slot in st.emit:
                     if uid not in active:
                         continue               # put() outside generate()
+                    if uid in draft_uids or (
+                            self._spec is not None
+                            and self._spec.lookahead(uid)):
+                        continue               # the collect puts the token
                     counts[uid] += 1
                     if counts[uid] >= sampling.max_new_tokens:
                         continue               # finishes by count at emit

@@ -219,6 +219,14 @@ class BatchStager:
             self._bufs.append((host, _views(host.numpy(), self._layout)))
         self._i = 0
 
+    def device_buffer(self, device) -> torch.Tensor:
+        """A flat int32 device tensor of this stager's layout: a fixed
+        home for the staged metadata (``build_batch(..., out=)``), so
+        that a captured step reads its batch from the same addresses
+        every time."""
+        return torch.zeros(_flat_size(self._layout), dtype=torch.int32,
+                           device=device)
+
     def next_buffers(self) -> Tuple[torch.Tensor, Dict[str, np.ndarray]]:
         """The next staging set (flat host tensor, numpy views), reset to
         its fill values."""
@@ -499,7 +507,8 @@ class StateManager:
     def build_batch(self, requests: List[tuple], token_budget: int,
                     stager: Optional[BatchStager] = None,
                     draft_lens: Optional[Dict[int, int]] = None,
-                    n_verify: int = 1) -> RaggedBatch:
+                    n_verify: int = 1,
+                    out: Optional[torch.Tensor] = None) -> RaggedBatch:
         """requests: [(uid, list_of_new_token_ids)]; allocates KV blocks
         and produces the padded device metadata.  A token id of
         :data:`FEEDBACK_TOKEN` (single-token decode continuations only)
@@ -510,7 +519,10 @@ class StateManager:
         ``draft_lens``: per-uid count of trailing SPECULATIVE tokens in
         that request's token list; the sequence is marked draft-pending
         and ``resolve_draft`` commits or rewinds it.  ``n_verify > 1``
-        emits ``verify_idx`` ([max_seqs, n_verify])."""
+        emits ``verify_idx`` ([max_seqs, n_verify]).  ``out``: a device
+        buffer from ``stager.device_buffer`` that receives the metadata
+        (one asynchronous copy from the pinned stager) and that the
+        returned batch views."""
         max_blocks = self.cfg.num_blocks
         T = token_budget
         nv = max(1, n_verify)
@@ -607,16 +619,29 @@ class StateManager:
         # ONE host-to-device copy of the whole metadata set (asynchronous
         # from a pinned stager buffer); the CPU path copies too, so a
         # batch never aliases a staging buffer the host will rewrite
-        if self.device.type == "cpu":
+        if out is not None:
+            dev = out.copy_(host, non_blocking=True)
+        elif self.device.type == "cpu":
             dev = host.clone()
         else:
             dev = host.to(self.device, non_blocking=True)
-        d = _views(dev, _layout(T, self.max_seqs, max_blocks, nv))
-        return RaggedBatch(
-            token_ids=d["token_ids"], positions=d["positions"],
-            seq_slot=d["seq_slot"], token_valid=d["token_valid"].bool(),
-            block_tables=d["block_tables"], context_lens=d["context_lens"],
-            logits_idx=d["logits_idx"], n_tokens=cursor, n_seqs=n_seqs,
-            feedback_src=d["feedback_src"], seq_uids=d["seq_uids"],
-            verify_idx=(d["verify_idx"][:, :n_verify]
-                        if n_verify > 1 else None))
+        return batch_from_flat(dev, (T, self.max_seqs, max_blocks, nv),
+                               cursor, n_seqs, n_verify)
+
+
+def batch_from_flat(flat: torch.Tensor, shape_key: Tuple[int, int, int, int],
+                    n_tokens: int, n_seqs: int,
+                    n_verify: int = 1) -> RaggedBatch:
+    """The :class:`RaggedBatch` whose fields view the flat metadata
+    tensor ``flat`` of layout ``shape_key`` = (token budget, max_seqs,
+    max blocks, verify width of the buffer); ``token_valid`` is the one
+    field computed (a bool copy)."""
+    d = _views(flat, _layout(*shape_key))
+    return RaggedBatch(
+        token_ids=d["token_ids"], positions=d["positions"],
+        seq_slot=d["seq_slot"], token_valid=d["token_valid"].bool(),
+        block_tables=d["block_tables"], context_lens=d["context_lens"],
+        logits_idx=d["logits_idx"], n_tokens=n_tokens, n_seqs=n_seqs,
+        feedback_src=d["feedback_src"], seq_uids=d["seq_uids"],
+        verify_idx=(d["verify_idx"][:, :n_verify]
+                    if n_verify > 1 else None))

@@ -613,9 +613,9 @@ class Model:
     """Config + parameters on one device (``device`` None = the card) +
     the LM loss, for ``deepspeed_tpu_torch.initialize(model=...)``."""
 
-    def __init__(self, cfg: TransformerConfig, seed: int = 0, device=None,
-                 dtype: torch.dtype = torch.float32,
-                 attention_fn: Optional[Callable] = None):
+    def __init__(self, cfg: TransformerConfig, seed: int = 0,
+                 attention_fn: Optional[Callable] = None, *, device=None,
+                 dtype: torch.dtype = torch.float32):
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -635,10 +635,12 @@ class Model:
         return apply(self.config, params, input_ids, **kw)
 
     @classmethod
-    def from_params(cls, cfg: TransformerConfig, params,
+    def from_params(cls, cfg: TransformerConfig, params, param_axes=None,
                     attention_fn: Optional[Callable] = None) -> "Model":
         """Wrap EXISTING parameters (no initializer run); the device is
-        the one the parameters live on."""
+        the one the parameters live on.  ``param_axes`` (the reference's
+        logical-axis tree for sharding) is accepted and ignored: one
+        device shards nothing."""
         _require_supported(cfg)
         m = cls.__new__(cls)
         m.config = cfg

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -109,6 +109,12 @@ def _workspace(device, stream: int, strips: int, floats: int):
         partials = torch.empty(floats, dtype=torch.float32, device=device)
     _workspaces[key] = (counters, partials)
     return counters, partials
+
+
+def held_workspaces(device, stream: int) -> List[torch.Tensor]:
+    """The split workspace of (device, stream) as it stands (for a CUDA
+    graph that captured it to keep)."""
+    return list(_workspaces.get((device.index, stream), ()))
 
 
 def _kernel_fn():

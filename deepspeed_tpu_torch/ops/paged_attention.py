@@ -228,6 +228,21 @@ def _workspace(device, stream: int, plan_ints: int, counter_ints: int,
     return ws
 
 
+def forget_plan(device, stream: int) -> None:
+    """Forget what the plan workspace of (device, stream) holds, so that
+    the next call there runs the plan kernel.  A CUDA graph's replay
+    rewrites the workspace behind the wrapper's back, and a capture must
+    record its first call's plan launch."""
+    _planned.pop((device.index, stream), None)
+
+
+def held_workspaces(device, stream: int) -> List[torch.Tensor]:
+    """The workspaces of (device, stream) as they stand: a CUDA graph
+    that captured them keeps them, so that no later growth frees memory
+    its replays write."""
+    return list(_workspaces.get((device.index, stream), ()))
+
+
 def _kv_parts(kv_layer: KVLayer):
     """(data, scales-or-None) of a paged cache operand."""
     if isinstance(kv_layer, tuple):

@@ -128,7 +128,7 @@ def test_step_api_matches_generate(models, reference):
 
 @pytest.mark.parametrize("field, value", [
     ("attn_impl", "pallas"), ("weight_quant", "fp6"), ("weight_quant", "fp12"),
-    ("decode_burst", 4), ("spec_decode", "on"), ("kv_tier", "on"),
+    ("kv_tier", "on"),
     ("trace", True), ("device_telemetry", "on"), ("anomaly", "on"),
     ("slo", "on"), ("kv_offload", True), ("weight_stream", "/nonexistent"),
     ("comm_quant", "int8"), ("kv_donate", "off")])

@@ -20,11 +20,13 @@ import pytest
 import torch
 
 import tests.test_inference as jax_inference
+from deepspeed_tpu.inference import model as jax_inference_model
 from deepspeed_tpu.inference.engine import \
     InferenceEngine as JaxInferenceEngine
 from deepspeed_tpu.models import transformer as jax_transformer
 from deepspeed_tpu_torch.inference import (InferenceConfig, InferenceEngine,
                                            SamplingParams)
+from deepspeed_tpu_torch.inference import model as port_inference_model
 from deepspeed_tpu_torch.models import (Model, TransformerConfig,
                                         params_from_numpy)
 from deepspeed_tpu_torch.models import transformer as port_transformer
@@ -39,6 +41,13 @@ PAIRS = {
     "InferenceEngine.step": (InferenceEngine.step, JaxInferenceEngine.step),
     "models.transformer.apply": (port_transformer.apply,
                                  jax_transformer.apply),
+    "models.transformer.Model.__init__": (port_transformer.Model.__init__,
+                                          jax_transformer.Model.__init__),
+    "models.transformer.Model.from_params": (
+        port_transformer.Model.from_params,
+        jax_transformer.Model.from_params),
+    "inference.model.ragged_forward": (port_inference_model.ragged_forward,
+                                       jax_inference_model.ragged_forward),
 }
 
 # the positional parameters each port signature must have at least
@@ -47,6 +56,18 @@ MUST_HAVE = {
     "InferenceEngine.step": ["self", "rng", "sampling"],
     "models.transformer.apply": ["cfg", "params", "input_ids", "mask",
                                  "attention_fn", "dtype"],
+    "models.transformer.Model.__init__": ["self", "cfg", "seed",
+                                          "attention_fn"],
+    "models.transformer.Model.from_params": ["cfg", "params", "param_axes",
+                                             "attention_fn"],
+    "inference.model.ragged_forward": ["cfg", "params", "kv", "batch",
+                                       "block_size", "max_blocks_per_seq"],
+}
+
+# keyword-only parameters the reference has no counterpart of: where the
+# port builds its weights (jax places them on its default device)
+PORT_ONLY_KEYWORDS = {
+    "models.transformer.Model.__init__": {"device", "dtype"},
 }
 
 
@@ -63,7 +84,8 @@ def test_positional_order_is_the_reference_order(name):
     assert got[:len(MUST_HAVE[name])] == MUST_HAVE[name]
     kw_only = [p.name for p in inspect.signature(port).parameters.values()
                if p.kind == inspect.Parameter.KEYWORD_ONLY]
-    assert set(kw_only) <= set(inspect.signature(ref).parameters), kw_only
+    assert set(kw_only) <= (set(inspect.signature(ref).parameters)
+                            | PORT_ONLY_KEYWORDS.get(name, set())), kw_only
 
 
 def _models():
@@ -111,3 +133,20 @@ def test_topology_is_the_third_positional():
         InferenceEngine(port, icfg, object())
     with pytest.raises(TypeError):
         InferenceEngine(port, icfg, None, None)
+
+
+def test_model_positionals_are_the_reference_ones():
+    """``Model(cfg, seed, attention_fn)`` takes the attention by position
+    (it raised in ``torch.device`` before), and
+    ``Model.from_params(cfg, params, param_axes)`` takes the axes tree
+    third and ignores it (the loss still runs)."""
+    from deepspeed_tpu_torch.models import build_config
+    from deepspeed_tpu_torch.models.layers import causal_attention
+    cfg = build_config("llama-tiny", vocab_size=64, num_layers=1,
+                       d_model=32, num_heads=2, num_kv_heads=1, d_ff=64,
+                       max_seq_len=16)
+    m = Model(cfg, 0, causal_attention, device="cpu")
+    ids = torch.randint(0, 64, (2, 8))
+    loss = m.loss_fn(m.params, {"input_ids": ids})
+    m2 = Model.from_params(cfg, m.params, {"x": 1})
+    assert torch.equal(m2.loss_fn(m2.params, {"input_ids": ids}), loss)
