@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases device,build,kernel,serve-mqa
     python3 chip_smoke.py --phases device,build,kernel,serve-burst
     python3 chip_smoke.py --phases device,build,kernel,serve-spec
+    python3 chip_smoke.py --phases device,build,kernel,serve-failover
     python3 chip_smoke.py --phases device,build,kernel,train-fp16
 
 Phases, in order; any failure exits non-zero (nothing is caught and
@@ -101,6 +102,30 @@ passed over):
              steps, the first burst's tokens against a step() loop from
              the same state (equal but at near-ties of the teacher-forced
              logits), decode tok/s against phase 6 (a).
+6d. serve-failover — failure domains and the serving seam on phase 5's
+             model, traffic and engine (phase 5 runs with it: its streams
+             are the reference of (b)-(d), under the near-tie rule, which
+             teacher-forces every token after a divergence): (a) a poison
+             request (an injected crash on every batch holding uid 2)
+             quarantined by bisection, status failed, the 7 others
+             finish as the same step() driver's fault-free round; (b)
+             real watchdog expiries: a sleep queued on the
+             engine's stream before a warm decode step's readback, then
+             before the next dispatched step, kills the engine (two
+             abandoned workers) and InferenceEngine.restore of its
+             snapshot finishes every stream (recovery wall time
+             printed); (c) migrate_out on engine A into
+             load_snapshot(merge=True) on engine B after 8 decode steps;
+             (d) a drain cut short by its deadline, its shed requests
+             restored on B; (e) a device-side assert inside the guarded
+             readback of a GPT-2 engine in a child process (the CUDA
+             context is lost): classified fatal, the child's snapshot
+             restored here against an uninterrupted run; (f) the default
+             watchdog's cost: phase 5's enqueue ms and decode tok/s with
+             dispatch_timeout_ms=None and with the default "auto", in
+             turns (off, auto, off, auto) on fresh engines.  K2
+             launches = layers x (dispatched steps + captures) in every
+             scenario, retried steps included.
 7. serve-alibi — BLOOM-7b1 at full width and depth (ALiBi, random bf16
              weights from a seed), run after the Llama model is freed,
              at phase 5's traffic and engine: a first-forward check
@@ -125,7 +150,9 @@ passed over):
              new tokens, budget 256, 256 blocks of 64, depth 1, drafts of
              at most 4, speculation off then on: identical streams, fewer
              steps with it on, paged-attention launches = layers x steps,
-             the acceptance rate and tok/s both ways.
+             the acceptance rate and tok/s both ways; each mode also runs
+             with dispatch_timeout_ms=None, for the default watchdog's
+             cost at depth 1 (tok/s and wait ms a step).
 8. train-fp16 — phi-2 at full width and depth (2.78 B params, 32 layers,
              32 heads of 80) in fp16 with the dynamic loss scaler, run
              after falcon is freed: ZeRO-1, AdamW lr 3e-4, clip 1.0, seq
@@ -148,7 +175,9 @@ count read, by dtype and the head dim the kernel ran at; null when no
 training phase ran; K3 has an entry per weight type and design, timed at
 wi, with the launches of that design in phase 6; K2's entries name the
 designs their timed batch ran, ``design``, and paged_attention_mqa, timed
-on the falcon-7b mixed batch, carries serve-mqa's launches); the last line,
+on the falcon-7b mixed batch, carries serve-mqa's launches;
+paged_attention's ``failover_launches`` are K2's launches in
+serve-failover's scenarios (a)-(d)); the last line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -1204,7 +1233,8 @@ SERVE_NEW_TOKENS = 32
 def serve(torch, pa, model, prompts, tag="serve"):
     """Greedy bf16 serving at phase 5's traffic; returns the bf16-cache
     paged-attention launches (for an ALiBi model, every one of them must
-    carry the slopes) and the rates."""
+    carry the slopes), the rates, the streams and the first forward's
+    bf16 noise tolerance (serve-failover's reference)."""
     from deepspeed_tpu_torch.inference import (InferenceConfig,
                                                InferenceEngine,
                                                SamplingParams)
@@ -1212,7 +1242,7 @@ def serve(torch, pa, model, prompts, tag="serve"):
     cfg = model.config
     alibi = cfg.position == "alibi"
     torch.cuda.reset_peak_memory_stats()
-    first_forward_check(torch, model, prompts, tag)
+    tol = first_forward_check(torch, model, prompts, tag)
 
     icfg = InferenceConfig(**SERVE_ENGINE)
     sp = SamplingParams(max_new_tokens=SERVE_NEW_TOKENS)
@@ -1244,7 +1274,8 @@ def serve(torch, pa, model, prompts, tag="serve"):
     free_engines(torch)
     rates = serve_rates(torch, lambda: InferenceEngine(model, icfg), prompts,
                         ttft, tag)
-    return dict(launches=launches, alibi_launches=alibi_launches, **rates)
+    return dict(launches=launches, alibi_launches=alibi_launches, streams=out,
+                tol=tol, ttft=ttft, **rates)
 
 
 def fresh_run(eng) -> None:
@@ -1333,10 +1364,11 @@ def check_prefix_and_cow(eng, prompts, sp, tag):
     eng.flush(100)
 
 
-def serve_rates(torch, make_engine, prompts, ttft, tag):
+def serve_rates(torch, make_engine, prompts, ttft, tag, profile=True):
     """Prefill alone (1 new token) vs the full 32-token run on fresh
     engines from ``make_engine()``; TTFT (from the main run), token rates,
-    peak memory, host phases per step and the device profile."""
+    peak memory, host phases per step and (``profile``) the device
+    profile."""
     from deepspeed_tpu_torch.inference import SamplingParams
 
     e = make_engine()
@@ -1383,8 +1415,11 @@ def serve_rates(torch, make_engine, prompts, ttft, tag):
         decode=tm["decode_device_ms"] / max(tm["decode_steps"], 1),
         prefill=(tm["device_ms"] - tm["decode_device_ms"])
         / max(tm["steps"] - tm["decode_steps"], 1))
-    rates["device_ms_by_kind"] = device_profile(
-        torch, lambda prof: run(SERVE_NEW_TOKENS, prof)[0], t_all, tag=tag)
+    rates["wait_ms"] = tm["wait_ms"] / n
+    if profile:
+        rates["device_ms_by_kind"] = device_profile(
+            torch, lambda prof: run(SERVE_NEW_TOKENS, prof)[0], t_all,
+            tag=tag)
     del e
     free_engines(torch)
     return rates
@@ -1752,47 +1787,669 @@ def check_near_ties(torch, eng, contexts, got, want, tol, tag):
     """Streams ``got`` and ``want`` ({uid: tokens}) continue the same
     ``contexts``.  Where one diverges, the two tokens at the first
     divergence must both lie within ``tol`` (the bf16 noise tolerance)
-    of the best logit of the teacher-forced forward there (one ragged
-    forward of each context and the common tokens before the
-    divergence, on a fresh cache with the engine's weights): a near-tie,
-    where two bf16 paths that sum in other orders may pick either."""
+    of the best logit of the teacher-forced forward there: a near-tie,
+    where two bf16 paths that sum in other orders may pick either.
+    Every later token of ``got`` is held to the same rule against its
+    own context (the context, then ``got``'s tokens before it), so a
+    stream that resumes wrongly after a near-tie fails.  The forwards
+    run on a fresh cache with the engine's weights: one ragged prefill
+    of each context and the common tokens, then one decode step a
+    token, feeding ``got``'s tokens."""
     from deepspeed_tpu_torch.inference.model import ragged_forward
     from deepspeed_tpu_torch.inference.ragged.state import (KVCacheConfig,
                                                             StateManager)
     diverged = {u: next(j for j, (a, b) in enumerate(zip(got[u], want[u]))
                         if a != b)
                 for u in got if got[u] != want[u]}
-    log(f"[{tag}]: {len(got) - len(diverged)} of {len(got)} streams "
-        f"identical")
+    same = len(got) - len(diverged)
+    log(f"[{tag}]: {same} of {len(got)} streams identical")
     if not diverged:
-        return
+        return same
     cfg = eng.cfg
     bs = eng.icfg.kv_block_size
-    seqs = {u: contexts[u] + got[u][:j] for u, j in diverged.items()}
-    nblk = sum(-(-len(t) // bs) for t in seqs.values())
+    nblk = sum(-(-(len(contexts[u]) + len(got[u])) // bs) for u in diverged)
     sm = StateManager(KVCacheConfig(
         cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, block_size=bs,
         num_blocks=nblk, dtype=eng.icfg.kv_dtype,
         quant=eng.icfg.kv_quant or "none", device=eng.device),
-        max_seqs=len(seqs))
-    batch = sm.build_batch(list(seqs.items()), sum(map(len, seqs.values())))
-    logits, _ = ragged_forward(cfg, eng.params, sm.kv, batch, bs,
-                               -(-max(map(len, seqs.values())) // bs),
-                               quant=eng._quant,
-                               mixed_gemm=eng._mixed_gemm_active)
-    gaps = {}
+        max_seqs=len(diverged))
+
+    def forward(sched):
+        batch = sm.build_batch(sched, sum(len(t) for _, t in sched))
+        ctx = max(sm.seqs[u].seen_tokens for u, _ in sched)
+        logits, _ = ragged_forward(cfg, eng.params, sm.kv, batch, bs,
+                                   -(-ctx // bs), quant=eng._quant,
+                                   mixed_gemm=eng._mixed_gemm_active)
+        return {u: logits[sm.slot(u)] for u, _ in sched}
+
+    def gap(row, t):
+        return float(row.max()) - float(row[t])
+
+    first, later = {}, {}
+    rows = forward([(u, contexts[u] + got[u][:j])
+                    for u, j in diverged.items()])
     for u, j in diverged.items():
-        row = logits[sm.slot(u)]
-        best = float(row.max())
-        gaps[u] = (j, [round(best - float(row[t[j]]), 4)
-                       for t in (got[u], want[u])])
+        first[u] = (j, [round(gap(rows[u], t[j]), 4)
+                        for t in (got[u], want[u])])
+        later[u] = 0.0
+    k = 1
+    while True:
+        sched = [(u, [got[u][j + k - 1]]) for u, j in diverged.items()
+                 if j + k < len(got[u])]
+        if not sched:
+            break
+        for u, row in forward(sched).items():
+            later[u] = max(later[u], gap(row, got[u][diverged[u] + k]))
+        k += 1
     del sm
+    later = {u: round(g, 4) for u, g in later.items()}
     log(f"[{tag}] first divergences (uid: index, how far each stream's "
         f"token lies below the best teacher-forced logit; tol {tol:.4f}): "
-        f"{gaps}")
-    if any(max(g) > tol for _, g in gaps.values()):
+        f"{first}; the largest gap of a later token of each: {later}")
+    if any(max(g) > tol for _, g in first.values()):
         raise AssertionError(f"{tag}: the streams diverge where the logits "
                              "are not a near-tie")
+    if any(g > tol for g in later.values()):
+        raise AssertionError(f"{tag}: a token after a divergence is not "
+                             "the teacher-forced forward's (near-)best")
+    return same
+
+
+# ---------------------------------------------------------------------------
+# serve-failover helpers
+# ---------------------------------------------------------------------------
+
+# scenario (e): GPT-2 at full width in a child process, its engine and
+# traffic, and the step at which the child's guarded readback raises a
+# device-side assert (a sticky CUDA error: the child's context is gone)
+FATAL_ENGINE = dict(token_budget=256, max_seqs=8, kv_block_size=64,
+                    num_kv_blocks=256)
+FATAL_PROMPT_LEN = 64
+FATAL_NEW_TOKENS = 24
+FATAL_AT_STEP = 6
+# scenario (b): the watchdog deadline is this many times the slowest warm
+# step of a rehearsal, and each queued sleep lasts this many deadlines
+EXPIRY_DEADLINE_FACTOR = 3
+EXPIRY_SLEEP_FACTOR = 4
+
+
+def step_loop(eng, done, n_new, on_step=None, on_dead=None):
+    """The step() API's serving loop on the requests of ``done`` ({uid:
+    tokens so far}): feed each sampled token back, flush a request at
+    ``n_new`` tokens, drop the ones the engine closed.  ``on_step(eng,
+    i)`` runs before step i; ``on_dead(eng)`` maps an EngineDeadError to
+    the engine restored from its snapshot.  Returns the engine that
+    finished."""
+    from deepspeed_tpu_torch.inference import SamplingParams
+    from deepspeed_tpu_torch.inference.failures import EngineDeadError
+    sp = SamplingParams(max_new_tokens=1 << 30)
+    active = {u for u, t in done.items() if len(t) < n_new}
+    i = 0
+    while active:
+        i += 1
+        if i > 2000:
+            raise AssertionError(f"step loop wedged with {sorted(active)}")
+        if on_step is not None:
+            on_step(eng, i)
+        try:
+            out = eng.step(sampling=sp)
+        except EngineDeadError:
+            if on_dead is None:
+                raise
+            eng = on_dead(eng)
+            continue
+        active -= eng._drain_reaped()
+        for u, t in out.items():
+            if u not in active:
+                continue
+            done[u].append(t)
+            if len(done[u]) >= n_new:
+                active.discard(u)
+                eng.flush(u)
+            else:
+                eng.put(u, [t])
+    return eng
+
+
+def pool_whole(eng, tag):
+    """Every block of the engine's pool is free again."""
+    al = eng.state.allocator
+    al.assert_invariants()
+    if al.free_blocks != al.total_blocks:
+        raise AssertionError(f"{tag}: {al.total_blocks - al.free_blocks} "
+                             "KV blocks still held")
+
+
+def check_failover_launches(torch, pa, engines, L, tag):
+    """K2 launched layers x (dispatched steps + captures) over the
+    scenario's engines: every replay, retried steps included, and each
+    capture's eager warm-up.  Every step of each engine replayed a graph
+    (captures allowed: new buckets, restored and destination engines);
+    returns the launches."""
+    torch.cuda.synchronize()
+    steps = caps = retraces = 0
+    for i, e in enumerate(engines):
+        tm = dict(e.timings)
+        check_replayed(tm, f"{tag}, engine {i}", captures_ok=True)
+        steps += int(tm["steps"])
+        caps += int(tm["compiles"])
+        retraces += int(tm["compile_retraces"])
+    want = L * (steps + caps)
+    log(f"[{tag}] paged_attention launches={pa.launches} ({L} layers x "
+        f"({steps} dispatched steps + {caps} captures) = {want}); "
+        f"retraces {retraces}")
+    if pa.launches != want:
+        raise AssertionError(f"{tag}: K2 launches do not match the steps")
+    return pa.launches
+
+
+def failover_poison(torch, pa, model, prompts, tol):
+    """(a) A poison request: every batch holding uid 2 crashes (an
+    injected fault), the bisection quarantine isolates it (status
+    ``failed``) and the 7 others finish as the same engine's fault-free
+    round of the same driver (its warm-up), or diverge at near-ties
+    (bisected batches run the GEMMs at other M).
+    Driven through step(): at pipeline depth 2 a failing batch also
+    holds the decodes whose previous step is still in flight, and those
+    close ``failed`` (their stream cannot be replayed), as in the JAX
+    engine.  Returns (K2 launches, the summary line)."""
+    from deepspeed_tpu_torch.inference import (InferenceConfig,
+                                               InferenceEngine)
+    tag = "serve-failover (a) poison"
+    cfg = model.config
+    n = len(prompts)
+    eng = InferenceEngine(model, InferenceConfig(**SERVE_ENGINE))
+    for rnd in ("warm-up", "poison"):
+        fresh_run(eng)
+        if rnd == "poison":
+            keys = set(eng._graphs)
+            pa.launches = 0
+            eng.failures.inject("crash", uid=2, n=1 << 20)
+        done = {u: [] for u in range(n)}
+        for u in range(n):
+            eng.put(u, list(prompts[u]))
+        t0 = time.perf_counter()
+        step_loop(eng, done, SERVE_NEW_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rnd == "warm-up":
+            ref = done
+    tm = eng.timings
+    log(f"[{tag}] step loop in {wall:.3f} s: uid 2 -> "
+        f"{eng.query(2)['status']}, requests_failed="
+        f"{int(tm['requests_failed'])}, step_retries="
+        f"{int(tm['step_retries'])}, {int(tm['steps'])} steps; new graphs "
+        f"for the bisected batches: {sorted(set(eng._graphs) - keys)}")
+    launches = check_failover_launches(torch, pa, [eng], cfg.num_layers, tag)
+    innocents = [u for u in range(n) if u != 2]
+    if eng.query(2)["status"] != "failed" or done[2] \
+            or tm["requests_failed"] != 1 or tm["step_retries"] < 2:
+        raise AssertionError(f"{tag}: uid 2 was not quarantined alone")
+    if any(eng.query(u)["status"] != "finished" for u in innocents):
+        raise AssertionError(f"{tag}: an innocent request did not finish")
+    check_tokens({u: done[u] for u in innocents}, cfg, SERVE_NEW_TOKENS, tag)
+    pool_whole(eng, tag)
+    same = check_near_ties(torch, eng, {u: prompts[u] for u in innocents},
+                           {u: done[u] for u in innocents},
+                           {u: ref[u] for u in innocents}, tol,
+                           f"{tag} vs its fault-free round")
+    summary = (f"(a) poison: uid 2 failed alone after {int(tm['step_retries'])}"
+               f" failed steps, the 7 others finished ({same} identical to "
+               f"the fault-free round, the rest near-ties), "
+               f"{int(tm['compiles'])} "
+               f"captures, pool whole, K2 launches {launches}")
+    del eng
+    free_engines(torch)
+    return launches, summary
+
+
+def sleep_cycles_per_ms(torch):
+    """Cycles of ``torch.cuda._sleep`` a millisecond, measured."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    n = 50_000_000
+    start.record()
+    torch.cuda._sleep(n)
+    end.record()
+    torch.cuda.synchronize()
+    return n / start.elapsed_time(end)
+
+
+def failover_expiry(torch, pa, model, prompts, ref, tol):
+    """(b) Real watchdog expiries on the card: a sleep queued on the
+    engine's stream holds a warm decode step's token event past the
+    deadline (the worker is abandoned in the event wait, the cache is
+    zeroed in place, every sequence re-queued), then the same before
+    the next dispatched step: two expiries in a row, the engine dies,
+    and ``InferenceEngine.restore`` of its snapshot finishes every
+    stream (near-tie rule against phase 5).  Two rehearsals first, with
+    the expiry raised instead (the same recovery path): the first
+    captures every graph the measured run replays (so its steps are
+    guarded), the second times the warm steps the deadline is set
+    from.  Returns (K2 launches, the summary line)."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.inference import (InferenceConfig,
+                                               InferenceEngine)
+    from deepspeed_tpu_torch.inference.failures import (
+        DispatchTimeoutError, FailureConfig)
+    tag = "serve-failover (b) expiry"
+    cfg = model.config
+    L = cfg.num_layers
+    n = len(prompts)
+    eng = InferenceEngine(model, InferenceConfig(
+        **SERVE_ENGINE, failure=FailureConfig(dispatch_timeout_ms=None)))
+    at = {}
+
+    def raise_once(e, i, walls=None):
+        if walls is not None:
+            walls.append((time.perf_counter(), int(e.timings["compiles"])))
+        if "K" not in at and all(done[u] for u in range(n)):
+            at["K"] = i + 2          # a decode step, all 8 rows
+        if i == at.get("K"):
+            fetch = e._fetch_tokens
+
+            def expire(st):
+                e._fetch_tokens = fetch
+                raise DispatchTimeoutError("rehearsed expiry")
+            e._fetch_tokens = expire
+
+    walls = []
+    for rehearsal in (0, 1):
+        fresh_run(eng)
+        done = {u: [] for u in range(n)}
+        for u in range(n):
+            eng.put(u, list(prompts[u]))
+        step_loop(eng, done, SERVE_NEW_TOKENS, on_step=lambda e, i: raise_once(
+            e, i, walls if rehearsal else None))
+        if eng.timings["step_retries"] != 1:
+            raise AssertionError(f"{tag}: the rehearsal took no retry")
+    torch.cuda.synchronize()
+    K = at["K"]
+    warm = [(b[0] - a[0]) * 1e3 for a, b in zip(walls, walls[1:])
+            if b[1] == a[1]]
+    deadline = EXPIRY_DEADLINE_FACTOR * max(warm)
+    sleep_ms = EXPIRY_SLEEP_FACTOR * deadline
+    cycles = int(sleep_ms * sleep_cycles_per_ms(torch))
+    log(f"[{tag}] rehearsals: expiry at step {K} (all 8 rows decoding), "
+        f"{len(warm)} warm steps of {min(warm):.2f}-{max(warm):.2f} ms -> "
+        f"deadline {deadline:.1f} ms, sleeps of {sleep_ms:.1f} ms")
+    eng.fcfg = eng.failures.cfg = dataclasses.replace(
+        eng.fcfg, dispatch_timeout_ms=deadline)
+    fresh_run(eng)
+    pa.launches = 0
+    sleeps = []
+
+    def sleep_before(e, i):
+        if (i == K and not sleeps) or (len(sleeps) == 1 and i > K
+                                       and e._backoff_rounds == 0):
+            with torch.cuda.stream(e._stream):
+                torch.cuda._sleep(cycles)
+            sleeps.append(i)
+
+    restored = []
+    t_dead = {}
+
+    def on_dead(dead):
+        t_dead["dead"] = time.perf_counter()
+        h = dead.health()
+        new = InferenceEngine.restore(model, dead.snapshot(),
+                                      InferenceConfig(**SERVE_ENGINE))
+        t_dead["restored"] = time.perf_counter()
+        log(f"[{tag}] engine dead after sleeps before steps {sleeps}: "
+            f"health {h['state']}, consecutive_timeouts "
+            f"{h['consecutive_timeouts']}, step_retries {h['step_retries']},"
+            f" abandoned workers {dead.failures.watchdog.abandoned}; "
+            f"restore (a new engine, its own graphs) in "
+            f"{(t_dead['restored'] - t_dead['dead']) * 1e3:.1f} ms")
+        restored.append(new)
+        return new
+
+    done = {u: [] for u in range(n)}
+    for u in range(n):
+        eng.put(u, list(prompts[u]))
+    t0 = time.perf_counter()
+    last = step_loop(eng, done, SERVE_NEW_TOKENS, on_step=sleep_before,
+                     on_dead=on_dead)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if not restored or last is not restored[0] or len(sleeps) != 2 \
+            or eng.failures.watchdog.abandoned != 2 \
+            or eng.health()["state"] != "dead":
+        raise AssertionError(f"{tag}: expected two expiries, then a dead "
+                             f"engine and a restore (sleeps {sleeps}, "
+                             f"abandoned {eng.failures.watchdog.abandoned})")
+    log(f"[{tag}] recovery: the death to every stream complete "
+        f"{(t1 - t_dead['dead']) * 1e3:.1f} ms; the whole run "
+        f"{(t1 - t0) * 1e3:.1f} ms; abandoned workers "
+        f"{eng.failures.watchdog.abandoned}")
+    launches = check_failover_launches(torch, pa, [eng, last], L, tag)
+    check_tokens(done, cfg, SERVE_NEW_TOKENS, tag)
+    pool_whole(last, tag)
+    same = check_near_ties(torch, last, dict(enumerate(prompts)), done,
+                           {u: ref[u] for u in range(n)}, tol,
+                           f"{tag} vs phase 5")
+    summary = (f"(b) expiry: deadline {deadline:.1f} ms, two expiries then "
+               f"dead, {eng.failures.watchdog.abandoned} abandoned workers, "
+               f"restore {(t_dead['restored'] - t_dead['dead']) * 1e3:.1f} "
+               f"ms, death to every stream complete "
+               f"{(t1 - t_dead['dead']) * 1e3:.1f} ms, {same} of {n} streams "
+               f"identical to phase 5, K2 launches {launches}")
+    del eng, last, restored
+    free_engines(torch)
+    return launches, summary
+
+
+def failover_migrate_drain(torch, pa, model, prompts, ref, tol):
+    """(c) Engines A and B serve half the traffic each; after 8 decode
+    steps ``B.load_snapshot(A.migrate_out(...), merge=True)`` moves A's
+    open requests (``migrated`` on A; B writes no new cache tensor) and
+    every stream completes.  (d) ``A.drain`` over the whole traffic after
+    one prefill step, cut short by a deadline of 1.5 times that step's
+    wall (warm: A ran its key in (c)); its ``shed_uids`` restore
+    on B and finish; ``completed_uids`` and ``shed_uids`` partition the
+    requests open at the start.  Both against phase 5 (near-tie rule).
+    Returns {"c": (K2 launches, summary line), "d": (...)}."""
+    from deepspeed_tpu_torch.inference import (InferenceConfig,
+                                               InferenceEngine,
+                                               SamplingParams)
+    cfg = model.config
+    L = cfg.num_layers
+    n = len(prompts)
+    icfg = InferenceConfig(**SERVE_ENGINE)
+    A, B = InferenceEngine(model, icfg), InferenceEngine(model, icfg)
+    sp = SamplingParams(max_new_tokens=1 << 30)
+    res = {}
+
+    # (c) migration
+    tag = "serve-failover (c) migration"
+    pa.launches = 0
+    done = {u: [] for u in range(n)}
+    half = n // 2
+    for u in range(n):
+        (A if u < half else B).put(u, list(prompts[u]))
+
+    def one(eng):
+        for u, t in eng.step(sampling=sp).items():
+            done[u].append(t)
+            eng.put(u, [t])
+    decodes = 0
+    t0 = time.perf_counter()
+    while decodes < 8:
+        one(A)
+        one(B)
+        if all(done[u] for u in range(n)):
+            decodes += 1
+    moved = [u for u in range(half) if A.query(u)["status"] == "running"]
+    kv_ptr = B.state.kv.data_ptr()
+    t1 = time.perf_counter()
+    part = A.migrate_out(moved)
+    B.load_snapshot(part, merge=True)
+    t2 = time.perf_counter()
+    step_loop(B, done, SERVE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    log(f"[{tag}] after {decodes} decode steps on A and B ({t1 - t0:.3f} "
+        f"s): migrate_out({moved}) + load_snapshot(merge=True) in "
+        f"{(t2 - t1) * 1e3:.2f} ms; B finished every stream in "
+        f"{t3 - t2:.3f} s; statuses on A "
+        f"{[A.query(u)['status'] for u in moved]}")
+    if [r["uid"] for r in part["requests"]] != moved or len(moved) != half \
+            or any(A.query(u)["status"] != "migrated" for u in moved) \
+            or B.state.kv.data_ptr() != kv_ptr:
+        raise AssertionError(f"{tag}: the open requests did not move")
+    k2 = check_failover_launches(torch, pa, [A, B], L, tag)
+    check_tokens(done, cfg, SERVE_NEW_TOKENS, tag)
+    pool_whole(A, tag)
+    pool_whole(B, tag)
+    same = check_near_ties(torch, B, dict(enumerate(prompts)), done,
+                           {u: ref[u] for u in range(n)}, tol,
+                           f"{tag} vs phase 5")
+    res["c"] = (k2, f"(c) migration: uids {moved} moved A -> B in "
+                    f"{(t2 - t1) * 1e3:.2f} ms (migrated on A, B's cache "
+                    f"kept), every stream finished ({same} identical to "
+                    f"phase 5), both pools whole, K2 launches {k2}")
+
+    # (d) drain
+    tag = "serve-failover (d) drain"
+    fresh_run(A)
+    fresh_run(B)
+    pa.launches = 0
+    done = {u: [] for u in range(n)}
+    for u in range(n):
+        A.put(u, list(prompts[u]))
+    t0 = time.perf_counter()
+    one(A)
+    torch.cuda.synchronize()
+    deadline = 1.5 * (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    snap = A.drain(deadline_ms=deadline)
+    t1 = time.perf_counter()
+    shed, completed = snap["shed_uids"], snap["completed_uids"]
+    unstarted = [r["uid"] for r in snap["requests"] if not r["generated"]]
+    log(f"[{tag}] drain(deadline_ms={deadline:.1f}) in {(t1 - t0) * 1e3:.1f}"
+        f" ms, {int(A.timings['steps'])} steps on A: shed {shed}, completed "
+        f"{completed}, never reached a first token {unstarted}; health "
+        f"{A.health()['state']}")
+    if set(shed) | set(completed) != set(range(n)) \
+            or set(shed) & set(completed) or not unstarted:
+        raise AssertionError(f"{tag}: the drain was not cut short, or its "
+                             "split is not a partition of the open requests")
+    recs = {r["uid"]: r for r in snap["requests"]}
+    B.load_snapshot({"version": snap["version"],
+                     "requests": [recs[u] for u in shed]}, merge=True)
+    step_loop(B, done, SERVE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    log(f"[{tag}] B finished the shed requests in "
+        f"{time.perf_counter() - t1:.3f} s")
+    k2 = check_failover_launches(torch, pa, [A, B], L, tag)
+    check_tokens(done, cfg, SERVE_NEW_TOKENS, tag)
+    pool_whole(A, tag)
+    pool_whole(B, tag)
+    same = check_near_ties(torch, B, dict(enumerate(prompts)), done,
+                           {u: ref[u] for u in range(n)}, tol,
+                           f"{tag} vs phase 5")
+    res["d"] = (k2, f"(d) drain: cut by its {deadline:.1f} ms deadline after "
+                    f"{(t1 - t0) * 1e3:.1f} ms, shed {shed} (completed "
+                    f"{completed}) finished on B ({same} identical to phase "
+                    f"5), both pools whole, K2 launches {k2}")
+    del A, B
+    free_engines(torch)
+    return res
+
+
+def fatal_model(torch, seed):
+    """Scenario (e)'s GPT-2 at full width and depth (random bf16 weights
+    from ``seed``) and its 8 prompts of 64 random tokens; the same in the
+    child and the parent."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.models import build_model
+    model = build_model("gpt2", seed=seed, dtype=torch.bfloat16,
+                        max_seq_len=1024)
+    r = np.random.RandomState(seed + 1)
+    prompts = [[int(x) for x in r.randint(0, model.config.vocab_size,
+                                          FATAL_PROMPT_LEN)]
+               for _ in range(FATAL_ENGINE["max_seqs"])]
+    return model, prompts
+
+
+def fatal_child(out_path: str, seed: int) -> None:
+    """Scenario (e)'s child process: serve GPT-2 for a few steps, then
+    raise a device-side assert (an out-of-range gather on the card)
+    inside the guarded readback, on the watchdog's worker thread; the
+    error must classify ``fatal`` and ``step()`` raise EngineDeadError.
+    The host-side snapshot of the dead engine is pickled to
+    ``out_path``; the process ends without tearing the CUDA context
+    down (every CUDA call fails after a sticky error)."""
+    import os
+    import pickle
+
+    import torch
+
+    from deepspeed_tpu_torch.inference import (InferenceConfig,
+                                               InferenceEngine)
+    from deepspeed_tpu_torch.inference.failures import (EngineDeadError,
+                                                        FailureConfig,
+                                                        classify_failure)
+    model, prompts = fatal_model(torch, seed)
+    eng = InferenceEngine(model, InferenceConfig(
+        **FATAL_ENGINE, failure=FailureConfig(dispatch_timeout_ms=30_000.0)))
+    done = {u: [] for u in range(len(prompts))}
+    for u, p in enumerate(prompts):
+        eng.put(u, p)
+    fetch = eng._fetch_tokens
+    seen = {}
+
+    def asserting_fetch(st):
+        import threading
+        seen["thread"] = threading.current_thread().name
+        with torch.cuda.stream(eng._stream):
+            x = torch.zeros(4, device=eng.device)
+            x[torch.full((1,), 7, device=eng.device)]
+        try:
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 — recorded, then re-raised
+            seen["error"] = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+            seen["verdict"] = classify_failure(e)
+            raise
+        return fetch(st)
+
+    def arm(e, i):
+        if i == FATAL_AT_STEP:
+            e._fetch_tokens = asserting_fetch
+
+    dead = None
+    try:
+        step_loop(eng, done, FATAL_NEW_TOKENS, on_step=arm)
+    except EngineDeadError as e:
+        dead = str(e).splitlines()[0]
+    with open(out_path, "wb") as f:
+        pickle.dump(dict(snap=eng.snapshot(), health=eng.health(), done=done,
+                         dead=dead, steps=int(eng.timings["steps"]), **seen),
+                    f)
+    print(f"[serve-failover (e) child] dead={dead!r} error="
+          f"{seen.get('error')!r} verdict={seen.get('verdict')!r} on thread "
+          f"{seen.get('thread')!r}", flush=True)
+    os._exit(0)
+
+
+def failover_fatal(torch, pa, seed):
+    """(e) A real fatal error, in a child process (the CUDA context is
+    unusable after it): the child's snapshot restores on a fresh GPT-2
+    engine here, and every stream completes equal to an uninterrupted
+    run here (or differs first at a near-tie).  Returns the summary
+    line."""
+    import pickle
+    import subprocess
+    import tempfile
+
+    from deepspeed_tpu_torch.inference import (InferenceConfig,
+                                               InferenceEngine)
+    tag = "serve-failover (e) fatal"
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "snapshot.pkl")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--failover-child", path, "--seed", str(seed)],
+            capture_output=True, text=True, timeout=600)
+        t1 = time.perf_counter()
+        for line in proc.stdout.strip().splitlines()[-5:]:
+            log(f"[{tag}] child: {line}")
+        if proc.returncode != 0 or not Path(path).exists():
+            log(proc.stderr[-4000:])
+            raise AssertionError(f"{tag}: the child failed "
+                                 f"(exit {proc.returncode})")
+        with open(path, "rb") as f:
+            res = pickle.load(f)
+    log(f"[{tag}] child ran {res['steps']} steps and died in {t1 - t0:.1f} s"
+        f" (process included): {res['error']} -> {res['verdict']} on "
+        f"{res['thread']}; health {res['health']['state']}; snapshot of "
+        f"{len(res['snap']['requests'])} requests")
+    if res["verdict"] != "fatal" or res["dead"] is None \
+            or "device-side assert" not in res["error"] \
+            or res["health"]["state"] != "dead":
+        raise AssertionError(f"{tag}: the device-side assert did not kill "
+                             "the engine as fatal")
+    model, prompts = fatal_model(torch, seed)
+    cfg = model.config
+    icfg = InferenceConfig(**FATAL_ENGINE)
+    tol = first_forward_check(torch, model, prompts, tag)
+    pa.launches = 0
+    ref_eng = InferenceEngine(model, icfg)
+    ref = {u: [] for u in range(len(prompts))}
+    for u, p in enumerate(prompts):
+        ref_eng.put(u, p)
+    step_loop(ref_eng, ref, FATAL_NEW_TOKENS)
+    t0 = time.perf_counter()
+    eng = InferenceEngine.restore(model, res["snap"], icfg)
+    done = res["done"]
+    step_loop(eng, done, FATAL_NEW_TOKENS)
+    torch.cuda.synchronize()
+    log(f"[{tag}] restored here and finished in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    k2 = check_failover_launches(torch, pa, [ref_eng, eng], cfg.num_layers,
+                                 tag)
+    check_tokens(done, cfg, FATAL_NEW_TOKENS, tag)
+    pool_whole(eng, tag)
+    same = check_near_ties(torch, eng, dict(enumerate(prompts)), done, ref,
+                           tol, f"{tag} vs an uninterrupted run")
+    del eng, ref_eng, model
+    free_engines(torch)
+    return (f"(e) fatal: {res['error']} in the child's guarded readback -> "
+            f"{res['verdict']}, EngineDeadError, snapshot restored here, "
+            f"{same} of {len(prompts)} streams identical to an "
+            f"uninterrupted run, K2 launches {k2} (GPT-2)")
+
+
+def failover_watchdog_cost(torch, model, prompts, ttft):
+    """(f) The default FailureConfig's cost: phase 5's rates on fresh
+    engines with dispatch_timeout_ms=None and with the default "auto"
+    watchdog (which guards every read after the 8th step of a run), in
+    turns (off, auto, off, auto) in this call.  Returns the rates by
+    turn."""
+    from deepspeed_tpu_torch.inference import (InferenceConfig,
+                                               InferenceEngine)
+    from deepspeed_tpu_torch.inference.failures import FailureConfig
+    tag = "serve-failover (f) watchdog cost"
+    rows = []
+    for name in ("off", "auto", "off", "auto"):
+        fcfg = FailureConfig(dispatch_timeout_ms=None if name == "off"
+                             else "auto")
+        icfg = InferenceConfig(**SERVE_ENGINE, failure=fcfg)
+        rows.append((name, serve_rates(
+            torch, lambda icfg=icfg: InferenceEngine(model, icfg), prompts,
+            ttft, f"{tag}, {name}", profile=False)))
+    for name, r in rows:
+        log(f"[{tag}] {name}: enqueue a decode step "
+            f"{r['enqueue_ms']['decode']:.3f} ms, a prefill step "
+            f"{r['enqueue_ms']['prefill']:.3f} ms; wait a step "
+            f"{r['wait_ms']:.3f} ms; decode {r['decode_tok_s']:.1f} tok/s")
+    return rows
+
+
+def serve_failover(torch, pa, model, prompts, phase5, seed):
+    """serve-failover: scenarios (a)-(f) on phase 5's model, traffic and
+    engine; the reference streams are phase 5's own.  Ends with one
+    ``[serve-failover]`` line a scenario; returns K2's launches over the
+    Llama scenarios (a)-(d)."""
+    ref, tol = phase5["streams"], phase5["tol"]
+    runs = [failover_poison(torch, pa, model, prompts, tol),
+            failover_expiry(torch, pa, model, prompts, ref, tol)]
+    md = failover_migrate_drain(torch, pa, model, prompts, ref, tol)
+    runs += [md["c"], md["d"]]
+    lines = [summary for _, summary in runs]
+    lines.append(failover_fatal(torch, pa, seed))
+    rows = failover_watchdog_cost(torch, model, prompts, phase5["ttft"])
+    lines.append("(f) watchdog cost: " + "; ".join(
+        f"{name} {r['enqueue_ms']['decode']:.3f} ms a decode step, "
+        f"{r['decode_tok_s']:.1f} tok/s" for name, r in rows))
+    k2 = sum(k2 for k2, _ in runs)
+    lines.append(f"K2 launches over (a)-(d): {k2}")
+    for line in lines:
+        log(f"[serve-failover] {line}")
+    return k2
 
 
 # bench.py's spec_decode_serving_bench (:1111-1187): GPT-2, 8 prompts of
@@ -1806,7 +2463,9 @@ SPEC_NEW_TOKENS = 96
 
 def serve_spec(torch, pa, seed, device=None, **overrides):
     """serve-spec: GPT-2 at full width and depth (random bf16 weights from
-    ``seed``), speculation off then on, each after a warm-up run.  Checks:
+    ``seed``), speculation off then on, each with the default watchdog
+    and with none (its cost at depth 1), each after a warm-up run.
+    Checks:
     the two token streams identical; fewer steps with speculation on;
     paged-attention launches = layers x steps (verify steps launch it);
     every measured step a replay.  Bitwise identity is not attainable in
@@ -1819,6 +2478,7 @@ def serve_spec(torch, pa, seed, device=None, **overrides):
     from deepspeed_tpu_torch.inference import (InferenceConfig,
                                                InferenceEngine,
                                                SamplingParams)
+    from deepspeed_tpu_torch.inference.failures import FailureConfig
     from deepspeed_tpu_torch.models import build_model
     tag = "serve-spec"
     model = build_model("gpt2", seed=seed, dtype=torch.bfloat16,
@@ -1834,30 +2494,40 @@ def serve_spec(torch, pa, seed, device=None, **overrides):
     sp = SamplingParams(max_new_tokens=SPEC_NEW_TOKENS)
     tol = first_forward_check(torch, model, prompts, tag)
     res, streams = {}, {}
-    for mode in ("off", "on"):
-        eng = InferenceEngine(model, InferenceConfig(**SPEC_ENGINE,
-                                                     spec_decode=mode))
-        warm_graphs(torch, eng, prompts, (SPEC_NEW_TOKENS,),
-                    f"{tag} {mode}")
+    # each mode with the default "auto" watchdog, then with none: at depth
+    # 1 the guarded read's thread hand-off is on every step's path
+    for mode, wd in (("off", "auto"), ("off", None), ("on", "auto"),
+                     ("on", None)):
+        run = mode if wd else f"{mode}, watchdog off"
+        eng = InferenceEngine(model, InferenceConfig(
+            **SPEC_ENGINE, spec_decode=mode,
+            failure=FailureConfig(dispatch_timeout_ms=wd)))
+        warm_graphs(torch, eng, prompts, (SPEC_NEW_TOKENS,), f"{tag} {run}")
         pa.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        streams[mode] = eng.generate(dict(enumerate(prompts)), sp)
+        streams[run] = eng.generate(dict(enumerate(prompts)), sp)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         tm = dict(eng.timings)
         steps = int(tm["steps"])
-        produced = sum(len(v) for v in streams[mode].values())
-        res[mode] = dict(tok_s=produced / dt, steps=steps,
-                         launches=pa.launches)
+        produced = sum(len(v) for v in streams[run].values())
+        res[run] = dict(tok_s=produced / dt, steps=steps,
+                        launches=pa.launches,
+                        enqueue_ms=tm["decode_device_ms"]
+                        / max(tm["decode_steps"], 1),
+                        wait_ms=tm["wait_ms"] / max(steps, 1),
+                        guarded=eng.failures.deadline_ms() is not None)
         acc = (tm["spec_accepted_tokens"] / tm["spec_drafted_tokens"]
                if tm["spec_drafted_tokens"] else None)
-        if mode == "on":
+        if run == "on":
             res["acceptance_rate"] = acc
             res["mean_accepted"] = (tm["spec_accepted_tokens"]
                                     / max(tm["spec_windows"], 1))
-        log(f"[{tag}] spec {mode}: {produced} tokens in {steps} steps, "
-            f"{dt:.3f} s = {produced / dt:.1f} tok/s; paged_attention "
+        log(f"[{tag}] spec {run}: {produced} tokens in {steps} steps, "
+            f"{dt:.3f} s = {produced / dt:.1f} tok/s; enqueue a decode "
+            f"step {res[run]['enqueue_ms']:.3f} ms, wait a step "
+            f"{res[run]['wait_ms']:.3f} ms; paged_attention "
             f"launches={pa.launches} ({cfg.num_layers} x {steps} = "
             f"{cfg.num_layers * steps}); windows "
             f"{int(tm['spec_windows'])}, drafted "
@@ -1865,19 +2535,31 @@ def serve_spec(torch, pa, seed, device=None, **overrides):
             f"{int(tm['spec_accepted_tokens'])}, rejected "
             f"{int(tm['spec_rejected_tokens'])}"
             + (f", acceptance rate {acc:.3f}" if acc is not None else ""))
-        check_replayed(tm, f"{tag} {mode}")
-        check_tokens(streams[mode], cfg, SPEC_NEW_TOKENS, tag)
+        check_replayed(tm, f"{tag} {run}")
+        check_tokens(streams[run], cfg, SPEC_NEW_TOKENS, tag)
         if pa.launches != cfg.num_layers * steps or steps == 0:
-            raise AssertionError(f"{tag} {mode}: paged attention did not "
+            raise AssertionError(f"{tag} {run}: paged attention did not "
                                  "run in every layer of every step")
+        if res[run]["guarded"] != bool(wd):
+            raise AssertionError(f"{tag} {run}: the watchdog is "
+                                 f"{'off' if wd else 'on'}")
         del eng
         free_engines(torch)
     log(f"[{tag}] steps {res['off']['steps']} -> {res['on']['steps']}; "
         f"decode tok/s {res['off']['tok_s']:.1f} -> {res['on']['tok_s']:.1f}"
         f" ({res['on']['tok_s'] / res['off']['tok_s']:.2f}x)")
+    log(f"[{tag}] the default watchdog's cost at depth 1 (off -> auto): "
+        + "; ".join(f"spec {m} {res[m + ', watchdog off']['tok_s']:.1f} -> "
+                    f"{res[m]['tok_s']:.1f} tok/s, wait a step "
+                    f"{res[m + ', watchdog off']['wait_ms']:.3f} -> "
+                    f"{res[m]['wait_ms']:.3f} ms" for m in ("off", "on")))
     ref = InferenceEngine(model, InferenceConfig(**SPEC_ENGINE))
     check_near_ties(torch, ref, dict(enumerate(prompts)), streams["on"],
                     streams["off"], tol, f"{tag} on vs off")
+    for m in ("off", "on"):
+        check_near_ties(torch, ref, dict(enumerate(prompts)), streams[m],
+                        streams[f"{m}, watchdog off"], tol,
+                        f"{tag} {m}, watchdog auto vs off")
     del ref
     if res["on"]["steps"] >= res["off"]["steps"]:
         raise AssertionError(f"{tag}: speculation took no fewer steps")
@@ -2156,9 +2838,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="device,build,kernel,train,train-fp32,serve,"
-                            "serve-quant,serve-burst,serve-alibi,serve-mqa,"
-                            "serve-spec,train-fp16")
+                            "serve-quant,serve-burst,serve-failover,"
+                            "serve-alibi,serve-mqa,serve-spec,train-fp16")
     ap.add_argument("--seed", type=int, default=0)
+    # serve-failover (e) runs this script again as its child process
+    ap.add_argument("--failover-child", metavar="SNAPSHOT_PATH",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -2171,6 +2856,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.failover_child:
+        fatal_child(args.failover_child, args.seed)   # never returns
     import importlib
 
     from deepspeed_tpu_torch.ops import BUILDERS, build_all
@@ -2259,14 +2946,17 @@ def main() -> int:
             flash_runs.append(train(torch, fa, args.seed, run))
             phase_done(run)
 
-    # 5., 6. and 6c. the serving paths, bf16, quantized and in decode
-    # bursts, on one model
-    launches = None
+    # 5., 6., 6c. and 6d. the serving paths, bf16, quantized, in decode
+    # bursts and under failures, on one model
+    launches = failover_launches = None
     quant_runs = {}
-    if phases & {"serve", "serve-quant", "serve-burst"}:
+    if phases & {"serve", "serve-quant", "serve-burst", "serve-failover"}:
         model, prompts = serving_model(torch, "llama3-8b", args.seed)
-        if "serve" in phases:
-            launches = serve(torch, pa, model, prompts)["launches"]
+        phase5 = None
+        if phases & {"serve", "serve-failover"}:
+            # serve-failover's reference streams are phase 5's own
+            phase5 = serve(torch, pa, model, prompts)
+            launches = phase5["launches"]
         if "serve-quant" in phases:
             for tag, over in QUANT_RUNS:
                 quant_runs[tag] = serve_quant(torch, pa, mg, model, prompts,
@@ -2275,9 +2965,12 @@ def main() -> int:
             serve_burst(torch, pa, mg, model, prompts, decode_ref=(
                 quant_runs["a"]["decode_tok_s"] if "a" in quant_runs
                 else None))
-        del model
-        torch.cuda.empty_cache()
-        phase_done("serve, serve-quant, serve-burst")
+        if "serve-failover" in phases:
+            failover_launches = serve_failover(torch, pa, model, prompts,
+                                               phase5, args.seed)
+        del model, phase5
+        free_engines(torch)
+        phase_done("serve, serve-quant, serve-burst, serve-failover")
 
     # 7. BLOOM-7b1 with ALiBi, after the Llama model is freed
     alibi_run = {}
@@ -2338,8 +3031,11 @@ def main() -> int:
             return quant_runs[run]["launches"][key] if run in quant_runs \
                 else None
 
+        # K2 on serve-failover's Llama scenarios (a)-(d), a path of its
+        # own (the counts zeroed before each scenario, read after it)
         entries = [dict(name="paged_attention", route="cuda", source=pa_src,
-                        replaces=pa_replaces, launches=launches, **kern)]
+                        replaces=pa_replaces, launches=launches,
+                        failover_launches=failover_launches, **kern)]
         entries += [dict(name=f"paged_attention_{code}kv", route="cuda",
                          source=pa_src, replaces=pa_replaces,
                          launches=quant_launches(run, "kv"),

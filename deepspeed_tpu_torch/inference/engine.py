@@ -13,15 +13,20 @@ through the mixed-input GEMM (``mixed_gemm``) and an int8/fp8 KV cache
 with the JAX engine's key stream, decode bursts (``decode_burst``: the
 ``decode_burst()`` method, and ``generate`` at ``decode_burst > 1``) and
 model-free speculative decoding (``spec_decode="on"``: prompt-lookup
-drafts, one verify step a window, the longest matching prefix accepted).
+drafts, one verify step a window, the longest matching prefix accepted),
+failure domains (``failure``: the watchdog, the classifier, retries and
+the bisection quarantine, ``inference/failures.py``) and the seam the
+router and the gateway call (``health``, ``snapshot``,
+``snapshot_requests``, ``migrate_out``, ``handoff_out``,
+``load_snapshot``, ``restore``, ``drain``, ``put(..., slo_class=)``),
+with request records in the copied ``telemetry.lifecycle.RequestTracker``.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item when its config field is set away from the default): the
-attention-implementation probe, failure domains and the watchdog
-(Queue 1 item 1b), telemetry (tracing, device telemetry, anomaly
-detection, SLOs, captures), the KV tier, the fp6/fp12 minifloat weight
-layouts, KV offload (Queue 1 item 4), weight streaming and tensor
-parallelism.
+attention-implementation probe, telemetry (tracing, device telemetry,
+anomaly detection, SLOs, captures, the flight recorder), the KV tier,
+the fp6/fp12 minifloat weight layouts, KV offload (Queue 1 item 4),
+weight streaming and tensor parallelism.
 
 API:
     eng = InferenceEngine(model, InferenceConfig(...))
@@ -62,6 +67,22 @@ from there into a ring of pinned host buffers (non-blocking), and an
 event is recorded behind the copy; the collect waits on that event only.
 A blocking ``.cpu()`` of step N after step N+1 was enqueued would wait
 for step N+1 too and silently serialise the pipeline.
+
+Failure domains: a step's replay (with its token copies and event), a
+burst's replay (with its) and the wait on such an event with the host
+read behind it run through ``FailurePolicy.run``.  Only the wait and the
+read run under the watchdog's deadline, on a worker thread: they write
+nothing, so a call the watchdog abandons cannot land stale writes later.
+The replays (and a capture riding one), the staging and the schedule
+stay inline on the caller's thread; a hung device shows in the next
+read.
+A failure the classifier recognises degrades to a retry, a bisection
+quarantine (status ``failed`` for the poison request) or a dead engine
+(``EngineDeadError``; ``snapshot()`` reads host state only, so it works
+after a sticky CUDA error too).  A real (not injected) failure may have
+left the cache half written: every live sequence is re-queued and the
+cache is zeroed in place on the engine's stream, so the captured graphs,
+which hold its address, stay valid.
 """
 
 from __future__ import annotations
@@ -85,9 +106,15 @@ from ..ops.paged_attention import forget_plan
 from ..ops.paged_attention import held_workspaces as _paged_workspaces
 from ..ops.quant import (WEIGHT_QUANT_BITS, QuantizedTensor,
                          is_mixed_gemm_layout, is_rowwise_int4)
+from ..telemetry.lifecycle import RequestTracker
+from ..telemetry.metrics import MetricsRegistry
 from ..utils.logging import logger
 from ..utils.prng import PRNGKey, split
 from . import model as _model_mod
+from .failures import (FATAL_ENGINE, POISON_STEP, DispatchTimeoutError,
+                       EngineDeadError, FailureConfig, FailurePolicy,
+                       InjectedFault, InjectedTimeout, bisect_groups,
+                       classify_failure)
 from .model import (decode_burst_forward, pipelined_ragged_step,
                     scatter_tail, snapshot_prefix)
 from .overload import (AdmissionVerdict, OverloadConfig, RequestMeta,
@@ -151,7 +178,9 @@ class InferenceConfig:
     spec_max_draft: int = 4
     # overload policy (inference/overload.py); None = OverloadConfig()
     overload: Optional[OverloadConfig] = None
-    failure: Optional[object] = None
+    # failure domains (inference/failures.py); None = FailureConfig():
+    # the "auto" watchdog engages after 8 steps
+    failure: Optional[FailureConfig] = None
     kv_tier: str = "auto"
     kv_tier_ram_mb: float = 64.0
     kv_tier_dir: Optional[str] = None
@@ -179,8 +208,7 @@ _UNSUPPORTED = {
     "anomaly": (("auto", "off"), _HOST),
     "anomaly_cfg": ((None,), _HOST),
     "profile": ((None,), _HOST),
-    "failure": ((None,), "ROADMAP Queue 1 item 1b, failure domains"),
-    "kv_tier": (("auto", "off"), _HOST),
+    "kv_tier":(("auto", "off"), _HOST),
     "slo": (("auto", "off"), _HOST),
     "slo_objectives": ((None,), _HOST),
 }
@@ -195,8 +223,10 @@ class _InFlight(NamedTuple):
     tensor ([max_seqs], or [max_seqs, W] on a speculating engine), its
     host copy and the event recorded behind that copy, the (uid, slot)
     emission list frozen at dispatch time, the dispatch sequence number,
-    every uid it scheduled tokens for, the draft windows it verifies and
-    the stop token of its sampler."""
+    every uid it scheduled tokens for, the draft windows it verifies,
+    the stop token of its sampler, the prefix-cache (digest, block)
+    entries its build registered (a collect failure withdraws exactly
+    these)."""
     toks: torch.Tensor
     host: torch.Tensor
     event: Optional[torch.cuda.Event]
@@ -205,6 +235,7 @@ class _InFlight(NamedTuple):
     uids: Tuple[int, ...] = ()
     drafts: Tuple[Tuple[int, Tuple[int, ...]], ...] = ()
     stop: Optional[int] = None
+    registered: Tuple[Tuple[bytes, int], ...] = ()
 
 
 _TIMINGS = ("schedule_ms", "stage_ms", "device_ms", "wait_ms",
@@ -213,7 +244,10 @@ _TIMINGS = ("schedule_ms", "stage_ms", "device_ms", "wait_ms",
             "decode_device_ms", "bursts", "burst_iterations", "compiles",
             "compile_ms", "compile_retraces", "graph_replays",
             "spec_drafted_tokens", "spec_accepted_tokens",
-            "spec_rejected_tokens", "spec_windows")
+            "spec_rejected_tokens", "spec_windows", "step_retries",
+            "requests_failed")
+
+_HEALTH_CODE = {"healthy": 0, "degraded": 1, "draining": 2, "dead": 3}
 
 
 def _launch_counted():
@@ -378,6 +412,7 @@ class InferenceEngine:
         self._graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
         self._burst_graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
         self._captured_ever: set = set()
+        self._steps_done = 0
         if self._cuda:
             self._setup_graph_buffers()
         # the engine's own key stream (a sampler without a caller key);
@@ -395,13 +430,32 @@ class InferenceEngine:
         self._preempt_gen: Dict[int, List[int]] = {}  # pre-eviction tokens
         self._closing: Dict[int, str] = {}        # uid -> staged status
         self._reaped: set = set()   # engine-closed uids drivers must drop
-        # request records: open uids (arrival time), terminal statuses
-        # (ring of ``status_retention``), forgotten uids, first-token ms
-        self._open: Dict[int, float] = {}
-        self._finished: "OrderedDict[int, str]" = OrderedDict()
-        self._forgotten: "OrderedDict[int, None]" = OrderedDict()
+        # request records (lifecycle, terminal statuses in a ring of
+        # ``status_retention``), first-token ms by uid
+        self.metrics = MetricsRegistry()
+        self.requests = RequestTracker(
+            self.metrics, max_finished=self.ocfg.status_retention)
+        self._health_gauge = self.metrics.gauge(
+            "serving_health_state",
+            "engine health: 0=healthy 1=degraded 2=draining 3=dead")
         self.ttft_ms: Dict[int, float] = {}
         self.timings: Dict[str, float] = dict.fromkeys(_TIMINGS, 0)
+        # --- failure-domain state (inference/failures.py) --------------
+        self.fcfg = self.icfg.failure or FailureConfig()
+        if self.fcfg.flight_dir is not None:
+            raise NotImplementedError(
+                f"FailureConfig.flight_dir={self.fcfg.flight_dir!r}: the "
+                f"flight recorder is not ported yet ({_HOST}); accepted "
+                "here: None")
+        self.failures = FailurePolicy(self.fcfg, self.timings)
+        self._strikes: Dict[int, int] = {}   # uid -> failing-batch count
+        self._probe_groups: List[List[int]] = []  # bisection quarantine
+        self._backoff_rounds = 0             # rounds admitting nothing
+        self._consec_failures = 0
+        self._consec_timeouts = 0
+        self._last_failure_step = -(1 << 30)
+        self._health = "healthy"             # healthy|degraded computed;
+        self._draining = False               # draining|dead are sticky
         self.state.on_release = self._on_state_release
 
     def _setup_spec_decode(self) -> None:
@@ -492,27 +546,43 @@ class InferenceEngine:
         iterations, the graph counters (``compiles``, ``compile_ms``,
         ``compile_retraces``, ``graph_replays``) and the speculation
         counters (``spec_windows`` resolved, ``spec_drafted_tokens`` =
-        ``spec_accepted_tokens`` + ``spec_rejected_tokens``).  The graphs
-        themselves stay captured."""
-        self.timings = dict.fromkeys(_TIMINGS, 0)
+        ``spec_accepted_tokens`` + ``spec_rejected_tokens``) and the
+        failure counters (``step_retries``, ``requests_failed``).  The
+        graphs themselves stay captured.  Reset in place: the failure
+        policy's auto deadline reads the same dict (and, as in the JAX
+        engine, calibrates again after a reset)."""
+        for k in self.timings:
+            self.timings[k] = 0
 
     # ------------------------------------------------------------------
     # request API
     # ------------------------------------------------------------------
     def put(self, uid: int, tokens: Sequence[int], priority: int = 0,
-            deadline_ms: Optional[float] = None) -> AdmissionVerdict:
+            deadline_ms: Optional[float] = None,
+            slo_class: Optional[str] = None) -> AdmissionVerdict:
         """Enqueue a new request or continue a known one; returns an
         :class:`AdmissionVerdict` (truthy iff the tokens entered the
         engine).  ``priority``: lower = more important.  ``deadline_ms``:
         relative to arrival; a request still unfinished when it elapses
         is closed with status ``deadline_exceeded``.  Both only matter
-        on the FIRST put for a uid."""
+        on the FIRST put for a uid.  ``slo_class`` tags the request's
+        record (carried by snapshots; the SLO scorecard is ROADMAP Queue
+        1 item 5).  A draining or dead engine sheds new requests;
+        continuations still land."""
         now = time.perf_counter()
         toks = [int(t) for t in tokens]
         if uid in self._meta or uid in self.state.seqs \
                 or uid in self._pending:
+            self.requests.on_arrival(uid, now, slo_class=slo_class)
             self._pending.setdefault(uid, []).extend(toks)
             return AdmissionVerdict(True, "continued")
+        if self._draining or self._health == "dead":
+            self.requests.on_arrival(uid, now, slo_class=slo_class)
+            self.requests.on_finish(uid, now, status="shed")
+            return AdmissionVerdict(False, "shed",
+                                    reason="engine is "
+                                    + ("dead" if self._health == "dead"
+                                       else "draining"))
         ocfg = self.ocfg
         queued: List[tuple] = []
         if ocfg.max_queued_requests is not None \
@@ -530,7 +600,8 @@ class InferenceEngine:
         action, victims = admission_decision(ocfg, priority, len(toks),
                                              queued, now)
         if action == "shed":
-            self._record_closed(uid, "shed")
+            self.requests.on_arrival(uid, now, slo_class=slo_class)
+            self.requests.on_finish(uid, now, status="shed")
             return AdmissionVerdict(False, "shed",
                                     reason="admission queue bound")
         for victim in victims:
@@ -544,8 +615,7 @@ class InferenceEngine:
                                       degraded=(action == "degrade"))
         if deadline_ms is not None:
             self._deadline_uids.add(uid)
-        self._open[uid] = now
-        self._forgotten.pop(uid, None)
+        self.requests.on_arrival(uid, now, slo_class=slo_class)
         self._pending.setdefault(uid, []).extend(toks)
         if self._spec is not None:
             # the prompt seeds the prompt-lookup history (emitted tokens
@@ -586,20 +656,10 @@ class InferenceEngine:
         self._deadline_uids.discard(uid)
         self._preempt_gen.pop(uid, None)
         self._ctx_exhausted.discard(uid)
+        self._strikes.pop(uid, None)
         if self._spec is not None:
             self._spec.forget(uid)
-        if uid in self._open:
-            self._record_closed(uid, status)
-
-    def _record_closed(self, uid: int, status: str) -> None:
-        self._open.pop(uid, None)
-        self._finished.pop(uid, None)
-        self._finished[uid] = status
-        while len(self._finished) > self.ocfg.status_retention:
-            old, _ = self._finished.popitem(last=False)
-            self._forgotten[old] = None
-            while len(self._forgotten) > 8 * self.ocfg.status_retention:
-                self._forgotten.popitem(last=False)
+        self.requests.on_finish(uid, status=status)
 
     def _on_state_release(self, uid: int) -> None:
         """``StateManager.on_release`` hook: preemption is the one
@@ -616,18 +676,17 @@ class InferenceEngine:
     def query(self, uid: int) -> Dict:
         """``status`` is ``queued``, ``running``, a terminal status
         (``finished`` / ``shed`` / ``cancelled`` / ``deadline_exceeded``
-        / ``context_exhausted`` / ``released``), ``forgotten`` (aged out
-        of the finished ring) or ``unknown``."""
+        / ``context_exhausted`` / ``released`` / ``failed`` /
+        ``migrated`` / ``handed_off``), ``forgotten`` (aged out of the
+        finished ring) or ``unknown``."""
         seq = self.state.seqs.get(uid)
         if seq is not None:
             status = "running"
-        elif self._pending.get(uid) or uid in self._meta \
-                or uid in self._open:
+        elif self._pending.get(uid) or uid in self._meta:
             status = "queued"
-        elif uid in self._finished:
-            status = self._finished[uid]
         else:
-            status = "forgotten" if uid in self._forgotten else "unknown"
+            s = self.requests.status_of(uid)
+            status = "queued" if s == "open" else (s or "unknown")
         gen = self._preempt_gen.get(uid, [])
         return {
             "status": status,
@@ -658,6 +717,23 @@ class InferenceEngine:
         now = time.perf_counter()
         self._sched_drafts = {}
         self._reap_deadlines(now)
+        if self._backoff_rounds > 0:
+            # retry backoff after a transient step failure: admit
+            # nothing for a bounded, step-counted number of rounds
+            self._backoff_rounds -= 1
+            return []
+        # bisection quarantine: while probe groups are queued, only the
+        # head group's requests are schedulable (each probe step clears
+        # its group or bisects it further); groups whose requests all
+        # left the engine are pruned, or the quarantine would wedge
+        probe_allowed = None
+        while self._probe_groups:
+            head = [u for u in self._probe_groups[0]
+                    if self._pending.get(u) or u in self.state.seqs]
+            if head:
+                probe_allowed = set(head)
+                break
+            self._probe_groups.pop(0)
         reserved_blocks = 0
         reserved_slots = 0
         prefix_on = self.state.prefix_cache
@@ -728,6 +804,9 @@ class InferenceEngine:
             if cached:
                 tm["cached_tokens"] += cached
                 tm["prefix_hits"] += 1
+            if prompt_len or cached:
+                self.requests.on_admitted(uid, prompt_len, cached,
+                                          time.perf_counter())
             if n <= 0:
                 # matched but the pool can't take the uncached remainder
                 # yet: the sequence keeps its aliased blocks and waits
@@ -748,6 +827,8 @@ class InferenceEngine:
         effs: Dict[int, float] = {}
         for uid, t in self._pending.items():
             if not t:
+                continue
+            if probe_allowed is not None and uid not in probe_allowed:
                 continue
             if t[0] == FEEDBACK_TOKEN \
                     and self._fb_step.get(uid) != self._dispatch_seq:
@@ -804,11 +885,13 @@ class InferenceEngine:
                         len(seq.blocks)))
         return out
 
-    def _preempt(self, uid: int) -> None:
-        """Preemption-by-eviction: release ``uid``'s KV (hashed full
-        blocks retire to the cached-free pool, so with the prefix cache
-        the re-prefill is one aliasing pass) and re-queue its full
-        host-known token stream as a prompt.  Not terminal."""
+    def _evict_to_queue(self, uid: int) -> None:
+        """Release ``uid``'s KV (hashed full blocks retire to the
+        cached-free pool, so with the prefix cache the re-prefill is one
+        aliasing pass) and re-queue its full host-known token stream as
+        a prompt.  Not terminal: the mechanics preemption and failure
+        recovery share; callers count the event on the request record
+        (``on_preempted`` / ``on_retried``)."""
         seq = self.state.seqs[uid]
         requeue = [int(t) for t in seq.chain]
         tail = [int(t) for t in self._pending.get(uid, [])
@@ -823,6 +906,12 @@ class InferenceEngine:
             self._preempting.discard(uid)
         self._fb_step.pop(uid, None)
         self._pending[uid] = requeue + tail
+
+    def _preempt(self, uid: int) -> None:
+        """Preemption-by-eviction: evict-and-requeue, counted on the
+        request record."""
+        self._evict_to_queue(uid)
+        self.requests.on_preempted(uid)
 
     def _reap_deadlines(self, now: float) -> None:
         for uid in list(self._deadline_uids):
@@ -844,6 +933,472 @@ class InferenceEngine:
             elif not self._inflight_sched.get(uid, 0):
                 self._finish(uid, "context_exhausted")
                 self._reaped.add(uid)
+
+    # ------------------------------------------------------------------
+    # failure domains (inference/failures.py)
+    # ------------------------------------------------------------------
+    def _ensure_alive(self) -> None:
+        """Refuse device work on a dead engine — ``snapshot()`` still
+        works; ``restore()`` the truth onto a fresh one."""
+        if self._health == "dead":
+            raise EngineDeadError(
+                "serving engine is dead — snapshot() holds the host-side "
+                "truth; InferenceEngine.restore() it onto a fresh engine")
+
+    def _note_step_success(self, uids) -> None:
+        """One completed device step: reset the escalation counters,
+        clear the strikes of every sequence it carried, and exonerate
+        exactly the covered part of the head probe group (a clean step
+        carrying half the group must not acquit the other half)."""
+        self._consec_failures = 0
+        self._consec_timeouts = 0
+        for uid in uids:
+            self._strikes.pop(uid, None)
+        if self._probe_groups:
+            covered = set(self._probe_groups[0]) & set(uids)
+            if covered:
+                rest = [u for u in self._probe_groups[0]
+                        if u not in covered]
+                if rest:
+                    self._probe_groups[0] = rest
+                else:
+                    self._probe_groups.pop(0)
+
+    def _zero_kv(self) -> None:
+        """Zero every part of the cache in place (on the card on the
+        engine's stream, behind any replay still queued there): the
+        captured graphs hold the cache's address, so it is never
+        reallocated."""
+        kv = self.state.kv
+        parts = kv if isinstance(kv, tuple) else (kv,)
+        if self._cuda:
+            with torch.cuda.stream(self._stream):
+                for t in parts:
+                    t.zero_()
+        else:
+            for t in parts:
+                t.zero_()
+
+    def _die(self, exc: BaseException, phase: str) -> None:
+        """Mark the engine dead and raise :class:`EngineDeadError` from
+        ``exc``; touches no device state."""
+        self._health = "dead"
+        self._health_gauge.set(_HEALTH_CODE["dead"])
+        raise EngineDeadError(
+            f"serving backend dead after {type(exc).__name__} at "
+            f"{phase}; snapshot() holds the host-side truth — "
+            "restore onto a fresh engine") from exc
+
+    def _handle_step_failure(self, exc: BaseException, uids, phase: str,
+                             registered=()) -> None:
+        """Recover from one failed guarded call: classify the exception
+        at the one seam (:func:`classify_failure`) and act on the verdict.
+
+        * ``retry`` — every affected sequence is released and re-queued
+          (its chain re-prefills token-identically) and the scheduler
+          backs off a bounded, step-counted number of rounds.
+        * ``poison`` — the same re-queue, and the batch bisects into
+          probe groups the scheduler runs in isolation; a singleton
+          failing batch closes its request ``failed``.
+        * ``fatal`` — the engine is marked dead and
+          :class:`EngineDeadError` raised; nothing touches the device on
+          the way (a sticky CUDA error leaves the context unusable).
+
+        Unrecognised exceptions re-raise untouched.  A sequence whose
+        stream the host cannot replay, or with another step in flight,
+        closes ``failed``.  A real (not injected) failure may have left
+        the cache half written: every live sequence is re-queued, the
+        prefix index dropped and the cache zeroed in place; an error of
+        that zeroing declares the engine dead."""
+        if isinstance(exc, DispatchTimeoutError):
+            self._consec_timeouts += 1
+            if self.failures.watchdog.abandoned \
+                    >= self.fcfg.max_abandoned_workers:
+                # the lifetime cap: an intermittently hanging device
+                # must not strand workers without bound
+                self._consec_timeouts = max(self._consec_timeouts,
+                                            self.fcfg.fatal_timeouts)
+        verdict = classify_failure(
+            exc, attempt=self._consec_failures,
+            consecutive_timeouts=self._consec_timeouts, cfg=self.fcfg)
+        if verdict is None:
+            raise exc
+        self._consec_failures += 1
+        self._last_failure_step = self._steps_done
+        logger.warning(
+            f"serving step failure at {phase} ({type(exc).__name__}: "
+            f"{(str(exc).splitlines() or [''])[0][:120]}) -> {verdict}")
+        if verdict == FATAL_ENGINE:
+            self._die(exc, phase)
+        tm = self.timings
+        tm["step_retries"] += 1
+        affected = [int(u) for u in uids]
+        # an injected fault raises before the call runs; anything else (a
+        # real error, a real expiry while the step may still run) may
+        # have left the cache half written — the port always updates it
+        # in place
+        kv_lost = not isinstance(exc, (InjectedFault, InjectedTimeout))
+        if kv_lost:
+            affected = list(dict.fromkeys(list(self.state.seqs)
+                                          + affected))
+        singleton = verdict == POISON_STEP and len(affected) == 1
+        requeued: List[int] = []
+        # recovery may register post-rollback blocks (resolve_draft);
+        # those ride the failed step and are withdrawn with it, while a
+        # newer in-flight step's entries (a depth-2 collect failure)
+        # survive
+        pre_recovery = len(self.state.round_registered)
+        for uid in affected:
+            self._strikes[uid] = self._strikes.get(uid, 0) + 1
+            seq = self.state.seqs.get(uid)
+            if seq is not None and seq.draft_len:
+                # drafts in the failed window were never verified
+                self.state.resolve_draft(uid, 0)
+                seq = self.state.seqs.get(uid)
+            poison = singleton \
+                or self._strikes[uid] >= self.fcfg.poison_strikes
+            # another dispatched-but-uncollected step of this sequence
+            # would emit from a context the re-queue regenerates
+            inflight_elsewhere = self._inflight_sched.get(uid, 0) > 0
+            if poison or inflight_elsewhere \
+                    or (seq is not None and not seq.resumable):
+                tm["requests_failed"] += 1
+                self._finish(uid, "failed")
+                self._reaped.add(uid)
+            else:
+                if seq is not None:
+                    self._evict_to_queue(uid)
+                self.requests.on_retried(uid)
+                requeued.append(uid)
+        # the failed step's KV writes never (reliably) happened: withdraw
+        # the prefix-index entries that promise them
+        self.state.unregister_blocks(
+            list(registered)
+            + list(self.state.round_registered[pre_recovery:]))
+        if kv_lost:
+            self.state.reset_prefix_cache()
+            try:
+                self._zero_kv()
+            except Exception as e:
+                # the device failed its own recovery: whatever the first
+                # error's message, the context is gone (a sticky error
+                # the classifier does not know fails here)
+                self._die(e, f"{phase} recovery")
+            self._last_toks = None
+        # a failed probe step retires its group but never loses it: its
+        # bisected split (poison) or the group itself (a transient
+        # mid-quarantine) takes its place
+        hit_probe = bool(self._probe_groups) \
+            and bool(set(self._probe_groups[0]) & set(affected))
+        if hit_probe:
+            self._probe_groups.pop(0)
+        if verdict == POISON_STEP and len(requeued) > 1:
+            self._probe_groups = bisect_groups(requeued) \
+                + self._probe_groups
+        else:
+            if requeued and (hit_probe or verdict == POISON_STEP):
+                self._probe_groups = [list(requeued)] \
+                    + self._probe_groups
+            # step-counted exponential backoff, bounded
+            self._backoff_rounds = min(
+                self.fcfg.max_backoff_rounds,
+                1 << min(self._consec_failures - 1, 6))
+
+    # ------------------------------------------------------------------
+    # health, snapshots, migration, drain (the router's seam)
+    # ------------------------------------------------------------------
+    def health_state(self) -> str:
+        """The health-ladder state alone (no gauge write): ``healthy``,
+        ``degraded`` while the last failure is within
+        ``FailureConfig.health_window_steps`` steps, or the sticky
+        ``draining`` / ``dead``."""
+        state = self._health
+        if state == "healthy" and self._steps_done \
+                - self._last_failure_step <= self.fcfg.health_window_steps:
+            state = "degraded"
+        return state
+
+    def health(self) -> Dict:
+        """Engine health for a router's liveness probe; also sets the
+        ``serving_health_state`` gauge (0 healthy, 1 degraded, 2
+        draining, 3 dead).  Reads host state only, so a dead engine
+        answers too.  Anomaly detection and captures are not ported
+        (ROADMAP Queue 1 item 5): ``anomalies`` and ``captures`` are 0."""
+        state = self.health_state()
+        self._health_gauge.set(_HEALTH_CODE[state])
+        tm = self.timings
+        return {
+            "state": state,
+            "steps": int(tm["steps"]),
+            "step_retries": int(tm["step_retries"]),
+            "requests_failed": int(tm["requests_failed"]),
+            "consecutive_failures": self._consec_failures,
+            "consecutive_timeouts": self._consec_timeouts,
+            "dispatch_deadline_ms": self.failures.deadline_ms(),
+            "probing": bool(self._probe_groups),
+            "backoff_rounds": self._backoff_rounds,
+            "live": len(self.state.seqs),
+            "queued": sum(1 for t in self._pending.values() if t),
+            "anomalies": 0,
+            "captures": 0,
+        }
+
+    # the snapshot schema the JAX engine emits and restores: a snapshot
+    # is plain host data, so either engine loads the other's
+    SNAPSHOT_VERSION = 2
+
+    def _open_uids(self) -> List[int]:
+        """Every uid with open work here (admission metadata, queued
+        tokens, or a live sequence), in a stable order."""
+        return list(dict.fromkeys(list(self._meta) + list(self._pending)
+                                  + list(self.state.seqs)))
+
+    def _request_record(self, uid: int, now: float) -> Dict:
+        """One open request's restorable record: the replayable token
+        stream (KV chain + still-pending tokens), the output so far and
+        the admission metadata.  A stream the host cannot replay (a
+        broken chain, an in-flight feedback marker) is ``exact: False``."""
+        seq = self.state.seqs.get(uid)
+        pend = [int(t) for t in self._pending.get(uid, [])]
+        gen = list(self._preempt_gen.get(uid, []))
+        exact = FEEDBACK_TOKEN not in pend
+        stream = pend
+        if seq is not None:
+            exact = exact and seq.resumable
+            stream = [int(t) for t in seq.chain] \
+                + [t for t in pend if t != FEEDBACK_TOKEN]
+            gen += [int(t) for t in seq.tokens]
+        m = self._meta.get(uid)
+        remaining = None
+        if m is not None and m.deadline_ms is not None:
+            remaining = max(
+                0.0, m.deadline_ms - (now - m.t_arrival) * 1e3)
+        rec = self.requests.open.get(uid)
+        return {
+            "uid": int(uid),
+            "tokens": stream if exact else None,
+            "generated": gen,
+            "priority": int(m.priority) if m else 0,
+            "deadline_ms": remaining,
+            "preemptions": rec.preemptions if rec else 0,
+            "retries": rec.retries if rec else 0,
+            "slo": rec.slo_class if rec else None,
+            "exact": exact,
+        }
+
+    def snapshot(self) -> Dict:
+        """The engine's host-side truth: every open request's record
+        (:meth:`_request_record`), the counters and the prefix-cache
+        index digests (a routing key, not revivable KV).  No device
+        state: the streams re-prefill on :meth:`restore`, and the (uid,
+        position)-folded sampling keys make the resumed outputs equal
+        to an uninterrupted run.  Valid on a dead engine, after a
+        sticky CUDA error too (it reads no device tensor).  Take it at
+        a step boundary."""
+        from .. import __version__
+        now = time.perf_counter()
+        return {
+            "version": self.SNAPSHOT_VERSION,
+            "engine_version": __version__,
+            "health": self.health()["state"],
+            "counters": {k: self.timings[k]
+                         for k in ("steps", "prompt_tokens",
+                                   "cached_tokens", "generated_tokens",
+                                   "step_retries", "requests_failed")},
+            "requests": [self._request_record(uid, now)
+                         for uid in self._open_uids()],
+            "prefix_index": sorted(self.state.prefix_digests()),
+        }
+
+    def snapshot_requests(self, uids: Sequence[int]) -> Dict:
+        """Restorable records of a subset of the open requests, marked
+        ``"partial": True`` (uids with no open work here are skipped).
+        Closes nothing: :meth:`migrate_out` extracts and closes."""
+        from .. import __version__
+        now = time.perf_counter()
+        known = set(self._open_uids())
+        wanted = dict.fromkeys(int(u) for u in uids)   # dedup, ordered
+        return {
+            "version": self.SNAPSHOT_VERSION,
+            "engine_version": __version__,
+            "partial": True,
+            "requests": [self._request_record(u, now)
+                         for u in wanted if u in known],
+        }
+
+    def _extract_and_close(self, uids: Sequence[int], status: str) -> Dict:
+        """:meth:`snapshot_requests` of the requests a move would not
+        destroy (none in flight, a replayable stream), then close them
+        with ``status``; the others stay for a later step boundary."""
+        eligible = [int(u) for u in uids
+                    if not self._inflight_sched.get(int(u), 0)]
+        part = self.snapshot_requests(eligible)
+        part["requests"] = [rec for rec in part["requests"]
+                            if rec["exact"] and rec["tokens"]]
+        for rec in part["requests"]:
+            self._finish(rec["uid"], status)
+            self._reaped.add(rec["uid"])
+        return part
+
+    def migrate_out(self, uids: Sequence[int]) -> Dict:
+        """Live migration: extract the given open requests and close
+        them ``migrated`` here (their KV goes back to the pool); they
+        live on wherever the records are ``load_snapshot(...,
+        merge=True)``-ed."""
+        return self._extract_and_close(uids, "migrated")
+
+    def handoff_out(self, uids: Sequence[int]) -> Dict:
+        """Prefill-to-decode handoff: :meth:`migrate_out` with the
+        status ``handed_off``.  The JAX engine also stages each chain's
+        blocks into its KV tier; the tier is not ported (ROADMAP Queue 1
+        item 5), so the decode side re-prefills."""
+        return self._extract_and_close(uids, "handed_off")
+
+    def export_tier_chain(self, digests: Sequence[bytes]) -> Optional[Dict]:
+        """The KV tier's leading run of ``digests``; None while the tier
+        is off, which it always is here (ROADMAP Queue 1 item 5)."""
+        return None
+
+    def load_snapshot(self, snap: Dict, merge: bool = False) -> None:
+        """Re-open a snapshot's requests here: their streams re-enter as
+        prompts, admission bounds are bypassed (they were admitted
+        once), output so far stays visible through ``query()``, and
+        inexact records close ``failed``.  The engine must be fresh
+        unless ``merge=True`` (a migration into live traffic; a uid
+        already open here raises).  The whole payload is validated
+        before any record is applied.  No cache tensor is written or
+        allocated, so the engine's graphs stay valid.  ``tier_blocks``
+        are dropped with a warning (the tier is off)."""
+        if snap.get("version") != self.SNAPSHOT_VERSION:
+            raise ValueError(
+                f"snapshot version {snap.get('version')!r}: this engine "
+                f"restores version {self.SNAPSHOT_VERSION}")
+        open_now = set(self._open_uids()) | set(self.requests.open)
+        if not merge and open_now:
+            raise ValueError(
+                f"load_snapshot onto an engine with {len(open_now)} open "
+                "request(s): restore assumes a fresh engine — pass "
+                "merge=True to migrate records into live traffic")
+        incoming = [int(rec["uid"]) for rec in snap["requests"]]
+        seen: set = set()
+        dupes: set = set()
+        for u in incoming:
+            (dupes if u in seen else seen).add(u)
+        if dupes:
+            raise ValueError(
+                f"snapshot payload repeats uid(s) {sorted(dupes)}: a "
+                "request must never be applied twice")
+        if merge:
+            clash = open_now & set(incoming)
+            if clash:
+                raise ValueError(
+                    f"load_snapshot(merge=True): uid(s) {sorted(clash)} "
+                    "already open on this engine — a request must never "
+                    "run on two replicas at once")
+        now = time.perf_counter()
+        tm = self.timings
+        for rec in snap["requests"]:
+            uid = int(rec["uid"])
+            self.requests.on_arrival(uid, now, slo_class=rec.get("slo"))
+            if not rec.get("exact", True) or not rec.get("tokens"):
+                # device-side tokens died with the old engine
+                tm["requests_failed"] += 1
+                self.requests.on_finish(uid, status="failed")
+                self._reaped.add(uid)
+                continue
+            self._meta[uid] = RequestMeta(
+                priority=int(rec.get("priority", 0)),
+                deadline_ms=rec.get("deadline_ms"),
+                t_arrival=now)
+            if rec.get("deadline_ms") is not None:
+                self._deadline_uids.add(uid)
+            toks = [int(t) for t in rec["tokens"]]
+            self._pending[uid] = toks
+            if rec.get("generated"):
+                self._preempt_gen[uid] = [int(t)
+                                          for t in rec["generated"]]
+            open_rec = self.requests.open.get(uid)
+            if open_rec is not None:
+                open_rec.preemptions = int(rec.get("preemptions", 0))
+                open_rec.retries = int(rec.get("retries", 0))
+            if self._spec is not None:
+                self._spec.observe(uid, toks)
+        if snap.get("tier_blocks"):
+            logger.warning(
+                "load_snapshot: %d tier_blocks arrived but kv_tier is off "
+                "on this engine — dropping them (the request records were "
+                "applied normally)", len(snap["tier_blocks"]))
+
+    @classmethod
+    def restore(cls, model: Model, snap: Dict,
+                config: Optional[InferenceConfig] = None, topology=None,
+                quant_tree=None) -> "InferenceEngine":
+        """Warm restart: a fresh engine (its own cache, its own graphs,
+        captured as its steps first run) with every request of ``snap``
+        re-opened on it::
+
+            try:
+                out = eng.step()
+            except EngineDeadError:
+                eng = InferenceEngine.restore(model, eng.snapshot(),
+                                              eng.icfg)
+        """
+        eng = cls(model, config, topology, quant_tree=quant_tree)
+        eng.load_snapshot(snap)
+        return eng
+
+    def finish_capture(self) -> Optional[str]:
+        """Close an active capture window; captures are not ported
+        (ROADMAP Queue 1 item 5), so there is never one: None."""
+        return None
+
+    def drain(self, deadline_ms: Optional[float] = None,
+              sampling: SamplingParams = SamplingParams(),
+              rng: Optional[torch.Tensor] = None) -> Dict:
+        """Graceful drain: stop admitting new requests (continuations
+        still land), run the backlog down until nothing is pending or
+        ``deadline_ms`` elapses (step-bounded: a wedged pool cannot hang
+        it), then return the final :meth:`snapshot` and close everything
+        still open ``shed``.  The snapshot adds ``shed_uids`` (closed by
+        the drain: the set to re-place elsewhere) and ``completed_uids``
+        (open at the start, settled otherwise during the drain)."""
+        self._draining = True
+        open_at_start = set(self._open_uids()) | set(self.requests.open)
+        if self._health != "dead":
+            self._health = "draining"
+            self._health_gauge.set(_HEALTH_CODE["draining"])
+        t0 = time.perf_counter()
+        pending_tokens = sum(len(t) for t in self._pending.values())
+        step_budget = 4 * (pending_tokens // max(self.icfg.token_budget,
+                                                 1) + len(self._pending)) \
+            + 4 * self.fcfg.max_backoff_rounds + 16
+        empty_rounds = 0
+        while any(self._pending.values()) and step_budget > 0:
+            if deadline_ms is not None \
+                    and (time.perf_counter() - t0) * 1e3 >= deadline_ms:
+                break
+            step_budget -= 1
+            try:
+                out = self.step(rng=rng, sampling=sampling)
+            except EngineDeadError:
+                break
+            # more empty rounds than the backoff cap: the rest is
+            # unschedulable — the close below sheds it
+            empty_rounds = 0 if out else empty_rounds + 1
+            if empty_rounds > self.fcfg.max_backoff_rounds + 2:
+                break
+        self.finish_capture()
+        snap = self.snapshot()
+        shed: List[int] = []
+        for uid in self._open_uids():
+            self._finish(uid, "shed")
+            self._reaped.add(uid)
+            shed.append(int(uid))
+        shed_set = set(shed)
+        snap["shed_uids"] = sorted(shed_set)
+        snap["completed_uids"] = sorted(
+            int(u) for u in open_at_start if u not in shed_set)
+        return snap
 
     # ------------------------------------------------------------------
     # dispatch / collect
@@ -886,7 +1441,9 @@ class InferenceEngine:
         when nothing is schedulable.  ``rng``: an explicit key, a
         zero-arg callable invoked only once a step is known to launch,
         or None (the engine's own stream when the sampler needs a
-        key)."""
+        key).  A failed launch goes to the failure seam and returns
+        None."""
+        self._ensure_alive()
         t0 = time.perf_counter()
         sched = self._schedule()
         self._close_ctx_exhausted()
@@ -910,17 +1467,28 @@ class InferenceEngine:
         decode = all(uid in self.state.seqs and len(toks) == 1 + len(
             self._sched_drafts.get(uid, ())) for uid, toks in sched)
         t1 = time.perf_counter()
-        if self._cuda:
-            # the engine's stream follows whatever the caller queued
-            self._stream.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(self._stream):
+        uids = tuple(uid for uid, _ in sched)
+        try:
+            if self._cuda:
+                # the engine's stream follows whatever the caller queued
+                cur = torch.cuda.current_stream(self.device)
+                self._stream.wait_stream(cur)
+                with torch.cuda.stream(self._stream):
+                    toks, host, event, t2 = self._launch_step(
+                        sched, sampling, rng, bucket, mbs, uids)
+                cur.wait_stream(self._stream)
+            else:
                 toks, host, event, t2 = self._launch_step(
-                    sched, sampling, rng, bucket, mbs)
-            torch.cuda.current_stream(self.device).wait_stream(self._stream)
-        else:
-            toks, host, event, t2 = self._launch_step(sched, sampling, rng,
-                                                      bucket, mbs)
+                    sched, sampling, rng, bucket, mbs, uids)
+        except Exception as e:
+            # the failure seam: build_batch's registrations are the
+            # live ledger of this step
+            self._handle_step_failure(
+                e, uids, "dispatch",
+                registered=tuple(self.state.round_registered))
+            return None
         t3 = time.perf_counter()
+        self._steps_done += 1
         self._last_toks = toks
         tm = self.timings
         tm["schedule_ms"] += (t1 - t0) * 1e3
@@ -930,7 +1498,8 @@ class InferenceEngine:
         if decode:
             tm["decode_steps"] += 1
             tm["decode_device_ms"] += (t3 - t2) * 1e3
-        uids = tuple(uid for uid, _ in sched)
+        for uid in uids:
+            self.requests.on_prefill_start(uid, t3)
         emit = tuple((uid, self.state.slot(uid)) for uid in uids
                      if not self._pending.get(uid))
         for uid in uids:
@@ -940,14 +1509,16 @@ class InferenceEngine:
                          sid=self._dispatch_seq, uids=uids,
                          drafts=tuple((u, tuple(d)) for u, d in
                                       self._sched_drafts.items()),
-                         stop=sampling.stop_token)
+                         stop=sampling.stop_token,
+                         registered=tuple(self.state.round_registered))
 
     def _launch_step(self, sched, sampling: SamplingParams, rng,
-                     bucket: int, mbs: int):
-        """Stage the batch and run the padded step: eagerly on the CPU,
-        as a replay of its CUDA graph on the card (captured at the first
-        step of its key).  Returns (tokens, their host copy, the event
-        behind that copy or None, the time staging ended)."""
+                     bucket: int, mbs: int, uids: Tuple[int, ...]):
+        """Stage the batch and run the padded step through the failure
+        policy, inline and unguarded: eagerly on the CPU, as a replay of
+        its CUDA graph on the card (captured at the first step of its
+        key).  Returns (tokens, their host copy, the event behind that
+        copy or None, the time staging ended)."""
         cuda = self._cuda
         batch = self.state.build_batch(
             sched, self.icfg.token_budget, stager=self._stager,
@@ -967,18 +1538,25 @@ class InferenceEngine:
             else self._zero_toks
         sample_fn = self._sample_fn(sampling)
         mixed = self._mixed_gemm_active
+        n_verify = self._n_verify
+        key = ("p", bucket, mbs, sampling.sampler_key) + (
+            (n_verify,) if n_verify > 1 else ())
         if not cuda:
-            toks, _ = pipelined_ragged_step(
-                self.cfg, self.params, self._quant, self.state.kv,
-                batch._replace(n_tokens=bucket), prev, rng, sample_fn,
-                self.icfg.kv_block_size, mbs, mixed_gemm=mixed)
+            def step():
+                toks, _ = pipelined_ragged_step(
+                    self.cfg, self.params, self._quant, self.state.kv,
+                    batch._replace(n_tokens=bucket), prev, rng, sample_fn,
+                    self.icfg.kv_block_size, mbs, mixed_gemm=mixed)
+                return toks
+
+            toks = self.failures.run(step, uids=uids, guarded=False)
             return toks, toks, None, t2
         self._prev_dev.copy_(prev)
         if rng is not None:
             self._key_dev.copy_(rng)
         shape_key = (self.icfg.token_budget, self.icfg.max_seqs,
                      self.icfg.num_kv_blocks, self._stager.n_verify)
-        n_seqs, n_verify = batch.n_seqs, self._n_verify
+        n_seqs = batch.n_seqs
         key_in = self._key_dev if rng is not None else None
 
         def run():
@@ -990,21 +1568,38 @@ class InferenceEngine:
                 mbs, mixed_gemm=mixed)
             return toks
 
-        key = ("p", bucket, mbs, sampling.sampler_key) + (
-            (n_verify,) if n_verify > 1 else ())
-        g = self._graph_for(self._graphs, _MAX_STEP_GRAPHS, key, run)
-        self._replay(g)
         i = self._ring_i
         self._ring_i = (i + 1) % len(self._ring_dev)
-        toks = self._ring_dev[i]
-        toks.copy_(g.out)
-        # start the token readback now, behind the sample on the
-        # stream; _collect waits on this event only
-        host = self._ring_host[i]
-        host.copy_(toks, non_blocking=True)
+        toks, host = self._ring_dev[i], self._ring_host[i]
         event = self._ring_events[i]
-        event.record(self._stream)
+
+        def replay() -> _Graph:
+            g = self._graph_for(self._graphs, _MAX_STEP_GRAPHS, key, run)
+            g.graph.replay()
+            toks.copy_(g.out)
+            # start the token readback now, behind the sample on the
+            # stream; _collect waits on this event only
+            host.copy_(toks, non_blocking=True)
+            event.record(self._stream)
+            return g
+
+        self._replay(replay, uids)
         return toks, host, event, t2
+
+    def _replay(self, replay: Callable[[], _Graph], uids) -> _Graph:
+        """Run ``replay`` (a graph's replay, with what rides behind it on
+        the engine's stream; it returns the graph) through the failure
+        policy, inline and unguarded, then count the graph's launches
+        and return the graph.
+        The replay rewrote the paged-attention plan workspace, so the
+        wrapper forgets what it held, whatever happened."""
+        try:
+            g = self.failures.run(replay, uids=uids, guarded=False)
+        finally:
+            forget_plan(self.device, self._stream.cuda_stream)
+        add_launches(g.delta)
+        self.timings["graph_replays"] += 1
+        return g
 
     @staticmethod
     def _sample_fn(sampling: SamplingParams) -> Callable:
@@ -1060,7 +1655,13 @@ class InferenceEngine:
         gc_was_on = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=s):
+            # thread-local capture mode: a read the watchdog abandoned
+            # may still sit in its event wait (a CUDA call the default
+            # "global" mode forbids any thread to make during a capture,
+            # invalidating it); the read enqueues nothing, so no other
+            # thread's call touches this capture's stream
+            with torch.cuda.graph(graph, pool=self._pool, stream=s,
+                                  capture_error_mode="thread_local"):
                 out = run()
         finally:
             if gc_was_on:
@@ -1070,15 +1671,6 @@ class InferenceEngine:
         forget_plan(dev, sid)
         keep = _paged_workspaces(dev, sid) + _mixed_workspaces(dev, sid)
         return _Graph(graph, out, delta, keep)
-
-    def _replay(self, g: _Graph) -> None:
-        """Replay a captured graph on the engine's stream and count its
-        kernels' launches; the replay rewrote the paged-attention plan
-        workspace, so the wrapper forgets what it held."""
-        g.graph.replay()
-        add_launches(g.delta)
-        forget_plan(self.device, self._stream.cuda_stream)
-        self.timings["graph_replays"] += 1
 
     def _drain_cow(self) -> None:
         """Run queued copy-on-write block copies (a prefix-cache match
@@ -1125,8 +1717,22 @@ class InferenceEngine:
             else:
                 self._inflight_sched.pop(uid, None)
         t0 = time.perf_counter()
-        toks_np = self._fetch_tokens(st)
+        try:
+            # the readback surfaces the step's asynchronous errors and can
+            # hang with the device: the guarded call, under the deadline
+            # (``_fetch_tokens`` looked up at call time)
+            toks_np = self.failures.run(lambda: self._fetch_tokens(st),
+                                        uids=st.uids)
+        except Exception as e:
+            if st.sid == self._dispatch_seq:
+                # the latest dispatch: its samples must never feed a later
+                # step (the zero fallback is safe)
+                self._last_toks = None
+            self._handle_step_failure(e, st.uids, "collect",
+                                      registered=st.registered)
+            return {}
         t2 = time.perf_counter()
+        self._note_step_success(st.uids)
         tm = self.timings
         tm["wait_ms"] += (t2 - t0) * 1e3
         spec = self._n_verify > 1
@@ -1153,13 +1759,16 @@ class InferenceEngine:
                     tm["spec_accepted_tokens"] += len(emitted) - 1
                     tm["spec_rejected_tokens"] += len(d) - (len(emitted)
                                                             - 1)
+                    self.requests.on_draft(uid, len(d), len(emitted) - 1)
             else:
                 emitted = [int(row[0] if spec else row)]
             if live:
                 seq.tokens.extend(emitted)
                 tm["generated_tokens"] += len(emitted)
-                if uid not in self.ttft_ms and uid in self._open:
-                    self.ttft_ms[uid] = (t2 - self._open[uid]) * 1e3
+                self.requests.on_tokens(uid, len(emitted), t2)
+                rec = self.requests.open.get(uid)
+                if uid not in self.ttft_ms and rec is not None:
+                    self.ttft_ms[uid] = rec.ttft_ms
                 if self._spec is not None:
                     self._spec.observe(uid, emitted)
             out[uid] = emitted
@@ -1189,7 +1798,10 @@ class InferenceEngine:
         shrinks to 1), its blocks are reserved ahead, and a sequence
         whose stop token lands inside it is truncated there.  On the
         card the burst is one CUDA graph of (steps, sampler, prefix
-        bucket).  Returns {uid: [token, ...]}."""
+        bucket).  Its replay runs inline and its read under the
+        watchdog; a failure goes to the failure seam and returns {}.
+        Returns {uid: [token, ...]}."""
+        self._ensure_alive()
         steps = steps or max(1, self.icfg.decode_burst)
         pending = {u: t for u, t in self._pending.items() if t}
         if not pending:
@@ -1219,15 +1831,26 @@ class InferenceEngine:
         if rng is None:
             self._rng, rng = split(self._rng)
         t0 = time.perf_counter()
-        if self._cuda:
-            self._stream.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(self._stream):
+        try:
+            if self._cuda:
+                cur = torch.cuda.current_stream(self.device)
+                self._stream.wait_stream(cur)
+                with torch.cuda.stream(self._stream):
+                    toks_np, t1 = self._launch_burst(pending, steps,
+                                                     sampling, rng)
+                cur.wait_stream(self._stream)
+            else:
                 toks_np, t1 = self._launch_burst(pending, steps, sampling,
                                                  rng)
-            torch.cuda.current_stream(self.device).wait_stream(self._stream)
-        else:
-            toks_np, t1 = self._launch_burst(pending, steps, sampling, rng)
+        except Exception as e:
+            # the blocks reserved ahead release with the re-queue;
+            # seen_tokens was not advanced, so a resumable chain
+            # re-prefills token-identically
+            self._handle_step_failure(e, tuple(pending), "burst")
+            return {}
         t2 = time.perf_counter()
+        self._steps_done += steps
+        self._note_step_success(tuple(pending))
         tm = self.timings
         tm["device_ms"] += (t1 - t0) * 1e3
         tm["wait_ms"] += (t2 - t1) * 1e3
@@ -1246,6 +1869,7 @@ class InferenceEngine:
                 adv = i + 1
             st.seqs[uid].tokens.extend(seq_toks)
             tm["generated_tokens"] += len(seq_toks)
+            self.requests.on_tokens(uid, len(seq_toks), t2, t_dispatch=t0)
             # the burst wrote `steps` KV rows (the fed token + the first
             # steps - 1 samples); only the pre-stop prefix is committed
             st.advance(uid, adv)
@@ -1255,8 +1879,9 @@ class InferenceEngine:
 
     def _launch_burst(self, pending: Dict[int, List[int]], steps: int,
                       sampling: SamplingParams, rng: torch.Tensor):
-        """Stage one burst's inputs and run it (eagerly on the CPU, a
-        graph replay on the card); returns (tokens [steps, S] on the
+        """Stage one burst's inputs and run it through the failure policy:
+        the forward (eager on the CPU, a graph replay on the card) inline,
+        its read under the watchdog.  Returns (tokens [steps, S] on the
         host, the time the launch was enqueued)."""
         self._drain_cow()       # queued COW copies precede burst writes
         S, nb = self.icfg.max_seqs, self.icfg.num_kv_blocks
@@ -1289,6 +1914,8 @@ class InferenceEngine:
         key_in = rng.to(self.device) if sampling.needs_rng else None
         sample_fn = self._sample_fn(sampling)
         mixed = self._mixed_gemm_active
+        gkey = ("b", steps, sampling.sampler_key, P)
+        uids = tuple(pending)
 
         def run_on(buf, key):
             t = buf[:S * nb].reshape(S, nb)
@@ -1302,19 +1929,38 @@ class InferenceEngine:
             return toks
 
         if not self._cuda:
-            toks = run_on(torch.from_numpy(flat).to(self.device), key_in)
-            return toks.cpu().numpy(), time.perf_counter()
+            toks = self.failures.run(
+                lambda: run_on(torch.from_numpy(flat).to(self.device),
+                               key_in), uids=uids, guarded=False)
+            t1 = time.perf_counter()
+            return self.failures.run(lambda: toks.cpu().numpy(),
+                                     uids=uids), t1
         self._burst_dev.copy_(self._burst_host, non_blocking=True)
         if key_in is not None:
             self._key_dev.copy_(key_in)
         key_dev = self._key_dev if key_in is not None else None
-        g = self._graph_for(
-            self._burst_graphs, _MAX_BURST_GRAPHS,
-            ("b", steps, sampling.sampler_key, P),
-            lambda: run_on(self._burst_dev, key_dev))
-        self._replay(g)
+
+        def replay() -> _Graph:
+            g = self._graph_for(self._burst_graphs, _MAX_BURST_GRAPHS,
+                                gkey, lambda: run_on(self._burst_dev,
+                                                     key_dev))
+            g.graph.replay()
+            return g
+
+        g = self._replay(replay, uids)
+        # the tokens' copy and its event ride behind the replay on the
+        # stream: the guarded read only waits and copies on the host
+        host = torch.empty(g.out.shape, dtype=g.out.dtype, pin_memory=True)
+        host.copy_(g.out, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(self._stream)
         t1 = time.perf_counter()
-        return g.out.cpu().numpy(), t1
+
+        def read() -> np.ndarray:
+            event.synchronize()
+            return host.numpy().copy()
+
+        return self.failures.run(read, uids=uids), t1
 
     # ------------------------------------------------------------------
     def generate(self, prompts: Dict[int, Sequence[int]],
@@ -1446,6 +2092,14 @@ class InferenceEngine:
             if inflight:
                 stall = 0
                 out = self._collect(inflight.popleft())
+                # a failure this round may have closed a request whose
+                # older step was still in flight: drop it before its
+                # tokens are emitted and fed back (a put would open it
+                # again as a new request)
+                reaped = self._drain_reaped()
+                if reaped:
+                    active -= reaped
+                    finishing -= reaped
                 for uid, toks in out.items():
                     if uid not in active:
                         continue               # stopped earlier: discard

@@ -53,6 +53,8 @@ PRECISION_DTYPE = {"fp32": torch.float32, "fp16": torch.float16,
 _MULTI = "ROADMAP Queue 1 item 6 (multi-GPU training breadth)"
 _HOST = "ROADMAP Queue 1 item 5 (host layers: telemetry, monitor)"
 _AUX = "ROADMAP Queue 1 item 7 (aux subsystems)"
+_CKPT = "ROADMAP Queue 1 item 2, checkpoints on one card"
+_OFFLOAD = "ROADMAP Queue 1 item 4, offload on one card"
 
 
 class TrainState(NamedTuple):
@@ -88,9 +90,10 @@ def _reject_unported(config: Config) -> None:
     z = config.zero_optimization
     checks = [
         (z.offload_optimizer.device != "none",
-         f"offload_optimizer.device={z.offload_optimizer.device!r}", _MULTI),
+         f"offload_optimizer.device={z.offload_optimizer.device!r}",
+         _OFFLOAD),
         (z.offload_param.device != "none",
-         f"offload_param.device={z.offload_param.device!r}", _MULTI),
+         f"offload_param.device={z.offload_param.device!r}", _OFFLOAD),
         (z.zero_quantized_gradients, "zero_quantized_gradients (qgZ)", _MULTI),
         (z.zero_quantized_weights, "zero_quantized_weights (qwZ)", _MULTI),
         (z.zero_hpz_partition_size > 1, "zero_hpz_partition_size", _MULTI),
@@ -386,11 +389,11 @@ class Engine:
 
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
                         **kwargs):
-        raise _not_ported("save_checkpoint", _MULTI + ", checkpoints")
+        raise _not_ported("save_checkpoint", _CKPT)
 
     def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
                         **kwargs):
-        raise _not_ported("load_checkpoint", _MULTI + ", checkpoints")
+        raise _not_ported("load_checkpoint", _CKPT)
 
 
 def initialize(loss_fn: Callable = None, params: Any = None,

@@ -5,19 +5,25 @@ capture the CUDA kernels, which have no interpret mode).  The eager
 reference is the same engine class with its graph path turned off
 (``_cuda = False`` after construction: the padded step, launched eagerly
 on the default stream); both run the same kernels on the same inputs, so
-the tokens and the caches must be bitwise equal.  This file imports
-neither JAX nor the JAX package:
+the tokens and the caches must be bitwise equal.  The failure guard's
+tests run the replays inline on the engine's stream and the reads under
+a watchdog deadline (on its worker thread), and capture a graph right
+after a real expiry.
+This file imports neither JAX nor the JAX package:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_graphs_cuda.py
 """
 
 import importlib
+import threading
 
 import pytest
 import torch
 
 from deepspeed_tpu_torch.inference import (InferenceConfig, InferenceEngine,
                                            SamplingParams)
+from deepspeed_tpu_torch.inference.failures import (DispatchTimeoutError,
+                                                    FailureConfig)
 from deepspeed_tpu_torch.models import build_model
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention_plain
 
@@ -201,3 +207,106 @@ def test_verify_step_under_a_graph(model):
     assert g.timings["spec_windows"] > 0
     assert g.timings["graph_replays"] == g.timings["steps"]
     assert all(k[-1] == 5 for k in g._graphs)
+
+
+class _ReplayProbe:
+    """Stands in for a captured graph: records the thread and the
+    current stream of every replay, then replays."""
+
+    def __init__(self, graph, seen):
+        self.graph, self.seen = graph, seen
+
+    def replay(self):
+        self.seen.append((threading.current_thread().name,
+                          torch.cuda.current_stream().cuda_stream))
+        self.graph.replay()
+
+
+@pytest.mark.cuda
+def test_guard_replays_inline_and_reads_on_the_worker(model):
+    """With a deadline, every replay runs inline on the caller's thread,
+    on the engine's stream (never on a worker the watchdog could
+    abandon), every read runs on the watchdog's worker, and the streams
+    stay bitwise equal to eager."""
+    fcfg = FailureConfig(dispatch_timeout_ms=5000.0)
+    g, e = _pair(model, failure=fcfg)
+    sp = SamplingParams(max_new_tokens=12)
+    prompts = {u: list(p) for u, p in PROMPTS.items()}
+    g.generate(prompts, sp)                       # every key captured
+    g.state.reset_prefix_cache()
+    seen, reads = [], []
+    for gr in g._graphs.values():
+        gr.graph = _ReplayProbe(gr.graph, seen)
+    fetch = g._fetch_tokens
+
+    def probe_fetch(st):
+        reads.append(threading.current_thread().name)
+        return fetch(st)
+    g._fetch_tokens = probe_fetch
+    out_g = g.generate(prompts, sp)
+    out_e = e.generate(prompts, sp)
+    torch.cuda.synchronize()
+    assert out_g == out_e
+    caller = threading.current_thread().name
+    assert seen and all(name == caller and sid == g._stream.cuda_stream
+                        for name, sid in seen)
+    assert len(reads) == len(seen)
+    assert all(name == "serving-watchdog" for name in reads)
+    assert g.failures.watchdog.abandoned == 0
+
+
+SLEEP_CYCLES = 4_000_000_000     # ~2 s at the H100's clock
+
+
+@pytest.mark.cuda
+def test_capture_after_an_expiry_with_an_abandoned_worker(model):
+    """A real expiry: a sleep queued on the engine's stream holds a warm
+    decode step's token event past the deadline, the worker is abandoned
+    in the event wait, the cache is zeroed in place and every sequence
+    re-queued; the next step carries a prompt of a token bucket never
+    captured, so its capture runs while the abandoned worker may still
+    wait.  The capture must hold, and the streams must equal an eager
+    twin that takes the same (non-injected) expiry at the same step."""
+    fcfg = FailureConfig(dispatch_timeout_ms=500.0)
+    g, e = _pair(model, failure=fcfg)
+    warm = {1: PROMPTS[2], 2: PROMPTS[3][:9]}
+    later = {3: list(range(200, 260))}           # 60 tokens: bucket 64
+    results = {}
+    for eng in (g, e):
+        sp = SamplingParams(max_new_tokens=1 << 30)
+        fetch = eng._fetch_tokens
+        done = {u: [] for u in list(warm) + list(later)}
+        for u, p in warm.items():
+            eng.put(u, list(p))
+        kv_ptr = eng.state.kv.data_ptr()
+        buckets_before = None
+        for i in range(24):
+            # step i + 1: step 7 is a decode step of a warm key (the
+            # contexts stay within one block through step 8)
+            if i == 6:
+                if eng is g:
+                    with torch.cuda.stream(g._stream):
+                        torch.cuda._sleep(SLEEP_CYCLES)
+                else:
+                    def expire(st, fetch=fetch, eng=eng):
+                        eng._fetch_tokens = fetch
+                        raise DispatchTimeoutError("deadline")
+                    eng._fetch_tokens = expire
+            if i == 7:
+                # the backoff round; the next step re-prefills every chain
+                # with the new prompt: token bucket 64
+                buckets_before = {k[1] for k in eng._graphs}
+                for u, p in later.items():
+                    eng.put(u, list(p))
+            for u, t in eng.step(sampling=sp).items():
+                done[u].append(t)
+                eng.put(u, [t])
+        torch.cuda.synchronize()
+        assert eng.state.kv.data_ptr() == kv_ptr
+        results[eng is g] = (done, dict(eng.timings), buckets_before)
+    done_g, tm_g, before = results[True]
+    done_e, tm_e, _ = results[False]
+    assert g.failures.watchdog.abandoned == 1
+    assert tm_g["step_retries"] == tm_e["step_retries"] == 1
+    assert 64 not in before and 64 in {k[1] for k in g._graphs}
+    assert done_g == done_e and len(done_g[3]) > 0

@@ -39,6 +39,11 @@ PAIRS = {
     "InferenceEngine.__init__": (InferenceEngine.__init__,
                                  JaxInferenceEngine.__init__),
     "InferenceEngine.step": (InferenceEngine.step, JaxInferenceEngine.step),
+    **{f"InferenceEngine.{m}": (getattr(InferenceEngine, m),
+                                getattr(JaxInferenceEngine, m))
+       for m in ("put", "health", "health_state", "snapshot",
+                 "snapshot_requests", "migrate_out", "handoff_out",
+                 "export_tier_chain", "load_snapshot", "restore", "drain")},
     "models.transformer.apply": (port_transformer.apply,
                                  jax_transformer.apply),
     "models.transformer.Model.__init__": (port_transformer.Model.__init__,
@@ -54,6 +59,20 @@ PAIRS = {
 MUST_HAVE = {
     "InferenceEngine.__init__": ["self", "model", "config", "topology"],
     "InferenceEngine.step": ["self", "rng", "sampling"],
+    # the serving seam a router and a gateway call (the whole signature)
+    "InferenceEngine.put": ["self", "uid", "tokens", "priority",
+                            "deadline_ms", "slo_class"],
+    "InferenceEngine.health": ["self"],
+    "InferenceEngine.health_state": ["self"],
+    "InferenceEngine.snapshot": ["self"],
+    "InferenceEngine.snapshot_requests": ["self", "uids"],
+    "InferenceEngine.migrate_out": ["self", "uids"],
+    "InferenceEngine.handoff_out": ["self", "uids"],
+    "InferenceEngine.export_tier_chain": ["self", "digests"],
+    "InferenceEngine.load_snapshot": ["self", "snap", "merge"],
+    "InferenceEngine.restore": ["model", "snap", "config", "topology",
+                                "quant_tree"],
+    "InferenceEngine.drain": ["self", "deadline_ms", "sampling", "rng"],
     "models.transformer.apply": ["cfg", "params", "input_ids", "mask",
                                  "attention_fn", "dtype"],
     "models.transformer.Model.__init__": ["self", "cfg", "seed",

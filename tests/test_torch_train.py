@@ -369,9 +369,9 @@ UNPORTED = {
     "pipeline": ({"pipeline": {"stages": 2}}, "item 6"),
     "sequence": ({"sequence_parallel": {"size": 2}}, "item 6"),
     "offload": ({"zero_optimization": {"stage": 1, "offload_optimizer": {
-        "device": "cpu"}}}, "item 6"),
+        "device": "cpu"}}}, "item 4"),
     "nvme": ({"zero_optimization": {"stage": 3, "offload_param": {
-        "device": "nvme"}}}, "item 6"),
+        "device": "nvme"}}}, "item 4"),
     "onebit": ({"optimizer": {"type": "onebitadam", "params": {}}},
                "item 6"),
     "qgz": ({"zero_optimization": {"zero_quantized_gradients": True}},
@@ -397,6 +397,28 @@ def test_unported_engine_features_raise(case):
     with pytest.raises(NotImplementedError, match=item):
         tds.initialize(model=tm, device="cpu", config={
             "train_micro_batch_size_per_device": 2, **extra})
+
+
+def test_unported_messages_name_their_items():
+    """Checkpoints and offload are one-card items of ROADMAP Queue 1
+    (2 and 4), not the multi-GPU item 6: the messages say so in full."""
+    _, tm = tiny_models("gpt2")
+    eng = tds.initialize(model=tm, device="cpu", config={
+        "train_micro_batch_size_per_device": 2})
+    for call in (eng.save_checkpoint, eng.load_checkpoint):
+        with pytest.raises(NotImplementedError) as e:
+            call("unused")
+        assert str(e.value).endswith(
+            "is not ported yet (ROADMAP Queue 1 item 2, checkpoints on one "
+            "card)")
+    for key, dev in (("offload_optimizer", "cpu"), ("offload_param", "nvme")):
+        with pytest.raises(NotImplementedError) as e:
+            tds.initialize(model=tm, device="cpu", config={
+                "train_micro_batch_size_per_device": 2,
+                "zero_optimization": {"stage": 3, key: {"device": dev}}})
+        assert str(e.value) == (f"{key}.device={dev!r} is not ported yet "
+                                "(ROADMAP Queue 1 item 4, offload on one "
+                                "card)")
 
 
 def test_engine_runs_on_the_card_unless_asked(monkeypatch):
