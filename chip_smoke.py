@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases device,build,kernel,serve-spec
     python3 chip_smoke.py --phases device,build,kernel,serve-failover
     python3 chip_smoke.py --phases device,build,kernel,train-fp16
+    python3 chip_smoke.py --phases device,build,kernel,train-ckpt,serve-moe,train-moe
 
 Phases, in order; any failure exits non-zero (nothing is caught and
 passed over):
@@ -72,7 +73,21 @@ passed over):
              8, 2 + 3 steps, 12 launches of each flash kernel per step and
              a first-step parity check against the plain attention within
              2x the fp32 noise floor (fp32 against fp64).
-   Serving (phases 5-7c) runs every step and every burst as a replay
+4c. train-ckpt — checkpoints of phase 4's GPT-2 training (its
+             configuration, bench.py:145-168): engine A takes 2 steps,
+             save_checkpoint, 2 more; engine B (other random weights)
+             load_checkpoint and the same 2 steps: the restored state
+             bitwise the saved one, B's losses and final master and
+             moments bitwise A's (if not: the same two steps again from
+             the checkpoint, the run-to-run spread, and the ops PyTorch
+             names as non-deterministic); then checkpoint.async_save: A
+             takes a step while the worker writes, wait_checkpoint, a
+             fresh engine loads the checkpoint bitwise A's state at the
+             save, and consolidate equals its master.  Prints the
+             checkpoint's bytes, save and load seconds and GB/s, the
+             async save's blocking ms against its write's wall; the
+             checkpoints live in a temporary directory under build/.
+   Serving (phases 5-7d) runs every step and every burst as a replay
              of a CUDA graph the engine captured (InferenceEngine's graph
              cache): each measured run follows a warm-up run on the same
              engine that captures its graphs (then the prefix cache,
@@ -153,6 +168,27 @@ passed over):
              the acceptance rate and tok/s both ways; each mode also runs
              with dispatch_timeout_ms=None, for the default watchdog's
              cost at depth 1 (tok/s and wait ms a step).
+7d. serve-moe — qwen2-moe-a2.7b at full width and depth (24 layers, 60
+             experts top-4 with raw top-k weights, a shared expert of
+             5632, 16 heads of 128, vocab 151936): random bf16 weights
+             from a seed drawn on the card, renamed to the
+             Qwen2MoeForCausalLM state dict and imported back through
+             checkpoint.hf.load_hf_state_dict (bitwise the drawn tree),
+             then phase 5's traffic and engine (every measured step a
+             replay, paged-attention launches = layers x steps, the
+             first-forward check against the dense forward at a
+             capacity that drops nothing, a prefix hit and a COW repeat,
+             TTFT, token rates, the device profile), then an eager
+             prefill and decode step's device ms by MoE part (gating,
+             dispatch/combine, expert bmm, shared expert, attention,
+             dense GEMMs, other) and the resident bytes.
+8b. train-moe — qwen2-moe-a2.7b at its published widths with depth cut
+             to 2 layers (1.76 B params), bf16, seq 1024, micro-batch 4,
+             1 + 3 steps: finite loss, aux/moe_aux_loss in the metrics,
+             one launch of each flash kernel per layer per step at D 128,
+             a first-step parity check against the plain attention,
+             tokens/s, MFU (active parameters), peak memory and the
+             device profile.
 8. train-fp16 — phi-2 at full width and depth (2.78 B params, 32 layers,
              32 heads of 80) in fp16 with the dynamic loss scaler, run
              after falcon is freed: ZeRO-1, AdamW lr 3e-4, clip 1.0, seq
@@ -177,7 +213,9 @@ wi, with the launches of that design in phase 6; K2's entries name the
 designs their timed batch ran, ``design``, and paged_attention_mqa, timed
 on the falcon-7b mixed batch, carries serve-mqa's launches;
 paged_attention's ``failover_launches`` are K2's launches in
-serve-failover's scenarios (a)-(d)); the last line,
+serve-failover's scenarios (a)-(d), its ``moe_launches`` those of
+serve-moe's measured run; the flash entries' launches include
+train-ckpt's and train-moe's); the last line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -185,6 +223,7 @@ package beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -345,7 +384,9 @@ def device_ms(torch, fn, iters: int, warmup: int = 2) -> float:
 # GPT-2 and BLOOM-7b1 widths (BLOOM: MHA, 32 heads of 128); a GQA batch
 # with slopes; every other head dim and GQA ratio a preset serves: phi-2
 # (32 heads of 80), phi3-mini (32 of 96), gptj-6b (16 of 256) and falcon-7b
-# (71 heads over 1 KV head, D 64), each on the mixed and the decode batch.
+# (71 heads over 1 KV head, D 64), each on the mixed and the decode batch;
+# serve-moe's qwen2-moe-a2.7b (16 heads of 128 over 16, no slopes: the plan
+# splits its work items by the head count, so it may route unlike BLOOM's).
 # The quantized caches run on the 8B and BLOOM mixed batches and the 8B
 # decode batch
 K2_CASES = [("llama3-8b mixed", (32, 8, 128, 64, 512, 20), False),
@@ -361,7 +402,9 @@ K2_CASES = [("llama3-8b mixed", (32, 8, 128, 64, 512, 20), False),
             ("gptj-6b mixed", (16, 16, 256, 64, 512, 10), False),
             ("gptj-6b decode", (16, 16, 256, 64, 512, 100), False),
             ("falcon-7b mixed", (71, 1, 64, 64, 512, 20), False),
-            ("falcon-7b decode", (71, 1, 64, 64, 512, 100), False)]
+            ("falcon-7b decode", (71, 1, 64, 64, 512, 100), False),
+            ("qwen2-moe-a2.7b mixed", (16, 16, 128, 64, 512, 20), False),
+            ("qwen2-moe-a2.7b decode", (16, 16, 128, 64, 512, 100), False)]
 
 
 def k2_plan(torch, case, H, Hkv):
@@ -456,7 +499,10 @@ def check_kernel_case(torch, pa, name, case, H, Hkv, D, iters, slopes=None):
 
 # flash attention cases: (name, dtype, (B, H, Hkv, S, D, timing
 # iterations)).  bf16: GPT-2 is the training phase's shape (micro-batch 32,
-# 12 heads of 64, seq 1024); llama-0.7B is bench.py's long-context training
+# 12 heads of 64, seq 1024); qwen2-moe train-moe's (micro-batch 4, 16 heads
+# of 128, seq 1024), ahead of the other D 128 cases so that the JSON line's
+# entry for the variant reports the shape its launches ran at; llama-0.7B is
+# bench.py's long-context training
 # leg (:586-593); Llama-3-8B its serving width at S=4096.  fp16: phi-2's
 # training width (phase 8: micro-batch 4, 32 heads of 80, seq 2048) and the
 # GPT-2 shape.  bf16 and fp16 at the other head dims of the presets:
@@ -465,6 +511,7 @@ def check_kernel_case(torch, pa, name, case, H, Hkv, D, iters, slopes=None):
 # and phi-2's width at B=1.
 FLASH_CASES = [
     ("gpt2 train", "bfloat16", (32, 12, 12, 1024, 64, 20)),
+    ("qwen2-moe train", "bfloat16", (4, 16, 16, 1024, 128, 20)),
     ("llama-0.7B train", "bfloat16", (2, 16, 8, 2048, 128, 20)),
     ("llama3-8b", "bfloat16", (1, 32, 8, 4096, 128, 10)),
     ("phi-2 train", "float16", (4, 32, 32, 2048, 80, 10)),
@@ -807,6 +854,11 @@ def check_mixed_case(torch, mg, name, kdims, N, M, bits, iters,
 #               scaler; seq 2048, micro-batch 4, remat with the "flash"
 #               policy (the products against weights and the flash
 #               forward's outputs saved, the rest of each layer recomputed)
+#   train-moe   qwen2-moe-a2.7b at its published widths (60 experts top-4,
+#               a shared expert of 5632, 16 heads of 128, vocab 151936)
+#               with depth cut to 2 layers (1.76 B params, ~28 GB of
+#               fp32 master and AdamW moments); bf16, seq 1024,
+#               micro-batch 4
 TRAIN_RUNS = {
     "train": dict(preset="gpt2", precision="bf16", seq=1024, micro=32,
                   warmup=2, steps=10, remat=False, policy="nothing"),
@@ -814,6 +866,9 @@ TRAIN_RUNS = {
                        warmup=2, steps=3, remat=False, policy="nothing"),
     "train-fp16": dict(preset="phi-2", precision="fp16", seq=2048, micro=4,
                        warmup=2, steps=5, remat=True, policy="flash"),
+    "train-moe": dict(preset="qwen2-moe-a2.7b", precision="bf16", seq=1024,
+                      micro=4, warmup=1, steps=3, remat=False,
+                      policy="nothing", model=dict(num_layers=2)),
 }
 PARITY_MICRO = 4
 
@@ -902,7 +957,7 @@ def train(torch, fa, seed, run="train", device=None, **overrides):
         remat=spec["remat"], remat_policy=spec["policy"],
         attention_impl="flash",
         dtype=torch.float16 if prec == "fp16" else torch.float32,
-        **overrides)
+        **{**spec.get("model", {}), **overrides})
     cfg = model.config
     n_params = param_count(model.params)
     if prec == "fp16":
@@ -967,6 +1022,13 @@ def train(torch, fa, seed, run="train", device=None, **overrides):
     if not all(map(math.isfinite, losses + [
             g for g, ok in zip(gnorms, applied) if ok])):
         raise AssertionError("non-finite loss or grad norm")
+    if cfg.num_experts > 1:
+        aux = [float(m["aux/moe_aux_loss"]) for m in metrics]
+        drop = [float(m["aux/moe_dropped"]) for m in metrics]
+        log(f"[{run}] aux/moe_aux_loss per step {[round(x, 5) for x in aux]}"
+            f"; aux/moe_dropped {[round(x, 5) for x in drop]}")
+        if not all(map(math.isfinite, aux)):
+            raise AssertionError("non-finite MoE aux loss")
     want = (cfg.num_layers, cfg.num_layers, cfg.num_layers, 0)
     if any(p != want for p in per_step):
         raise AssertionError(f"a step did not launch each flash kernel once "
@@ -980,7 +1042,11 @@ def train(torch, fa, seed, run="train", device=None, **overrides):
 
     toks = tbs * (seq - 1) * steps
     tok_s = toks / wall
-    flops_per_token = 6 * n_params + 12 * cfg.num_layers * cfg.d_model * (
+    # an MoE token runs top_k of E experts: count the active parameters
+    active = n_params - (param_count(model.params["blocks"]["experts"])
+                         * (1 - cfg.moe_top_k / cfg.num_experts)
+                         if cfg.num_experts > 1 else 0)
+    flops_per_token = 6 * active + 12 * cfg.num_layers * cfg.d_model * (
         seq - 1)                                  # bench.py:207-211
     peak_flops = PEAK_FLOPS["float32" if prec == "fp32" else "bfloat16"]
     mfu = tok_s * flops_per_token / peak_flops
@@ -1022,10 +1088,11 @@ def parity_step(torch, model, run, batch, met, k, device):
     were skipped and left the weights as they were) against the plain
     causal_attention on the same weights, batch and loss scale, with the
     plain attention one precision wider as the noise-floor reference: an
-    engine for fp32 (the reference engines run SGD: the first step's loss
-    and grad norm do not depend on the optimizer, and SGD holds one buffer
-    in place of Adam's two), the loss and the norm of its gradient
-    computed directly in fp64 (the engine computes in at most fp32)."""
+    fp32 engine for bf16 and fp16 (the reference engines run SGD: the
+    first step's loss and grad norm do not depend on the optimizer, and
+    SGD holds one buffer in place of Adam's two); for fp32 the loss and
+    the norm of its gradient computed directly in fp64 (the engine
+    computes in at most fp32)."""
     import dataclasses
 
     import deepspeed_tpu_torch as ds
@@ -1059,6 +1126,7 @@ def parity_step(torch, model, run, batch, met, k, device):
                   for x in tree_leaves(model.params)]
         loss = m.loss_fn(tree_unflatten(model.params, leaves),
                          {"input_ids": batch["input_ids"]})
+        loss = loss[0] if isinstance(loss, tuple) else loss
         grads = torch.autograd.grad(loss, leaves)
         norm = torch.sqrt(sum(g.square().sum() for g in grads))
         res = (float(loss.detach()), float(norm))
@@ -1067,7 +1135,7 @@ def parity_step(torch, model, run, batch, met, k, device):
         return res
 
     ref = engine_step(prec, spec["policy"])
-    if prec == "fp16":
+    if prec in ("fp16", "bf16"):
         # fp32 without the training run's activations saved: the whole
         # layer is recomputed (no policy changes the numbers)
         wide, wide_name = engine_step("fp32", "nothing"), "fp32"
@@ -1147,6 +1215,13 @@ def first_forward_check(torch, model, prompts, tag="serve"):
                                                             StateManager)
     from deepspeed_tpu_torch.models import apply
     cfg = model.config
+    if cfg.num_experts > 1:
+        # capacity >= T on both paths: no choice is dropped, so the
+        # serving MoE (capacity from the step's budget) and the dense
+        # forward's (per-sequence groups) compute the same function
+        cf = cfg.num_experts / cfg.moe_top_k
+        cfg = dataclasses.replace(cfg, capacity_factor=cf,
+                                  eval_capacity_factor=cf)
     sm = StateManager(KVCacheConfig(cfg.num_layers, cfg.num_kv_heads,
                                     cfg.head_dim, block_size=64,
                                     num_blocks=64, dtype=torch.bfloat16,
@@ -2696,6 +2771,414 @@ def sampler_cost(torch, rec, sp, tag):
     return res
 
 
+# ---------------------------------------------------------------------------
+# train-ckpt: checkpoints of phase 4's GPT-2 training
+# ---------------------------------------------------------------------------
+
+def state_snapshot(torch, engine):
+    """The engine's state by checkpoint key: tensors cloned on their
+    device, numbers as they are."""
+    from deepspeed_tpu_torch.checkpoint.engine import _leaf_paths
+    return {k: (v.detach().clone() if isinstance(v, torch.Tensor) else v)
+            for k, v in _leaf_paths(engine.state)}
+
+
+def state_diffs(torch, a, b):
+    """Keys whose values are not bitwise equal (tensors by their bytes)."""
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return (x.dtype == y.dtype and x.shape == y.shape
+                    and torch.equal(x.view(torch.uint8), y.view(torch.uint8)))
+        return x == y
+    return [k for k in a if k not in b or not same(a[k], b[k])]
+
+
+def nondeterministic_ops(torch, engine, batch):
+    """The ops of one training step that PyTorch reports as having no
+    deterministic implementation (``use_deterministic_algorithms`` in
+    warn-only mode)."""
+    import warnings
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            engine.train_batch(dict(batch))
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(" does not have")[0]
+                   for w in caught if "deterministic" in str(w.message)})
+
+
+def dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def train_ckpt(torch, fa, seed, device=None, **overrides):
+    """train-ckpt: GPT-2-small on phase 4's configuration.  Engine A takes
+    2 steps, saves, takes 2 more; engine B (other random weights) loads
+    and takes the same 2: the restored state bitwise the saved one, B's
+    losses and final master and moments bitwise A's.  Then an async save:
+    A steps while the write runs, a fresh engine loads the checkpoint and
+    equals A's state at the save, and ``consolidate`` equals its master.
+    Returns the flash launches by variant (as ``train``)."""
+    import tempfile
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.checkpoint import engine as ck
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.runtime import synthetic_lm_data
+
+    spec = TRAIN_RUNS["train"]
+    seq = overrides.pop("max_seq_len", spec["seq"])
+    micro = overrides.pop("micro", spec["micro"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def engine(s, **extra):
+        m = build_model("gpt2", seed=s, device=device, max_seq_len=seq,
+                        attention_impl="flash", **overrides)
+        cfg = train_config(micro, "bf16")
+        cfg.update(extra)
+        return ds.initialize(model=m, config=cfg, device=device), m.config
+
+    a, cfg = engine(seed)
+    b, _ = engine(seed + 1)
+    data = synthetic_lm_data(cfg.vocab_size, micro * 6, seq, seed=seed)
+    batches = [{"input_ids": data["input_ids"][i * micro:(i + 1) * micro]}
+               for i in range(6)]
+    save_walls = []
+    real_save_tree = ck.save_tree
+
+    def timed_save_tree(*args, **kw):
+        t = time.perf_counter()
+        real_save_tree(*args, **kw)
+        save_walls.append(time.perf_counter() - t)
+
+    ck.save_tree = timed_save_tree
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=root, prefix="ckpt-")
+    try:
+        # the main path: counts to 0 just before, read just after
+        fa.reset_launches()
+        for bt in batches[:2]:
+            a.train_batch(dict(bt))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = a.save_checkpoint(f"{tmp.name}/sync")
+        t_save = time.perf_counter() - t0
+        saved = state_snapshot(torch, a)
+        nbytes = dir_bytes(d)
+        losses_a = [a.train_batch(dict(bt))["loss"] for bt in batches[2:4]]
+        final_a = state_snapshot(torch, a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.load_checkpoint(f"{tmp.name}/sync")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        diffs = state_diffs(torch, saved, state_snapshot(torch, b))
+        log(f"[train-ckpt] checkpoint {nbytes / 1e9:.3f} GB "
+            f"({len(saved)} leaves); save {t_save:.3f} s "
+            f"({nbytes / 1e9 / t_save:.2f} GB/s), load {t_load:.3f} s "
+            f"({nbytes / 1e9 / t_load:.2f} GB/s); restored state bitwise "
+            f"the saved one: {not diffs} {diffs[:3]}")
+        if diffs or b.global_steps != 2:
+            raise AssertionError(f"train-ckpt: the restored state differs "
+                                 f"at {diffs[:5]}")
+        losses_b = [b.train_batch(dict(bt))["loss"] for bt in batches[2:4]]
+        final_b = state_snapshot(torch, b)
+        la = [float(x) for x in losses_a]
+        lb = [float(x) for x in losses_b]
+        same_loss = all(torch.equal(x, y) for x, y in zip(losses_a,
+                                                          losses_b))
+        diffs = state_diffs(torch, final_a, final_b)
+        log(f"[train-ckpt] after the resume: A losses {la}, B losses {lb}; "
+            f"bitwise equal: losses {same_loss}, final state "
+            f"{not diffs} ({len(diffs)} leaves differ)")
+        if not same_loss or diffs:
+            # name the op: run A's last two steps twice from one state
+            c, _ = engine(seed + 2)
+            c.load_checkpoint(f"{tmp.name}/sync")
+            lc = [float(c.train_batch(dict(bt))["loss"])
+                  for bt in batches[2:4]]
+            spread = [abs(x - y) for x, y in zip(lb, lc)]
+            ops = nondeterministic_ops(torch, c, batches[4])
+            log(f"[train-ckpt] NOT BITWISE: the same two steps from the "
+                f"restored state again: losses {lc}, run-to-run spread "
+                f"{spread}; ops without a deterministic implementation: "
+                f"{ops}")
+            if not ops or any(abs(x - y) > s for x, y, s in
+                              zip(la, lb, spread)):
+                raise AssertionError("train-ckpt: the resumed run is not "
+                                     "the uninterrupted one, beyond the "
+                                     "run-to-run spread")
+            del c
+        # async: A takes one more step while the write runs
+        a.config.checkpoint.async_save = True
+        save_walls.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d2 = a.save_checkpoint(f"{tmp.name}/async")
+        t_block = time.perf_counter() - t0
+        at_save = state_snapshot(torch, a)
+        a.train_batch(dict(batches[4]))
+        a.wait_checkpoint()
+        t_done = time.perf_counter() - t0
+        fresh, _ = engine(seed + 3)
+        fresh.load_checkpoint(f"{tmp.name}/async")
+        diffs = state_diffs(torch, at_save, state_snapshot(torch, fresh))
+        cons = ck.consolidate(d2)
+        cons_ok = all(torch.equal(torch.from_numpy(v),
+                                  at_save[k].float().cpu())
+                      for k, v in cons.items())
+        log(f"[train-ckpt] async save: blocking {t_block * 1e3:.1f} ms "
+            f"(the host snapshot) against the write's wall "
+            f"{save_walls[0] * 1e3:.1f} ms; a step ran meanwhile; save to "
+            f"wait_checkpoint {t_done * 1e3:.1f} ms; a fresh engine's load "
+            f"bitwise A's state at the save: {not diffs}; consolidate "
+            f"equals A's master ({len(cons)} leaves): {cons_ok} "
+            f"[{nvidia_smi_line()}]")
+        if diffs or not cons_ok or len(cons) != len(
+                [k for k in at_save if k.startswith(".master")]):
+            raise AssertionError(f"train-ckpt: the async checkpoint differs "
+                                 f"at {diffs[:5]} (consolidate {cons_ok})")
+        variants = {k: dict(getattr(fa, k).variant_launches)
+                    for k in FLASH_KERNELS}
+        steps = 4 + 2 + 1 + (0 if same_loss and not diffs else 3)
+        log(f"[train-ckpt] flash launches by (dtype, head dim): {variants} "
+            f"({steps} training steps x {cfg.num_layers} layers)")
+        if any(sum(v.values()) != steps * cfg.num_layers
+               for v in variants.values()):
+            raise AssertionError("train-ckpt: a step missed a flash kernel")
+    finally:
+        ck.save_tree = real_save_tree
+        tmp.cleanup()
+    del a, b, fresh
+    free_engines(torch)
+    return variants
+
+
+# ---------------------------------------------------------------------------
+# serve-moe: qwen2-moe-a2.7b from an HF-named state dict
+# ---------------------------------------------------------------------------
+
+MOE_PRESET = "qwen2-moe-a2.7b"
+
+
+def qwen2_moe_state_dict(torch, cfg, params):
+    """The ``Qwen2MoeForCausalLM`` state dict of a port tree (each tensor
+    in HF's [out, in] layout, contiguous): the inverse of the importer's
+    map, built here to feed it.  CONSUMES ``params``: each stacked leaf
+    is dropped once its layers are copied, so the card holds one copy of
+    the weights and one leaf."""
+    H, Hkv, D, dm = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    nl = cfg.num_layers
+    T = lambda w: w.transpose(-1, -2).contiguous()      # noqa: E731
+    b, sd = params["blocks"], {}
+    sd["model.embed_tokens.weight"] = params.pop("embed")["table"]
+
+    def per_layer(group, name, key, fn):
+        leaf = b[group].pop(name)
+        for i in range(nl):
+            sd[f"model.layers.{i}." + key] = fn(leaf[i])
+        del leaf
+
+    for n, h in (("q", H), ("k", Hkv), ("v", Hkv)):
+        per_layer("attn", f"w{n}", f"self_attn.{n}_proj.weight",
+                  lambda w, h=h: T(w.reshape(dm, h * D)))
+        per_layer("attn", f"b{n}", f"self_attn.{n}_proj.bias",
+                  lambda x, h=h: x.reshape(h * D).clone())
+    per_layer("attn", "wo", "self_attn.o_proj.weight",
+              lambda w: T(w.reshape(H * D, dm)))
+    per_layer("ln1", "scale", "input_layernorm.weight", lambda x: x.clone())
+    per_layer("ln2", "scale", "post_attention_layernorm.weight",
+              lambda x: x.clone())
+    per_layer("gate", "kernel", "mlp.gate.weight", T)
+    for n, hf in (("wg", "gate_proj"), ("wi", "up_proj"),
+                  ("wo", "down_proj")):
+        leaf = b["experts"].pop(n)
+        for i in range(nl):
+            for e in range(cfg.num_experts):
+                sd[f"model.layers.{i}.mlp.experts.{e}.{hf}.weight"] = \
+                    T(leaf[i, e])
+        del leaf
+        per_layer("shared", n, f"mlp.shared_expert.{hf}.weight", T)
+    per_layer("shared", "gate", "mlp.shared_expert_gate.weight", T)
+    sd["model.norm.weight"] = params.pop("ln_f")["scale"]
+    sd["lm_head.weight"] = T(params.pop("lm_head")["kernel"])
+    return sd
+
+
+def flat_tree(tree, prefix=""):
+    """{path: leaf} of a parameter tree."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in flat_tree(v, f"{prefix}/{k}").items()}
+    return {prefix: tree}
+
+
+def moe_serving_model(torch, seed, device=None, **overrides):
+    """qwen2-moe-a2.7b at full width and depth: random bf16 weights from
+    ``seed`` drawn on the card, renamed to the HF state dict (the drawn
+    tree consumed) and taken back through
+    ``checkpoint.hf.load_hf_state_dict`` (the HF dict consumed), then
+    held bitwise against the same draw made again; and phase 5's
+    prompts.  At most two copies of the weights live at once."""
+    from deepspeed_tpu_torch.checkpoint.hf import load_hf_state_dict
+    from deepspeed_tpu_torch.models import Model, build_model
+
+    drawn, prompts = serving_model(torch, MOE_PRESET, seed, tag="serve-moe",
+                                   device=device, **overrides)
+    cfg = drawn.config
+    t0 = time.perf_counter()
+    sd = qwen2_moe_state_dict(torch, cfg, drawn.params)
+    n_hf = len(sd)
+    del drawn
+    free_engines(torch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params = load_hf_state_dict(cfg, sd, "qwen2_moe")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    left = len(sd)
+    del sd
+    free_engines(torch)
+    ref = build_model(MOE_PRESET, seed=seed, dtype=torch.bfloat16,
+                      device=device, **overrides)       # the same draw
+    got, want = flat_tree(params), flat_tree(ref.params)
+    bad = [k for k in want if k not in got or got[k].dtype != want[k].dtype
+           or not torch.equal(got[k], want[k])]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[serve-moe] HF state dict: {n_hf} tensors built from the drawn "
+        f"tree in {t1 - t0:.2f} s, imported by "
+        f"checkpoint.hf.load_hf_state_dict in {t2 - t1:.2f} s ({left} "
+        f"entries left: consumed); tree bitwise the drawn one: "
+        f"{not bad and sorted(got) == sorted(want)}; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB")
+    if bad or sorted(got) != sorted(want) or left:
+        raise AssertionError(f"serve-moe: the imported tree differs from "
+                             f"the drawn one at {bad[:5]}")
+    del ref, got, want
+    free_engines(torch)
+    return Model.from_params(cfg, params), prompts
+
+
+# device time of a step by MoE part: the functions each label wraps (the
+# serving forward looks them up at call time)
+MOE_PARTS = (("gating", "deepspeed_tpu_torch.parallel.moe",
+              "_serving_route"),
+             ("dispatch/combine", "deepspeed_tpu_torch.parallel.moe",
+              "_slot_dispatch"),
+             ("dispatch/combine", "deepspeed_tpu_torch.parallel.moe",
+              "_slot_combine"),
+             ("expert bmm", "deepspeed_tpu_torch.parallel.moe",
+              "experts_apply"),
+             ("shared expert", "deepspeed_tpu_torch.inference.model",
+              "_shared_expert"),
+             ("attention", "deepspeed_tpu_torch.inference.model",
+              "paged_attention"),
+             ("dense GEMMs", "deepspeed_tpu_torch.inference.model", "_mm"))
+
+
+def moe_step_kinds(torch, model, prompts, device=None):
+    """Device ms of an eager prefill step (2 prompts, 1024 tokens) and a
+    decode step (8 sequences) of the MoE serving forward, by part
+    (MOE_PARTS, each wrapped in a ``record_function`` range; the rest as
+    "other": norms, rotary, embedding, KV writes, LM head), from
+    torch.profiler."""
+    import importlib
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from deepspeed_tpu_torch.inference.model import ragged_forward
+    from deepspeed_tpu_torch.inference.ragged.state import (KVCacheConfig,
+                                                            StateManager)
+    cfg = model.config
+    sm = StateManager(KVCacheConfig(cfg.num_layers, cfg.num_kv_heads,
+                                    cfg.head_dim, block_size=64,
+                                    num_blocks=96, dtype=torch.bfloat16,
+                                    device=model.device), max_seqs=8)
+    steps = [[(2 * j + u, prompts[2 * j + u]) for u in range(2)]
+             for j in range(4)]
+    real = []
+    for label, mod, name in MOE_PARTS:
+        m = importlib.import_module(mod)
+        fn = getattr(m, name)
+        real.append((m, name, fn))
+
+        def wrapped(*a, _fn=fn, _label=label, **kw):
+            with record_function(f"moe:{_label}"):
+                return _fn(*a, **kw)
+        setattr(m, name, wrapped)
+    out = {}
+    try:
+        def run(sched, tag):
+            batch = sm.build_batch(sched, 1024)
+            prof = profile(activities=[ProfilerActivity.CUDA,
+                                       ProfilerActivity.CPU])
+            torch.cuda.synchronize()
+            prof.start()
+            ragged_forward(cfg, model.params, sm.kv, batch, 64, 16)
+            torch.cuda.synchronize()
+            prof.stop()
+            # a label's ms: the kernels launched inside its range (its
+            # host-side event; the device-side annotation of the range
+            # spans the gaps between them too, and is left out)
+            # K2 launches through ctypes, which the profiler does not tie
+            # to the range: attention is its kernels' own time
+            total = 0.0
+            by = {"attention": 0.0}
+            for e in prof.events():
+                on_device = str(e.device_type).endswith("CUDA")
+                if e.name.startswith("moe:"):
+                    if not on_device and e.name != "moe:attention":
+                        by[e.name[4:]] = (by.get(e.name[4:], 0.0)
+                                          + e.device_time_total / 1e3)
+                elif on_device:
+                    total += e.self_device_time_total / 1e3
+                    if "paged_attention" in e.name:
+                        by["attention"] += e.self_device_time_total / 1e3
+            kinds = sum(by.values())
+            by["other"] = max(total - kinds, 0.0)
+            out[tag] = by
+            log(f"[serve-moe] {tag} step ({batch.n_tokens} tokens, eager) "
+                f"device {total:.2f} ms by part: " + ", ".join(
+                    f"{k} {v:.2f} ms ({100 * v / max(total, 1e-9):.1f}%)"
+                    for k, v in sorted(by.items(), key=lambda kv: -kv[1])))
+
+        for j, sched in enumerate(steps):
+            if j == len(steps) - 1:
+                run(sched, "prefill")
+            else:
+                batch = sm.build_batch(sched, 1024)
+                ragged_forward(cfg, model.params, sm.kv, batch, 64, 16)
+        run([(u, [int(prompts[u][-1])]) for u in range(8)], "decode")
+    finally:
+        for m, name, fn in real:
+            setattr(m, name, fn)
+        del sm
+        free_engines(torch)
+    return out
+
+
+def serve_moe(torch, pa, seed, device=None, **overrides):
+    """serve-moe: qwen2-moe-a2.7b from the HF-named tree at phase 5's
+    traffic and engine (``serve``), then the device ms of a prefill and a
+    decode step by MoE part and the resident bytes.  Returns ``serve``'s
+    result."""
+    model, prompts = moe_serving_model(torch, seed, device=device,
+                                       **overrides)
+    res = serve(torch, pa, model, prompts, tag="serve-moe")
+    moe_step_kinds(torch, model, prompts, device)
+    log(f"[serve-moe] resident: weights {tree_bytes(model.params) / 1e9:.2f}"
+        f" GB (+ the KV cache above); decode tok/s "
+        f"{res['decode_tok_s']:.1f}, TTFT p50 {res['ttft_p50_ms']:.1f} ms "
+        f"[{nvidia_smi_line()}]")
+    del model
+    free_engines(torch)
+    return res
+
+
 def serve_alibi(torch, pa, seed, device=None, **overrides):
     """Phase 7: BLOOM-7b1 served greedy (bf16 cache), seeded-sampled at
     pipeline depths 2 and 1, and with an int8 cache.  ``device`` and
@@ -2837,9 +3320,10 @@ KERNEL_GROUPS = [("flash attention", ("flash_fwd", "flash_dq", "flash_dkv",
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="device,build,kernel,train,train-fp32,serve,"
-                            "serve-quant,serve-burst,serve-failover,"
-                            "serve-alibi,serve-mqa,serve-spec,train-fp16")
+                    default="device,build,kernel,train,train-fp32,"
+                            "train-ckpt,serve,serve-quant,serve-burst,"
+                            "serve-failover,serve-alibi,serve-mqa,"
+                            "serve-spec,serve-moe,train-moe,train-fp16")
     ap.add_argument("--seed", type=int, default=0)
     # serve-failover (e) runs this script again as its child process
     ap.add_argument("--failover-child", metavar="SNAPSHOT_PATH",
@@ -2945,6 +3429,10 @@ def main() -> int:
         if run in phases:
             flash_runs.append(train(torch, fa, args.seed, run))
             phase_done(run)
+    # 4c. checkpoints of phase 4's training
+    if "train-ckpt" in phases:
+        flash_runs.append(train_ckpt(torch, fa, args.seed))
+        phase_done("train-ckpt")
 
     # 5., 6., 6c. and 6d. the serving paths, bf16, quantized, in decode
     # bursts and under failures, on one model
@@ -2994,6 +3482,17 @@ def main() -> int:
         serve_spec(torch, pa, args.seed)
         phase_done("serve-spec")
 
+    # 7d. qwen2-moe-a2.7b imported from an HF-named state dict
+    moe_launches = None
+    if "serve-moe" in phases:
+        moe_launches = serve_moe(torch, pa, args.seed)["launches"]
+        phase_done("serve-moe")
+
+    # 8b. qwen2-moe-a2.7b training, depth cut to 2 layers
+    if "train-moe" in phases:
+        flash_runs.append(train(torch, fa, args.seed, "train-moe"))
+        phase_done("train-moe")
+
     # 8. phi-2 in fp16 with the dynamic loss scaler, after falcon is freed
     if "train-fp16" in phases:
         flash_runs.append(train(torch, fa, args.seed, "train-fp16"))
@@ -3035,7 +3534,8 @@ def main() -> int:
         # own (the counts zeroed before each scenario, read after it)
         entries = [dict(name="paged_attention", route="cuda", source=pa_src,
                         replaces=pa_replaces, launches=launches,
-                        failover_launches=failover_launches, **kern)]
+                        failover_launches=failover_launches,
+                        moe_launches=moe_launches, **kern)]
         entries += [dict(name=f"paged_attention_{code}kv", route="cuda",
                          source=pa_src, replaces=pa_replaces,
                          launches=quant_launches(run, "kv"),

@@ -11,7 +11,9 @@ cache and ALiBi variants) and seeded sampling on the JAX package's
 threefry keys (``utils.prng``), quantized serving with the mixed-input
 GEMM, and one-device training (``runtime``: ``initialize`` ->
 ``Engine.train_batch``) with flash attention forward and backward as
-hand-written Hopper kernels (``ops``).
+hand-written Hopper kernels (``ops``), checkpoints in the JAX package's
+fragment format and HuggingFace import (``checkpoint``), and
+mixture-of-experts layers (``parallel.moe``) for training and serving.
 """
 
 __version__ = "0.1.0"

@@ -31,6 +31,14 @@ softmax, in plain torch ops as the reference's XLA ops (no Pallas kernel
 there, no hand kernel here); a quantized model's projections still go
 through the mixed-input GEMM.
 
+A mixture-of-experts layer (``num_experts > 1``) runs
+``parallel.moe.moe_serving`` on the step's rows: only the batch's valid
+tokens are gated and take expert capacity (the JAX step gates its
+padding too, which can take capacity from real tokens), at the capacity
+the JAX step gives its T rows (the staged batch's length, the token
+budget; a burst's slot count); then the qwen2-moe shared expert.
+Nothing in it reads back to the host, so its steps capture as graphs.
+
 Quantized serving (``quant=`` a tree from
 ``inference.quantization.quantize_model_params``): each layer's weights
 are merged one layer at a time, left quantized for the mixed-input GEMM
@@ -50,8 +58,8 @@ import torch
 
 from ..models import layers as L
 from ..models.transformer import (TransformerConfig, _norm,
-                                  _require_supported, attn_scale,
-                                  unstack_layers)
+                                  _shared_expert, attn_scale, unstack_layers)
+from ..parallel.moe import moe_serving
 from ..ops.mixed_gemm import mixed_matmul
 from ..ops.paged_attention import _kv_parts, paged_attention
 from ..ops.quant import QuantizedTensor, dequantize_any, is_rowwise_int8
@@ -135,8 +143,22 @@ def _qkv_proj(cfg: TransformerConfig, ap, h: torch.Tensor, dt, rope):
 
 
 def _ffn(cfg: TransformerConfig, lp, h: torch.Tensor, dt,
-         act: Callable) -> torch.Tensor:
-    """Dense MLP branch of a serving layer."""
+         act: Callable, valid: Optional[torch.Tensor] = None,
+         tokens: int = 0) -> torch.Tensor:
+    """MLP or MoE branch of a serving layer.  MoE: the experts over the
+    rows of ``h`` whose ``valid`` is set (a step's padding takes no
+    expert capacity), at the capacity the JAX serving forward gives its
+    ``tokens`` rows at the same call site; then the qwen2-moe shared
+    expert."""
+    if cfg.num_experts > 1:
+        d = moe_serving(lp["gate"], lp["experts"], h, valid, tokens,
+                        top_k=cfg.moe_top_k,
+                        capacity_factor=cfg.eval_capacity_factor,
+                        min_capacity=cfg.min_capacity, activation=act,
+                        gated=cfg.gated_mlp, norm_topk=cfg.moe_norm_topk)
+        if "shared" in lp:       # qwen2-moe sigmoid-gated shared expert
+            d = d + _shared_expert(lp["shared"], h, act, cfg.gated_mlp)
+        return d
     mp = lp["mlp"]
     u = _mm(h, mp["wi"], dt)
     if cfg.mlp_bias:
@@ -188,7 +210,6 @@ def ragged_forward(cfg: TransformerConfig, params, kv,
     nonzero context offset (chunked prefill, or a prefill resuming after
     a prefix-cache hit aliased the leading blocks) needs no special
     handling."""
-    _require_supported(cfg)
     n = batch.n_tokens
     x, table, dt = _embed_rows(params, quant, batch.token_ids[:n],
                                cfg.tie_embeddings)
@@ -238,8 +259,11 @@ def ragged_forward(cfg: TransformerConfig, params, kv,
             h = norm(lp["ln2"], x)
         elif cfg.parallel_separate_norms:
             h = norm(lp["ln2"], x)   # gpt-neox: MLP norms the original x
-        # parallel residual (falcon/phi): MLP reads the same ln1 output
-        d = _ffn(cfg, lp, h, dt, act)
+        # parallel residual (falcon/phi): MLP reads the same ln1 output;
+        # MoE capacity from the staged batch's full length (the JAX
+        # step's token budget), its valid tokens the real rows
+        d = _ffn(cfg, lp, h, dt, act, valid=batch.token_valid[:n],
+                 tokens=batch.token_ids.shape[0])
         x = x + o + d if cfg.parallel_block else x + d
 
     # logits only at each sequence's last scheduled token, or at every
@@ -369,7 +393,6 @@ def decode_burst_forward(cfg: TransformerConfig, params, prefix,
     Attention of each token merges (a) dense attention over the prefix,
     masked by base_ctx, and (b) attention over the in-burst tail, masked
     by iteration, by an online softmax."""
-    _require_supported(cfg)
     pdata, pscales = _kv_parts(prefix)
     S, P = pdata.shape[1], pdata.shape[2]
     Hkv, D = pdata.shape[4], pdata.shape[5]
@@ -400,6 +423,7 @@ def decode_burst_forward(cfg: TransformerConfig, params, prefix,
     vpre = vpre.to(dt0).permute(0, 1, 3, 2, 4).contiguous()
     cols = torch.arange(P, device=dev)[None, :]
     valid = cols < base_ctx[:, None]                           # [S, P]
+    live = base_ctx > 0                                        # [S]
     kidx = torch.arange(steps, device=dev)
     tail = None
     toks = []
@@ -467,7 +491,9 @@ def decode_burst_forward(cfg: TransformerConfig, params, prefix,
                 h = norm(lp["ln2"], x)
             elif cfg.parallel_separate_norms:
                 h = norm(lp["ln2"], x)
-            d = _ffn(cfg, lp, h, dt, act)
+            # MoE: the JAX burst gates its S slot rows; a slot in the
+            # burst has context (base_ctx > 0), an empty one is padding
+            d = _ffn(cfg, lp, h, dt, act, valid=live, tokens=S)
             x = x + o + d if cfg.parallel_block else x + d
         x = norm(params["ln_f"], x)
         if cfg.tie_embeddings:

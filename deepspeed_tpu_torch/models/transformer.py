@@ -15,8 +15,12 @@ forward the training loss runs; :func:`apply` is the same forward under
 ``rolled_lm_targets`` and ``cross_entropy_loss``, ``_resolve_attention``
 (``attention_impl``) and per-layer remat with the JAX package's six
 policies (:data:`REMAT_POLICIES`).  ALiBi (``position="alibi"``) runs
-through the eager attention with the per-head bias.  Not ported: MoE
-(``num_experts > 1`` raises).
+through the eager attention with the per-head bias.  Mixture-of-experts
+models (``num_experts > 1``: mixtral, qwen2-moe with its sigmoid-gated
+shared expert) run every layer's FFN through ``parallel.moe.moe_ffn``;
+``forward``/``apply`` take the training ``rng`` (its gating noise) and
+``with_aux`` (the layers' mean load-balancing loss), and ``lm_loss_fn``
+adds ``aux_loss_coef`` times that loss, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -31,7 +35,9 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..parallel.moe import moe_ffn
 from ..platform.cuda import resolve_device
+from ..utils.prng import split
 from . import layers as L
 
 
@@ -73,8 +79,8 @@ class TransformerConfig:
     scan_unroll: int = 1
     # gpt-neo: attention WITHOUT the 1/sqrt(d) scaling; None = default
     attn_scale: Optional[float] = None
-    # --- MoE (not ported yet: num_experts > 1 raises) ---------------------
-    num_experts: int = 1
+    # --- MoE (parallel/moe.py; presets: mixtral, qwen2-moe) ----------------
+    num_experts: int = 1                      # >1 => every layer is MoE
     moe_top_k: int = 2
     moe_shared_ff: Optional[int] = None
     moe_norm_topk: bool = True
@@ -111,13 +117,6 @@ class TransformerConfig:
         return (int(self.head_dim * self.rope_pct) // 2) * 2
 
 
-def _require_supported(cfg: TransformerConfig) -> None:
-    if cfg.num_experts > 1:
-        raise NotImplementedError(
-            "num_experts > 1 (MoE) is not ported yet (ROADMAP Queue 1, "
-            "multi-GPU training breadth: parallel/moe.py)")
-
-
 # --------------------------------------------------------------------------
 # parameter trees
 # --------------------------------------------------------------------------
@@ -151,7 +150,6 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     ``generator`` (which must live on that device) — a large model's
     random weights never pass through host memory.  The values differ
     from the JAX package's for the same seed."""
-    _require_supported(cfg)
     dev = torch.device(device)
     H, D, Hkv = cfg.num_heads, cfg.head_dim, cfg.num_kv_heads
     dm, dff, nl = cfg.d_model, cfg.d_ff, cfg.num_layers
@@ -190,14 +188,33 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         attn["bv"] = zeros(nl, Hkv, D)
     if cfg.attn_out_bias:
         attn["bo"] = zeros(nl, dm)
-    mlp = {"wi": normal((nl, dm, dff), 1.0 / math.sqrt(dm))}
-    if cfg.gated_mlp:
-        mlp["wg"] = normal((nl, dm, dff), 1.0 / math.sqrt(dm))
-    mlp["wo"] = normal((nl, dff, dm), out_scale)
-    if cfg.mlp_bias:
-        mlp["bi"] = zeros(nl, dff)
-        mlp["bo"] = zeros(nl, dm)
-    blocks = {"attn": attn, "mlp": mlp, "ln1": norm_init(nl)}
+    blocks: Dict[str, Any] = {"attn": attn}
+    if cfg.num_experts > 1:
+        E = cfg.num_experts
+        blocks["gate"] = {"kernel": normal((nl, dm, E), 0.01)}
+        experts = {"wi": normal((nl, E, dm, dff), 1.0 / math.sqrt(dm)),
+                   "wo": normal((nl, E, dff, dm), out_scale)}
+        if cfg.gated_mlp:
+            experts["wg"] = normal((nl, E, dm, dff), 1.0 / math.sqrt(dm))
+        blocks["experts"] = experts
+        if cfg.moe_shared_ff:        # qwen2-moe dense shared expert
+            sff = cfg.moe_shared_ff
+            shared = {"wi": normal((nl, dm, sff), 1.0 / math.sqrt(dm)),
+                      "wo": normal((nl, sff, dm), out_scale)}
+            if cfg.gated_mlp:
+                shared["wg"] = normal((nl, dm, sff), 1.0 / math.sqrt(dm))
+            shared["gate"] = normal((nl, dm, 1), 1.0 / math.sqrt(dm))
+            blocks["shared"] = shared
+    else:
+        mlp = {"wi": normal((nl, dm, dff), 1.0 / math.sqrt(dm))}
+        if cfg.gated_mlp:
+            mlp["wg"] = normal((nl, dm, dff), 1.0 / math.sqrt(dm))
+        mlp["wo"] = normal((nl, dff, dm), out_scale)
+        if cfg.mlp_bias:
+            mlp["bi"] = zeros(nl, dff)
+            mlp["bo"] = zeros(nl, dm)
+        blocks["mlp"] = mlp
+    blocks["ln1"] = norm_init(nl)
     if not cfg.parallel_block or cfg.parallel_separate_norms:
         blocks["ln2"] = norm_init(nl)
     params["blocks"] = blocks
@@ -281,11 +298,25 @@ def attn_scale(cfg: TransformerConfig) -> float:
             else 1.0 / (cfg.head_dim ** 0.5))
 
 
+def _shared_expert(sp, h: torch.Tensor, act: Callable,
+                   gated: bool) -> torch.Tensor:
+    """qwen2-moe dense shared expert: a full MLP on every token, scaled
+    by a per-token sigmoid gate (computed in fp32)."""
+    dt = h.dtype
+    u = h @ sp["wi"].to(dt)
+    u = act(h @ sp["wg"].to(dt)) * u if "wg" in sp else act(u)
+    d = u @ sp["wo"].to(dt)
+    g = torch.sigmoid((h @ sp["gate"].to(dt)).float())
+    return d * g.to(dt)
+
+
 def block_apply(cfg: TransformerConfig, lp, x: torch.Tensor, cos, sin,
-                mask=None, attention_fn: Optional[Callable] = None
-                ) -> torch.Tensor:
+                mask=None, attention_fn: Optional[Callable] = None,
+                rng: Optional[torch.Tensor] = None):
     """One decoder layer.  lp: this layer's params; x: [B, S, dm].
-    ``attention_fn`` None: ``causal_attention`` at ``attn_scale(cfg)``."""
+    ``attention_fn`` None: ``causal_attention`` at ``attn_scale(cfg)``.
+    ``rng``: this layer's threefry key (MoE gating noise).  Returns (x,
+    metrics), the metrics non-empty for MoE."""
     if attention_fn is None:
         attention_fn = partial(L.causal_attention, scale=attn_scale(cfg))
     norm = _norm(cfg)
@@ -312,28 +343,41 @@ def block_apply(cfg: TransformerConfig, lp, x: torch.Tensor, cos, sin,
         h = norm(lp["ln2"], x)
     elif cfg.parallel_separate_norms:
         h = norm(lp["ln2"], x)   # gpt-neox: the MLP norms the original x
-    mp = lp["mlp"]
-    u = h @ mp["wi"].to(dt)
-    if cfg.mlp_bias:
-        u = u + mp["bi"].to(dt)
-    u = act(h @ mp["wg"].to(dt)) * u if cfg.gated_mlp else act(u)
-    d = u @ mp["wo"].to(dt)
-    if cfg.mlp_bias:
-        d = d + mp["bo"].to(dt)
+    metrics: Dict[str, torch.Tensor] = {}
+    if cfg.num_experts > 1:
+        d, metrics = moe_ffn(
+            lp["gate"], lp["experts"], h, top_k=cfg.moe_top_k,
+            capacity_factor=cfg.capacity_factor,
+            min_capacity=cfg.min_capacity, activation=act,
+            gated=cfg.gated_mlp, rng=rng, noise_policy=cfg.noise_policy,
+            dispatch_mode=cfg.moe_dispatch, norm_topk=cfg.moe_norm_topk)
+        if "shared" in lp:       # qwen2-moe sigmoid-gated shared expert
+            d = d + _shared_expert(lp["shared"], h, act, cfg.gated_mlp)
+    else:
+        mp = lp["mlp"]
+        u = h @ mp["wi"].to(dt)
+        if cfg.mlp_bias:
+            u = u + mp["bi"].to(dt)
+        u = act(h @ mp["wg"].to(dt)) * u if cfg.gated_mlp else act(u)
+        d = u @ mp["wo"].to(dt)
+        if cfg.mlp_bias:
+            d = d + mp["bo"].to(dt)
     if cfg.parallel_block:
-        return x + o + d
-    return x + d
+        return x + o + d, metrics
+    return x + d, metrics
 
 
 def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor,
             mask: Optional[torch.Tensor] = None,
             attention_fn: Optional[Callable] = None,
-            dtype=None) -> torch.Tensor:
-    """Dense forward -> logits [B, S, vocab], differentiable (the JAX
-    ``apply`` without PLD/LTD/MoE).  ``cfg.remat`` recomputes each layer
-    in the backward (``torch.utils.checkpoint``) under
-    ``cfg.remat_policy``."""
-    _require_supported(cfg)
+            dtype=None, rng: Optional[torch.Tensor] = None,
+            with_aux: bool = False):
+    """Forward -> logits [B, S, vocab], differentiable (the JAX ``apply``
+    without PLD/LTD), or (logits, aux) with ``with_aux``: aux holds the
+    MoE layers' metrics averaged over layers (empty for a dense model).
+    ``rng``: a threefry key (``utils.prng``), split over the layers for
+    the MoE gating noise.  ``cfg.remat`` recomputes each layer in the
+    backward (``torch.utils.checkpoint``) under ``cfg.remat_policy``."""
     remat = _remat(cfg)
     dt = dtype or params["embed"]["table"].dtype
     x = L.embed(params["embed"], input_ids).to(dt)
@@ -352,28 +396,42 @@ def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor,
     else:
         cos, sin = L.rope_freqs(cfg.rotary_dim, cfg.max_seq_len,
                                 cfg.rope_theta, device=x.device)
-    for lp in unstack_layers(params["blocks"], cfg.num_layers):
+    # the layers' keys (only the MoE gating noise draws from them)
+    layer_rngs = (split(rng, cfg.num_layers)
+                  if rng is not None and cfg.num_experts > 1
+                  else [None] * cfg.num_layers)
+    per_layer = []
+    for lp, r in zip(unstack_layers(params["blocks"], cfg.num_layers),
+                     layer_rngs):
         layer = partial(block_apply, cfg, lp, cos=cos, sin=sin, mask=mask,
-                        attention_fn=attention_fn)
-        x = remat(layer, x) if remat else layer(x)
+                        attention_fn=attention_fn, rng=r)
+        x, metrics = remat(layer, x) if remat else layer(x)
+        per_layer.append(metrics)
     x = _norm(cfg)(params["ln_f"], x)
     if cfg.tie_embeddings:
-        return x @ params["embed"]["table"].to(dt).T
-    logits = x @ params["lm_head"]["kernel"].to(dt)
-    if cfg.head_bias:
-        logits = logits + params["lm_head"]["bias"].to(dt)
+        logits = x @ params["embed"]["table"].to(dt).T
+    else:
+        logits = x @ params["lm_head"]["kernel"].to(dt)
+        if cfg.head_bias:
+            logits = logits + params["lm_head"]["bias"].to(dt)
+    if with_aux:
+        aux = {k: torch.stack([m[k] for m in per_layer]).mean()
+               for k in per_layer[0]} if per_layer else {}
+        return logits, aux
     return logits
 
 
 @torch.no_grad()
 def apply(cfg: TransformerConfig, params, input_ids: torch.Tensor,
           mask: Optional[torch.Tensor] = None,
-          attention_fn: Optional[Callable] = None, dtype=None) -> torch.Tensor:
+          attention_fn: Optional[Callable] = None, dtype=None,
+          rng: Optional[torch.Tensor] = None, with_aux: bool = False):
     """:func:`forward` without autograd (the serving path's dense forward);
     the positional order is the reference's (``mask, attention_fn,
-    dtype``)."""
+    dtype, rng, with_aux``)."""
     return forward(cfg, params, input_ids, mask=mask,
-                   attention_fn=attention_fn, dtype=dtype)
+                   attention_fn=attention_fn, dtype=dtype, rng=rng,
+                   with_aux=with_aux)
 
 
 # --------------------------------------------------------------------------
@@ -553,8 +611,10 @@ def lm_loss_fn(cfg: TransformerConfig,
                attention_fn: Optional[Callable] = None,
                pld: bool = False, ltd_keep: Optional[int] = None):
     """Causal-LM loss over a batch ``{input_ids, [attention_mask]}``:
-    ``loss_fn(params, batch, rng) -> loss`` (``rng`` unused: the dense
-    model draws no randomness)."""
+    ``loss_fn(params, batch, rng) -> loss``, or ``(loss, aux)`` for an MoE
+    model, whose loss adds ``aux_loss_coef`` times the layers' mean
+    load-balancing loss.  ``rng``: the threefry key of the MoE gating
+    noise (a dense model draws no randomness)."""
     if pld or ltd_keep is not None:
         raise NotImplementedError(
             "progressive layer drop / random-LTD are not ported yet "
@@ -563,10 +623,14 @@ def lm_loss_fn(cfg: TransformerConfig,
     def loss_fn(params, batch, rng=None):
         ids = batch["input_ids"]
         mask = batch.get("attention_mask")
-        logits = forward(cfg, params, ids, mask=mask,
-                         attention_fn=attention_fn)
+        logits, aux = forward(cfg, params, ids, mask=mask,
+                              attention_fn=attention_fn, rng=rng,
+                              with_aux=True)
         labels, tgt_mask = rolled_lm_targets(ids, mask)
-        return cross_entropy_loss(logits, labels, tgt_mask)
+        loss = cross_entropy_loss(logits, labels, tgt_mask)
+        if "moe_aux_loss" in aux:
+            return loss + cfg.aux_loss_coef * aux["moe_aux_loss"], aux
+        return loss
 
     return loss_fn
 
@@ -641,7 +705,6 @@ class Model:
         the one the parameters live on.  ``param_axes`` (the reference's
         logical-axis tree for sharding) is accepted and ignored: one
         device shards nothing."""
-        _require_supported(cfg)
         m = cls.__new__(cls)
         m.config = cfg
         m.params = params

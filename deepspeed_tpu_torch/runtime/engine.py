@@ -26,8 +26,12 @@ eagerly.  bf16 and fp32 steps never wait for the device (the metrics stay
 on it until read); an fp16 step reads its overflow flag on the host.
 
 ZeRO stages 0-3 are accepted: on one device partitioning is the identity,
-as on the JAX engine's one-device mesh.  Every other engine feature raises
-``NotImplementedError`` naming its ROADMAP item when it is configured.
+as on the JAX engine's one-device mesh.  ``save_checkpoint`` /
+``load_checkpoint`` / ``wait_checkpoint`` write and read the JAX
+package's fragment format (``checkpoint/engine.py``), synchronously or,
+with ``checkpoint.async_save``, from a worker thread.  Every other
+engine feature raises ``NotImplementedError`` naming its ROADMAP item
+when it is configured.
 """
 
 from __future__ import annotations
@@ -37,9 +41,11 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..checkpoint import engine as ckpt
 from ..config.config import Config, load_config
 from ..platform.cuda import resolve_device
 from ..utils.logging import log_dist
+from ..utils.prng import PRNGKey, split
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from .loss_scaler import LossScaler, LossScaleState, all_finite
 from .lr_schedules import build_schedule, constant
@@ -53,7 +59,6 @@ PRECISION_DTYPE = {"fp32": torch.float32, "fp16": torch.float16,
 _MULTI = "ROADMAP Queue 1 item 6 (multi-GPU training breadth)"
 _HOST = "ROADMAP Queue 1 item 5 (host layers: telemetry, monitor)"
 _AUX = "ROADMAP Queue 1 item 7 (aux subsystems)"
-_CKPT = "ROADMAP Queue 1 item 2, checkpoints on one card"
 _OFFLOAD = "ROADMAP Queue 1 item 4, offload on one card"
 
 
@@ -129,8 +134,10 @@ class Engine:
                  model: Any = None, device=None):
         """``loss_fn(params, batch, rng) -> loss`` or ``(loss, aux_dict)``;
         ``params`` a tree of tensors (any dtype and device; copied into
-        the fp32 master on ``device``, None = the card).  ``rng`` is an int
-        seed for the micro-batch (the JAX engine's key).  ``param_axes``
+        the fp32 master on ``device``, None = the card).  ``rng`` is the
+        micro-batch's threefry key (``utils.prng``, on the host), derived
+        as the JAX engine derives it: ``PRNGKey(seed + global_steps)``, split
+        over the micro-batches when gas > 1.  ``param_axes``
         and ``sharding_rules`` (tensor-parallel layout hints) are kept and
         have no effect on one device."""
         if topology is not None:
@@ -173,6 +180,7 @@ class Engine:
         self.tput = ThroughputTimer(batch_size=self.train_batch_size)
         self._last_metrics: Optional[Dict[str, Any]] = None
         self._last_metrics_host: Optional[Dict[str, Any]] = None
+        self._async_saver = None
         log_dist(
             f"Engine: {param_count(self.state.master):,} params | "
             f"precision={self.precision} | zero_stage={self.zero_stage} | "
@@ -206,16 +214,17 @@ class Engine:
             return out
         return out, {}
 
-    def _grads(self, cparams, batch, rng: int, scale: float):
+    def _grads(self, cparams, batch, rng: torch.Tensor, scale: float):
         """(mean loss, last aux, fp32 grads as a leaf list)."""
         gas = self.gas
+        keys = split(rng, gas) if gas > 1 else rng[None]
         leaves = tree_leaves(cparams)
         acc = None
         loss_sum = None
         aux: Dict[str, Any] = {}
         for g in range(gas):
             mb = {k: v[g] for k, v in batch.items()} if gas > 1 else batch
-            loss, aux = self._micro_loss(cparams, mb, rng * gas + g)
+            loss, aux = self._micro_loss(cparams, mb, keys[g])
             grads = list(torch.autograd.grad(loss * scale / gas, leaves,
                                              allow_unused=True))
             for i, p in enumerate(leaves):     # each 16-bit grad freed as cast
@@ -230,9 +239,10 @@ class Engine:
                     a.add_(gr)
             loss = loss.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
+        aux = {k: v.detach() for k, v in aux.items()}
         return loss_sum / gas, aux, acc
 
-    def _train_step(self, batch, rng: int) -> Dict[str, Any]:
+    def _train_step(self, batch, rng: torch.Tensor) -> Dict[str, Any]:
         use_scaling = self.precision == "fp16"
         loss_scale = self.state.loss_scale
         scale = loss_scale.scale if use_scaling else 1.0
@@ -287,11 +297,14 @@ class Engine:
         self.state = self.state._replace(opt_state=kind(
             *(tree_unflatten(master, f) for f in fields)))
 
-    def train_batch(self, batch, rng: Optional[int] = None) -> Dict[str, Any]:
+    def train_batch(self, batch, rng: Optional[torch.Tensor] = None
+                    ) -> Dict[str, Any]:
         """One full optimizer step over ``batch`` (leading dim
-        ``gas * micro``; with gas > 1 reshaped to [gas, micro, ...])."""
+        ``gas * micro``; with gas > 1 reshaped to [gas, micro, ...]).
+        ``rng``: a threefry key, default ``PRNGKey(seed + global_steps)``
+        (the JAX engine's)."""
         if rng is None:
-            rng = self.config.seed + self.global_steps
+            rng = PRNGKey(self.config.seed + self.global_steps)
         batch = self.shard_batch(batch)
         self.tput.start()
         metrics = self._train_step(batch, rng)
@@ -320,14 +333,14 @@ class Engine:
         return {k: (float(v) if isinstance(v, torch.Tensor) else v)
                 for k, v in metrics.items()}
 
-    def eval_batch(self, batch, rng: Optional[int] = None):
+    def eval_batch(self, batch, rng: Optional[torch.Tensor] = None):
         """The loss (``eval_fn`` or ``loss_fn``) on the current parameters,
         without gradients, as a numpy scalar."""
         fn = self.eval_fn or self.loss_fn
         batch = self.shard_batch(batch, accumulate=False)
         with torch.no_grad():
             out = fn(self._compute_params(self.state.master), batch,
-                     0 if rng is None else rng)
+                     PRNGKey(0) if rng is None else rng)
         out = out[0] if isinstance(out, tuple) else out
         return np.asarray(out.detach().float().cpu().numpy())
 
@@ -387,14 +400,49 @@ class Engine:
             self._last_metrics_host = self._fetch(self._last_metrics)
         return float(self._last_metrics_host["grad_norm"])
 
+    # ------------------------------------------------------------------
+    # checkpointing (delegates to deepspeed_tpu_torch.checkpoint)
+    # ------------------------------------------------------------------
+    def _reject_nvme_checkpoint(self) -> None:
+        z = self.config.zero_optimization
+        if "nvme" in (z.offload_optimizer.device, z.offload_param.device):
+            raise _not_ported("checkpoints of NVMe-offloaded state",
+                              _OFFLOAD)
+
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
-                        **kwargs):
-        raise _not_ported("save_checkpoint", _CKPT)
+                        client_state: Optional[Dict] = None) -> str:
+        """Write the state as ``save_dir/tag`` (default
+        ``global_step<N>``) in the JAX package's fragment format and point
+        ``save_dir/latest`` at it; with ``checkpoint.async_save`` the state
+        is copied to the host now and written on a worker thread
+        (:meth:`wait_checkpoint` joins it).  Returns the tag's
+        directory."""
+        self._reject_nvme_checkpoint()
+        if self.config.checkpoint.async_save:
+            if self._async_saver is None:
+                self._async_saver = ckpt.AsyncCheckpointSaver()
+            return ckpt.save_checkpoint_async(self, self._async_saver,
+                                              save_dir, tag=tag,
+                                              client_state=client_state)
+        return ckpt.save_checkpoint(self, save_dir, tag=tag,
+                                    client_state=client_state)
 
-    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
-                        **kwargs):
-        raise _not_ported("load_checkpoint", _CKPT)
+    def wait_checkpoint(self) -> None:
+        """Join an in-flight async checkpoint save (no-op otherwise);
+        re-raises a failed save's error."""
+        if self._async_saver is not None:
+            self._async_saver.wait()
 
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None):
+        """Load ``load_dir/tag`` (``latest`` when None), saved here or by
+        the JAX engine on any mesh: every leaf lands on the engine's
+        device in the port's dtype, and ``global_steps`` /
+        ``global_samples`` are restored, so the next step's rng
+        (``seed + global_steps``) continues an uninterrupted run.  Returns
+        (checkpoint dir, client_state)."""
+        self._reject_nvme_checkpoint()
+        self.wait_checkpoint()        # never read a half-written save
+        return ckpt.load_checkpoint(self, load_dir, tag=tag)
 
 def initialize(loss_fn: Callable = None, params: Any = None,
                config: Any = None, topology=None, param_axes: Any = None,

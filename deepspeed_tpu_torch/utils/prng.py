@@ -1,13 +1,16 @@
 """Threefry keys and the random draws the serving path samples with.
 
 Counterpart of the slice of ``jax.random`` that the JAX package's sampler
-calls (``PRNGKey``, ``split``, ``fold_in``, ``uniform``, ``gumbel``,
-``categorical``), with jax's defaults: the ``threefry2x32`` generator in
+and MoE gating call (``PRNGKey``, ``split``, ``fold_in``, ``uniform``,
+``gumbel``, ``categorical``, ``normal``), with jax's defaults: the ``threefry2x32`` generator in
 its partitionable form (``jax_threefry_partitionable``).  The JAX package
 keeps no module of its own for these; it calls ``jax.random`` directly.
 The same key gives the same bits, uniforms and Gumbel noise here as in
 jax 0.9 on the CPU, bit for bit, on the CPU and on the card: every step
 below is integer arithmetic or one correctly rounded float operation.
+``normal`` is the exception: its uniforms are jax's bit for bit, but
+the inverse error function goes through ``log1p`` and ``sqrt`` as each
+device computes them, so it agrees with jax's to a few float32 ulps.
 
 A key is a ``[..., 2]`` int64 tensor holding the two uint32 words of a
 JAX key (``np.asarray(key)``); :func:`key_from_numpy` and
@@ -176,6 +179,46 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
                          f"{logits.dtype}")
     noise = gumbel(key.to(logits.device), tuple(logits.shape))
     return torch.argmax(noise + logits, dim=-1)
+
+
+# XLA's float32 erfinv (M. Giles' single-precision approximation), as jax
+# lowers ``lax.erf_inv``: a degree-8 polynomial in w - 2.5 (w < 5) or
+# sqrt(w) - 3, w = -log1p(-x^2)
+_ERFINV_LO = tuple(_f32(v) for v in (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+    0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+    1.50140941))
+_ERFINV_HI = tuple(_f32(v) for v in (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+    0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682))
+
+
+def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function with XLA's polynomial; +-1 give
+    +-inf (float32 max times x, as XLA returns)."""
+    x = x.float()
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_LO[0], _ERFINV_HI[0])
+    for lo, hi in zip(_ERFINV_LO[1:], _ERFINV_HI[1:]):
+        p = torch.where(lt, lo, hi) + p * w
+    big = float(np.finfo(np.float32).max)
+    return torch.where(x.abs() == 1.0, x * big, p * x)
+
+
+# the lower end of jax.random.normal's uniforms: nextafter(-1, 0) in f32
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = _f32(np.sqrt(2.0))
+
+
+def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.normal`` in float32: ``sqrt(2) * erfinv(u)`` for
+    ``u = uniform(key, shape, nextafter(-1, 0), 1)`` (jax's bits exactly;
+    the erfinv to a few ulps, see the module's docstring).  ``key``
+    [..., 2] -> [..., *shape]."""
+    u = uniform(key, shape, minval=_NORMAL_LO, maxval=1.0)
+    return erfinv_xla(u) * _SQRT2
 
 
 # --------------------------------------------------------------------------

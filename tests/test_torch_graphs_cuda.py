@@ -310,3 +310,27 @@ def test_capture_after_an_expiry_with_an_abandoned_worker(model):
     assert tm_g["step_retries"] == tm_e["step_retries"] == 1
     assert 64 not in before and 64 in {k[1] for k in g._graphs}
     assert done_g == done_e and len(done_g[3]) > 0
+
+
+@pytest.mark.cuda
+def test_moe_engine_graphs_equal_eager():
+    """qwen2-moe-tiny (4 experts top-2 and the shared expert): prefill
+    and decode steps and a decode burst replay graphs, and the streams and
+    caches are bitwise the eager twin's.  The serving MoE reads nothing
+    back to the host, so its steps capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs of CUDA kernels)")
+    moe = build_model("qwen2-moe-tiny", seed=3, device="cuda",
+                      dtype=torch.bfloat16, vocab_size=512, num_layers=2,
+                      max_seq_len=512)
+    sp = SamplingParams(max_new_tokens=12)
+    for over in ({}, {"decode_burst": 4}):
+        g, e = _pair(moe, **over)
+        out_g = g.generate({u: list(p) for u, p in PROMPTS.items()}, sp)
+        out_e = e.generate({u: list(p) for u, p in PROMPTS.items()}, sp)
+        torch.cuda.synchronize()
+        tm = g.timings
+        assert tm["graph_replays"] == tm["steps"] + tm["bursts"] > 0
+        assert tm["bursts"] > 0 or not over
+        assert out_g == out_e
+        assert _kv_equal(g, e)

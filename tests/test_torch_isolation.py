@@ -32,6 +32,8 @@ def _modules():
 def test_fresh_interpreter_imports_no_jax():
     mods = _modules()
     assert "deepspeed_tpu_torch.inference.engine" in mods
+    for sub in ("checkpoint.engine", "checkpoint.hf", "parallel.moe"):
+        assert f"deepspeed_tpu_torch.{sub}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

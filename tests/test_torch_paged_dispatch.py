@@ -211,14 +211,14 @@ def test_c_source_matches_the_wrapper():
         assert f'extern "C" int {entry}(' in src
 
 
-@pytest.mark.parametrize("case", range(14))
+@pytest.mark.parametrize("case", range(16))
 def test_chip_smoke_names_the_designs_the_plan_gives(case):
     """Each phase-3 K2 line names the designs the plan gives its batch:
     both designs on a mixed batch at rep <= 16, the decode design alone on
     a decode batch, split into one wave of two blocks an SM at most;
     chunk tiles alone at falcon-7b's rep 71."""
     cs = _chip_smoke()
-    assert len(cs.K2_CASES) == 14
+    assert len(cs.K2_CASES) == 16
     name, (H, Hkv, D, bs, nblk, _), _ = cs.K2_CASES[case]
     make = cs.decode_batch if "decode" in name else cs.mixed_batch
     # the plan reads slots and positions only: a narrow cache will do

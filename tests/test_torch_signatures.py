@@ -31,6 +31,14 @@ from deepspeed_tpu_torch.models import (Model, TransformerConfig,
                                         params_from_numpy)
 from deepspeed_tpu_torch.models import transformer as port_transformer
 from deepspeed_tpu_torch.utils import prng
+from deepspeed_tpu.checkpoint import engine as jax_ckpt
+from deepspeed_tpu.checkpoint import hf as jax_hf
+from deepspeed_tpu.parallel import moe as jax_moe
+from deepspeed_tpu.runtime.engine import Engine as JaxTrainEngine
+from deepspeed_tpu_torch.checkpoint import engine as port_ckpt
+from deepspeed_tpu_torch.checkpoint import hf as port_hf
+from deepspeed_tpu_torch.parallel import moe as port_moe
+from deepspeed_tpu_torch.runtime.engine import Engine as PortTrainEngine
 
 _POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
                inspect.Parameter.POSITIONAL_OR_KEYWORD)
@@ -53,6 +61,31 @@ PAIRS = {
         jax_transformer.Model.from_params),
     "inference.model.ragged_forward": (port_inference_model.ragged_forward,
                                        jax_inference_model.ragged_forward),
+    "models.transformer.block_apply": (port_transformer.block_apply,
+                                       jax_transformer.block_apply),
+    "models.transformer._shared_expert": (port_transformer._shared_expert,
+                                          jax_transformer._shared_expert),
+    "models.transformer.lm_loss_fn": (port_transformer.lm_loss_fn,
+                                      jax_transformer.lm_loss_fn),
+    **{f"checkpoint.engine.{f}": (getattr(port_ckpt, f),
+                                  getattr(jax_ckpt, f))
+       for f in ("save_tree", "load_tree", "load_tree_host",
+                 "save_checkpoint", "save_checkpoint_async",
+                 "load_checkpoint", "consolidate")},
+    "checkpoint.engine.AsyncCheckpointSaver.submit": (
+        port_ckpt.AsyncCheckpointSaver.submit,
+        jax_ckpt.AsyncCheckpointSaver.submit),
+    **{f"checkpoint.hf.{f}": (getattr(port_hf, f), getattr(jax_hf, f))
+       for f in ("load_hf_state_dict", "family_of", "load_hf_bert",
+                 "load_hf_distilbert", "load_hf_clip")},
+    **{f"parallel.moe.{f}": (getattr(port_moe, f), getattr(jax_moe, f))
+       for f in ("top_k_gating", "top_k_gating_sparse", "capacity_for",
+                 "experts_init", "experts_apply", "gate_init",
+                 "_ragged_moe", "moe_ffn")},
+    **{f"runtime.Engine.{m}": (getattr(PortTrainEngine, m),
+                               getattr(JaxTrainEngine, m))
+       for m in ("save_checkpoint", "load_checkpoint", "wait_checkpoint",
+                 "train_batch")},
 }
 
 # the positional parameters each port signature must have at least
@@ -81,12 +114,56 @@ MUST_HAVE = {
                                              "attention_fn"],
     "inference.model.ragged_forward": ["cfg", "params", "kv", "batch",
                                        "block_size", "max_blocks_per_seq"],
+    "models.transformer.block_apply": ["cfg", "lp", "x", "cos", "sin",
+                                       "mask", "attention_fn", "rng"],
+    "models.transformer._shared_expert": ["sp", "h", "act", "gated"],
+    "models.transformer.lm_loss_fn": ["cfg", "attention_fn", "pld",
+                                      "ltd_keep"],
+    "checkpoint.engine.save_tree": ["tree", "ckpt_dir", "extra_meta"],
+    "checkpoint.engine.load_tree": ["template", "shardings", "ckpt_dir",
+                                    "strict"],
+    "checkpoint.engine.load_tree_host": ["template", "ckpt_dir", "strict"],
+    "checkpoint.engine.save_checkpoint": ["engine", "save_dir", "tag",
+                                          "client_state"],
+    "checkpoint.engine.save_checkpoint_async": ["engine", "saver",
+                                                "save_dir", "tag",
+                                                "client_state"],
+    "checkpoint.engine.load_checkpoint": ["engine", "load_dir", "tag"],
+    "checkpoint.engine.consolidate": ["ckpt_dir", "prefix"],
+    "checkpoint.engine.AsyncCheckpointSaver.submit": [
+        "self", "host_state", "ckpt_dir", "extra", "save_dir", "tag"],
+    "checkpoint.hf.load_hf_state_dict": ["cfg", "state_dict", "family",
+                                         "dtype", "reference_params"],
+    "checkpoint.hf.family_of": ["name_or_type"],
+    "checkpoint.hf.load_hf_bert": ["cfg", "state_dict", "dtype"],
+    "checkpoint.hf.load_hf_distilbert": ["cfg", "state_dict", "dtype"],
+    "checkpoint.hf.load_hf_clip": ["cfg", "state_dict", "dtype"],
+    "parallel.moe.top_k_gating": ["logits", "top_k", "capacity", "rng",
+                                  "noise_policy", "norm_topk"],
+    "parallel.moe.top_k_gating_sparse": ["logits", "top_k", "capacity",
+                                         "rng", "noise_policy",
+                                         "norm_topk"],
+    "parallel.moe.capacity_for": ["tokens", "num_experts", "top_k",
+                                  "capacity_factor", "min_capacity"],
+    "parallel.moe.experts_init": ["key", "num_experts", "d_model", "d_ff",
+                                  "gated", "out_scale"],
+    "parallel.moe.experts_apply": ["p", "x", "activation", "gated"],
+    "parallel.moe.gate_init": ["key", "d_model", "num_experts"],
+    "parallel.moe._ragged_moe": ["expert_p", "x", "logits"],
+    "parallel.moe.moe_ffn": ["gate_p", "expert_p", "x"],
+    "runtime.Engine.save_checkpoint": ["self", "save_dir", "tag",
+                                       "client_state"],
+    "runtime.Engine.load_checkpoint": ["self", "load_dir", "tag"],
+    "runtime.Engine.wait_checkpoint": ["self"],
+    "runtime.Engine.train_batch": ["self", "batch", "rng"],
 }
 
 # keyword-only parameters the reference has no counterpart of: where the
 # port builds its weights (jax places them on its default device)
 PORT_ONLY_KEYWORDS = {
     "models.transformer.Model.__init__": {"device", "dtype"},
+    "parallel.moe.experts_init": {"device", "dtype"},
+    "parallel.moe.gate_init": {"device", "dtype"},
 }
 
 

@@ -399,18 +399,23 @@ def test_unported_engine_features_raise(case):
             "train_micro_batch_size_per_device": 2, **extra})
 
 
-def test_unported_messages_name_their_items():
-    """Checkpoints and offload are one-card items of ROADMAP Queue 1
-    (2 and 4), not the multi-GPU item 6: the messages say so in full."""
+def test_unported_messages_name_their_items(tmp_path):
+    """Offload is a one-card item of ROADMAP Queue 1 (4), not the
+    multi-GPU item 6: the messages say so in full.  Checkpoints on one
+    card (item 2) are ported: save and load run; checkpoints of
+    NVMe-offloaded state stay with item 4."""
     _, tm = tiny_models("gpt2")
     eng = tds.initialize(model=tm, device="cpu", config={
         "train_micro_batch_size_per_device": 2})
+    d = eng.save_checkpoint(str(tmp_path))
+    assert eng.load_checkpoint(str(tmp_path)) == (d, {})
+    eng.config.zero_optimization.offload_optimizer.device = "nvme"
     for call in (eng.save_checkpoint, eng.load_checkpoint):
         with pytest.raises(NotImplementedError) as e:
-            call("unused")
-        assert str(e.value).endswith(
-            "is not ported yet (ROADMAP Queue 1 item 2, checkpoints on one "
-            "card)")
+            call(str(tmp_path))
+        assert str(e.value) == (
+            "checkpoints of NVMe-offloaded state is not ported yet "
+            "(ROADMAP Queue 1 item 4, offload on one card)")
     for key, dev in (("offload_optimizer", "cpu"), ("offload_param", "nvme")):
         with pytest.raises(NotImplementedError) as e:
             tds.initialize(model=tm, device="cpu", config={
@@ -421,14 +426,16 @@ def test_unported_messages_name_their_items():
                                 "card)")
 
 
-def test_engine_runs_on_the_card_unless_asked(monkeypatch):
+def test_engine_runs_on_the_card_unless_asked(monkeypatch, tmp_path):
     from deepspeed_tpu_torch.platform.cuda import NoCudaDeviceError
     _, tm = tiny_models("gpt2")
     eng = tds.initialize(model=tm, device="cpu", config={
         "train_micro_batch_size_per_device": 2, "zero_optimization": {
             "stage": 3}})
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        eng.save_checkpoint("unused")
+    eng.save_checkpoint(str(tmp_path))
+    eng.load_checkpoint(str(tmp_path))
+    assert all(t.device.type == "cpu"
+               for t in tree_leaves(eng.state.master))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(NoCudaDeviceError):
         tds.initialize(model=tm, config={
