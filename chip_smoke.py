@@ -12,11 +12,15 @@
     python3 chip_smoke.py --phases device,build,kernel,serve-failover
     python3 chip_smoke.py --phases device,build,kernel,train-fp16
     python3 chip_smoke.py --phases device,build,kernel,train-ckpt,serve-moe,train-moe
+    python3 chip_smoke.py --phases device,build,kernel,train-offload,train-nvme
 
 Phases, in order; any failure exits non-zero (nothing is caught and
 passed over):
 
-1. device  — the card's name, count, capability, nvidia-smi power limit.
+1. device  — the card's name, count, capability, nvidia-smi power limit;
+             the host's MemTotal, MemAvailable, RLIMIT_MEMLOCK, CPU count
+             and torch threads; the NVMe phase directory's (build/) mount
+             point, filesystem and free bytes.
 2. build   — every kernel of the port (paged attention with its int8/fp8
              cache variant; flash attention forward, dq and dkv in bf16,
              fp16 and fp32; the int8/int4 mixed-input GEMM), built from
@@ -201,6 +205,34 @@ passed over):
              steps, a first-step parity check against the plain attention
              within 2x the fp16 noise floor, tokens/s, MFU and the device
              profile.
+9. train-offload — ZeRO-Offload (offload_optimizer cpu, pinned) of
+             gptj-6b at full width and depth (6.05 B params; the host's
+             MemAvailable is below what Llama-3-8B's 96.4 GB of pinned
+             state needs, see OFFLOAD_RUN), bf16, seq 2048, micro-batch 2,
+             remat "flash", 1 + 3 steps: finite loss and norm, one launch
+             of each flash kernel per layer a step (D 256), the master and
+             moments pinned CPU tensors, peak device memory under 80 GB;
+             each step split into device forward/backward, grad D2H, host
+             update and H2D with GB/s; tokens/s, MFU, pinned bytes, peak
+             RSS; a 2-layer cut trained 2 steps with and without offload:
+             losses bitwise, masters within 2 x lr x steps (rms lr / 10).
+10. train-nvme — ZeRO-Infinity on gptj-6b cut to 4 layers (1.22 B
+             params), bf16, seq 2048, micro-batch 1, its stores in a
+             temporary directory in /dev/shm (the machine's only disk, 9p,
+             takes 45 GiB of writes a machine: NVME_RUN): (a) a 2 GB file
+             through the aio pool on the disk and on the store's
+             filesystem, with each backend and O_DIRECT on and off (bytes
+             equal, GB/s with the filesystem's name); (b) offload_optimizer nvme and
+             (c) plus offload_param nvme with model= (per-layer
+             streaming), 1 + 2 steps each: seconds of each sweep and NVMe
+             bytes a step; losses within 2x the bf16 floor of the
+             device-resident engine's and consolidated masters within the
+             stated bound; (c)'s peak device memory under its reckoning
+             and its host residency under two swap groups and a grad
+             group; the flash forward twice per layer a step (the sweep,
+             then the recompute), dq and dkv once; (c)'s checkpoint loaded
+             (written to the disk) loaded by a fresh streamed engine:
+             master, moments and the next step's loss bitwise.
 
 Every phase prints its wall time ("[time] phase ...").
 
@@ -215,7 +247,8 @@ on the falcon-7b mixed batch, carries serve-mqa's launches;
 paged_attention's ``failover_launches`` are K2's launches in
 serve-failover's scenarios (a)-(d), its ``moe_launches`` those of
 serve-moe's measured run; the flash entries' launches include
-train-ckpt's and train-moe's); the last line,
+train-ckpt's, train-moe's, train-offload's and train-nvme (c)'s); the last
+line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -227,6 +260,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import sys
 import time
@@ -501,7 +535,11 @@ def check_kernel_case(torch, pa, name, case, H, Hkv, D, iters, slopes=None):
 # iterations)).  bf16: GPT-2 is the training phase's shape (micro-batch 32,
 # 12 heads of 64, seq 1024); qwen2-moe train-moe's (micro-batch 4, 16 heads
 # of 128, seq 1024), ahead of the other D 128 cases so that the JSON line's
-# entry for the variant reports the shape its launches ran at; llama-0.7B is
+# entry for the variant reports the shape its launches ran at, and
+# train-offload's gptj-6b (micro-batch 2, 16 heads of 256, seq 2048) ahead
+# of the gptj-6b case for the same reason (train-nvme runs the latter, at
+# micro-batch 1); Llama-3-8B's training shape (micro-batch 2, seq 2048);
+# llama-0.7B is
 # bench.py's long-context training
 # leg (:586-593); Llama-3-8B its serving width at S=4096.  fp16: phi-2's
 # training width (phase 8: micro-batch 4, 32 heads of 80, seq 2048) and the
@@ -514,6 +552,8 @@ FLASH_CASES = [
     ("qwen2-moe train", "bfloat16", (4, 16, 16, 1024, 128, 20)),
     ("llama-0.7B train", "bfloat16", (2, 16, 8, 2048, 128, 20)),
     ("llama3-8b", "bfloat16", (1, 32, 8, 4096, 128, 10)),
+    ("llama3-8b train", "bfloat16", (2, 32, 8, 2048, 128, 10)),
+    ("gptj-6b train", "bfloat16", (2, 16, 16, 2048, 256, 10)),
     ("phi-2 train", "float16", (4, 32, 32, 2048, 80, 10)),
     ("gpt2 train", "float16", (32, 12, 12, 1024, 64, 10)),
     *((name, dt, shape) for name, shape in (
@@ -3255,6 +3295,625 @@ def serve_alibi(torch, pa, seed, device=None, **overrides):
     return res
 
 
+# ---------------------------------------------------------------------------
+# train-offload and train-nvme: ZeRO-Offload and ZeRO-Infinity on one card
+# ---------------------------------------------------------------------------
+
+# The card's machine (measured by the device phase of this script: NVIDIA
+# H100 80GB HBM3, 700.00 W) has MemAvailable 105.9 GB, below the ~115 GB
+# Llama-3-8B's pinned ZeRO-Offload state (8.03 B x 12 bytes = 96.4 GB) and
+# the rest of the process need, so train-offload trains gptj-6b at full
+# width and depth (6.05 B params: 72.6 GB of host state, 97 GB of training
+# state in all, more than the card holds).  Each phase asserts the host
+# memory and free disk it needs and stops with a clear error when they are
+# missing; none picks a smaller model at run time.
+#   train-offload  gptj-6b, 28 layers, d 4096, 16 heads of 256, vocab 50400;
+#                  bf16, seq 2048, micro-batch 2, AdamW lr 3e-4, clip 1.0,
+#                  ZeRO-2, offload_optimizer cpu (pinned), remat "flash";
+#                  the staging ring 4 x 32 MiB (each chunk updated in
+#                  spans of 2^20 elements), 1 warm-up + 3 measured steps;
+#                  parity at 2 layers
+#   train-nvme     gptj-6b at its published widths, depth cut to 4 layers
+#                  (1.22 B params); bf16, seq 2048, micro-batch 1, AdamW,
+#                  clip 1.0, ZeRO-3; (b) offload_optimizer nvme, (c) plus
+#                  offload_param nvme with model= (streaming); 1 + 2 steps
+#                  each.  The machine has no local disk: its root is 9p,
+#                  which takes 45 GiB of writes a machine, and (b) and (c)
+#                  write 15-22 GB a step.  So nvme_path is a temporary
+#                  directory in /dev/shm (tmpfs, host memory), and the
+#                  disk (a temporary directory under build/, 9p) takes the
+#                  aio check and (c)'s checkpoint; both are removed at the
+#                  end
+OFFLOAD_RUN = dict(preset="gptj-6b", seq=2048, micro=2, warmup=1, steps=3,
+                   remat=True, policy="flash", buffer_count=4,
+                   buffer_size=32 << 20, parity_layers=2, parity_steps=2,
+                   host_share=0.75)
+NVME_RUN = dict(preset="gptj-6b", num_layers=4, seq=2048, micro=1, warmup=1,
+                steps=2, aio_bytes=2 << 30, host_share=0.75,
+                store_dir="/dev/shm")
+# the writes the card's machine's disk takes in one run (its 9p root ends a
+# process once its disk file passes 45 GiB, deleted files included)
+DISK_WRITE_BUDGET = 40 << 30
+# the masters of two AdamW trajectories part by at most the sum of their
+# steps' sizes: |update| <= lr per step (bias-corrected AdamW, b1 <= b2),
+# so the elementwise bound is 2 x lr x steps.  Rounding apart (the host's
+# or HostAdam's order of operations, bf16 casts of the working copy), an
+# element's grad changes sign only where it is noise, and Adam turns even
+# noise into a whole step: the rms of the difference is held to lr / 10,
+# no more than 1% of the elements a whole step apart
+OFFLOAD_LR = 3e-4
+MASTER_RMS = OFFLOAD_LR / 10
+
+
+def offload_config(micro, stage, **zero):
+    cfg = train_config(micro, "bf16")
+    cfg["zero_optimization"] = {"stage": stage, **zero}
+    return cfg
+
+
+def host_facts():
+    """MemTotal and MemAvailable (bytes), RLIMIT_MEMLOCK, the CPU count."""
+    import resource
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":", 1)
+            if k in ("MemTotal", "MemAvailable"):
+                mem[k] = int(v.split()[0]) * 1024
+    return dict(mem_total=mem["MemTotal"], mem_available=mem["MemAvailable"],
+                memlock=resource.getrlimit(resource.RLIMIT_MEMLOCK),
+                cpus=os.cpu_count())
+
+
+def disk_facts(path):
+    """Mount point, filesystem type and free bytes of ``path``."""
+    real = os.path.realpath(path)
+    best = ("/", "?")
+    with open("/proc/mounts") as f:
+        for line in f:
+            _, mnt, fstype = line.split()[:3]
+            inside = real == mnt or real.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) >= len(best[0]):
+                best = (mnt, fstype)
+    st = os.statvfs(real)
+    return dict(mount=best[0], fstype=best[1],
+                free=st.f_bavail * st.f_frsize)
+
+
+def nvme_root():
+    """The directory the NVMe phase writes into (git-ignored)."""
+    return ROOT / "build"
+
+
+def peak_rss_bytes():
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def host_empty_cache(torch):
+    """Give back the pinned host blocks PyTorch's host allocator caches."""
+    gc.collect()
+    fn = getattr(torch._C, "_host_emptyCache", None)
+    if fn is not None:
+        fn()
+
+
+def need_host(what, nbytes, share):
+    facts = host_facts()
+    have = facts["mem_available"]
+    log(f"[{what}] host memory needed {nbytes / 1e9:.2f} GB; MemAvailable "
+        f"{have / 1e9:.2f} GB (the phase may use {share:.0%} of it)")
+    if nbytes > share * have:
+        raise SystemExit(f"chip_smoke {what}: needs {nbytes / 1e9:.2f} GB "
+                         f"of host memory, {share:.0%} of MemAvailable is "
+                         f"{share * have / 1e9:.2f} GB")
+
+
+def flash_per_step(fa, engine, batch):
+    before = flash_counts(fa)
+    met = engine.train_batch(batch)
+    return met, tuple(b - a for a, b in zip(before, flash_counts(fa)))
+
+
+def train_offload(torch, fa, seed, device=None, **overrides):
+    """train-offload: ZeRO-Offload of gptj-6b at full width and depth
+    (OFFLOAD_RUN).  Returns the flash launches by variant (as ``train``)."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.runtime import param_count, synthetic_lm_data
+    from deepspeed_tpu_torch.runtime.runtime_utils import tree_leaves
+
+    spec = OFFLOAD_RUN
+    seq = overrides.pop("max_seq_len", spec["seq"])
+    micro = overrides.pop("micro", spec["micro"])
+    warmup, steps = spec["warmup"], spec["steps"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    model = build_model(spec["preset"], seed=seed, device=device,
+                        max_seq_len=seq, remat=spec["remat"],
+                        remat_policy=spec["policy"], attention_impl="flash",
+                        dtype=torch.bfloat16, **overrides)
+    cfg = model.config
+    n = param_count(model.params)
+    ring = spec["buffer_count"] * spec["buffer_size"]
+    need_host("train-offload", 12 * n + ring, spec["host_share"])
+    zero = {"offload_optimizer": {"device": "cpu", "pin_memory": True,
+                                  "buffer_count": spec["buffer_count"],
+                                  "buffer_size": spec["buffer_size"]}}
+    engine = ds.initialize(model=model, config=offload_config(micro, 2,
+                                                              **zero),
+                           device=device)
+    model.params = None            # the engine holds its own copies now
+    free_engines(torch)
+    state = engine.state
+    host = tree_leaves(state.master) + [x for f in state.opt_state
+                                        for x in tree_leaves(f)]
+    on_card = device is None
+    if not all(t.device.type == "cpu" and (t.is_pinned() or not on_card)
+               for t in host):
+        raise AssertionError("the master and moments are not pinned CPU "
+                             "tensors")
+    pinned = sum(t.numel() * t.element_size() for t in host) + ring
+    log(f"[train-offload] {spec['preset']}: {n / 1e9:.3f} B params, "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+        f"heads of {cfg.head_dim}, vocab {cfg.vocab_size}, seq {seq}; bf16, "
+        f"ZeRO-2, offload_optimizer cpu, ring {spec['buffer_count']} x "
+        f"{spec['buffer_size']:,} B, AdamW lr 3e-4, clip 1.0, micro-batch "
+        f"{micro}, remat_policy={spec['policy']!r}; master and moments: "
+        f"{len(host)} pinned CPU tensors, pinned {pinned / 1e9:.2f} GB; "
+        f"host update on {torch.get_num_threads()} threads; set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    data = synthetic_lm_data(cfg.vocab_size, micro * (warmup + steps), seq,
+                             seed=seed)["input_ids"]
+    fa.reset_launches()
+    fa.flash_attention.fallbacks = 0
+    torch.cuda.reset_peak_memory_stats()
+    metrics, per_step, splits = [], [], []
+    for step in range(warmup + steps):
+        if step == warmup:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        t = time.perf_counter()
+        met, counts = flash_per_step(
+            fa, engine, {"input_ids": data[step * micro:(step + 1) * micro]})
+        metrics.append(met)
+        per_step.append(counts)
+        splits.append(dict(engine.offload_times,
+                           wall_s=time.perf_counter() - t))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    variants = {k: dict(getattr(fa, k).variant_launches)
+                for k in FLASH_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    log(f"[train-offload] losses {losses}; grad norms {gnorms}")
+    if not all(map(math.isfinite, losses + gnorms)):
+        raise AssertionError("train-offload: non-finite loss or grad norm")
+    # remat "flash" saves the flash forward's outputs: the backward does
+    # not replay it, so each kernel launches once per layer a step
+    want = (cfg.num_layers, cfg.num_layers, cfg.num_layers, 0)
+    log(f"[train-offload] flash launches per step {per_step} (want {want}: "
+        f"the remat policy keeps the forward's outputs, no replay); by "
+        f"(dtype, head dim) {variants}")
+    if any(p != want for p in per_step):
+        raise AssertionError(f"train-offload: flash launches per step "
+                             f"{per_step}, want {want}")
+    for s, sp in enumerate(splits):
+        d2h_span = sp["d2h_wait_s"] + sp["host_update_s"]
+        log(f"[train-offload] step {s}: {sp['wall_s']:.3f} s = device "
+            f"forward/backward {sp['fwd_bwd_s']:.3f} s + update sweep "
+            f"(grad D2H waits {sp['d2h_wait_s']:.3f} s, host update "
+            f"{sp['host_update_s']:.3f} s, last H2D {sp['h2d_tail_s']:.3f} "
+            f"s); D2H {sp['d2h_bytes'] / 1e9:.2f} GB in the sweep's "
+            f"{d2h_span:.3f} s ({sp['d2h_bytes'] / d2h_span / 1e9:.2f} "
+            f"GB/s, overlapped), H2D {sp['h2d_bytes'] / 1e9:.2f} GB "
+            f"({sp['h2d_bytes'] / d2h_span / 1e9:.2f} GB/s, overlapped); "
+            f"host AdamW {28 * n / sp['host_update_s'] / 1e9:.2f} GB/s "
+            f"(28 bytes a param)")
+    toks = micro * (seq - 1) * steps
+    tok_s = toks / wall
+    flops_per_token = 6 * n + 12 * cfg.num_layers * cfg.d_model * (seq - 1)
+    mfu = tok_s * flops_per_token / PEAK_BF16_FLOPS
+    resident_need = 16 * n
+    log(f"[train-offload] {steps} steps in {wall:.3f} s ({wall / steps:.3f} "
+        f"s/step): {tok_s:.1f} tokens/s, MFU {100 * mfu:.3f}% of 989 "
+        f"TFLOP/s; max_memory_allocated {peak / 1e9:.2f} GB (a run without "
+        f"offload needs {resident_need / 1e9:.1f} GB for the bf16 weights, "
+        f"fp32 master and AdamW state alone); pinned {pinned / 1e9:.2f} GB; "
+        f"peak host RSS {peak_rss_bytes() / 1e9:.2f} GB "
+        f"[{nvidia_smi_line()}]")
+    if on_card and peak >= 80e9:
+        raise AssertionError(f"train-offload: peak device memory "
+                             f"{peak / 1e9:.2f} GB is not below 80 GB")
+    del engine, state, host
+    free_engines(torch)
+    host_empty_cache(torch)
+    offload_parity(torch, seed, device, seq, micro, **overrides)
+    free_engines(torch)
+    host_empty_cache(torch)
+    return variants
+
+
+def offload_parity(torch, seed, device, seq, micro, **overrides):
+    """A cut of the same preset to OFFLOAD_RUN's parity_layers trains
+    parity_steps steps with offload and without, from the same weights
+    and batches: the losses bitwise equal (the device work is the same),
+    the masters within 2 x lr x steps elementwise and rms lr / 10 (the
+    host and the card may round AdamW's arithmetic differently)."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.runtime import synthetic_lm_data
+    from deepspeed_tpu_torch.runtime.runtime_utils import tree_leaves
+
+    spec = OFFLOAD_RUN
+    steps = spec["parity_steps"]
+    layers = overrides.pop("num_layers", spec["parity_layers"])
+    data = synthetic_lm_data(overrides.get("vocab_size", 50400),
+                             micro * steps, seq, seed=seed + 1)["input_ids"]
+    runs = {}
+    for tag, zero in (("offload", {"offload_optimizer": {
+            "device": "cpu", "buffer_count": spec["buffer_count"],
+            "buffer_size": spec["buffer_size"]}}), ("resident", {})):
+        model = build_model(spec["preset"], seed=seed, device=device,
+                            max_seq_len=seq, remat=spec["remat"],
+                            remat_policy=spec["policy"],
+                            attention_impl="flash", num_layers=layers,
+                            **overrides)
+        eng = ds.initialize(model=model, config=offload_config(micro, 2,
+                                                               **zero),
+                            device=device)
+        model.params = None
+        losses = [float(eng.train_batch(
+            {"input_ids": data[s * micro:(s + 1) * micro]})["loss"])
+            for s in range(steps)]
+        runs[tag] = (losses, [t.detach().to("cpu", copy=True)
+                              for t in tree_leaves(eng.state.master)])
+        del eng, model
+        free_engines(torch)
+    (la, ma), (lb, mb) = runs["offload"], runs["resident"]
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(ma, mb)])
+    bound = 2 * OFFLOAD_LR * steps
+    rms = float(diffs.double().square().mean().sqrt())
+    exact = int((diffs == 0).sum())
+    log(f"[train-offload] parity at {layers} layers over {steps} steps: "
+        f"losses offload {la} vs resident {lb} (bitwise: {la == lb}); "
+        f"masters max |d| {float(diffs.max()):.3e} (bound {bound:.1e}), "
+        f"rms {rms:.3e} (bound {MASTER_RMS:.1e}), "
+        f"{exact}/{diffs.numel()} elements bitwise")
+    if la != lb:
+        raise AssertionError("train-offload parity: the losses with and "
+                             "without offload are not bitwise equal")
+    if float(diffs.max()) > bound or rms > MASTER_RMS:
+        raise AssertionError("train-offload parity: the masters disagree "
+                             "beyond the stated tolerance")
+
+
+def aio_check(torch, root, nbytes):
+    """(a) a file of ``nbytes`` written and read through AsyncIOHandle with
+    each backend the machine has and O_DIRECT on and off: the bytes
+    round-trip equal; GB/s each way.  Returns the slowest read GB/s."""
+    from deepspeed_tpu_torch.ops.aio import AsyncIOHandle, uring_available
+
+    facts = disk_facts(root)
+    buf = torch.arange(nbytes // 8, dtype=torch.int64)
+    back = torch.empty_like(buf)
+    path = os.path.join(root, "aio_check.bin")
+    backends = ["threads"] + (["uring"] if uring_available() else [])
+    if "uring" not in backends:
+        log("[train-nvme] (a) io_uring: refused by this kernel "
+            "(io_uring_setup or its opcodes); the thread pool only")
+    rates = []
+    for backend in backends:
+        for odirect in (False, True):
+            h = AsyncIOHandle(block_size=8 << 20, queue_depth=32,
+                              thread_count=8, use_odirect=odirect,
+                              backend=backend)
+            t = time.perf_counter()
+            if h.sync_pwrite(buf, path, truncate=True):
+                raise AssertionError("aio write reported failed chunks")
+            os.sync()
+            tw = time.perf_counter() - t
+            back.zero_()
+            t = time.perf_counter()
+            h.sync_pread(back, path)
+            tr = time.perf_counter() - t
+            if not torch.equal(buf, back):
+                raise AssertionError(f"aio round trip ({backend}, O_DIRECT "
+                                     f"{odirect}) changed the bytes")
+            log(f"[train-nvme] (a) aio {backend}, O_DIRECT "
+                f"{'on' if odirect else 'off'} ({h.odirect_ops()} direct "
+                f"chunks): {nbytes / 1e9:.2f} GB written "
+                f"{nbytes / tw / 1e9:.2f} GB/s (with fsync), read "
+                f"{nbytes / tr / 1e9:.2f} GB/s; round trip equal "
+                f"[{facts['fstype']} at {facts['mount']}]")
+            rates.append(nbytes / tr / 1e9)
+            del h
+    os.remove(path)
+    del buf, back
+    return min(rates)
+
+
+def nvme_io(engine):
+    """NVMe bytes (read, written) so far: the optimizer store's and, when
+    streaming, the parameter and grad stores'."""
+    r, w = engine._nvme.bytes_read, engine._nvme.bytes_written
+    if engine._stream is not None:
+        r += engine._stream.io["read"]
+        w += engine._stream.io["written"]
+    return r, w
+
+
+def nvme_steps(torch, fa, engine, data, micro, tag, first=0, count=None):
+    """Steps of an NVMe engine on consecutive batches; per step the
+    seconds (of each sweep when streaming) and the NVMe bytes with GB/s."""
+    out = []
+    count = NVME_RUN["warmup"] + NVME_RUN["steps"] if count is None \
+        else count
+    for s in range(first, first + count):
+        r0, w0 = nvme_io(engine)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        met, counts = flash_per_step(
+            fa, engine, {"input_ids": data[s * micro:(s + 1) * micro]})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        r1, w1 = nvme_io(engine)
+        sweeps = (", ".join(f"{k} {v:.3f} s"
+                            for k, v in engine._stream.last_times.items())
+                  if engine._stream is not None else
+                  f"host update {engine.offload_times['host_update_s']:.3f}"
+                  " s")
+        log(f"[train-nvme] ({tag}) step {s}: loss {float(met['loss']):.6f}"
+            f", {wall:.3f} s ({sweeps}); NVMe read {(r1 - r0) / 1e9:.2f} GB,"
+            f" written {(w1 - w0) / 1e9:.2f} GB "
+            f"({(r1 - r0 + w1 - w0) / wall / 1e9:.2f} GB/s over the step); "
+            f"flash launches {counts}")
+        out.append((float(met["loss"]), counts))
+    return out
+
+
+def reckon_stream_peak(cfg, micro, seq, res_params, layer_params):
+    """Card bytes of the streamed step from the shapes: the resident bf16
+    params and their fp32 grads (kept through the backward sweep), two
+    layers' bf16 params, the activation checkpoints, one layer's recompute
+    (its saved activations, ~16 [B, S, d_model] bf16 tensors and two of
+    [B, S, d_ff], and its bf16 and fp32 grads), and the head's logits in
+    bf16 with their grad and a 1 GiB fp32 loss chunk."""
+    B, S, d = micro, seq, cfg.d_model
+    resident = 2 * res_params + 4 * res_params
+    layers = 2 * 2 * layer_params
+    acts = cfg.num_layers * 2 * B * S * d
+    recompute = 2 * B * S * (16 * d + 2 * cfg.d_ff) + 6 * layer_params
+    head = 2 * 2 * B * S * cfg.vocab_size + (1 << 30)
+    return resident + layers + acts + recompute + head
+
+
+def train_nvme(torch, fa, seed, device=None, **overrides):
+    """train-nvme: ZeRO-Infinity (NVME_RUN).  Returns the flash launches of
+    (c), the streamed run, by variant (as ``train``)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.checkpoint import engine as ck
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.runtime import param_count, synthetic_lm_data
+    from deepspeed_tpu_torch.runtime.runtime_utils import tree_leaves
+
+    spec = NVME_RUN
+    seq = overrides.pop("max_seq_len", spec["seq"])
+    micro = overrides.pop("micro", spec["micro"])
+    aio_bytes = overrides.pop("aio_bytes", spec["aio_bytes"])
+    layers = overrides.pop("num_layers", spec["num_layers"])
+    store_root = overrides.pop("store_dir", spec["store_dir"])
+    nsteps = spec["warmup"] + spec["steps"]
+    root = nvme_root()
+    root.mkdir(parents=True, exist_ok=True)
+    disk = tempfile.mkdtemp(prefix="nvme_", dir=str(root))
+    store = tempfile.mkdtemp(prefix="nvme_", dir=store_root)
+    # what earlier phases leave allocated on the card (kernel workspaces,
+    # held graphs): the peaks below are reckoned above it
+    base = torch.cuda.memory_allocated()
+    try:
+        def make():
+            return build_model(spec["preset"], seed=seed, device=device,
+                               max_seq_len=seq, attention_impl="flash",
+                               num_layers=layers, **overrides)
+
+        model = make()
+        cfg = model.config
+        n = param_count(model.params)
+        dfacts, sfacts = disk_facts(disk), disk_facts(store)
+        # the disk takes the aio check and (c)'s checkpoint; the stores
+        # (two engines' p, m, v, bf16 layers and fp32 grads) and (b)'s
+        # checkpoint live in the store directory
+        disk_writes = 2 * aio_bytes + 12 * n
+        log(f"[train-nvme] {spec['preset']} cut to {layers} layers: "
+            f"{n / 1e9:.3f} B params, d_model {cfg.d_model}, "
+            f"{cfg.num_heads} heads of {cfg.head_dim}, vocab "
+            f"{cfg.vocab_size}, seq {seq}, micro-batch {micro}; bf16, AdamW "
+            f"lr 3e-4, clip 1.0, ZeRO-3; stores in {store} "
+            f"({sfacts['fstype']} at {sfacts['mount']}); the disk "
+            f"{disk} ({dfacts['fstype']} at {dfacts['mount']}, "
+            f"{dfacts['free'] / 1e9:.1f} GB free) takes "
+            f"{disk_writes / 1e9:.1f} GB of writes, under the "
+            f"{DISK_WRITE_BUDGET / 2**30:.0f} GiB a machine's disk takes")
+        if disk_writes > DISK_WRITE_BUDGET or dfacts["free"] < disk_writes:
+            raise SystemExit(f"chip_smoke train-nvme: the disk would take "
+                             f"{disk_writes / 1e9:.1f} GB of writes")
+        if sfacts["fstype"] in ("tmpfs", "ramfs"):
+            log(f"[train-nvme] the stores are on {sfacts['fstype']} (host "
+                "memory): the card's machine has no local disk, and its 9p "
+                "root takes 45 GiB of writes a machine, less than one "
+                "engine's 3 steps write; every store GB/s below is that of "
+                "memory")
+        # two streamed engines' stores, a loaded checkpoint and the
+        # process
+        need_host("train-nvme", 48 * n, spec["host_share"])
+        for where in (disk, store):
+            aio_check(torch, where, aio_bytes)
+
+        data = synthetic_lm_data(cfg.vocab_size, micro * (nsteps + 1), seq,
+                                 seed=seed)["input_ids"]
+        nvme = {"device": "nvme", "nvme_path": store}
+        # the plain device-resident engine: the parity reference
+        ref = ds.initialize(model=model, config=offload_config(micro, 3),
+                            device=device)
+        ref_losses = [float(ref.train_batch(
+            {"input_ids": data[s * micro:(s + 1) * micro]})["loss"])
+            for s in range(nsteps)]
+        want = {".master" + k: x.detach().cpu().numpy()
+                for k, x in ck._leaf_paths(ref.state.master)}
+        del ref
+        free_engines(torch)
+
+        results, ckpts, engines = {}, {}, {}
+        for tag, zero in (("b", {"offload_optimizer": nvme}),
+                          ("c", {"offload_optimizer": nvme,
+                                 "offload_param": nvme})):
+            if tag == "c":
+                model = make()
+            t = time.perf_counter()
+            eng = ds.initialize(model=model, config=offload_config(
+                micro, 3, **zero), device=device)
+            model.params = None
+            del model
+            free_engines(torch)
+            log(f"[train-nvme] ({tag}) engine set up in "
+                f"{time.perf_counter() - t:.1f} s ("
+                + ("streaming" if eng._stream is not None else
+                   "NVMe optimizer, working copy on the card") + ")")
+            fa.reset_launches()
+            fa.flash_attention.fallbacks = 0
+            torch.cuda.reset_peak_memory_stats()
+            results[tag] = nvme_steps(torch, fa, eng, data, micro, tag)
+            peak = torch.cuda.max_memory_allocated() - base
+            log(f"[train-nvme] ({tag}) max_memory_allocated "
+                f"{peak / 1e9:.3f} GB above the {base / 1e9:.3f} GB allocated "
+                f"before the phase [{nvidia_smi_line()}]")
+            if tag == "c":
+                variants = {k: dict(getattr(fa, k).variant_launches)
+                            for k in FLASH_KERNELS}
+                st = eng._stream
+                res_params = sum(x.numel() for x in tree_leaves(st.resident))
+                layer_params = (n - res_params) // layers
+                bound = reckon_stream_peak(cfg, micro, seq, res_params,
+                                           layer_params)
+                groups = sorted(eng._nvme._group_bytes)[-2:]
+                meter_bound = sum(groups) + 4 * max(res_params, layer_params)
+                log(f"[train-nvme] (c) peak device {peak / 1e9:.3f} GB vs "
+                    f"reckoned {bound / 1e9:.3f} GB (resident params and "
+                    f"their fp32 grads, 2 layers, activation checkpoints, "
+                    f"one layer's recompute with its grads, the head); "
+                    f"ResidencyMeter.peak {st.meter.peak / 1e9:.3f} GB vs "
+                    f"two swap groups of p, m, v plus a grad group "
+                    f"{meter_bound / 1e9:.3f} GB and the model's bf16 bytes "
+                    f"{2 * n / 1e9:.3f} GB (one swap group of the embedding "
+                    f"alone is {sorted(eng._nvme._group_bytes)[-1] / 1e9:.3f}"
+                    f" GB: at 4 layers the meter cannot be under the bf16 "
+                    f"model)")
+                if device is None and peak > bound:
+                    raise AssertionError("train-nvme: the streamed step's "
+                                         "peak exceeds its reckoning")
+                if st.meter.peak > meter_bound:
+                    raise AssertionError("train-nvme: the host residency "
+                                         "exceeds two swap groups and a "
+                                         "grad group")
+                want_l = (2 * layers, layers, layers, 0)
+            else:
+                want_l = (layers, layers, layers, 0)
+            got = [c for _, c in results[tag]]
+            if any(c != want_l for c in got):
+                raise AssertionError(f"train-nvme ({tag}): flash launches "
+                                     f"per step {got}, want {want_l}")
+            where = os.path.join(disk if tag == "c" else store, f"ck_{tag}")
+            t = time.perf_counter()
+            ckpts[tag] = eng.save_checkpoint(where)
+            save_s = time.perf_counter() - t
+            size = dir_bytes(ckpts[tag])
+            log(f"[train-nvme] ({tag}) checkpoint saved in {save_s:.3f} s "
+                f"({size / save_s / 1e9:.2f} GB/s, {size / 1e9:.2f} GB, "
+                f"{disk_facts(where)['fstype']})")
+            got_m = ck.consolidate(ckpts[tag])
+            bound_m = 2 * OFFLOAD_LR * nsteps
+            worst, sq, count = 0.0, 0.0, 0
+            for key, ref_leaf in want.items():
+                d = np.abs(got_m[key].astype(np.float64) - ref_leaf)
+                worst = max(worst, float(d.max()))
+                sq += float(np.square(d).sum())
+                count += d.size
+            rms = math.sqrt(sq / count)
+            del got_m
+            log(f"[train-nvme] ({tag}) consolidated master vs resident: "
+                f"max |d| {worst:.3e} (bound {bound_m:.1e}), rms {rms:.3e} "
+                f"(bound {MASTER_RMS:.1e})")
+            if worst > bound_m or rms > MASTER_RMS:
+                raise AssertionError(f"train-nvme ({tag}): the master "
+                                     "disagrees with the resident engine")
+            if tag == "b":
+                shutil.rmtree(os.path.dirname(ckpts["b"]))
+                del eng
+                free_engines(torch)
+            else:
+                engines[tag] = eng
+                del eng
+        del want
+
+        # the losses against the resident engine's
+        tol = PARITY_FACTOR * PARITY_FLOOR["bf16"]
+        for tag in ("b", "c"):
+            got = [x for x, _ in results[tag]]
+            rel = [abs(a - b) / abs(b) for a, b in zip(got, ref_losses)]
+            log(f"[train-nvme] ({tag}) losses {got} vs resident "
+                f"{ref_losses}: relative |d| {[f'{r:.2e}' for r in rel]} "
+                f"(tol {tol:.2e}, {PARITY_FACTOR} x the bf16 floor)")
+            if max(rel) > tol:
+                raise AssertionError(f"train-nvme ({tag}): losses disagree "
+                                     "with the resident engine")
+
+        # (c)'s checkpoint into a fresh streamed engine
+        a = engines.pop("c")
+        model = make()
+        t = time.perf_counter()
+        b = ds.initialize(model=model, config=offload_config(
+            micro, 3, offload_optimizer=nvme, offload_param=nvme),
+            device=device)
+        model.params = None
+        del model
+        b.load_checkpoint(os.path.dirname(ckpts["c"]))
+        load_s = time.perf_counter() - t
+        log(f"[train-nvme] (c) fresh streamed engine built and loaded in "
+            f"{load_s:.3f} s ({dir_bytes(ckpts['c']) / load_s / 1e9:.2f} "
+            f"GB/s with the build)")
+        ta, tb = a._stream.state_trees(lazy=True), \
+            b._stream.state_trees(lazy=True)
+        for col, (x, y) in enumerate(zip(ta, tb)):
+            for (k, u), (_, v) in zip(ck._leaf_paths(x), ck._leaf_paths(y)):
+                if not np.array_equal(np.asarray(u), np.asarray(v)):
+                    raise AssertionError(f"train-nvme: the loaded state "
+                                         f"differs at column {col} {k}")
+        la = nvme_steps(torch, fa, a, data, micro, "c, saved", first=nsteps,
+                        count=1)[0][0]
+        lb = nvme_steps(torch, fa, b, data, micro, "c, loaded",
+                        first=nsteps, count=1)[0][0]
+        log(f"[train-nvme] (c) resume: master and moments bitwise; next "
+            f"loss {la} vs {lb} (bitwise {la == lb}); save "
+            f"{save_s:.3f} s, load {load_s:.3f} s")
+        if la != lb:
+            raise AssertionError("train-nvme: the resumed step's loss is "
+                                 "not bitwise the saved engine's")
+        del a, b
+        free_engines(torch)
+        return variants
+    finally:
+        shutil.rmtree(disk, ignore_errors=True)
+        shutil.rmtree(store, ignore_errors=True)
+
+
 def device_profile(torch, run, wall_unprofiled, tag="serve"):
     """The kernels that take the device time, over one more full run under
     torch.profiler (``run(prof)`` returns its wall seconds), and the
@@ -3323,7 +3982,8 @@ def main() -> int:
                     default="device,build,kernel,train,train-fp32,"
                             "train-ckpt,serve,serve-quant,serve-burst,"
                             "serve-failover,serve-alibi,serve-mqa,"
-                            "serve-spec,serve-moe,train-moe,train-fp16")
+                            "serve-spec,serve-moe,train-moe,train-fp16,"
+                            "train-offload,train-nvme")
     ap.add_argument("--seed", type=int, default=0)
     # serve-failover (e) runs this script again as its child process
     ap.add_argument("--failover-child", metavar="SNAPSHOT_PATH",
@@ -3366,6 +4026,17 @@ def main() -> int:
     if not rep["sm90"]:
         raise SystemExit("chip_smoke: the kernels are built for sm_90a; "
                          f"this card is {rep['capability']}")
+    hf = host_facts()
+    log(f"[device] host: MemTotal {hf['mem_total'] / 1e9:.2f} GB, "
+        f"MemAvailable {hf['mem_available'] / 1e9:.2f} GB, RLIMIT_MEMLOCK "
+        f"{hf['memlock']}, os.cpu_count() {hf['cpus']}, "
+        f"torch.get_num_threads() {torch.get_num_threads()}")
+    nvme_root().mkdir(parents=True, exist_ok=True)
+    for where in (str(nvme_root()), NVME_RUN["store_dir"]):
+        df = disk_facts(where)
+        log(f"[device] NVMe phase directory {where}: mount point "
+            f"{df['mount']}, filesystem {df['fstype']}, free "
+            f"{df['free'] / 1e9:.2f} GB")
     phase_done("device")
 
     # 2. build
@@ -3497,6 +4168,17 @@ def main() -> int:
     if "train-fp16" in phases:
         flash_runs.append(train(torch, fa, args.seed, "train-fp16"))
         phase_done("train-fp16")
+
+    # 9. ZeRO-Offload (gptj-6b, full width and depth, state in pinned host
+    # memory) and 10. ZeRO-Infinity (gptj-6b cut to 4 layers: the NVMe
+    # optimizer, then per-layer parameter streaming), last: their pinned
+    # and NVMe state is the largest host footprint of the run
+    if "train-offload" in phases:
+        flash_runs.append(train_offload(torch, fa, args.seed))
+        phase_done("train-offload")
+    if "train-nvme" in phases:
+        flash_runs.append(train_nvme(torch, fa, args.seed))
+        phase_done("train-nvme")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if kern is not None:

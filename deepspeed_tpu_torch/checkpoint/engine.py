@@ -191,9 +191,13 @@ def _write_fragment(path: str, data: np.ndarray, dtype: str) -> None:
 
 def save_tree(tree: Any, ckpt_dir: str,
               extra_meta: Optional[Dict] = None) -> None:
-    """Write a tree of tensors, numpy arrays and Python numbers, or of
-    :class:`HostShards` snapshots (the async path), as fragments plus the
-    manifest."""
+    """Write a tree of tensors, numpy arrays and Python numbers, of
+    :class:`HostShards` snapshots (the async path), or of lazy leaves
+    (``LazyNVMeLeaf``, ``_LazyStack``: anything with ``shape``, ``dtype``
+    and ``__array__``), as fragments plus the manifest.  The leaves are
+    written one at a time: a lazy leaf is read (``np.asarray``), written
+    and dropped before the next, so NVMe state never sits whole in host
+    memory."""
     os.makedirs(ckpt_dir, exist_ok=True)
     # re-saving into an existing tag: clear stale fragments/manifests
     # first (left behind, they would leak into the merged manifest)
@@ -347,6 +351,30 @@ def load_tree(template: Any, shardings: Any, ckpt_dir: str,
                           device)
 
     return _map_with_path(one, template), meta
+
+
+def load_tree_into(tree: Any, ckpt_dir: str, strict: bool = True
+                   ) -> Tuple[Any, Dict]:
+    """Like :func:`load_tree`, but each tensor leaf of ``tree`` is filled
+    in place (a pinned host tensor stays pinned, where it is), one leaf
+    at a time; numbers come back as numbers.  Returns (tree, meta)."""
+    meta = _read_manifest(ckpt_dir)
+    entries = meta["leaves"]
+
+    def one(key, leaf):
+        if key not in entries:
+            if strict:
+                raise KeyError(f"Checkpoint missing leaf {key}")
+            return leaf
+        _check_entry(key, entries[key], leaf)
+        reader = _FragmentReader(ckpt_dir, entries[key])
+        if isinstance(leaf, torch.Tensor):
+            with torch.no_grad():
+                leaf.copy_(reader.tensor())
+            return leaf
+        return _leaf_from(reader, leaf, None)
+
+    return _map_with_path(one, tree), meta
 
 
 def load_tree_host(template: Any, ckpt_dir: str,

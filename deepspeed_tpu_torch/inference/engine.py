@@ -25,8 +25,8 @@ Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item when its config field is set away from the default): the
 attention-implementation probe, telemetry (tracing, device telemetry,
 anomaly detection, SLOs, captures, the flight recorder), the KV tier,
-the fp6/fp12 minifloat weight layouts, KV offload (Queue 1 item 4),
-weight streaming and tensor parallelism.
+the fp6/fp12 minifloat weight layouts, KV offload and weight streaming
+(Queue 1 item 4b) and tensor parallelism.
 
 API:
     eng = InferenceEngine(model, InferenceConfig(...))
@@ -191,14 +191,14 @@ class InferenceConfig:
 
 # field -> (accepted values, ROADMAP item that ports the rest)
 _HOST = "ROADMAP Queue 1, host layers above the engine"
+_SERVING_OFFLOAD = "ROADMAP Queue 1 item 4b, serving offload"
 _UNSUPPORTED = {
     "attn_impl": (("auto",), "ROADMAP Queue 1, serving slice: the kernel "
                   "is chosen by the tensors' device, there is no probe"),
     "weight_quant": ((None, "int8", "int4"), "ROADMAP Queue 1, quantized "
                      "serving: the fp6/fp12 minifloat layouts"),
-    "kv_offload": ((False,), "ROADMAP Queue 1 item 4, offload on one "
-                   "card"),
-    "weight_stream": ((None,), _HOST),
+    "kv_offload": ((False,), _SERVING_OFFLOAD),
+    "weight_stream": ((None,), _SERVING_OFFLOAD),
     "kv_donate": (("auto", "on"), "in-place KV updates (no 'off')"),
     "comm_overlap": (("auto", "off"), "ROADMAP Queue 1, multi-GPU "
                      "training breadth (tensor parallelism)"),

@@ -1,11 +1,14 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's CUDA kernels with nvcc, and its host C++ with g++,
+and load them with ctypes.
 
-Counterpart of ``deepspeed_tpu/ops/builder.py:35-86`` (``OpBuilder``):
-sources under ``ops/csrc/`` compile at first use into
+Counterpart of ``deepspeed_tpu/ops/builder.py:35-94`` (``OpBuilder``,
+``AsyncIOBuilder``): sources under ``ops/csrc/`` compile at first use into
 ``<checkout>/build/kernels/`` (listed in ``.gitignore``), cached by a hash
-of the sources and flags, and load through ``ctypes`` behind a plain C
-ABI — ``torch.utils.cpp_extension.load`` is not used, because a source
-that includes PyTorch's headers takes minutes to build.
+of the sources, headers and flags, and load through ``ctypes`` behind a
+plain C ABI — ``torch.utils.cpp_extension.load`` is not used, because a
+source that includes PyTorch's headers takes minutes to build.
+:class:`HostOpBuilder` is the g++ builder of host libraries (the aio
+pool, ``csrc/aio.cpp``); it shares the cache and the hash.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread"]
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -55,6 +59,8 @@ class CUDAOpBuilder:
     output (``-Xptxas -v``: registers, shared memory, spills) and wall
     time; both stay empty when the library came from the cache."""
 
+    flags = NVCC_FLAGS
+
     def __init__(self, name: str, sources: Sequence[str],
                  headers: Sequence[str] = ()):
         self.name = name
@@ -71,7 +77,7 @@ class CUDAOpBuilder:
         h = hashlib.sha256()
         for p in self.source_paths() + [CSRC_DIR / s for s in self.headers]:
             h.update(p.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join(self.flags).encode())
         return BUILD_DIR / f"{self.name}_{h.hexdigest()[:16]}.so"
 
     def start(self, force: bool = False) -> Optional[subprocess.Popen]:
@@ -80,12 +86,10 @@ class CUDAOpBuilder:
         so = self.library_path()
         if so.exists() and not force:
             return None
-        nvcc = find_nvcc()
-        if nvcc is None:
-            raise BuildError(f"nvcc not found: cannot build {self.name}")
+        compiler = self.compiler()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".tmp{os.getpid()}")
-        self.command = [nvcc, *NVCC_FLAGS,
+        self.command = [compiler, *self.flags,
                         *[str(p) for p in self.source_paths()],
                         "-o", str(tmp)]
         logger.info("building %s: %s", self.name, " ".join(self.command))
@@ -103,10 +107,17 @@ class CUDAOpBuilder:
         self.build_seconds = time.perf_counter() - self._t0
         if proc.returncode != 0:
             self._tmp.unlink(missing_ok=True)
-            raise BuildError(f"nvcc build of {self.name} failed "
+            raise BuildError(f"{Path(self.command[0]).name} build of "
+                             f"{self.name} failed "
                              f"(exit {proc.returncode}):\n{out[-8000:]}")
         os.replace(self._tmp, so)     # atomic: readers never see half a file
         return so
+
+    def compiler(self) -> str:
+        nvcc = find_nvcc()
+        if nvcc is None:
+            raise BuildError(f"nvcc not found: cannot build {self.name}")
+        return nvcc
 
     def load(self) -> ctypes.CDLL:
         """Build (when not cached) and dlopen, once per process."""
@@ -116,6 +127,19 @@ class CUDAOpBuilder:
                 lib = ctypes.CDLL(str(self.finish(self.start())))
                 _loaded[self.name] = lib
             return lib
+
+
+class HostOpBuilder(CUDAOpBuilder):
+    """A host C++ library built by g++ (``GXX_FLAGS``), cached and loaded
+    as the CUDA ones are (reference: ``OpBuilder._build``)."""
+
+    flags = GXX_FLAGS
+
+    def compiler(self) -> str:
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise BuildError(f"g++ not found: cannot build {self.name}")
+        return gxx
 
 
 def build_all(builders: Sequence[CUDAOpBuilder], force: bool = False) -> None:

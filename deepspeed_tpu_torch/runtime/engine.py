@@ -26,7 +26,25 @@ eagerly.  bf16 and fp32 steps never wait for the device (the metrics stay
 on it until read); an fp16 step reads its overflow flag on the host.
 
 ZeRO stages 0-3 are accepted: on one device partitioning is the identity,
-as on the JAX engine's one-device mesh.  ``save_checkpoint`` /
+as on the JAX engine's one-device mesh.
+
+Offload (``zero_optimization.offload_optimizer`` / ``offload_param``)
+either runs or raises; nothing falls back to device-resident state:
+
+* ``cpu`` (ZeRO-Offload, :meth:`Engine._offload_update`): the fp32 master
+  and the moments live in host memory (pinned unless ``pin_memory`` is
+  False).  After the device epilogue each fp32 grad goes to the host
+  through a ring of ``buffer_count`` pinned chunks of ``buffer_size``
+  bytes, the host runs ``optimizer.update_leaf`` chunk by chunk, and the
+  new compute-dtype values come back through the same ring, the copies of
+  chunks i+1 and i-1 overlapping the update of chunk i.  With
+  ``offload_param=cpu`` the compute-dtype working copy lives in host
+  memory too and is staged to the card for each step;
+* ``offload_optimizer=nvme`` (ZeRO-Infinity, ``zero_infinity.py``): the
+  fp32 state on NVMe, updated group by group on the host; the card keeps
+  the compute-dtype working copy;
+* plus ``offload_param=nvme`` with a stacked-layer ``model=``
+  (``param_stream.py``): the layers stream from NVMe, one at a time.  ``save_checkpoint`` /
 ``load_checkpoint`` / ``wait_checkpoint`` write and read the JAX
 package's fragment format (``checkpoint/engine.py``), synchronously or,
 with ``checkpoint.async_save``, from a worker thread.  Every other
@@ -36,6 +54,9 @@ when it is configured.
 
 from __future__ import annotations
 
+import os
+import time
+import weakref
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -47,10 +68,13 @@ from ..platform.cuda import resolve_device
 from ..utils.logging import log_dist
 from ..utils.prng import PRNGKey, split
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
+from ..config.config import ConfigError
+from ..utils.logging import logger
 from .loss_scaler import LossScaler, LossScaleState, all_finite
 from .lr_schedules import build_schedule, constant
-from .optimizers import Optimizer, build_optimizer
-from .runtime_utils import (clip_by_global_norm_, param_count, tree_leaves,
+from .optimizers import AdamState, Optimizer, build_optimizer
+from .runtime_utils import (HOST_CHUNK, clip_by_global_norm_,
+                            keep_host_heap, param_count, tree_leaves,
                             tree_map, tree_unflatten)
 
 PRECISION_DTYPE = {"fp32": torch.float32, "fp16": torch.float16,
@@ -59,7 +83,6 @@ PRECISION_DTYPE = {"fp32": torch.float32, "fp16": torch.float16,
 _MULTI = "ROADMAP Queue 1 item 6 (multi-GPU training breadth)"
 _HOST = "ROADMAP Queue 1 item 5 (host layers: telemetry, monitor)"
 _AUX = "ROADMAP Queue 1 item 7 (aux subsystems)"
-_OFFLOAD = "ROADMAP Queue 1 item 4, offload on one card"
 
 
 class TrainState(NamedTuple):
@@ -94,11 +117,6 @@ def _reject_unported(config: Config) -> None:
         raise _not_ported("data parallelism over a process group", _MULTI)
     z = config.zero_optimization
     checks = [
-        (z.offload_optimizer.device != "none",
-         f"offload_optimizer.device={z.offload_optimizer.device!r}",
-         _OFFLOAD),
-        (z.offload_param.device != "none",
-         f"offload_param.device={z.offload_param.device!r}", _OFFLOAD),
         (z.zero_quantized_gradients, "zero_quantized_gradients (qgZ)", _MULTI),
         (z.zero_quantized_weights, "zero_quantized_weights (qwZ)", _MULTI),
         (z.zero_hpz_partition_size > 1, "zero_hpz_partition_size", _MULTI),
@@ -124,6 +142,79 @@ def _reject_unported(config: Config) -> None:
             raise _not_ported(what, item)
 
 
+def _check_offload(config: Config) -> None:
+    """Raise for an offload setting that neither package runs."""
+    z = config.zero_optimization
+    opt_dev, par_dev = z.offload_optimizer.device, z.offload_param.device
+    for key, cfg in (("offload_optimizer", z.offload_optimizer),
+                     ("offload_param", z.offload_param)):
+        if cfg.device not in ("none", "cpu", "nvme"):
+            raise ConfigError(f"{key}.device={cfg.device!r}: expected "
+                              "'none', 'cpu' or 'nvme'")
+        if cfg.device != "none" and cfg.ratio != 1.0:
+            raise ConfigError(
+                f"{key}.ratio={cfg.ratio}: partial offload is not "
+                "supported (every leaf is offloaded; ratio must be 1.0)")
+    if par_dev == "nvme" and opt_dev != "nvme":
+        raise ConfigError(
+            "offload_param.device=nvme needs offload_optimizer.device="
+            "nvme (the streamed parameters are updated from the NVMe "
+            "optimizer state)")
+    if "cpu" in (opt_dev, par_dev) and opt_dev != "nvme":
+        if "lamb" in config.optimizer.type.lower():
+            raise ConfigError(
+                "optimizer offload is not supported with LAMB: trust "
+                "ratios need whole-tensor parameter/update norms, but "
+                "the offloaded update runs per-shard inside shard_map "
+                "and would silently compute per-shard ratios. Use "
+                "adam/adamw/lion/adagrad/sgd with offload, or drop "
+                "offload_optimizer/offload_param for LAMB.")
+        ring = z.offload_optimizer if opt_dev == "cpu" else z.offload_param
+        if ring.buffer_count < 2 or ring.buffer_size < 4:
+            raise ConfigError(
+                "ZeRO-Offload's staging ring needs buffer_count >= 2 and "
+                f"buffer_size >= 4 bytes, got {ring.buffer_count} x "
+                f"{ring.buffer_size}")
+
+
+class _HostMemory:
+    """Host tensors of offloaded state, page-locked with
+    ``cudaHostRegister`` when ``pin`` (PyTorch's pinned allocator rounds
+    each block up to a power of two: up to twice the bytes of a large
+    leaf).  Every failure raises, naming the bytes asked for; the
+    registrations are undone by :meth:`release` (an engine's finalizer)."""
+
+    def __init__(self, pin: bool):
+        self.pin = pin
+        self._registered = []
+
+    def empty(self, shape, dtype) -> torch.Tensor:
+        nbytes = int(np.prod(shape)) * torch.empty(
+            (), dtype=dtype).element_size()
+        try:
+            t = torch.empty(tuple(shape), dtype=dtype)
+        except RuntimeError as e:
+            raise RuntimeError(f"could not allocate {nbytes:,} bytes of host "
+                               f"memory for offloaded state: {e}") from e
+        if self.pin and nbytes:
+            err = torch.cuda.cudart().cudaHostRegister(t.data_ptr(), nbytes,
+                                                       0)
+            if int(err) != 0:
+                raise RuntimeError(f"could not pin {nbytes:,} bytes of host "
+                                   f"memory for offloaded state "
+                                   f"(cudaHostRegister: error {int(err)})")
+            self._registered.append(t)
+        return t
+
+    def copy(self, x: torch.Tensor, dtype) -> torch.Tensor:
+        return self.empty(x.shape, dtype).copy_(x)
+
+    def release(self) -> None:
+        for t in self._registered:
+            torch.cuda.cudart().cudaHostUnregister(t.data_ptr())
+        self._registered = []
+
+
 class Engine:
     """One-device training engine (``deepspeed_tpu.runtime.engine.Engine``)."""
 
@@ -145,6 +236,7 @@ class Engine:
         if monitor is not None:
             raise _not_ported("monitor", _HOST)
         _reject_unported(config)
+        _check_offload(config)
         self.config = config
         self.device = resolve_device(device)
         self.loss_fn = loss_fn
@@ -173,6 +265,48 @@ class Engine:
         self.optimizer: Optimizer = build_optimizer(
             opt_cfg.type, self.lr_schedule, opt_cfg.params)
 
+        # offload: "none", "host" (ZeRO-Offload) or "nvme" (ZeRO-Infinity)
+        z = config.zero_optimization
+        self._nvme = None
+        self._stream = None
+        self._work = None          # the compute-dtype working copy
+        self.offload_times: Dict[str, float] = {}
+        if z.offload_optimizer.device == "nvme":
+            from .zero_infinity import NVMeOptimizer
+            self._offload = "nvme"
+            self._nvme = NVMeOptimizer(
+                z.offload_optimizer.nvme_path, opt_cfg.type, opt_cfg.params,
+                buffer_size=z.offload_optimizer.buffer_size,
+                aio_config=config.aio)
+        elif "cpu" in (z.offload_optimizer.device, z.offload_param.device):
+            self._offload = "host"
+        else:
+            self._offload = "none"
+        if self._offload != "none":
+            keep_host_heap()           # the host update's temporaries
+        self._stream_params = (
+            self._nvme is not None and z.offload_param.device == "nvme"
+            and model is not None and hasattr(model, "config")
+            and isinstance(params, dict) and "blocks" in params)
+        # the working copy lives in host memory between steps (staged to
+        # the device for each step) with offload_param=cpu, or =nvme
+        # without a stacked-layer model
+        self._host_params = (
+            z.offload_param.device == "cpu"
+            or (z.offload_param.device == "nvme" and not self._stream_params))
+        if z.offload_param.device == "nvme" and not self._stream_params:
+            logger.warning(
+                "offload_param.device=nvme without a stacked-layer model: "
+                "staging the full compute-dtype working copy in host "
+                "memory; pass model= (models.transformer) to stream "
+                "parameters per layer instead")
+        on_card = self.device.type == "cuda"
+        self._pin_state = on_card and z.offload_optimizer.pin_memory
+        self._pin_params = on_card and z.offload_param.pin_memory
+        ring = (z.offload_optimizer if z.offload_optimizer.device == "cpu"
+                else z.offload_param)
+        self._ring_cfg = (ring.buffer_count, ring.buffer_size)
+
         self.state = self._init_state(params)
         self.global_steps = 0
         self.global_samples = 0
@@ -181,8 +315,14 @@ class Engine:
         self._last_metrics: Optional[Dict[str, Any]] = None
         self._last_metrics_host: Optional[Dict[str, Any]] = None
         self._async_saver = None
+        if self._offload == "host":
+            log_dist(
+                f"ZeRO-Offload: master and moments in "
+                f"{'pinned' if self._pin_state else 'pageable'} host memory, "
+                f"staging ring {self._ring_cfg[0]} x {self._ring_cfg[1]:,} "
+                f"bytes, host update on {torch.get_num_threads()} threads")
         log_dist(
-            f"Engine: {param_count(self.state.master):,} params | "
+            f"Engine: {self.num_params:,} params | "
             f"precision={self.precision} | zero_stage={self.zero_stage} | "
             f"device={self.device} | batch={self.train_batch_size} "
             f"(micro={self.micro_batch_size} x gas={self.gas} x dp=1)")
@@ -190,12 +330,107 @@ class Engine:
     # ------------------------------------------------------------------
     # state
     # ------------------------------------------------------------------
+    @property
+    def offload_active(self) -> bool:
+        """Whether optimizer or parameter offload is configured (it
+        always runs when it is: nothing turns it off)."""
+        return self._offload != "none"
+
+    @property
+    def num_params(self) -> int:
+        if self._stream is not None:
+            return self._stream.num_params
+        return param_count(self.state.master)
+
     def _init_state(self, params) -> TrainState:
+        if self._offload == "nvme":
+            return self._init_state_nvme(params)
+        if self._offload == "host":
+            return self._init_state_host(params)
         master = tree_map(lambda p: torch.as_tensor(p).detach().to(
             device=self.device, dtype=torch.float32, copy=True), params)
         return TrainState(step=0, master=master,
                           opt_state=self.optimizer.init(master),
                           loss_scale=self.scaler.init(), skipped=0)
+
+    def _host_memory(self, pin: bool) -> _HostMemory:
+        mem = _HostMemory(pin)
+        weakref.finalize(self, mem.release)
+        return mem
+
+    def _working_copy(self, params):
+        """The compute-dtype working copy of ``params``: on the device, or
+        in (pinned) host memory with ``_host_params``."""
+        mem = self._host_memory(self._pin_params) if self._host_params \
+            else None
+
+        def one(p):
+            p = torch.as_tensor(p).detach()
+            if mem is not None:
+                return mem.copy(p, self.compute_dtype)
+            return p.to(device=self.device, dtype=self.compute_dtype,
+                        copy=True)
+        return tree_map(one, params)
+
+    def _init_state_host(self, params) -> TrainState:
+        """ZeRO-Offload: the fp32 master and the moments in host memory,
+        made one leaf at a time (never whole on the device, and never a
+        second whole copy on the host)."""
+        mem = self._host_memory(self._pin_state)
+        master = tree_map(
+            lambda p: mem.copy(torch.as_tensor(p).detach(), torch.float32),
+            params)
+        # every optimizer here starts its state at a constant: take it
+        # from a one-element leaf and fill, so no pageable copy of a
+        # whole leaf's moments is ever made
+        kind, fields = None, None
+        for p in tree_leaves(master):
+            st = self.optimizer.init([p.view(-1)[:1]])
+            if fields is None:
+                kind, fields = type(st), [[] for _ in st]
+            for f, x in zip(fields, st):
+                f.append(mem.empty(p.shape, x[0].dtype).fill_(x[0].item()))
+            del st
+        opt_state = self.optimizer.init(master) if fields is None else \
+            kind(*(tree_unflatten(master, f) for f in fields))
+        self._work = self._working_copy(params)
+        # the staging ring is pinned on the card whatever pin_memory says:
+        # its copies are the asynchronous ones
+        n, b = self._ring_cfg
+        ring = self._host_memory(self.device.type == "cuda")
+        self._ring = [ring.empty((b,), torch.uint8) for _ in range(n)]
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+        return TrainState(step=0, master=master, opt_state=opt_state,
+                          loss_scale=self.scaler.init(), skipped=0)
+
+    def _init_state_nvme(self, params) -> TrainState:
+        """ZeRO-Infinity: the fp32 master and zero moments written to
+        NVMe; the state's ``master`` is the compute-dtype working copy
+        (with streaming, the resident leaves only)."""
+        if self._stream_params:
+            from .param_stream import StreamedInfinityTrainer
+            self._stream = StreamedInfinityTrainer(self, self._model, params)
+            return TrainState(step=0, master=self._stream.resident,
+                              opt_state=(), loss_scale=self.scaler.init(),
+                              skipped=0)
+        self._nvme.initialize(params)
+        self._work = self._working_copy(params)
+        return TrainState(step=0, master=self._work, opt_state=(),
+                          loss_scale=self.scaler.init(), skipped=0)
+
+    def _step_params(self, requires_grad: bool = False):
+        """The parameters a step or an eval computes with: the master cast
+        (no offload), or the working copy, staged to the device when it
+        lives on the host."""
+        if self._offload == "none":
+            return self._compute_params(self.state.master, requires_grad)
+
+        def one(w):
+            if self._host_params:
+                w = w.to(self.device, non_blocking=True)
+            return w.detach().requires_grad_(requires_grad)
+        return tree_map(one, self._work)
 
     def _compute_params(self, master, requires_grad: bool = False):
         """The master cast to the compute dtype (a fresh tensor per leaf,
@@ -246,7 +481,8 @@ class Engine:
         use_scaling = self.precision == "fp16"
         loss_scale = self.state.loss_scale
         scale = loss_scale.scale if use_scaling else 1.0
-        cparams = self._compute_params(self.state.master, requires_grad=True)
+        t0 = time.perf_counter()
+        cparams = self._step_params(requires_grad=True)
         loss, aux, grads = self._grads(cparams, batch, rng, scale)
         del cparams
 
@@ -262,7 +498,15 @@ class Engine:
 
         step = self.state.step
         if finite:
-            self._apply_update(grads, step + 1)
+            if self._offload == "host":
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+                self.offload_times = {"fwd_bwd_s": time.perf_counter() - t0}
+                self._offload_update(grads, step + 1)
+            elif self._offload == "nvme":
+                self._nvme_update(grads, step + 1)
+            else:
+                self._apply_update(grads, step + 1)
         del grads
         new_step = step + 1 if finite else step
         self.state = self.state._replace(
@@ -297,6 +541,111 @@ class Engine:
         self.state = self.state._replace(opt_state=kind(
             *(tree_unflatten(master, f) for f in fields)))
 
+    def _offload_update(self, grads, step: int) -> None:
+        """ZeRO-Offload's update (``_offload_update`` of the JAX engine):
+        ``optimizer.update_leaf`` on the host, over chunks of at most
+        ``buffer_size`` bytes of fp32 grads, each updated in spans of
+        ``HOST_CHUNK`` elements.  Chunk k's grads come to the host
+        through ring slot ``k % buffer_count`` on the copy stream;
+        the host updates the chunk's master and moments in place, writes
+        its new compute-dtype values into the same slot, and the copy
+        stream takes them to the working copy.  The D2H of chunk k+1 is
+        issued before chunk k updates, and chunk k's H2D runs while chunk
+        k+1 updates; the copy stream's order keeps a slot from being
+        overwritten before its H2D has read it.  ``offload_times`` gets
+        the host seconds spent waiting for grads, updating, and waiting
+        for the last H2D, and the bytes each way."""
+        state = self.state
+        masters = tree_leaves(state.master)
+        fields = [tree_leaves(f) for f in state.opt_state]
+        works = tree_leaves(self._work)
+        ring = self._ring
+        nbuf, chunk = len(ring), ring[0].numel() // 4
+        cuda = self.device.type == "cuda"
+        to_host = self._host_params or not cuda
+        copy = self._copy_stream
+        pieces = [(i, a, min(a + chunk, g.numel()))
+                  for i, g in enumerate(grads)
+                  for a in range(0, g.numel(), chunk)]
+        wait_s = update_s = 0.0
+        if cuda:
+            copy.wait_stream(torch.cuda.current_stream(self.device))
+
+        def d2h(k: int):
+            i, a, b = pieces[k]
+            buf = ring[k % nbuf].view(torch.float32)[:b - a]
+            src = grads[i].view(-1)[a:b]
+            if not cuda:
+                buf.copy_(src)
+                return None
+            with torch.cuda.stream(copy):
+                buf.copy_(src, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(copy)
+            return ev
+
+        with torch.no_grad():
+            pending = d2h(0) if pieces else None
+            for k, (i, a, b) in enumerate(pieces):
+                ev = pending
+                pending = d2h(k + 1) if k + 1 < len(pieces) else None
+                t = time.perf_counter()
+                if ev is not None:
+                    ev.synchronize()
+                t1 = time.perf_counter()
+                slot = ring[k % nbuf]
+                g = slot.view(torch.float32)[:b - a]
+                p = masters[i].view(-1)[a:b]
+                state = [f[i].view(-1)[a:b] for f in fields]
+
+                for a2 in range(0, b - a, HOST_CHUNK):
+                    b2 = min(a2 + HOST_CHUNK, b - a)
+                    pp = p[a2:b2]
+                    delta, new = self.optimizer.update_leaf(
+                        g[a2:b2], tuple(x[a2:b2] for x in state), pp, step)
+                    pp.add_(delta)
+                    for x, y in zip(state, new):
+                        x[a2:b2].copy_(y)
+                    del delta, new
+                dst = works[i].view(-1)[a:b]
+                if to_host:
+                    dst.copy_(p)
+                else:
+                    out = slot.view(self.compute_dtype)[:b - a]
+                    out.copy_(p)
+                    with torch.cuda.stream(copy):
+                        dst.copy_(out, non_blocking=True)
+                wait_s += t1 - t
+                update_s += time.perf_counter() - t1
+            grads.clear()
+            t = time.perf_counter()
+            if cuda:
+                torch.cuda.current_stream(self.device).wait_stream(copy)
+                copy.synchronize()
+        moved = sum(b - a for _, a, b in pieces)
+        self.offload_times.update(
+            d2h_wait_s=wait_s, host_update_s=update_s,
+            h2d_tail_s=time.perf_counter() - t, d2h_bytes=4 * moved,
+            h2d_bytes=0 if to_host else moved * torch.empty(
+                (), dtype=self.compute_dtype).element_size())
+
+    def _nvme_update(self, grads, step: int) -> None:
+        """ZeRO-Infinity's update (``_train_batch_nvme``): the grouped NVMe
+        step on the host, each fresh master cast into the working copy."""
+        flat = self._nvme.flatten(tree_unflatten(self._work, list(grads)))
+        grads.clear()
+        works = self._nvme.flatten(self._work)
+        lr = float(self.lr_schedule(float(step)))
+        t = time.perf_counter()
+
+        def consume(i: int, p_new: torch.Tensor) -> None:
+            works[i].copy_(p_new)
+            flat[i] = None                    # this grad is done with
+
+        with torch.no_grad():
+            self._nvme.step(flat, lr, step, consume=consume)
+        self.offload_times = {"host_update_s": time.perf_counter() - t}
+
     def train_batch(self, batch, rng: Optional[torch.Tensor] = None
                     ) -> Dict[str, Any]:
         """One full optimizer step over ``batch`` (leading dim
@@ -305,6 +654,10 @@ class Engine:
         (the JAX engine's)."""
         if rng is None:
             rng = PRNGKey(self.config.seed + self.global_steps)
+        if self._stream is not None:
+            # per-layer streaming: the host loop is the step
+            self.tput.start()
+            return self._finish_step(self._stream.train_batch(batch, rng))
         batch = self.shard_batch(batch)
         self.tput.start()
         metrics = self._train_step(batch, rng)
@@ -336,10 +689,13 @@ class Engine:
     def eval_batch(self, batch, rng: Optional[torch.Tensor] = None):
         """The loss (``eval_fn`` or ``loss_fn``) on the current parameters,
         without gradients, as a numpy scalar."""
+        if self._stream is not None:
+            out = self._stream.eval_batch(batch, rng)
+            return np.asarray(out.detach().float().cpu().numpy())
         fn = self.eval_fn or self.loss_fn
         batch = self.shard_batch(batch, accumulate=False)
         with torch.no_grad():
-            out = fn(self._compute_params(self.state.master), batch,
+            out = fn(self._step_params(), batch,
                      PRNGKey(0) if rng is None else rng)
         out = out[0] if isinstance(out, tuple) else out
         return np.asarray(out.detach().float().cpu().numpy())
@@ -386,8 +742,15 @@ class Engine:
     # ------------------------------------------------------------------
     @property
     def compute_params(self):
-        """Current params in the compute dtype (copies)."""
-        return self._compute_params(self.state.master)
+        """Current params in the compute dtype (copies, on the device)."""
+        if self._stream is not None:
+            raise ConfigError(
+                "compute_params is unavailable under param streaming "
+                "(offload_param.device=nvme): the full compute tree never "
+                "materializes; load a checkpoint instead")
+        if self._offload == "none":
+            return self._compute_params(self.state.master)
+        return tree_map(lambda w: w.to(self.device, copy=True), self._work)
 
     def get_lr(self) -> float:
         # schedule position = optimizer steps actually applied
@@ -403,21 +766,22 @@ class Engine:
     # ------------------------------------------------------------------
     # checkpointing (delegates to deepspeed_tpu_torch.checkpoint)
     # ------------------------------------------------------------------
-    def _reject_nvme_checkpoint(self) -> None:
-        z = self.config.zero_optimization
-        if "nvme" in (z.offload_optimizer.device, z.offload_param.device):
-            raise _not_ported("checkpoints of NVMe-offloaded state",
-                              _OFFLOAD)
-
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
                         client_state: Optional[Dict] = None) -> str:
         """Write the state as ``save_dir/tag`` (default
         ``global_step<N>``) in the JAX package's fragment format and point
         ``save_dir/latest`` at it; with ``checkpoint.async_save`` the state
         is copied to the host now and written on a worker thread
-        (:meth:`wait_checkpoint` joins it).  Returns the tag's
-        directory."""
-        self._reject_nvme_checkpoint()
+        (:meth:`wait_checkpoint` joins it).  NVMe state is written in
+        fp32 (the master and moments, not the working copy), one swap
+        group at a time, synchronously.  Returns the tag's directory."""
+        if self._nvme is not None:
+            if self.config.checkpoint.async_save:
+                raise ConfigError(
+                    "checkpoint.async_save is not supported for NVMe-"
+                    "offloaded state: it is written from NVMe one swap "
+                    "group at a time, synchronously")
+            return self._save_checkpoint_nvme(save_dir, tag, client_state)
         if self.config.checkpoint.async_save:
             if self._async_saver is None:
                 self._async_saver = ckpt.AsyncCheckpointSaver()
@@ -426,6 +790,21 @@ class Engine:
                                               client_state=client_state)
         return ckpt.save_checkpoint(self, save_dir, tag=tag,
                                     client_state=client_state)
+
+    def _save_checkpoint_nvme(self, save_dir, tag, client_state) -> str:
+        """The fp32 NVMe state through lazy leaves: the writer reads one
+        column of one swap group at a time (the state may exceed host
+        memory), in the format of every other run."""
+        source = self._stream if self._stream is not None else self._nvme
+        master, m, v = source.state_trees(lazy=True)
+        saved = self.state
+        self.state = saved._replace(master=master,
+                                    opt_state=AdamState(m=m, v=v))
+        try:
+            return ckpt.save_checkpoint(self, save_dir, tag=tag,
+                                        client_state=client_state)
+        finally:
+            self.state = saved
 
     def wait_checkpoint(self) -> None:
         """Join an in-flight async checkpoint save (no-op otherwise);
@@ -440,9 +819,62 @@ class Engine:
         ``global_samples`` are restored, so the next step's rng
         (``seed + global_steps``) continues an uninterrupted run.  Returns
         (checkpoint dir, client_state)."""
-        self._reject_nvme_checkpoint()
         self.wait_checkpoint()        # never read a half-written save
+        if self._offload == "nvme":
+            return self._load_checkpoint_nvme(load_dir, tag)
+        if self._offload == "host":
+            return self._load_checkpoint_host(load_dir, tag)
         return ckpt.load_checkpoint(self, load_dir, tag=tag)
+
+    def _loaded(self, ckpt_dir: str, meta: Dict, where: str):
+        self.global_steps = int(meta.get("global_steps", 0))
+        self.global_samples = int(meta.get("global_samples", 0))
+        log_dist(f"loaded checkpoint {ckpt_dir} into {where} "
+                 f"(step {self.global_steps})")
+        return ckpt_dir, meta.get("client_state", {})
+
+    def _load_checkpoint_host(self, load_dir: str, tag: Optional[str]):
+        """ZeRO-Offload: the master and moments are filled in place, in
+        their (pinned) host memory; the working copy is cast from the
+        master."""
+        ckpt_dir = os.path.join(load_dir, tag if tag is not None
+                                else ckpt.read_latest(load_dir))
+        self.state, meta = ckpt.load_tree_into(self.state, ckpt_dir)
+        with torch.no_grad():
+            for w, p in zip(tree_leaves(self._work),
+                            tree_leaves(self.state.master)):
+                w.copy_(p)
+        return self._loaded(ckpt_dir, meta, "host memory")
+
+    def _load_checkpoint_nvme(self, load_dir: str, tag: Optional[str]):
+        """The fp32 master and moments go to the NVMe store and the working
+        copy is cast from the master (``_load_checkpoint_nvme`` of the JAX
+        engine).  A checkpoint of a run without NVMe loads too: the
+        master / AdamState keys are the same."""
+        ckpt_dir = os.path.join(load_dir, tag if tag is not None
+                                else ckpt.read_latest(load_dir))
+        f32 = lambda x: torch.empty(tuple(x.shape), dtype=torch.float32,
+                                    device="meta")
+        master_tpl = tree_map(f32, self._stream.master_template()
+                              if self._stream is not None else self._work)
+        template = self.state._replace(
+            master=master_tpl, opt_state=AdamState(m=master_tpl,
+                                                   v=master_tpl))
+        host, meta = ckpt.load_tree_host(template, ckpt_dir)
+        if self._stream is not None:
+            self._stream.restore(host.master, host.opt_state.m,
+                                 host.opt_state.v)
+            master = self._stream.resident
+        else:
+            self._nvme.restore(host.master, host.opt_state.m,
+                               host.opt_state.v)
+            with torch.no_grad():
+                for w, p in zip(tree_leaves(self._work),
+                                tree_leaves(host.master)):
+                    w.copy_(p)
+            master = self._work
+        self.state = host._replace(master=master, opt_state=())
+        return self._loaded(ckpt_dir, meta, "NVMe state")
 
 def initialize(loss_fn: Callable = None, params: Any = None,
                config: Any = None, topology=None, param_axes: Any = None,

@@ -61,6 +61,18 @@ def _zeros(params, dtype=torch.float32):
     return tree_map(lambda p: torch.zeros_like(p, dtype=dtype), params)
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sqrt``, correctly rounded also on the CPU: PyTorch's CPU
+    kernel for fp32 is off by one ulp on ~0.6% of inputs, the card's
+    (IEEE ``sqrtf``) and numpy's are not.  A host update (ZeRO-Offload's
+    ``update_leaf`` on CPU tensors, ``HostAdam``) must round as the card
+    does, so an fp32 CPU input goes through float64, where the square root
+    rounded once more to fp32 is the correctly rounded one."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def _moment_dtype(dtype) -> torch.dtype:
     """A ``moment_dtype`` as a torch dtype: a torch dtype, or its name as
     a JSON config spells it (``"bfloat16"``)."""
@@ -104,7 +116,12 @@ def adamw(lr, betas=(0.9, 0.999), eps: float = 1e-8,
             g32 = g32 + weight_decay * p.float()
         m_ = b1 * m + (1 - b1) * g32
         v_ = b2 * v + (1 - b2) * (g32 * g32)
-        delta = -lr_t * (m_ / c1) / (torch.sqrt(v_ / c2) + eps)
+        # the bias corrections as products by their reciprocals: what
+        # both the card's and the CPU's kernels then compute alike (a
+        # division by a Python number is a product by its reciprocal on
+        # the card and a true division on the CPU), so a host update
+        # (ZeRO-Offload) rounds as the card's
+        delta = -lr_t * (m_ * (1.0 / c1)) / (sqrt(v_ * (1.0 / c2)) + eps)
         if adam_w_mode and weight_decay:                  # decoupled decay
             delta = delta - lr_t * weight_decay * p.float()
         return delta, (m_.to(moment_dtype), v_.to(moment_dtype))
@@ -169,7 +186,7 @@ def adagrad(lr, eps: float = 1e-10, weight_decay: float = 0.0,
         if weight_decay:
             g32 = g32 + weight_decay * p.float()
         a_ = a + g32 * g32
-        return -lr_t * g32 / (torch.sqrt(a_) + eps), (a_,)
+        return -lr_t * g32 / (sqrt(a_) + eps), (a_,)
 
     return Optimizer(init, update_leaf)
 
@@ -196,7 +213,7 @@ def lamb(lr, betas=(0.9, 0.999), eps: float = 1e-6, weight_decay: float = 0.0,
         p32 = p.float()
         m_ = b1 * m + (1 - b1) * g32
         v_ = b2 * v + (1 - b2) * (g32 * g32)
-        u = (m_ / c1) / (torch.sqrt(v_ / c2) + eps)
+        u = (m_ * (1.0 / c1)) / (sqrt(v_ * (1.0 / c2)) + eps)
         if weight_decay:
             u = u + weight_decay * p32
         w_norm = torch.linalg.vector_norm(p32)

@@ -8,6 +8,7 @@ at the leaves, the shape the JAX package's pytrees take here.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Any, Callable, List, Tuple
 
 import torch
@@ -87,3 +88,28 @@ def clip_by_global_norm(tree: Any, max_norm: float,
 
 def param_count(tree: Any) -> int:
     return sum(int(x.numel()) for x in tree_leaves(tree))
+
+
+
+# elements of one span of a host update: its temporaries stay small
+HOST_CHUNK = 1 << 20
+_M_TRIM_THRESHOLD, _M_MMAP_THRESHOLD = -1, -3
+_heap_kept = False
+
+
+def keep_host_heap() -> bool:
+    """Keep freed host memory in the heap for reuse (glibc's mallopt: no
+    fresh mapping under 1 GiB, no trim under 2 GiB).  An eager host update
+    allocates a few MiB of temporaries per op; fresh mappings would fault
+    every page in again, and a page fault is what costs most in a
+    sandboxed host (a 5-10x slower update).  Once per process; False where
+    the C library has no mallopt."""
+    global _heap_kept
+    if not _heap_kept:
+        try:
+            libc = ctypes.CDLL(None)
+            _heap_kept = bool(libc.mallopt(_M_MMAP_THRESHOLD, 1 << 30)
+                              and libc.mallopt(_M_TRIM_THRESHOLD, 1 << 31))
+        except (OSError, AttributeError):
+            _heap_kept = False
+    return _heap_kept

@@ -32,7 +32,9 @@ def _modules():
 def test_fresh_interpreter_imports_no_jax():
     mods = _modules()
     assert "deepspeed_tpu_torch.inference.engine" in mods
-    for sub in ("checkpoint.engine", "checkpoint.hf", "parallel.moe"):
+    for sub in ("checkpoint.engine", "checkpoint.hf", "parallel.moe",
+                "ops.aio", "runtime.swap_tensor", "runtime.zero_infinity",
+                "runtime.param_stream"):
         assert f"deepspeed_tpu_torch.{sub}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -39,6 +39,14 @@ from deepspeed_tpu_torch.checkpoint import engine as port_ckpt
 from deepspeed_tpu_torch.checkpoint import hf as port_hf
 from deepspeed_tpu_torch.parallel import moe as port_moe
 from deepspeed_tpu_torch.runtime.engine import Engine as PortTrainEngine
+from deepspeed_tpu.ops import aio as jax_aio
+from deepspeed_tpu.runtime import param_stream as jax_param_stream
+from deepspeed_tpu.runtime import swap_tensor as jax_swap
+from deepspeed_tpu.runtime import zero_infinity as jax_zi
+from deepspeed_tpu_torch.ops import aio as port_aio
+from deepspeed_tpu_torch.runtime import param_stream as port_param_stream
+from deepspeed_tpu_torch.runtime import swap_tensor as port_swap
+from deepspeed_tpu_torch.runtime import zero_infinity as port_zi
 
 _POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
                inspect.Parameter.POSITIONAL_OR_KEYWORD)
@@ -86,6 +94,20 @@ PAIRS = {
                                getattr(JaxTrainEngine, m))
        for m in ("save_checkpoint", "load_checkpoint", "wait_checkpoint",
                  "train_batch")},
+    # offload on one card: the I/O stack and the NVMe optimizer
+    "ops.aio.AsyncIOHandle.__init__": (port_aio.AsyncIOHandle.__init__,
+                                       jax_aio.AsyncIOHandle.__init__),
+    **{f"runtime.swap_tensor.{c}.__init__": (
+        getattr(port_swap, c).__init__, getattr(jax_swap, c).__init__)
+       for c in ("TensorSwapper", "OptimizerSwapper")},
+    "runtime.zero_infinity.HostAdam.update": (port_zi.HostAdam.update,
+                                              jax_zi.HostAdam.update),
+    **{f"runtime.zero_infinity.NVMeOptimizer.{m}": (
+        getattr(port_zi.NVMeOptimizer, m), getattr(jax_zi.NVMeOptimizer, m))
+       for m in ("__init__", "step", "restore")},
+    "runtime.param_stream.StreamedInfinityTrainer.__init__": (
+        port_param_stream.StreamedInfinityTrainer.__init__,
+        jax_param_stream.StreamedInfinityTrainer.__init__),
 }
 
 # the positional parameters each port signature must have at least
@@ -156,6 +178,24 @@ MUST_HAVE = {
     "runtime.Engine.load_checkpoint": ["self", "load_dir", "tag"],
     "runtime.Engine.wait_checkpoint": ["self"],
     "runtime.Engine.train_batch": ["self", "batch", "rng"],
+    "ops.aio.AsyncIOHandle.__init__": [
+        "self", "block_size", "queue_depth", "thread_count", "single_submit",
+        "overlap_events", "use_odirect", "backend"],
+    "runtime.swap_tensor.TensorSwapper.__init__": ["self", "swap_dir",
+                                                   "aio"],
+    "runtime.swap_tensor.OptimizerSwapper.__init__": [
+        "self", "swap_dir", "num_groups", "aio", "aio_config"],
+    "runtime.zero_infinity.HostAdam.update": ["self", "p", "m", "v", "g",
+                                              "lr", "step"],
+    "runtime.zero_infinity.NVMeOptimizer.__init__": [
+        "self", "nvme_path", "opt_type", "opt_params", "buffer_size",
+        "aio_config"],
+    "runtime.zero_infinity.NVMeOptimizer.step": [
+        "self", "grad_leaves", "lr", "step_num", "consume"],
+    "runtime.zero_infinity.NVMeOptimizer.restore": ["self", "master", "m",
+                                                    "v"],
+    "runtime.param_stream.StreamedInfinityTrainer.__init__": [
+        "self", "engine", "model", "params"],
 }
 
 # keyword-only parameters the reference has no counterpart of: where the
@@ -164,6 +204,8 @@ PORT_ONLY_KEYWORDS = {
     "models.transformer.Model.__init__": {"device", "dtype"},
     "parallel.moe.experts_init": {"device", "dtype"},
     "parallel.moe.gate_init": {"device", "dtype"},
+    # read the groups into pinned memory (the streamed layers, on the card)
+    "runtime.swap_tensor.OptimizerSwapper.__init__": {"pin"},
 }
 
 

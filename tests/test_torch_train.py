@@ -368,10 +368,6 @@ UNPORTED = {
     "tensor": ({"tensor_parallel": {"size": 2}}, "item 6"),
     "pipeline": ({"pipeline": {"stages": 2}}, "item 6"),
     "sequence": ({"sequence_parallel": {"size": 2}}, "item 6"),
-    "offload": ({"zero_optimization": {"stage": 1, "offload_optimizer": {
-        "device": "cpu"}}}, "item 4"),
-    "nvme": ({"zero_optimization": {"stage": 3, "offload_param": {
-        "device": "nvme"}}}, "item 4"),
     "onebit": ({"optimizer": {"type": "onebitadam", "params": {}}},
                "item 6"),
     "qgz": ({"zero_optimization": {"zero_quantized_gradients": True}},
@@ -400,30 +396,29 @@ def test_unported_engine_features_raise(case):
 
 
 def test_unported_messages_name_their_items(tmp_path):
-    """Offload is a one-card item of ROADMAP Queue 1 (4), not the
-    multi-GPU item 6: the messages say so in full.  Checkpoints on one
-    card (item 2) are ported: save and load run; checkpoints of
-    NVMe-offloaded state stay with item 4."""
+    """Offload on one card (ROADMAP Queue 1 item 4) is ported for
+    training: ``offload_optimizer`` and ``offload_param`` run, checkpoints
+    of NVMe state save and load.  Serving offload (``kv_offload``,
+    ``weight_stream``) is item 4b, and its messages say so in full."""
+    from deepspeed_tpu_torch.inference import InferenceConfig, \
+        InferenceEngine
     _, tm = tiny_models("gpt2")
-    eng = tds.initialize(model=tm, device="cpu", config={
-        "train_micro_batch_size_per_device": 2})
-    d = eng.save_checkpoint(str(tmp_path))
-    assert eng.load_checkpoint(str(tmp_path)) == (d, {})
-    eng.config.zero_optimization.offload_optimizer.device = "nvme"
-    for call in (eng.save_checkpoint, eng.load_checkpoint):
+    for key, dev in (("offload_optimizer", "cpu"), ("offload_param", "cpu"),
+                     ("offload_optimizer", "nvme")):
+        eng = tds.initialize(model=tm, device="cpu", config={
+            "train_micro_batch_size_per_device": 2,
+            "zero_optimization": {"stage": 3, key: {
+                "device": dev, "nvme_path": str(tmp_path / "swap")}}})
+        assert eng.offload_active
+        assert np.isfinite(float(eng.train_batch({"input_ids": np.zeros(
+            (2, 16), np.int64)})["loss"]))
+        d = eng.save_checkpoint(str(tmp_path / f"{key}_{dev}"))
+        assert eng.load_checkpoint(str(tmp_path / f"{key}_{dev}")) == (d, {})
+    for field, value in (("kv_offload", True), ("weight_stream", "/x")):
         with pytest.raises(NotImplementedError) as e:
-            call(str(tmp_path))
-        assert str(e.value) == (
-            "checkpoints of NVMe-offloaded state is not ported yet "
-            "(ROADMAP Queue 1 item 4, offload on one card)")
-    for key, dev in (("offload_optimizer", "cpu"), ("offload_param", "nvme")):
-        with pytest.raises(NotImplementedError) as e:
-            tds.initialize(model=tm, device="cpu", config={
-                "train_micro_batch_size_per_device": 2,
-                "zero_optimization": {"stage": 3, key: {"device": dev}}})
-        assert str(e.value) == (f"{key}.device={dev!r} is not ported yet "
-                                "(ROADMAP Queue 1 item 4, offload on one "
-                                "card)")
+            InferenceEngine(tm, InferenceConfig(**{field: value}))
+        assert f"InferenceConfig.{field}={value!r} is not ported yet " \
+            "(ROADMAP Queue 1 item 4b, serving offload)" in str(e.value)
 
 
 def test_engine_runs_on_the_card_unless_asked(monkeypatch, tmp_path):
