@@ -59,8 +59,9 @@ passed over):
              a decode call's host time exceeds its kernel time), bounds,
              and for flash attention the time of PyTorch's
              scaled_dot_product_attention as a yardstick.  Each flash line names the
-             design that ran (wgmma: fwd, dq and dkv at D <= 128 in
-             bf16/fp16; wmma: D 256; fp32-rb: the fp32 dk/dv; fp32-rbq:
+             design that ran (wgmma: fwd and dkv at every D, dq at
+             D <= 128, in bf16/fp16; wmma: dq at D 256; fp32-rb: the fp32
+             dk/dv; fp32-rbq:
              the fp32 fwd and dq), its TFLOP/s, its ratio to SDPA, the host
              microseconds per call (tensor maps included) and its
              library's build seconds; dq and dkv must be bitwise equal on
@@ -623,14 +624,14 @@ def _within_noise(torch, name, got, ref, ref_wide):
 
 def flash_design(kname, dtype, D):
     """Which kernel design a flash variant runs (the entry points' dispatch
-    by head dim): "wgmma" (csrc/flash_attention_sm90.cuh: fwd, dq and dkv
-    at D <= 128), "wmma" (csrc/flash_attention.cuh: D 256), "fp32-rb" (the
-    register-blocked fp32 dk/dv, keys resident) or "fp32-rbq" (the
-    register-blocked fp32 fwd and dq, queries resident; both in
-    csrc/flash_attention_fp32.cu)."""
+    by kernel and head dim): "wgmma" (csrc/flash_attention_sm90.cuh: fwd
+    and dkv at every D, dq at D <= 128), "wmma" (csrc/flash_attention.cuh:
+    dq at D 256), "fp32-rb" (the register-blocked fp32 dk/dv, keys
+    resident) or "fp32-rbq" (the register-blocked fp32 fwd and dq, queries
+    resident; both in csrc/flash_attention_fp32.cu)."""
     if dtype == "float32":
         return "fp32-rb" if kname == "flash_dkv" else "fp32-rbq"
-    return "wgmma" if D != 256 else "wmma"
+    return "wmma" if (kname, D) == ("flash_dq", 256) else "wgmma"
 
 
 def host_us_per_call(torch, fn, calls: int = 20) -> float:

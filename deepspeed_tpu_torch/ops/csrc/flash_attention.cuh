@@ -11,9 +11,10 @@
 //   flash_dkv  <- `_dkv_kernel` (:212, pallas_call in `_bwd` :311)
 //
 // Which design runs which head dim (a dispatch by D in the entry points):
-//   * fwd, dq and dkv at D 32, 64, 80, 96, 128: the wgmma / TMA / warp-
-//     specialised kernels of flash_attention_sm90.cuh (see its note);
-//   * fwd, dq and dkv at D 256: the WMMA kernels below.
+//   * fwd and dkv at every head dim (32, 64, 80, 96, 128, 256) and dq at
+//     D <= 128: the wgmma / TMA / warp-specialised kernels of
+//     flash_attention_sm90.cuh (see its note);
+//   * dq at D 256: the WMMA kernel below.
 // Layouts (all contiguous; T is the element type):
 //   q, do, o, dq   [B, H,   S, D] T
 //   k, v, dk, dv   [B, Hkv, S, D] T         (GQA: query head h reads KV head
@@ -36,34 +37,25 @@
 // products bound it: fwd 2, dq 3, dkv 4 matrix products of B*H*S*S/2*D
 // multiply-adds each (causal).
 //
-// Design of the WMMA kernels (fwd, dq and dkv at D 256): tiles
-// of 64 query rows x 64 key rows, 4 warps per block, each warp owning 16
-// rows of the block's output tile.  The matrix products run on the tensor
-// cores through WMMA (16x16x16, fp32 accumulate); the softmax runs on CUDA
-// cores with two lanes per row.
-//   * fwd: one block per (q tile, head, batch); the loop over KV tiles (up
-//     to the diagonal when causal) replaces the TPU's sequential grid axis.
-//     The O accumulator lives in shared memory (fp32) so that each row can
-//     be rescaled by the online-softmax correction between products.
-//   * dq: the same grid; dq accumulates in WMMA fragments (registers); no
-//     atomics (the two-pass design of the TPU kernels).
-//   * dkv: one block per (KV tile, KV head, batch); it streams the GQA
-//     group's rep heads x q tiles (from the diagonal down when causal: tiles
-//     above it are fully masked and skipped) and accumulates dk and dv in
-//     fragments.  It computes S^T = K Q^T directly, so every product's
-//     output rows belong to the warp that owns them.  dk and dv together
-//     take D fp32 registers a thread; at D = 256 that leaves no room, so
-//     the launcher runs the kernel twice, once for dv (2 products) and once
-//     for dk (3 products): 5 products in place of 4.
-//   * Tiles past S (S not a multiple of 64) are zero-filled and masked.
-//   * Head dims: 32, 64, 80, 96, 128, 256; the wrapper zero-pads any other
-//     D <= 256 up to the next of these.
+// The WMMA dq (D 256 only; dq at D <= 128 is flash90::dq_kernel): tiles of
+// 64 query rows x 64 key rows, 4 warps per block, each warp owning 16 rows
+// of the block's dq tile; one block per (q tile, head, batch), the loop
+// over KV tiles (up to the diagonal when causal) in place of the TPU's
+// sequential grid axis.  S = Q K^T and dP = dO V^T through WMMA (16x16x16,
+// fp32 accumulate) into an fp32 tile in shared memory, P and dS on the CUDA
+// cores (two lanes a row), dS rounded to T into shared memory, dQ += dS K
+// in WMMA fragments (registers); no atomics.  Tiles past S are zero-filled
+// and masked.  The wrapper zero-pads any other D <= 256 up to the next
+// instantiated head dim.
 //
-// What the WMMA design leaves on the table (D 256 has no main path yet): no
-// wgmma/TMA, no double-buffered tile loads, WMMA operands re-read from
-// shared memory for every product, O round-tripped through shared memory
-// every KV tile (fwd), and at most two blocks per SM (shared memory 30-190
-// KB a block).
+// What bounds it: the products (3 of B*H*S*S/2*D multiply-adds, causal)
+// against 989 TFLOP/s; on an H100 it reaches ~6% of that (57 TFLOP/s at
+// gptj-6b's training shape, chip_smoke.py phase 3).  What it leaves on the table: no wgmma or TMA, no
+// double-buffered K/V loads (a block waits on every tile), WMMA operands
+// re-read from shared memory for every product, S and dP round-tripped
+// through shared memory, 4 warps a block.  The wgmma dq's design does not
+// carry over as it is: at D 256 a thread's dQ over 64 rows is 128 fp32
+// registers, beside S and dP.
 
 #pragma once
 
@@ -126,12 +118,9 @@ struct Layout {
   static constexpr int TILE_S = 64 * LDS * 4;
   static constexpr int TILE_P = 64 * LDP * 2;
   static constexpr int TILE_O = 64 * LDO * 4;
-  static constexpr int FWD_SMEM = 3 * TILE_H + TILE_S + TILE_P + TILE_O;
   static constexpr int DQ_SMEM = 4 * TILE_H + TILE_S + TILE_P;
-  static constexpr int DKV_SMEM = 4 * TILE_H + TILE_S + 2 * TILE_P + 2 * 64 * 4;
   static_assert(TILE_O <= 2 * TILE_H, "staging must fit in two 16-bit tiles");
-  static_assert(FWD_SMEM <= 232448 && DQ_SMEM <= 232448 &&
-                DKV_SMEM <= 232448, "shared memory of one block");
+  static_assert(DQ_SMEM <= 232448, "shared memory of one block");
 };
 
 // 64 rows of D elements from global (row stride D) into shared memory (row
@@ -191,113 +180,6 @@ __device__ __forceinline__ void strip_ab_acc(const T* p, const T* v,
       wmma::load_matrix_sync(fb, v + kk * 16 * LDH + n * 16, LDH);
       wmma::mma_sync(acc[n], fa[kk], fb, acc[n]);
     }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-template <typename T, int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int H, int Hkv, int S, float scale) {
-  using L = Layout<D>;
-  typedef typename Elem<T>::T2 T2;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = reinterpret_cast<T*>(smem + L::TILE_H);
-  T* Vs = reinterpret_cast<T*>(smem + 2 * L::TILE_H);
-  float* Ss = reinterpret_cast<float*>(smem + 3 * L::TILE_H);
-  T* Ps = reinterpret_cast<T*>(smem + 3 * L::TILE_H + L::TILE_S);
-  float* Os = reinterpret_cast<float*>(smem + 3 * L::TILE_H + L::TILE_S + L::TILE_P);
-
-  const int n_q = (S + BQ - 1) / BQ;
-  const int n_k = (S + BK - 1) / BK;
-  const int i = n_q - 1 - (int)blockIdx.x;    // longest causal rows first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int g = h / (H / Hkv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r = warp * 16 + (lane >> 1);      // this lane pair's tile row
-  const int half = lane & 1;                  // which 32 columns / D/2 dims
-  const int qrow = i * BQ + r;
-
-  const size_t bh = (size_t)b * H + h;
-  const size_t bg = (size_t)b * Hkv + g;
-  const T* kb = k + bg * S * D;
-  const T* vb = v + bg * S * D;
-  load_tile<T, D>(Qs, q + (bh * S + (size_t)i * BQ) * D, min(BQ, S - i * BQ));
-  float* orow = Os + r * L::LDO + half * (D / 2);
-#pragma unroll
-  for (int d = 0; d < D / 2; ++d) orow[d] = 0.f;
-  float m = kNegInf;
-  float l = 0.f;
-
-  const int j_last = CAUSAL ? min((i * BQ + BQ - 1) / BK, n_k - 1) : n_k - 1;
-  for (int j = 0; j <= j_last; ++j) {
-    __syncthreads();                          // previous K/V tiles consumed
-    const int rows = min(BK, S - j * BK);
-    load_tile<T, D>(Ks, kb + (size_t)j * BK * D, rows);
-    load_tile<T, D>(Vs, vb + (size_t)j * BK * D, rows);
-    __syncthreads();
-
-    strip_abt<T, D>(Qs + warp * 16 * L::LDH, Ks, Ss + warp * 16 * L::LDS);
-    __syncwarp();
-
-    const float* srow = Ss + r * L::LDS + half * 32;
-    const int col0 = j * BK + half * 32;
-    float p[32];
-    float mx = kNegInf;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      float s = srow[c] * scale;
-      const int col = col0 + c;
-      if (col >= S || (CAUSAL && col > qrow)) s = kNegInf;
-      p[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      p[c] = __expf(p[c] - m_new);
-      sum += p[c];
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float corr = __expf(m - m_new);
-    l = l * corr + sum;
-    m = m_new;
-    T* prow = Ps + r * L::LDP + half * 32;
-#pragma unroll
-    for (int c = 0; c < 32; c += 2)
-      *reinterpret_cast<T2*>(prow + c) = Elem<T>::pack(p[c], p[c + 1]);
-#pragma unroll
-    for (int d = 0; d < D / 2; ++d) orow[d] *= corr;
-    __syncwarp();
-
-    FragC acc[D / 16];
-    float* ostrip = Os + warp * 16 * L::LDO;
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n)
-      wmma::load_matrix_sync(acc[n], ostrip + n * 16, L::LDO, wmma::mem_row_major);
-    strip_ab_acc<T, D>(Ps + warp * 16 * L::LDP, Vs, acc);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n)
-      wmma::store_matrix_sync(ostrip + n * 16, acc[n], L::LDO, wmma::mem_row_major);
-    __syncwarp();
-  }
-
-  if (qrow < S) {
-    const float lc = fmaxf(l, 1e-30f);
-    T* og = o + (bh * S + qrow) * D + half * (D / 2);
-#pragma unroll
-    for (int d = 0; d < D / 2; d += 2)
-      *reinterpret_cast<T2*>(og + d) = Elem<T>::pack(orow[d] / lc, orow[d + 1] / lc);
-    if (half == 0) lse[bh * S + qrow] = m + logf(lc);
   }
 }
 
@@ -398,166 +280,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// backward: dk, dv (DK / DV: which of the two this launch accumulates)
-// ---------------------------------------------------------------------------
-
-template <typename T, int D, bool CAUSAL, bool DK, bool DV>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 T* __restrict__ dk, T* __restrict__ dv, int H, int Hkv,
-                 int S, float scale) {
-  using L = Layout<D>;
-  typedef typename Elem<T>::T2 T2;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = reinterpret_cast<T*>(smem + L::TILE_H);
-  T* Qs = reinterpret_cast<T*>(smem + 2 * L::TILE_H);
-  T* dOs = reinterpret_cast<T*>(smem + 3 * L::TILE_H);
-  float* St = reinterpret_cast<float*>(smem + 4 * L::TILE_H);
-  T* Pt = reinterpret_cast<T*>(smem + 4 * L::TILE_H + L::TILE_S);
-  T* dSt = reinterpret_cast<T*>(smem + 4 * L::TILE_H + L::TILE_S + L::TILE_P);
-  float* lse_s = reinterpret_cast<float*>(smem + 4 * L::TILE_H + L::TILE_S + 2 * L::TILE_P);
-  float* delta_s = lse_s + 64;
-
-  const int n_q = (S + BQ - 1) / BQ;
-  const int j = blockIdx.x;
-  const int g = blockIdx.y;
-  const int b = blockIdx.z;
-  const int rep = H / Hkv;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r = warp * 16 + (lane >> 1);      // this lane pair's KV row
-  const int half = lane & 1;                  // which 32 query columns
-  const int kr = j * BK + r;
-
-  const size_t bg = (size_t)b * Hkv + g;
-  const int krows = min(BK, S - j * BK);
-  load_tile<T, D>(Ks, k + (bg * S + (size_t)j * BK) * D, krows);
-  if constexpr (DK) load_tile<T, D>(Vs, v + (bg * S + (size_t)j * BK) * D, krows);
-
-  FragC dk_acc[DK ? D / 16 : 1];
-  FragC dv_acc[DV ? D / 16 : 1];
-  if constexpr (DK) {
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(dk_acc[n], 0.f);
-  }
-  if constexpr (DV) {
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(dv_acc[n], 0.f);
-  }
-
-  float* sstrip = St + warp * 16 * L::LDS;
-  const float* srow = St + r * L::LDS + half * 32;
-  T* prow = Pt + r * L::LDP + half * 32;
-  T* dsrow = dSt + r * L::LDP + half * 32;
-  // causal: query tiles strictly above this KV tile see none of its keys
-  const int i_first = CAUSAL ? (j * BK) / BQ : 0;
-  for (int rr = 0; rr < rep; ++rr) {
-    const size_t bh = (size_t)b * H + (size_t)g * rep + rr;
-    for (int i = i_first; i < n_q; ++i) {
-      __syncthreads();                        // previous Q/dO tiles consumed
-      const int qrows = min(BQ, S - i * BQ);
-      load_tile<T, D>(Qs, q + (bh * S + (size_t)i * BQ) * D, qrows);
-      load_tile<T, D>(dOs, dout + (bh * S + (size_t)i * BQ) * D, qrows);
-      {
-        const int t = threadIdx.x & 63;
-        const bool ok = t < qrows;
-        const size_t at = bh * S + (size_t)i * BQ + t;
-        if (threadIdx.x < 64) lse_s[t] = ok ? lse[at] : 0.f;
-        else if (DK) delta_s[t] = ok ? delta[at] : 0.f;
-      }
-      __syncthreads();
-
-      strip_abt<T, D>(Ks + warp * 16 * L::LDH, Qs, sstrip);  // S^T = K Q^T
-      __syncwarp();
-      const int c0 = half * 32;
-      float p[32];
-#pragma unroll
-      for (int c = 0; c < 32; ++c) {
-        const int qc = i * BQ + c0 + c;
-        const bool ok = kr < S && qc < S && !(CAUSAL && kr > qc);
-        p[c] = ok ? __expf(srow[c] * scale - lse_s[c0 + c]) : 0.f;
-      }
-      if constexpr (DV) {
-#pragma unroll
-        for (int c = 0; c < 32; c += 2)
-          *reinterpret_cast<T2*>(prow + c) = Elem<T>::pack(p[c], p[c + 1]);
-      }
-      if constexpr (DK) {
-        __syncwarp();
-        strip_abt<T, D>(Vs + warp * 16 * L::LDH, dOs, sstrip);  // dP^T = V dO^T
-        __syncwarp();
-#pragma unroll
-        for (int c = 0; c < 32; c += 2)
-          *reinterpret_cast<T2*>(dsrow + c) = Elem<T>::pack(
-              p[c] * (srow[c] - delta_s[c0 + c]),
-              p[c + 1] * (srow[c + 1] - delta_s[c0 + c + 1]));
-      }
-      __syncwarp();
-      if constexpr (DV) strip_ab_acc<T, D>(Pt + warp * 16 * L::LDP, dOs, dv_acc);  // dV += P^T dO
-      if constexpr (DK) strip_ab_acc<T, D>(dSt + warp * 16 * L::LDP, Qs, dk_acc);  // dK += dS^T Q
-    }
-  }
-
-  __syncthreads();                            // Q/dO tiles become the stage
-  float* stage = reinterpret_cast<float*>(Qs);
-  const float* srow_o = stage + r * L::LDO + half * (D / 2);
-  const size_t out = (bg * S + kr) * D + half * (D / 2);
-  if constexpr (DK) {
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n)
-      wmma::store_matrix_sync(stage + warp * 16 * L::LDO + n * 16, dk_acc[n],
-                              L::LDO, wmma::mem_row_major);
-    __syncwarp();
-    if (kr < S) {
-#pragma unroll
-      for (int d = 0; d < D / 2; d += 2)
-        *reinterpret_cast<T2*>(dk + out + d) =
-            Elem<T>::pack(srow_o[d] * scale, srow_o[d + 1] * scale);
-    }
-    __syncwarp();
-  }
-  if constexpr (DV) {
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n)
-      wmma::store_matrix_sync(stage + warp * 16 * L::LDO + n * 16, dv_acc[n],
-                              L::LDO, wmma::mem_row_major);
-    __syncwarp();
-    if (kr < S) {
-#pragma unroll
-      for (int d = 0; d < D / 2; d += 2)
-        *reinterpret_cast<T2*>(dv + out + d) =
-            Elem<T>::pack(srow_o[d], srow_o[d + 1]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
-
-template <typename K>
-cudaError_t set_smem(K kernel, int smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem);
-}
-
-template <typename T, int D, bool C>
-cudaError_t fwd_launch(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int B, int H, int Hkv, int S, float scale,
-                       cudaStream_t st) {
-  const int smem = Layout<D>::FWD_SMEM;
-  cudaError_t e = set_smem(flash_fwd_kernel<T, D, C>, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, D, C><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      H, Hkv, S, scale);
-  return cudaGetLastError();
-}
 
 template <typename T, int D, bool C>
 cudaError_t dq_launch(const void* q, const void* k, const void* v,
@@ -566,7 +290,8 @@ cudaError_t dq_launch(const void* q, const void* k, const void* v,
                       cudaStream_t st) {
   static_assert(D == 256, "D <= 128 runs flash90::dq_kernel");
   const int smem = Layout<D>::DQ_SMEM;
-  cudaError_t e = set_smem(flash_dq_kernel<T, D, C>, smem);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_dq_kernel<T, D, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_dq_kernel<T, D, C><<<grid, kThreads, smem, st>>>(
@@ -575,38 +300,6 @@ cudaError_t dq_launch(const void* q, const void* k, const void* v,
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<T*>(dq), H, Hkv, S, scale);
   return cudaGetLastError();
-}
-
-template <typename T, int D, bool C, bool DK, bool DV>
-cudaError_t dkv_pass(const void* q, const void* k, const void* v,
-                     const void* dout, const void* lse, const void* delta,
-                     void* dk, void* dv, int B, int H, int Hkv, int S,
-                     float scale, cudaStream_t st) {
-  const int smem = Layout<D>::DKV_SMEM;
-  cudaError_t e = set_smem(flash_dkv_kernel<T, D, C, DK, DV>, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((S + BK - 1) / BK, Hkv, B);
-  flash_dkv_kernel<T, D, C, DK, DV><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, S, scale);
-  return cudaGetLastError();
-}
-
-// D = 256: dk and dv accumulators do not fit the registers together, so
-// the WMMA kernel runs twice, once for dv and once for dk
-template <typename T, int D, bool C>
-cudaError_t dkv_launch(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, int B, int H, int Hkv, int S,
-                       float scale, cudaStream_t st) {
-  static_assert(D == 256, "D <= 128 runs flash90::dkv_kernel");
-  cudaError_t e = dkv_pass<T, D, C, false, true>(
-      q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, S, scale, st);
-  if (e != cudaSuccess) return e;
-  return dkv_pass<T, D, C, true, false>(q, k, v, dout, lse, delta, dk, dv, B,
-                                        H, Hkv, S, scale, st);
 }
 
 inline bool bad_shape(int B, int H, int Hkv, int S) {
@@ -636,13 +329,9 @@ int fwd_entry(const void* q, const void* k, const void* v, void* o, void* lse,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)with_head_dim(D, [&](auto d) {
     constexpr int DD = decltype(d)::value;
-    if constexpr (DD == 256)
-      return causal ? fwd_launch<T, DD, true>(q, k, v, o, lse, B, H, Hkv, S, scale, st)
-                    : fwd_launch<T, DD, false>(q, k, v, o, lse, B, H, Hkv, S, scale, st);
-    else
-      return causal
-          ? flash90::fwd_launch<T, DD, true>(q, k, v, o, lse, B, H, Hkv, S, scale, st)
-          : flash90::fwd_launch<T, DD, false>(q, k, v, o, lse, B, H, Hkv, S, scale, st);
+    return causal
+        ? flash90::fwd_launch<T, DD, true>(q, k, v, o, lse, B, H, Hkv, S, scale, st)
+        : flash90::fwd_launch<T, DD, false>(q, k, v, o, lse, B, H, Hkv, S, scale, st);
   });
 }
 
@@ -676,16 +365,11 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* dout,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)with_head_dim(D, [&](auto d) {
     constexpr int DD = decltype(d)::value;
-    if constexpr (DD == 256)
-      return causal
-          ? dkv_launch<T, DD, true>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, S, scale, st)
-          : dkv_launch<T, DD, false>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, S, scale, st);
-    else
-      return causal
-          ? flash90::dkv_launch<T, DD, true>(q, k, v, dout, lse, delta, dk, dv, B, H,
-                                             Hkv, S, scale, st)
-          : flash90::dkv_launch<T, DD, false>(q, k, v, dout, lse, delta, dk, dv, B, H,
-                                              Hkv, S, scale, st);
+    return causal
+        ? flash90::dkv_launch<T, DD, true>(q, k, v, dout, lse, delta, dk, dv, B, H,
+                                           Hkv, S, scale, st)
+        : flash90::dkv_launch<T, DD, false>(q, k, v, dout, lse, delta, dk, dv, B, H,
+                                            Hkv, S, scale, st);
   });
 }
 

@@ -1,14 +1,16 @@
 // Flash attention forward, dq and dk/dv for Hopper (sm_90a) with wgmma,
 // TMA and warp specialisation, templated on the 16-bit element type (bf16
-// or fp16) and the head dim D in {32, 64, 80, 96, 128}.
-// flash_attention.cuh dispatches to these from the entry points
-// flash_fwd_<tag>, flash_dq_<tag> and flash_dkv_<tag>; D = 256 keeps the
-// WMMA kernels there.
+// or fp16) and the head dim D: the forward and dk/dv at D in {32, 64, 80,
+// 96, 128, 256}, dq at D in {32, 64, 80, 96, 128}.  flash_attention.cuh
+// dispatches to these from the entry points flash_fwd_<tag>,
+// flash_dq_<tag> and flash_dkv_<tag>; dq at D 256 keeps the WMMA kernel
+// there.
 //
 // Replaces the three TPU kernels of deepspeed_tpu/ops/flash_attention.py:
 //   fwd_kernel  <- `_fwd_kernel` (:76, pallas_call in `_fwd` :137)
 //   dq_kernel   <- `_dq_kernel`  (:173, pallas_call in `_bwd` :283)
-//   dkv_kernel  <- `_dkv_kernel` (:212, pallas_call in `_bwd` :311)
+//   dkv_kernel, dkv_split_kernel (D 256)
+//               <- `_dkv_kernel` (:212, pallas_call in `_bwd` :311)
 // The numerics are those of flash_attention.cuh's header: scores in fp32,
 // masked entries at -1e30, P (and dS) rounded to the element type before
 // their products, the division by max(l, 1e-30), lse = m + log(max(l,
@@ -26,23 +28,28 @@
 //     operands in shared memory; O += P V, dQ += dS K, dV += P^T dO and
 //     dK += dS^T Q with P / dS converted in registers to wgmma's A
 //     fragment and the second operand read MN-major (transposed) from
-//     shared memory (dq reads one K tile both ways).  Nothing round-trips
-//     through shared memory: the online softmax (and the backward's P and
-//     dS) runs on the accumulator's own layout (each thread holds 2 rows;
-//     a row's values sit in one quad of lanes), and O (fwd) / dQ (dq) /
-//     dK, dV (dkv) stay in registers for the whole loop.
+//     shared memory (dq reads one K tile both ways).  Nothing else
+//     round-trips through shared memory (but P^T at D 256, below): the
+//     online softmax (and the backward's P and dS) runs on the
+//     accumulator's own layout (each thread holds 2 rows; a row's values
+//     sit in one quad of lanes), and O (fwd) / dQ (dq) / dK, dV (dkv)
+//     stay in registers for the whole loop.
 //   * Warp specialisation: warpgroup 0 is the producer (one thread issues
 //     TMA loads into 2-stage rings, with mbarrier completion; in dq and
 //     dkv its first warp also stages lse and delta), warpgroups 1 and 2
 //     consume, 64 rows each; setmaxnreg moves registers from the producer
 //     (40) to the consumers (232).
-//   * fwd: 128 query rows x 128-key tiles; a persistent grid (one block
-//     per SM) walks the (q tile, head, batch) work list, longest causal
-//     rows first, so the next tile's Q and K/V loads overlap this tile's
-//     last products and its epilogue.  K and V have rings of their own: a
-//     K slot is released once S is computed, a V slot once PV is.  The
-//     two consumer warpgroups take turns to issue their S products (named
-//     barriers), so one's softmax overlaps the other's products.
+//   * fwd: 128 query rows x 128-key tiles (80-key tiles at D 256: a
+//     thread's O is 128 fp32 registers there, and 2-stage rings of 128-key
+//     K and V tiles would need 256 KB of shared memory); a persistent grid
+//     (one block per SM) walks the (q tile, head, batch) work list,
+//     longest causal rows first, so the next tile's Q and K/V loads overlap
+//     this tile's last products and its epilogue.  K and V have rings of
+//     their own: a K slot is released once S is computed, a V slot once PV
+//     is.  The two consumer warpgroups take turns to issue their S products
+//     (named barriers), so one's softmax overlaps the other's products; at
+//     D 256 the first warpgroup skips a diagonal tile whose keys all lie
+//     past its rows and only keeps its turn.
 //   * dq: 128 query rows x 64-key tiles (S, dP and dQ all live in
 //     registers: 128-key tiles spill at D <= 80 and ran slower); one block
 //     per (q tile, head, batch), longest causal rows first (a persistent
@@ -52,7 +59,12 @@
 //     Q and dO.  A warpgroup skips the tiles past its own diagonal.
 //   * dkv: 128 keys x 64 query rows; one block per (KV tile, KV head,
 //     batch), streaming the GQA group's rep heads x q tiles from the
-//     diagonal down (causal).
+//     diagonal down (causal).  At D 256 (dkv_split_kernel) a warpgroup
+//     cannot hold both dK and dV (256 fp32 registers a thread), so a block
+//     takes 64 keys and its warpgroups split the four products: the first
+//     computes S^T, P^T and dV += P^T dO, the second dP^T, dS^T (from P^T
+//     passed in fp32 through shared memory) and dK += dS^T Q; blocks run
+//     the longest causal key tiles first.
 //   * Tiles past S come from TMA's out-of-bounds zero fill and are masked
 //     in registers, as is the causal diagonal.
 //   * Shared-memory layout: each tile is D / BW swizzled boxes of BW
@@ -75,7 +87,13 @@
 // 32-byte boxes (more TMA requests per byte than 128-byte rows); dkv is
 // not persistent; dq's two warpgroups take no turns (a ping-pong ran
 // slower), and a tile's dQ product is waited for before the next tile's S
-// and dP.
+// and dP.  At D 256: the forward's 80-key tiles cut the work of each S
+// product and add softmax turns a row (and K/V tiles that straddle the
+// causal diagonal); dk/dv's 64-key blocks
+// read every Q and dO tile from L2 twice as often as 128-key blocks
+// would, the second warpgroup waits for the first one's P^T every tile
+// (one exchange buffer, so the first runs at most one tile ahead), and
+// each warpgroup waits for its own products before the next step.
 
 #pragma once
 
@@ -164,7 +182,10 @@ __device__ __forceinline__ void store_acc(T* __restrict__ out,
 template <int D>
 struct FwdLayout {
   static constexpr int BQ = 128;                 // query rows (2 x 64)
-  static constexpr int BK = 128;                 // keys per tile
+  // keys per tile: at D 256 a thread's O (128 fp32) leaves room for 80
+  // keys of S (40 fp32), and 2-stage rings of 80-key K and V tiles (4 x
+  // 40 KB) fit beside the 64 KB Q tile (64-key tiles ran slower)
+  static constexpr int BK = D == 256 ? 80 : 128;
   static constexpr int BW = box_width<D>();
   static constexpr int NB = D / BW;
   static constexpr int Q_BOX = BQ * BW * 2;
@@ -353,7 +374,23 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int j = 0; j < n_tiles; ++j) {
       const int s = (kv + j) % kStages;
       const uint32_t parity = ((kv + j) / kStages) & 1;
+      const int key0 = j * BK;
       mbar_wait(&bar.full_k[s], parity);
+      if (CAUSAL && BK < BQ && key0 > row_min + 63) {
+        // keys past every row of this warpgroup (a diagonal tile at D 256;
+        // never with BK == BQ): nothing to add; keep the turns and free
+        // the slots (once filled, so that the arrivals count towards this
+        // fill's phase)
+        named_bar_sync(1 + cw, 256);
+        named_bar_arrive(2 - cw, 256);
+        mbar_wait(&bar.full_v[s], parity);
+        if (lane == 0) {
+          mbar_arrive(&bar.empty_k[s]);
+          mbar_arrive(&bar.empty_v[s]);
+          if (j == n_tiles - 1) mbar_arrive(&bar.q_empty);
+        }
+        continue;
+      }
       const uint32_t k_addr = smem_addr(k_tile(s));
       named_bar_sync(1 + cw, 256);
       wgmma_fence();
@@ -369,7 +406,6 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_arrive(&bar.empty_k[s]);
         if (j == n_tiles - 1) mbar_arrive(&bar.q_empty);
       }
-      const int key0 = j * BK;
       softmax_step<BK, CAUSAL>(
           sc, m, l, corr, scale2,
           key0 + BK > S || (CAUSAL && key0 + BK - 1 > row_min), key0, row0,
@@ -425,6 +461,51 @@ struct DkvLayout {
   static_assert(STAGE % 1024 == 512, "stages stay 512-byte aligned");
 };
 
+// The dk/dv producer warp (both designs): the block's K and V tiles once,
+// then, through the 2-stage ring, each item's Q and dO tiles and its rows'
+// lse (log2 units) and delta; item it is q tile i_first + it % per_head of
+// head bh0 + it / per_head
+template <typename L>
+__device__ __forceinline__ void dkv_produce(
+    unsigned char* smem, uint64_t* full, uint64_t* empty, uint64_t* kvbar,
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    const CUtensorMap* tm_do, const float* __restrict__ lse,
+    const float* __restrict__ delta, int j, int bg, int bh0, int S,
+    int i_first, int per_head, int n_items, int lane) {
+  constexpr int BQ = L::BQ, BW = L::BW;
+  if (lane == 0) {
+    mbar_arrive_expect_tx(kvbar, 2 * L::KV_BYTES);
+    for (int nb = 0; nb < L::NB; ++nb) {
+      tma_load_3d(smem + nb * L::KV_BOX, tm_k, kvbar, nb * BW, j * L::BKV, bg);
+      tma_load_3d(smem + L::KV_BYTES + nb * L::KV_BOX, tm_v, kvbar, nb * BW,
+                  j * L::BKV, bg);
+    }
+  }
+  for (int it = 0; it < n_items; ++it) {
+    const int s = it % kStages;
+    const int i = i_first + it % per_head;
+    const int bh = bh0 + it / per_head;
+    unsigned char* st = smem + 2 * L::KV_BYTES + s * L::STAGE;
+    float* ls = reinterpret_cast<float*>(st + 2 * L::Q_BYTES);
+    mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&full[s], 2 * L::Q_BYTES);
+      for (int nb = 0; nb < L::NB; ++nb) {
+        tma_load_3d(st + nb * L::Q_BOX, tm_q, &full[s], nb * BW, i * BQ, bh);
+        tma_load_3d(st + L::Q_BYTES + nb * L::Q_BOX, tm_do, &full[s], nb * BW,
+                    i * BQ, bh);
+      }
+    }
+    for (int t = lane; t < BQ; t += 32) {
+      const int row = i * BQ + t;
+      const size_t at = (size_t)bh * S + row;
+      ls[t] = row < S ? lse[at] * kLog2e : 0.f;  // log2 units
+      ls[BQ + t] = row < S ? delta[at] : 0.f;
+    }
+    mbar_arrive(&full[s]);                      // this lane's rows are written
+  }
+}
+
 template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 1)
 dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -468,37 +549,9 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == 0) {
     regs_dealloc<kProducerRegs>();
     if (threadIdx.x >= 32) return;
-    if (lane == 0) {
-      mbar_arrive_expect_tx(kvbar, 2 * L::KV_BYTES);
-      for (int nb = 0; nb < L::NB; ++nb) {
-        tma_load_3d(smem + nb * L::KV_BOX, &tm_k, kvbar, nb * BW, j * BKV, bg);
-        tma_load_3d(smem + L::KV_BYTES + nb * L::KV_BOX, &tm_v, kvbar,
-                    nb * BW, j * BKV, bg);
-      }
-    }
-    for (int it = 0; it < n_items; ++it) {
-      const int s = it % kStages;
-      const int i = i_first + it % per_head;
-      const int bh = b * H + g * rep + it / per_head;
-      unsigned char* st = smem + 2 * L::KV_BYTES + s * L::STAGE;
-      float* ls = reinterpret_cast<float*>(st + 2 * L::Q_BYTES);
-      mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-      if (lane == 0) {
-        mbar_arrive_expect_tx(&full[s], 2 * L::Q_BYTES);
-        for (int nb = 0; nb < L::NB; ++nb) {
-          tma_load_3d(st + nb * L::Q_BOX, &tm_q, &full[s], nb * BW, i * BQ, bh);
-          tma_load_3d(st + L::Q_BYTES + nb * L::Q_BOX, &tm_do, &full[s],
-                      nb * BW, i * BQ, bh);
-        }
-      }
-      for (int t = lane; t < BQ; t += 32) {
-        const int row = i * BQ + t;
-        const size_t at = (size_t)bh * S + row;
-        ls[t] = row < S ? lse[at] * kLog2e : 0.f;  // log2 units
-        ls[BQ + t] = row < S ? delta[at] : 0.f;
-      }
-      mbar_arrive(&full[s]);                    // this lane's rows are written
-    }
+    dkv_produce<L>(smem, full, empty, kvbar, &tm_q, &tm_k, &tm_v, &tm_do, lse,
+                   delta, j, bg, b * H + g * rep, S, i_first, per_head,
+                   n_items, lane);
     return;
   }
 
@@ -587,6 +640,182 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int rows_valid = S - j * BKV;
   store_acc<T, D>(dk + base, dk_acc, r, cq, rows_valid, scale, scale);
   store_acc<T, D>(dv + base, dv_acc, r, cq, rows_valid, 1.f, 1.f);
+}
+
+// dk/dv at D 256: a warpgroup's dK and dV over 64 keys are 256 fp32
+// registers a thread, more than it has, so the two consumer warpgroups
+// split the four products of one 64-key tile: warpgroup 1 owns dV (S^T =
+// K Q^T, P^T, dV += P^T dO), warpgroup 2 owns dK (dP^T = V dO^T, dS^T =
+// P^T (dP^T - delta), dK += dS^T Q).  P^T passes from 1 to 2 in fp32
+// through shared memory (dS is formed from the unrounded P), each thread
+// to the thread of warpgroup 2 that holds the same accumulator entries.
+template <int D>
+struct DkvSplitLayout {
+  static constexpr int BKV = 64;                 // keys
+  static constexpr int BQ = 64;                  // query rows per tile
+  static constexpr int BW = box_width<D>();
+  static constexpr int NB = D / BW;
+  static constexpr int KV_BOX = BKV * BW * 2;
+  static constexpr int Q_BOX = BQ * BW * 2;
+  static constexpr int KV_BYTES = NB * KV_BOX;   // the K or the V tile
+  static constexpr int Q_BYTES = NB * Q_BOX;     // one Q or dO tile
+  // a stage: Q, dO, then lse and delta (2 * BQ fp32), padded so that the
+  // next stage's boxes stay 1024-byte aligned
+  static constexpr int STAGE = 2 * Q_BYTES + 1024;
+  static constexpr int PT = 2 * KV_BYTES + kStages * STAGE;  // P^T, fp32
+  static constexpr int BARS = PT + BKV * BQ * 4;
+  static constexpr int SMEM = 1024 + BARS + 8 * (2 * kStages + 1);
+  static_assert(2 * BQ * 4 <= 1024 && STAGE % 1024 == 0,
+                "the rows fit the padding; stages stay 1024-byte aligned");
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
+
+template <typename T, int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, 1)
+dkv_split_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_do,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, T* __restrict__ dk,
+                 T* __restrict__ dv, int B, int H, int Hkv, int S,
+                 float scale) {
+  using L = DkvSplitLayout<D>;
+  constexpr int BKV = L::BKV, BQ = L::BQ, BW = L::BW;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = empty + kStages;
+
+  // block -> (KV tile j, KV head g, batch b), the longest causal runs
+  // (j from 0) first
+  const int j = blockIdx.x / (Hkv * B);
+  const int g = blockIdx.x % Hkv;
+  const int b = blockIdx.x % (Hkv * B) / Hkv;
+  const int rep = H / Hkv;
+  const int bg = b * Hkv + g;
+  const int n_q = (S + BQ - 1) / BQ;
+  // causal: query tiles above this KV tile see none of its keys
+  const int i_first = CAUSAL ? (j * BKV) / BQ : 0;
+  const int per_head = n_q - i_first;
+  const int n_items = rep * per_head;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 33);                  // lane 0's expect_tx + 32 lanes
+      mbar_init(&empty[s], 8);                  // both warpgroups' warps
+    }
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  if (wg == 0) {
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x >= 32) return;
+    dkv_produce<L>(smem, full, empty, kvbar, &tm_q, &tm_k, &tm_v, &tm_do, lse,
+                   delta, j, bg, b * H + g * rep, S, i_first, per_head,
+                   n_items, lane);
+    return;
+  }
+
+  regs_alloc<kConsumerRegs>();
+  const int cw = wg - 1;                        // 0: dV, 1: dK
+  const int tid = threadIdx.x % 128;
+  const int r = tid / 32 * 16 + lane / 4;       // key in tile
+  const int cq = (lane % 4) * 2;
+  const int kr0 = j * BKV + r;                  // keys kr0, kr0 + 8
+  // warpgroup 1 reads K, warpgroup 2 V
+  const uint32_t kv_addr = smem_addr(smem) + cw * L::KV_BYTES;
+  // P^T as [32 / 4][128 threads] float4: a thread's 32 entries, written by
+  // warpgroup 1's thread tid and read by warpgroup 2's (conflict-free)
+  float4* pt = reinterpret_cast<float4*>(smem + L::PT) + tid;
+  const float scale2 = scale * kLog2e;          // exp(x) = 2^(x log2 e)
+
+  float acc[D / 2];
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+
+  mbar_wait(kvbar, 0);
+  for (int it = 0; it < n_items; ++it) {
+    const int s = it % kStages;
+    const int i = i_first + it % per_head;
+    const uint32_t q_addr = smem_addr(smem) + 2 * L::KV_BYTES + s * L::STAGE;
+    const uint32_t do_addr = q_addr + L::Q_BYTES;
+    const float* ls = reinterpret_cast<const float*>(
+        smem + 2 * L::KV_BYTES + s * L::STAGE + 2 * L::Q_BYTES);
+    mbar_wait(&full[s], (it / kStages) & 1);
+
+    // warpgroup 1: S^T = K Q^T; warpgroup 2: dP^T = V dO^T
+    float sc[BQ / 2];
+    const uint32_t rhs = cw ? do_addr : q_addr;
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      wgmma_ss<T, BQ>(sc, desc_kmajor<BW>(kv_addr, L::KV_BOX, 0, k),
+                      desc_kmajor<BW>(rhs, L::Q_BOX, 0, k), k > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    uint32_t a[BQ / 16][4];
+    if (cw == 0) {
+      const bool masked = (i + 1) * BQ > S || j * BKV + BKV > S ||
+                          (CAUSAL && j * BKV + BKV - 1 > i * BQ);
+#pragma unroll
+      for (int x = 0; x < BQ / 2; ++x) {
+        const int c = (x / 4) * 8 + cq + (x & 1);             // query in tile
+        float p = exp2_approx(fmaf(sc[x], scale2, -ls[c]));
+        if (masked) {
+          const int qc = i * BQ + c;
+          const int kr = kr0 + ((x & 2) ? 8 : 0);
+          if (kr >= S || qc >= S || (CAUSAL && kr > qc)) p = 0.f;
+        }
+        sc[x] = p;
+      }
+      if (it > 0) named_bar_sync(2, 256);       // the last P^T has been read
+#pragma unroll
+      for (int x = 0; x < BQ / 8; ++x)
+        pt[x * 128] = make_float4(sc[4 * x], sc[4 * x + 1], sc[4 * x + 2],
+                                  sc[4 * x + 3]);
+      named_bar_arrive(1, 256);                 // P^T is written
+    } else {
+      named_bar_sync(1, 256);
+#pragma unroll
+      for (int x = 0; x < BQ / 8; ++x) {
+        const float4 p = pt[x * 128];
+        const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int y = 4 * x + e;
+          const int c = (y / 4) * 8 + cq + (y & 1);
+          sc[y] = pv[e] * (sc[y] - ls[BQ + c]);
+        }
+      }
+      if (it + 1 < n_items) named_bar_arrive(2, 256);  // P^T's slot is free
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) to_a_frag<T, BQ>(sc, kk, a[kk]);
+
+    // warpgroup 1: dV += P^T dO; warpgroup 2: dK += dS^T Q
+    const uint32_t mn = cw ? q_addr : do_addr;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs<T, D>(acc, a[kk], desc_mnmajor<BW>(mn, L::Q_BOX, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  const size_t base = ((size_t)bg * S + (size_t)j * BKV) * D;
+  const float mul = cw ? scale : 1.f;
+  store_acc<T, D>((cw ? dk : dv) + base, acc, r, cq, S - j * BKV, mul, mul);
 }
 
 // ---------------------------------------------------------------------------
@@ -861,12 +1090,16 @@ cudaError_t dq_launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// D <= 128: dkv_kernel (each warpgroup 64 of 128 keys, all four
+// products); D 256: dkv_split_kernel (64 keys, the products split)
 template <typename T, int D, bool C>
 cudaError_t dkv_launch(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int H, int Hkv, int S,
                        float scale, cudaStream_t st) {
-  using L = DkvLayout<D>;
+  constexpr bool split = D > 128;
+  using L = typename std::conditional<split, DkvSplitLayout<D>,
+                                      DkvLayout<D>>::type;
   CUtensorMap mq, mk, mv, mdo;
   cudaError_t e;
   if ((e = make_map_3d<L::BW>(&mq, q, is_fp16<T>(), D, S, B * H, L::BQ)) ||
@@ -874,14 +1107,27 @@ cudaError_t dkv_launch(const void* q, const void* k, const void* v,
       (e = make_map_3d<L::BW>(&mk, k, is_fp16<T>(), D, S, B * Hkv, L::BKV)) ||
       (e = make_map_3d<L::BW>(&mv, v, is_fp16<T>(), D, S, B * Hkv, L::BKV)))
     return e;
-  e = cudaFuncSetAttribute(dkv_kernel<T, D, C>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
-  if (e != cudaSuccess) return e;
-  dim3 grid((S + L::BKV - 1) / L::BKV, Hkv, B);
-  dkv_kernel<T, D, C><<<grid, kThreads, L::SMEM, st>>>(
-      mq, mk, mv, mdo, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk),
-      static_cast<T*>(dv), H, Hkv, S, scale);
+  const int n_kv = (S + L::BKV - 1) / L::BKV;
+  const float* ls = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  if constexpr (split) {
+    e = cudaFuncSetAttribute(dkv_split_kernel<T, D, C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::SMEM);
+    if (e != cudaSuccess) return e;
+    dkv_split_kernel<T, D, C><<<(unsigned)n_kv * Hkv * B, kThreads, L::SMEM,
+                                st>>>(mq, mk, mv, mdo, ls, dl,
+                                      static_cast<T*>(dk), static_cast<T*>(dv),
+                                      B, H, Hkv, S, scale);
+  } else {
+    e = cudaFuncSetAttribute(dkv_kernel<T, D, C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::SMEM);
+    if (e != cudaSuccess) return e;
+    dkv_kernel<T, D, C><<<dim3(n_kv, Hkv, B), kThreads, L::SMEM, st>>>(
+        mq, mk, mv, mdo, ls, dl, static_cast<T*>(dk), static_cast<T*>(dv), H,
+        Hkv, S, scale);
+  }
   return cudaGetLastError();
 }
 

@@ -21,8 +21,9 @@ accumulator layout.
 
 from pathlib import Path
 
-SS_N = (64, 128)
-RS_N = (32, 64, 80, 96, 128)
+# 80: the D 256 forward's S = Q K^T over 80-key tiles
+SS_N = (64, 80, 128)
+RS_N = (32, 64, 80, 96, 128, 256)
 # wgmma_ss_mn: the mixed-input GEMM's bf16 m64n128 products
 SS_MN = (("__nv_bfloat16", "bf16", 128),)
 TYPES = (("__nv_bfloat16", "bf16"), ("__half", "f16"))

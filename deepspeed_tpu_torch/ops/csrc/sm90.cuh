@@ -8,7 +8,7 @@
 // held as C / BW boxes of R rows x BW columns, each box R * BW * 2 bytes,
 // written by one TMA load with the swizzle of its row width (BW = 64: 128
 // bytes, 32: 64 bytes, 16: 32 bytes).  Every head dim the kernels take
-// (32, 64, 80, 96, 128) is a whole number of boxes of one width
+// (32, 64, 80, 96, 128, 256) is a whole number of boxes of one width
 // (box_width<D>), so one descriptor form serves every D:
 //   * K-major operand (the reduction dim along the row): the k-th group of
 //     16 columns is box (16 k) / BW at byte offset ((16 k) % BW) * 2 within

@@ -4,10 +4,11 @@ plain versions, the autograd seam and the drop-in ``attention_fn``.
 Counterpart of ``deepspeed_tpu/ops/flash_attention.py`` (the Pallas TPU
 kernels ``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel`` behind the
 custom VJP ``_flash``), which take any float dtype and any head dim.  The
-kernels are CUDA C++: in bf16 and fp16 on the tensor cores, the forward,
-dq and dk/dv at D <= 128 in ``csrc/flash_attention_sm90.cuh`` (wgmma, TMA,
-warp specialisation) and D 256 in ``csrc/flash_attention.cuh`` (WMMA),
-behind the entry points of ``flash_attention.cu`` and
+kernels are CUDA C++: in bf16 and fp16 on the tensor cores, the forward
+and dk/dv at every head dim and dq at D <= 128 in
+``csrc/flash_attention_sm90.cuh`` (wgmma, TMA, warp specialisation), dq at
+D 256 in ``csrc/flash_attention.cuh`` (WMMA), behind the entry points of
+``flash_attention.cu`` and
 ``flash_attention_fp16.cu``; in fp32 on the CUDA cores, in
 ``csrc/flash_attention_fp32.cu`` (all three register-blocked; see the notes
 at their tops for their design and what bounds them): three libraries built
@@ -241,9 +242,7 @@ def _count(wrapper, q) -> None:
     """One call of ``wrapper``'s kernel entry point on ``q`` (already at
     the instantiated head dim): ``wrapper.launches`` counts every call,
     ``wrapper.variant_launches[(dtype name, D)]`` the calls of each
-    variant.  A call is one launch, except dkv at D 256, whose entry point
-    runs two passes (dv, then dk) and counts once; its timed row covers
-    both passes."""
+    variant.  Every entry point launches one kernel a call."""
     wrapper.launches += 1
     key = (str(q.dtype).removeprefix("torch."), q.shape[-1])
     wrapper.variant_launches[key] = wrapper.variant_launches.get(key, 0) + 1

@@ -361,18 +361,20 @@ def test_flash_kernels_every_dtype_and_head_dim(cuda_device, dtype, D,
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("S", [1024, 1000], ids=["tiled", "ragged"])
 @pytest.mark.parametrize("rep", [1, 2, 4])
-@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
                          ids=["bf16", "fp16"])
 def test_sm90_fwd_and_dkv_match_plain_and_dkv_is_deterministic(
         cuda_device, dtype, D, rep, S, causal):
     """The wgmma / TMA forward and dk/dv (every head dim they run: 32, 64,
-    80, 96, 128) against their plain versions on the same inputs, within
-    2x the noise floor of the dtype: GQA rep 1, 2 and 4; S a multiple of
-    the 128-row tiles and S ragged (1000: TMA's zero fill, masked); causal
-    and full.  B 3 x 8 KV heads gives the persistent forward more (q
-    tile, head) items than the card has SMs, so blocks take several.  dk
-    and dv are bitwise equal on a second run (no atomics)."""
+    80, 96, 128, and 256 with 80-key forward tiles and dk/dv's products
+    split between the warpgroups) against their plain versions on the
+    same inputs, within 2x the noise floor of the dtype: GQA rep 1, 2 and
+    4; S a multiple of the 128-row tiles and S ragged (1000: TMA's zero
+    fill, masked); causal and full.  B 3 x 8 KV heads gives the persistent
+    forward more (q tile, head) items than the card has SMs, so blocks
+    take several.  dk and dv are bitwise equal on a second run (no
+    atomics)."""
     B, Hkv = 3, 8
     H = Hkv * rep
     xw, (q, k, v, do) = _flash_case(cuda_device, B, H, Hkv, S, D,

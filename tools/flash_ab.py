@@ -10,8 +10,9 @@ Each turn is a fresh process that imports ``deepspeed_tpu_torch`` and
 ``chip_smoke`` from one checkout (which builds its kernels into its own
 ``build/kernels/``) and times with CUDA events.  ``--family flash`` (the
 default): the forward, dq and dk/dv at the main paths' shapes of
-``chip_smoke.FLASH_CASES`` (bf16 GPT-2 and Llama-3-8B, fp16 phi-2, fp32
-GPT-2 and phi-2 width; ``--dtypes float32`` keeps the fp32 ones).
+``chip_smoke.FLASH_CASES`` (bf16 GPT-2, Llama-3-8B and gptj-6b's
+training shape at head dim 256, fp16 phi-2, fp32 GPT-2 and phi-2 width;
+``--dtypes float32`` keeps the fp32 ones).
 ``--family mixed``: the int8 and int4 mixed-input GEMM (K3) at
 Llama-3-8B's five projections (wi, mlp wo, wq, wk, attn wo) at M 8 (a
 decode step) and 1024 (a prefill budget), on random codes and scales
@@ -37,8 +38,8 @@ from pathlib import Path
 
 # (case name, dtype) of chip_smoke.FLASH_CASES that the main paths run
 CASES = [("gpt2 train", "bfloat16"), ("llama3-8b", "bfloat16"),
-         ("phi-2 train", "float16"), ("gpt2 train", "float32"),
-         ("phi-2 train", "float32")]
+         ("gptj-6b train", "bfloat16"), ("phi-2 train", "float16"),
+         ("gpt2 train", "float32"), ("phi-2 train", "float32")]
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 # K3: (name, K, N) of Llama-3-8B's projections
 MIXED_CASES = [("wi", 4096, 14336), ("mlp wo", 14336, 4096),
