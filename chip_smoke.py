@@ -59,10 +59,9 @@ passed over):
              a decode call's host time exceeds its kernel time), bounds,
              and for flash attention the time of PyTorch's
              scaled_dot_product_attention as a yardstick.  Each flash line names the
-             design that ran (wgmma: fwd and dkv at every D, dq at
-             D <= 128, in bf16/fp16; wmma: dq at D 256; fp32-rb: the fp32
-             dk/dv; fp32-rbq:
-             the fp32 fwd and dq), its TFLOP/s, its ratio to SDPA, the host
+             design that ran (wgmma: fwd, dq and dkv at every D, in
+             bf16/fp16; fp32-rb: the fp32 dk/dv; fp32-rbq: the fp32 fwd
+             and dq), its TFLOP/s, its ratio to SDPA, the host
              microseconds per call (tensor maps included) and its
              library's build seconds; dq and dkv must be bitwise equal on
              a second run.
@@ -215,7 +214,10 @@ passed over):
              moments pinned CPU tensors, peak device memory under 80 GB;
              each step split into device forward/backward, grad D2H, host
              update and H2D with GB/s; tokens/s, MFU, pinned bytes, peak
-             RSS; a 2-layer cut trained 2 steps with and without offload:
+             RSS; one more step whose device forward/backward runs under
+             torch.profiler: device ms by kind, each flash kernel's ms and
+             the device's idle ms against the unprofiled forward/backward;
+             a 2-layer cut trained 2 steps with and without offload:
              losses bitwise, masters within 2 x lr x steps (rms lr / 10).
 10. train-nvme — ZeRO-Infinity on gptj-6b cut to 4 layers (1.22 B
              params), bf16, seq 2048, micro-batch 1, its stores in a
@@ -624,14 +626,13 @@ def _within_noise(torch, name, got, ref, ref_wide):
 
 def flash_design(kname, dtype, D):
     """Which kernel design a flash variant runs (the entry points' dispatch
-    by kernel and head dim): "wgmma" (csrc/flash_attention_sm90.cuh: fwd
-    and dkv at every D, dq at D <= 128), "wmma" (csrc/flash_attention.cuh:
-    dq at D 256), "fp32-rb" (the register-blocked fp32 dk/dv, keys
-    resident) or "fp32-rbq" (the register-blocked fp32 fwd and dq, queries
-    resident; both in csrc/flash_attention_fp32.cu)."""
+    by kernel and dtype): "wgmma" (csrc/flash_attention_sm90.cuh: bf16 and
+    fp16 fwd, dq and dkv at every D), "fp32-rb" (the register-blocked fp32
+    dk/dv, keys resident) or "fp32-rbq" (the register-blocked fp32 fwd and
+    dq, queries resident; both in csrc/flash_attention_fp32.cu)."""
     if dtype == "float32":
         return "fp32-rb" if kname == "flash_dkv" else "fp32-rbq"
-    return "wmma" if (kname, D) == ("flash_dq", 256) else "wgmma"
+    return "wgmma"
 
 
 def host_us_per_call(torch, fn, calls: int = 20) -> float:
@@ -3528,6 +3529,9 @@ def train_offload(torch, fa, seed, device=None, **overrides):
     if on_card and peak >= 80e9:
         raise AssertionError(f"train-offload: peak device memory "
                              f"{peak / 1e9:.2f} GB is not below 80 GB")
+    profile_offload_step(torch, engine, {"input_ids": data[-micro:]},
+                         statistics.median(sp["fwd_bwd_s"]
+                                           for sp in splits[warmup:]))
     del engine, state, host
     free_engines(torch)
     host_empty_cache(torch)
@@ -3535,6 +3539,28 @@ def train_offload(torch, fa, seed, device=None, **overrides):
     free_engines(torch)
     host_empty_cache(torch)
     return variants
+
+
+def profile_offload_step(torch, engine, batch, fwd_bwd_s):
+    """One more train-offload step, its device forward and backward under
+    torch.profiler (stopped where the engine hands the gradients to the
+    host update), split by kind and by flash kernel against the measured
+    steps' unprofiled forward/backward ``fwd_bwd_s``."""
+    update = engine._offload_update
+
+    def profiled(prof):
+        def stop_then_update(grads, step):
+            prof.stop()                   # the device work is synchronised
+            del engine._offload_update
+            return update(grads, step)
+        engine._offload_update = stop_then_update
+        prof.start()
+        engine.train_batch(batch)
+        return engine.offload_times["fwd_bwd_s"]
+
+    device_profile(torch, profiled, fwd_bwd_s, tag="train-offload fwd/bwd",
+                   split=[(k, k) for k in ("fwd_kernel", "dq_kernel",
+                                           "dkv_split_kernel")])
 
 
 def offload_parity(torch, seed, device, seq, micro, **overrides):
@@ -3915,13 +3941,16 @@ def train_nvme(torch, fa, seed, device=None, **overrides):
         shutil.rmtree(store, ignore_errors=True)
 
 
-def device_profile(torch, run, wall_unprofiled, tag="serve"):
+def device_profile(torch, run, wall_unprofiled, tag="serve", split=()):
     """The kernels that take the device time, over one more full run under
     torch.profiler (``run(prof)`` returns its wall seconds), and the
     device busy share: that device time over the same run's wall time
     WITHOUT the profiler (``wall_unprofiled``; the profiler slows the host
     several times over).  Returns the device ms by kind (KERNEL_GROUPS),
-    empty when the profiler recorded no device time."""
+    empty when the profiler recorded no device time.  ``split``: pairs
+    (label, kernel-name substring) whose device ms and launches are logged
+    each, with the device's idle ms (the unprofiled wall less the device
+    time) beside them."""
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                    acc_events=True)
@@ -3956,6 +3985,15 @@ def device_profile(torch, run, wall_unprofiled, tag="serve"):
         for g, us in sorted(groups.items(), key=lambda kv: -kv[1])))
     if paged:
         log(f"[{tag}] paged attention's kernels: " + "; ".join(paged))
+    if split:
+        parts = []
+        for label, sub in split:
+            us = sum(r[0] for r in rows if sub in r[2])
+            n = sum(r[1] for r in rows if sub in r[2])
+            parts.append(f"{label} {us / 1e3:.2f} ms ({n}x)")
+        log(f"[{tag}] split: " + ", ".join(parts) + f"; device idle "
+            f"{wall_unprofiled * 1e3 - total_us / 1e3:.1f} ms of the "
+            f"unprofiled {wall_unprofiled * 1e3:.1f} ms")
     return {g: us / 1e3 for g, us in groups.items()}
 
 
@@ -4201,12 +4239,13 @@ def main() -> int:
             launches = (sum(r[k].get((dt, d), 0) for r in flash_runs)
                         if flash_runs else None)
             # the file that holds the kernel the variant ran
-            src = {"wgmma": "flash_attention_sm90.cuh",
-                   "wmma": "flash_attention.cuh"}.get(
-                       flash_design(k, dt, d), "flash_attention_fp32.cu")
+            src = ("flash_attention_sm90.cuh"
+                   if flash_design(k, dt, d) == "wgmma"
+                   else "flash_attention_fp32.cu")
             return dict(name=flash_name(k, dt, d), route="cuda",
                         source=f"deepspeed_tpu_torch/ops/csrc/{src}",
                         replaces=replaces[k], launches=launches,
+                        design=flash_design(k, dt, d),
                         **flash_kern[dt, d][k])
 
         def quant_launches(run, key):

@@ -195,8 +195,8 @@ _SERVING_OFFLOAD = "ROADMAP Queue 1 item 4b, serving offload"
 _UNSUPPORTED = {
     "attn_impl": (("auto",), "ROADMAP Queue 1, serving slice: the kernel "
                   "is chosen by the tensors' device, there is no probe"),
-    "weight_quant": ((None, "int8", "int4"), "ROADMAP Queue 1, quantized "
-                     "serving: the fp6/fp12 minifloat layouts"),
+    "weight_quant": ((None, "int8", "int4"), "ROADMAP Queue 1 item 7: the "
+                     "fp6/fp12 minifloat layouts"),
     "kv_offload": ((False,), _SERVING_OFFLOAD),
     "weight_stream": ((None,), _SERVING_OFFLOAD),
     "kv_donate": (("auto", "on"), "in-place KV updates (no 'off')"),
@@ -1549,7 +1549,7 @@ class InferenceEngine:
                     self.icfg.kv_block_size, mbs, mixed_gemm=mixed)
                 return toks
 
-            toks = self.failures.run(step, uids=uids, guarded=False)
+            toks = self.failures.run(step, uids=uids, cold=True)
             return toks, toks, None, t2
         self._prev_dev.copy_(prev)
         if rng is not None:
@@ -1594,7 +1594,7 @@ class InferenceEngine:
         The replay rewrote the paged-attention plan workspace, so the
         wrapper forgets what it held, whatever happened."""
         try:
-            g = self.failures.run(replay, uids=uids, guarded=False)
+            g = self.failures.run(replay, uids=uids, cold=True)
         finally:
             forget_plan(self.device, self._stream.cuda_stream)
         add_launches(g.delta)
@@ -1931,7 +1931,7 @@ class InferenceEngine:
         if not self._cuda:
             toks = self.failures.run(
                 lambda: run_on(torch.from_numpy(flat).to(self.device),
-                               key_in), uids=uids, guarded=False)
+                               key_in), uids=uids, cold=True)
             t1 = time.perf_counter()
             return self.failures.run(lambda: toks.cpu().numpy(),
                                      uids=uids), t1

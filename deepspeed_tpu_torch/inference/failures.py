@@ -376,16 +376,17 @@ class FailurePolicy:
         return None
 
     # ---- the device-call entry ---------------------------------------
-    def run(self, fn: Callable, uids=(), guarded: bool = True):
+    def run(self, fn: Callable, uids=(), cold: bool = False):
         """Run one device call of the engine: consume any armed
-        injection, then execute it — under the current watchdog deadline
-        when ``guarded``, else inline on the caller's thread.  The
-        engine guards only its reads (an event wait and the host copy
-        behind it): a replay or an eager forward writes the cache in
-        place, so it is never abandoned half way to land later, and
-        runs unguarded (a capture rides it too, and a capture must stay
-        on the caller's thread)."""
-        kind = self._take_injection(uids, guarded)
+        injection, then execute it — under the current watchdog
+        deadline, or inline on the caller's thread when ``cold``.  The
+        reference marks ``cold`` a call that may carry a compile; the
+        engine here guards only its reads (an event wait and the host
+        copy behind it) and passes ``cold=True`` for the rest: a replay
+        or an eager forward writes the cache in place, so it is never
+        abandoned half way to land later (a capture rides it too, and a
+        capture must stay on the caller's thread)."""
+        kind = self._take_injection(uids, not cold)
         if kind is not None:
             if kind == "timeout":
                 raise InjectedTimeout("injected watchdog expiry")
@@ -399,7 +400,7 @@ class FailurePolicy:
             else:
                 raise InjectedFault(kind, uid=None)
         return self.watchdog.run(fn,
-                                 self.deadline_ms() if guarded else None)
+                                 None if cold else self.deadline_ms())
 
     def deadline_ms(self) -> Optional[float]:
         """The current watchdog deadline: the configured value, or the

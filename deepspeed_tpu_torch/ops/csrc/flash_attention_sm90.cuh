@@ -1,21 +1,26 @@
 // Flash attention forward, dq and dk/dv for Hopper (sm_90a) with wgmma,
 // TMA and warp specialisation, templated on the 16-bit element type (bf16
-// or fp16) and the head dim D: the forward and dk/dv at D in {32, 64, 80,
-// 96, 128, 256}, dq at D in {32, 64, 80, 96, 128}.  flash_attention.cuh
-// dispatches to these from the entry points flash_fwd_<tag>,
-// flash_dq_<tag> and flash_dkv_<tag>; dq at D 256 keeps the WMMA kernel
-// there.
+// or fp16) and the head dim D in {32, 64, 80, 96, 128, 256}: the only
+// 16-bit flash kernels of the port.  flash_attention.cuh dispatches to
+// these from the entry points flash_fwd_<tag>, flash_dq_<tag> and
+// flash_dkv_<tag>.
 //
 // Replaces the three TPU kernels of deepspeed_tpu/ops/flash_attention.py:
 //   fwd_kernel  <- `_fwd_kernel` (:76, pallas_call in `_fwd` :137)
 //   dq_kernel   <- `_dq_kernel`  (:173, pallas_call in `_bwd` :283)
 //   dkv_kernel, dkv_split_kernel (D 256)
 //               <- `_dkv_kernel` (:212, pallas_call in `_bwd` :311)
-// The numerics are those of flash_attention.cuh's header: scores in fp32,
-// masked entries at -1e30, P (and dS) rounded to the element type before
-// their products, the division by max(l, 1e-30), lse = m + log(max(l,
-// 1e-30)); dq = scale * dS K, dk = scale * dS^T Q, dv = P^T dO.  No
-// atomics: the result does not depend on the order blocks run in.
+// Numerics follow the TPU kernels: scores in fp32 (s = q.k * scale),
+// masked entries at -1e30 (causal: key column > query row), an online
+// softmax in fp32 with the probabilities rounded to the element type
+// (round to nearest even) before the PV product, the division by max(l,
+// 1e-30), lse = m + log(max(l, 1e-30)); in the backward P = exp(s - lse),
+// dS = P * (dP - delta) rounded to the element type before its products,
+// dq = scale * dS K, dk = scale * dS^T Q, dv = P^T dO, all accumulated in
+// fp32.  In fp16 a large loss scale can round dS (or an output) to inf;
+// that is kept, as the TPU kernel keeps it, and the engine's overflow
+// check skips the step.  No atomics: the result does not depend on the
+// order blocks run in.
 //
 // The bound on an H100 (989 TFLOP/s bf16/fp16 dense, 3.35 TB/s): at the
 // training shapes (S = 1024..4096) the work per byte is ~S/2-fold, so the
@@ -51,12 +56,15 @@
 //     D 256 the first warpgroup skips a diagonal tile whose keys all lie
 //     past its rows and only keeps its turn.
 //   * dq: 128 query rows x 64-key tiles (S, dP and dQ all live in
-//     registers: 128-key tiles spill at D <= 80 and ran slower); one block
+//     registers: 128-key tiles spill at D <= 80 and ran slower); 48-key
+//     tiles at D 256 (a thread's dQ is 128 fp32 registers there, beside S
+//     and dP at 24 each; two stages of 48-key K and V tiles are the most
+//     that fit beside Q and dO, and 32-key tiles ran 21% slower); one block
 //     per (q tile, head, batch), longest causal rows first (a persistent
-//     grid ran slower).  K and V have rings of their own: a V slot is
-//     released once dP is computed, a K slot once dQ += dS K is.  The
-//     producer warp stages the rows' lse (in log2 units) and delta beside
-//     Q and dO.  A warpgroup skips the tiles past its own diagonal.
+//     grid ran slower).  K and V have rings of their own: a V slot is released once
+//     dP is computed, a K slot once dQ += dS K is.  The producer warp
+//     stages the rows' lse (in log2 units) and delta beside Q and dO.  A
+//     warpgroup skips the tiles past its own diagonal.
 //   * dkv: 128 keys x 64 query rows; one block per (KV tile, KV head,
 //     batch), streaming the GQA group's rep heads x q tiles from the
 //     diagonal down (causal).  At D 256 (dkv_split_kernel) a warpgroup
@@ -89,7 +97,9 @@
 // slower), and a tile's dQ product is waited for before the next tile's S
 // and dP.  At D 256: the forward's 80-key tiles cut the work of each S
 // product and add softmax turns a row (and K/V tiles that straddle the
-// causal diagonal); dk/dv's 64-key blocks
+// causal diagonal); dq's 48-key tiles make S and dP m64n48 products, which
+// read their 64-row A tile from shared memory for 3/4 of the work of N 64,
+// and add barrier turns a row; dk/dv's 64-key blocks
 // read every Q and dO tile from L2 twice as often as 128-key blocks
 // would, the second warpgroup waits for the first one's P^T every tile
 // (one exchange buffer, so the first runs at most one tile ahead), and
@@ -834,8 +844,10 @@ template <int D>
 struct DqLayout {
   static constexpr int BQ = 128;                 // query rows (2 x 64)
   // keys per tile: S, dP (BK / 2 fp32 each) and dQ (D / 2) live in
-  // registers together; 128 keys spill at D <= 80 and ran slower
-  static constexpr int BK = 64;
+  // registers together; 128 keys spill at D <= 80 and ran slower; at D 256
+  // (dQ 128 registers) 48: 2-stage rings of 64-key K and V tiles (128 KB)
+  // do not fit beside Q and dO (128 KB), and 32 keys ran 21% slower
+  static constexpr int BK = D == 256 ? 48 : 64;
   static constexpr int BW = box_width<D>();
   static constexpr int NB = D / BW;
   static constexpr int Q_BOX = BQ * BW * 2;
@@ -846,6 +858,7 @@ struct DqLayout {
   static constexpr int BARS = ROWS + 2 * BQ * 4;
   static constexpr int SMEM = 1024 + BARS + sizeof(DqBars);
   static_assert(SMEM <= 232448, "shared memory of one block");
+  static_assert(KV_BOX % 1024 == 0, "boxes stay 1024-byte aligned");
 };
 
 // dq: one block per (q tile of 128 rows, head, batch), longest causal rows
@@ -1081,7 +1094,8 @@ cudaError_t dq_launch(const void* q, const void* k, const void* v,
   e = cudaFuncSetAttribute(dq_kernel<T, D, C>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (e != cudaSuccess) return e;
-  // one block per (q tile, head, batch): it beat a persistent grid
+  // one block per (q tile, head, batch): it beat a persistent grid;
+  // DqLayout<D> picks the tiles (48 keys at D 256)
   const unsigned grid = (unsigned)((S + L::BQ - 1) / L::BQ) * B * H;
   dq_kernel<T, D, C><<<grid, kThreads, L::SMEM, st>>>(
       mq, mk, mv, mdo, static_cast<const float*>(lse),

@@ -21,8 +21,9 @@ accumulator layout.
 
 from pathlib import Path
 
-# 80: the D 256 forward's S = Q K^T over 80-key tiles
-SS_N = (64, 80, 128)
+# 48: dq's S = Q K^T and dP = dO V^T over 48-key tiles at D 256; 80: the
+# D 256 forward's S = Q K^T over 80-key tiles
+SS_N = (48, 64, 80, 128)
 RS_N = (32, 64, 80, 96, 128, 256)
 # wgmma_ss_mn: the mixed-input GEMM's bf16 m64n128 products
 SS_MN = (("__nv_bfloat16", "bf16", 128),)

@@ -4,12 +4,11 @@ plain versions, the autograd seam and the drop-in ``attention_fn``.
 Counterpart of ``deepspeed_tpu/ops/flash_attention.py`` (the Pallas TPU
 kernels ``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel`` behind the
 custom VJP ``_flash``), which take any float dtype and any head dim.  The
-kernels are CUDA C++: in bf16 and fp16 on the tensor cores, the forward
-and dk/dv at every head dim and dq at D <= 128 in
-``csrc/flash_attention_sm90.cuh`` (wgmma, TMA, warp specialisation), dq at
-D 256 in ``csrc/flash_attention.cuh`` (WMMA), behind the entry points of
-``flash_attention.cu`` and
-``flash_attention_fp16.cu``; in fp32 on the CUDA cores, in
+kernels are CUDA C++: in bf16 and fp16 on the tensor cores, all three at
+every head dim in ``csrc/flash_attention_sm90.cuh`` (wgmma, TMA, warp
+specialisation), dispatched by ``csrc/flash_attention.cuh`` behind the
+entry points of ``flash_attention.cu`` and ``flash_attention_fp16.cu``;
+in fp32 on the CUDA cores, in
 ``csrc/flash_attention_fp32.cu`` (all three register-blocked; see the notes
 at their tops for their design and what bounds them): three libraries built
 by ``ops/builder.py`` at first use and bound through ``ctypes``.

@@ -25,8 +25,7 @@ import torch
 WEIGHT_QUANT_BITS = {"int8": 8, "int4": 4, "fp6": 6, "fp12": 12}
 MINIFLOAT_BY_BITS = {6: "fp6_e3m2", 12: "fp12_e4m7"}
 _MINIFLOAT_ITEM = ("the fp6/fp12 minifloat weight layouts are not ported "
-                   "yet (ROADMAP Queue 1, quantized serving: minifloat "
-                   "layouts)")
+                   "yet (ROADMAP Queue 1 item 7: the minifloat layouts)")
 
 
 class QuantizedTensor:
@@ -104,14 +103,17 @@ def _unpack_int4(p: torch.Tensor) -> torch.Tensor:
 
 def quantize(x: torch.Tensor, bits: int = 8,
              num_groups: Optional[int] = None, symmetric: bool = True,
-             stochastic: bool = False) -> QuantizedTensor:
-    """Group-wise sym/asym quantization with round-half-to-even."""
+             stochastic: bool = False,
+             rng: Optional[torch.Tensor] = None) -> QuantizedTensor:
+    """Group-wise sym/asym quantization with round-half-to-even.  ``rng``
+    (the key of stochastic rounding, the reference's sixth positional)
+    is taken and unused: stochastic rounding is not ported."""
     if bits not in (4, 8):
         raise ValueError(f"bits={bits}: grouped quantization is 4 or 8 bit")
     if stochastic:
         raise NotImplementedError(
-            "stochastic rounding is not ported (ROADMAP Queue 1, multi-GPU "
-            "training breadth: ZeRO++ quantized collectives)")
+            "stochastic rounding is not ported (ROADMAP Queue 1 item 6, "
+            "multi-GPU training breadth: ZeRO++ quantized collectives)")
     orig_shape, orig_dtype = tuple(x.shape), x.dtype
     if num_groups is None:
         num_groups = default_groups(x.numel())

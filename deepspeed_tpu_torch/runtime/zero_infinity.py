@@ -175,9 +175,17 @@ class NVMeOptimizer:
         """The leaves of ``tree`` in the store's order (jax's)."""
         return [x for _, x in _leaf_paths(tree)]
 
-    def initialize(self, params: Any) -> None:
+    def initialize(self, params: Any, shardings: Any = None) -> None:
         """Partition the leaves into groups of about ``buffer_size``
-        bytes and write the fp32 master and zero moments to NVMe."""
+        bytes and write the fp32 master and zero moments to NVMe.
+        ``shardings`` (the reference's gradient layout of a multi-host
+        run, whose processes each store their own fragments) must be
+        None: one process holds every leaf."""
+        if shardings is not None:
+            raise NotImplementedError(
+                "NVMeOptimizer.initialize(shardings=...) is not ported yet "
+                "(ROADMAP Queue 1 item 6, multi-GPU breadth: per-process "
+                "NVMe fragments)")
         paths = _leaf_paths(params)
         self._leaf_meta = [(tuple(x.shape), np.float32) for _, x in paths]
         self._tpl = _map_with_path(

@@ -35,6 +35,7 @@ from deepspeed_tpu_torch.checkpoint import engine as ck
 from deepspeed_tpu_torch.models import Model, TransformerConfig
 from deepspeed_tpu_torch.models import params_from_numpy
 from deepspeed_tpu_torch.runtime.runtime_utils import tree_leaves
+from tests.test_torch_train import jax_engine
 
 SEQ = 32
 VOCAB = 256
@@ -185,8 +186,7 @@ def test_checkpoint_crosses_and_training_follows(direction, tmp_path):
     jm2, tm2 = _models(GPT2, seed=11)
     cfg = _config()
     if direction == "jax_to_port":
-        src = jds.initialize(model=jm, config=dict(cfg),
-                             topology=_one_device())
+        src = jax_engine(jm, cfg, _one_device())
         dst = tds.initialize(model=tm2, config=dict(cfg), device="cpu")
     else:
         src = tds.initialize(model=tm, config=dict(cfg), device="cpu")
@@ -323,7 +323,7 @@ def test_fp16_loss_scaler_state_carries_across(tmp_path):
     _, tm2 = _models(PHI, seed=11)
     cfg = _config(fp16={"enabled": True, "initial_scale_power": 20,
                         "loss_scale_window": 2, "hysteresis": 1})
-    je = jds.initialize(model=jm, config=dict(cfg), topology=_one_device())
+    je = jax_engine(jm, cfg, _one_device())
     te = tds.initialize(model=tm2, config=dict(cfg), device="cpu")
     a, b = _resume(je, te, str(tmp_path), _batches(6), first=4)
     ls = je.state.loss_scale

@@ -83,21 +83,16 @@ def test_chip_smoke_names_the_design_the_entry_points_run(dtype, D):
             assert design(f"flash_{kind}", dtype, D) == name
         return
     src = (CSRC_DIR / "flash_attention.cuh").read_text()
-    for kind in ("fwd", "dkv"):
-        # every head dim takes the wgmma launcher of
+    for kind in KINDS:
+        # every head dim, 256 included, takes the wgmma launcher of
         # flash_attention_sm90.cuh, with no branch on D
         body = _function_body(src, f"int {kind}_entry(")
         assert f"flash90::{kind}_launch<T, DD" in body
-        assert "if constexpr" not in body
+        assert "if constexpr" not in body and "DD ==" not in body
         assert design(f"flash_{kind}", dtype, D) == "wgmma"
-    # the WMMA forward and dk/dv are gone: dq is the file's only kernel
-    assert re.findall(r"__global__ void __launch_bounds__\(\w+\)\n(\w+)\(",
-                      src) == ["flash_dq_kernel"]
-    body = _function_body(src, "int dq_entry(")
-    # dq at D 256 takes the WMMA launcher of this file, every other head
-    # dim the wgmma one
-    wmma, sm90 = body.split("else", 1)
-    assert "if constexpr (DD == 256)" in wmma
-    assert "dq_launch<T, DD" in wmma and "flash90::" not in wmma
-    assert "flash90::dq_launch<T, DD" in sm90
-    assert design("flash_dq", dtype, D) == ("wmma" if D == 256 else "wgmma")
+    # the WMMA kernels are gone: the file holds the entry points only
+    assert "__global__" not in src
+    assert not re.search(r"\bwmma\b|<mma\.h>", src)
+    sm90 = (CSRC_DIR / "flash_attention_sm90.cuh").read_text()
+    assert "dq_kernel<T, D, C><<<" in _function_body(
+        sm90, "cudaError_t dq_launch(")

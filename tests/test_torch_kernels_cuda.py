@@ -406,17 +406,18 @@ def test_sm90_fwd_and_dkv_match_plain_and_dkv_is_deterministic(
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("S", [1024, 1000], ids=["tiled", "ragged"])
 @pytest.mark.parametrize("rep", [1, 2, 4])
-@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
                          ids=["bf16", "fp16"])
 def test_sm90_dq_matches_plain_and_is_deterministic(cuda_device, dtype, D,
                                                     rep, S, causal):
-    """The wgmma / TMA dq (every head dim it runs: 32, 64, 80, 96, 128)
-    against its plain version on the same inputs, within 2x the noise
-    floor of the dtype, with the parametrisation of the forward and dk/dv
-    above: GQA rep 1, 2, 4; S tiled and ragged (TMA's zero fill, masked;
-    lse and delta rows past S); causal and full; more work items than
-    SMs.  dq is bitwise equal on a second run (no atomics)."""
+    """The wgmma / TMA dq at every head dim (32, 64, 80, 96, 128 in
+    64-key tiles; 256 in 48-key tiles, ragged at every S here) against its
+    plain version on the same inputs, within 2x the noise floor of the dtype,
+    with the parametrisation of the forward and dk/dv above: GQA rep 1,
+    2, 4; S tiled and ragged (TMA's zero fill, masked; lse and delta rows
+    past S); causal and full; more work items than SMs.  dq is bitwise
+    equal on a second run (no atomics)."""
     B, Hkv = 3, 8
     H = Hkv * rep
     xw, (q, k, v, do) = _flash_case(cuda_device, B, H, Hkv, S, D,

@@ -39,7 +39,8 @@ from deepspeed_tpu_torch.runtime import engine as engine_mod
 from deepspeed_tpu_torch.runtime.runtime_utils import (keep_host_heap,
                                                        tree_leaves)
 from tests.test_torch_train import (NULL_GRAD_LEAVES,
-                                    assert_trajectories_agree, tiny_models)
+                                    assert_trajectories_agree, jax_engine,
+                                    tiny_models)
 
 STEPS = 8
 KEYS = ("loss", "grad_norm", "lr", "loss_scale", "overflow")
@@ -116,7 +117,7 @@ def _jax_reference(name, gas=1):
         jm, _ = tiny_models(name)
         topo = MeshTopology.build(MeshConfig(data=1),
                                   devices=jax.devices()[:1])
-        je = jds.initialize(model=jm, config=_config(gas), topology=topo)
+        je = jax_engine(jm, _config(gas), topo)
         traj = _run(je, _batches(gas, STEPS))
         jp = {jax.tree_util.keystr(p): np.asarray(x) for p, x in
               jax.tree_util.tree_flatten_with_path(je.state.master)[0]}

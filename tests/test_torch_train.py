@@ -444,6 +444,26 @@ def test_engine_runs_on_the_card_unless_asked(monkeypatch, tmp_path):
 STEPS = 8
 
 
+def jax_engine(jm, config, topo):
+    """The JAX engine of ``jm`` on ``topo``, its scalar state (step, loss
+    scale, skip count) placed replicated on the mesh as its first
+    ``train_batch`` returns it: else the second step finds other input
+    shardings and compiles the step a second time (same program, same
+    numbers)."""
+    from jax.sharding import NamedSharding, PartitionSpec
+    je = jds.initialize(model=jm, config=dict(config), topology=topo)
+    rep = NamedSharding(topo.mesh, PartitionSpec())
+
+    def commit(x):
+        if isinstance(x, jax.Array) and not isinstance(x.sharding,
+                                                       NamedSharding):
+            return jax.device_put(x, rep)
+        return x
+
+    je.state = jax.tree.map(commit, je.state)
+    return je
+
+
 def run_trajectories(name, gas, bf16=False, steps=STEPS,
                      attention_impl="flash", spec=None, fp16=None):
     """The JAX engine and the port's (``device="cpu"``) from the same
@@ -464,7 +484,7 @@ def run_trajectories(name, gas, bf16=False, steps=STEPS,
         config["fp16"] = {"enabled": True, **fp16}
     # one JAX device (the test suite's virtual CPU mesh has eight)
     topo = MeshTopology.build(MeshConfig(data=1), devices=jax.devices()[:1])
-    je = jds.initialize(model=jm, config=dict(config), topology=topo)
+    je = jax_engine(jm, config, topo)
     te = tds.initialize(model=tm, config=dict(config), device="cpu")
     n = 2 * gas
     data = synthetic_lm_data(256, n * steps, 128, seed=1)["input_ids"]
