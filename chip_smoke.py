@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases device,build,kernel,serve-burst
     python3 chip_smoke.py --phases device,build,kernel,serve-spec
     python3 chip_smoke.py --phases device,build,kernel,serve-failover
+    python3 chip_smoke.py --phases device,build,kernel,serve-offload
     python3 chip_smoke.py --phases device,build,kernel,train-fp16
     python3 chip_smoke.py --phases device,build,kernel,train-ckpt,serve-moe,train-moe
     python3 chip_smoke.py --phases device,build,kernel,train-offload,train-nvme
@@ -145,6 +146,36 @@ passed over):
              turns (off, auto, off, auto) on fresh engines.  K2
              launches = layers x (dispatched steps + captures) in every
              scenario, retried steps included.
+6e. serve-offload — serving offload on phase 5's model, each mode against
+             the same engine resident, built and run here: (a) phase 5's
+             engine and traffic with the KV cache in page-locked host
+             memory (kv_offload; every layer copied through one working
+             layer inside the step's graph): every measured step a replay
+             of a graph captured in warm-up, K2 launches = layers x
+             steps, the first-forward check with the cache on the host,
+             the streams equal but at near-ties, a prefix hit and a COW
+             repeat, TTFT, decode tok/s, the host<->card GB/s and the
+             card's peak above the model against the resident engine's;
+             (b) phase 6 (a)'s configuration (int8 weights and
+             embeddings, an int8 cache, mixed_gemm "on") with the block
+             weights spilled to a store in /dev/shm and streamed back a
+             layer at a time through two page-locked slots, every step
+             eager, at phase 5's prompts with 8 new tokens: K3 launches
+             = 7 x layers x steps, K2 = layers x steps, the quantized
+             first-forward check, the streams equal but at near-ties, the
+             store's bytes and spill seconds, read GB/s, the share of the
+             run the host blocks on reads and the compute stream waits on
+             a slot, decode tok/s (8 / a decode step's host wall), TTFT,
+             the resident weights and the peak; (c) the KV block tier
+             (kv_tier "on", 128 blocks of 64, a host ring of 16 blocks
+             spilling to files in /dev/shm): round 1 phase 5's prompts,
+             round 2 distinct prompts until no block of round 1 is
+             indexed, round 3 round 1 again: a revive from the ring and
+             one from the files, no verify failure, every step a replay,
+             round 3's streams equal round 1's but at near-ties, the
+             counters and the restage ms and GB/s.  The stores are
+             deleted and the page-locked memory released: MemAvailable
+             ends within 2 GB of where the phase began.
 7. serve-alibi — BLOOM-7b1 at full width and depth (ALiBi, random bf16
              weights from a seed), run after the Llama model is freed,
              at phase 5's traffic and engine: a first-forward check
@@ -209,7 +240,7 @@ passed over):
              gptj-6b at full width and depth (6.05 B params; the host's
              MemAvailable is below what Llama-3-8B's 96.4 GB of pinned
              state needs, see OFFLOAD_RUN), bf16, seq 2048, micro-batch 2,
-             remat "flash", 1 + 3 steps: finite loss and norm, one launch
+             remat "flash", 1 + 2 steps: finite loss and norm, one launch
              of each flash kernel per layer a step (D 256), the master and
              moments pinned CPU tensors, peak device memory under 80 GB;
              each step split into device forward/backward, grad D2H, host
@@ -249,10 +280,12 @@ designs their timed batch ran, ``design``, and paged_attention_mqa, timed
 on the falcon-7b mixed batch, carries serve-mqa's launches;
 paged_attention's ``failover_launches`` are K2's launches in
 serve-failover's scenarios (a)-(d), its ``moe_launches`` those of
-serve-moe's measured run; the flash entries' launches include
-train-ckpt's, train-moe's, train-offload's and train-nvme (c)'s); the last
-line,
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+serve-moe's measured run, its ``offload_launches`` and ``tier_launches``
+those of serve-offload (a)'s measured run and (c)'s rounds (captures
+included); ``stream_launches`` on paged_attention_int8kv and on the int8
+K3 entries, serve-offload (b)'s weight-streamed run; the flash entries'
+launches include train-ckpt's, train-moe's, train-offload's and
+train-nvme (c)'s); the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 """
 
@@ -1251,10 +1284,13 @@ def nvidia_smi_line() -> str:
 # other.
 
 
-def first_forward_check(torch, model, prompts, tag="serve"):
+def first_forward_check(torch, model, prompts, tag="serve",
+                        kv_offload=False):
+    """``kv_offload``: the kernel path's cache in host memory, each layer
+    through a working layer on the card (serve-offload (a))."""
     from deepspeed_tpu_torch.inference.model import ragged_forward
-    from deepspeed_tpu_torch.inference.ragged.state import (KVCacheConfig,
-                                                            StateManager)
+    from deepspeed_tpu_torch.inference.ragged.state import (
+        KVCacheConfig, StateManager, kv_working_layer)
     from deepspeed_tpu_torch.models import apply
     cfg = model.config
     if cfg.num_experts > 1:
@@ -1267,11 +1303,14 @@ def first_forward_check(torch, model, prompts, tag="serve"):
     sm = StateManager(KVCacheConfig(cfg.num_layers, cfg.num_kv_heads,
                                     cfg.head_dim, block_size=64,
                                     num_blocks=64, dtype=torch.bfloat16,
-                                    device=model.device), max_seqs=2)
+                                    device=model.device, host=kv_offload),
+                      max_seqs=2)
     batch = sm.build_batch([(0, prompts[0]), (1, prompts[1])], 1024)
-    logits, _ = ragged_forward(cfg, model.params, sm.kv, batch, 64, 8)
+    work = (kv_working_layer(sm.kv, model.device) if kv_offload else None)
+    logits, _ = ragged_forward(cfg, model.params, sm.kv, batch, 64, 8,
+                               kv_host=work)
     got = logits[[sm.slot(0), sm.slot(1)]]
-    del sm
+    del sm, work
     ids = torch.as_tensor([prompts[0], prompts[1]], device=model.device)
     ref = apply(cfg, model.params, ids)[:, -1].float()
     ref32 = apply(cfg, model.params, ids, dtype=torch.float32)[:, -1]
@@ -1595,6 +1634,9 @@ def quant_first_forward_check(torch, eng, prompts, tag):
     from deepspeed_tpu_torch.models.transformer import tree_map
     from deepspeed_tpu_torch.ops.quant import QuantizedTensor
     cfg = eng.cfg
+    # a weight-streamed engine's forwards read the block weights from its
+    # store (in fp32 for the fp32 reference, as a resident tree would be)
+    stream = eng._wstore
 
     def forward(params, quant, mixed):
         sm = StateManager(KVCacheConfig(
@@ -1603,7 +1645,8 @@ def quant_first_forward_check(torch, eng, prompts, tag):
             device=eng.device), max_seqs=2)
         batch = sm.build_batch([(0, prompts[0]), (1, prompts[1])], 1024)
         logits, _ = ragged_forward(cfg, params, sm.kv, batch, 64, 8,
-                                   quant=quant, mixed_gemm=mixed)
+                                   quant=quant, mixed_gemm=mixed,
+                                   stream=stream)
         out = logits[[sm.slot(0), sm.slot(1)]]
         del sm
         return out
@@ -1743,7 +1786,7 @@ def serve_quant(torch, pa, mg, model, prompts, tag, over):
            else "n/a")
         + f" ({launches['prefill'] // (PROJECTIONS_PER_LAYER * L)} steps)")
     rates["k3_ms_per_step"] = per_step
-    return dict(launches=launches, first_forward=ffwd,
+    return dict(launches=launches, first_forward=ffwd, streams=out,
                 weight_bytes=dense_bytes + quant_bytes, **rates)
 
 
@@ -1936,7 +1979,8 @@ def check_near_ties(torch, eng, contexts, got, want, tol, tag):
         ctx = max(sm.seqs[u].seen_tokens for u, _ in sched)
         logits, _ = ragged_forward(cfg, eng.params, sm.kv, batch, bs,
                                    -(-ctx // bs), quant=eng._quant,
-                                   mixed_gemm=eng._mixed_gemm_active)
+                                   mixed_gemm=eng._mixed_gemm_active,
+                                   stream=eng._wstore)
         return {u: logits[sm.slot(u)] for u, _ in sched}
 
     def gap(row, t):
@@ -2567,6 +2611,354 @@ def serve_failover(torch, pa, model, prompts, phase5, seed):
     for line in lines:
         log(f"[serve-failover] {line}")
     return k2
+
+
+# ---------------------------------------------------------------------------
+# serve-offload helpers
+# ---------------------------------------------------------------------------
+
+# (b) and (c): phase 5's prompts with 8 new tokens (a weight-streamed step
+# reads every layer's weights from the store)
+OFFLOAD_NEW_TOKENS = 8
+# (c): phase 5's engine with 128 blocks of 64: round 1's 8 prompts hold
+# 60 of them; the host ring holds TIER_RAM_BLOCKS demoted blocks, the
+# rest spills to files in the store directory
+TIER_ENGINE = dict(token_budget=1024, max_seqs=8, kv_block_size=64,
+                   num_kv_blocks=128)
+TIER_RAM_BLOCKS = 16
+
+
+def offload_dir(name) -> Path:
+    """A fresh directory for a serve-offload store, in NVME_RUN's
+    ``store_dir`` (tmpfs: the 9p root caps writes)."""
+    import shutil
+    path = Path(NVME_RUN["store_dir"]) / f"chip_smoke_{name}_{os.getpid()}"
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def check_eager(tm, ws, tag):
+    """Every step of a weight-streamed run ran eagerly (no capture, no
+    replay), through page-locked host slots."""
+    log(f"[{tag}] {int(tm['eager_steps'])} eager steps of "
+        f"{int(tm['steps'])}; host slots pinned {ws.pinned()}, device slots "
+        f"{ws.slot_bytes() / 1e9:.3f} GB")
+    if tm["eager_steps"] != tm["steps"] or tm["graph_replays"] \
+            or tm["compiles"] or not ws.pinned():
+        raise AssertionError(f"{tag}: a streamed step was not an eager step "
+                             f"through pinned slots: {tm}")
+
+
+def run_peak(torch, eng, prompts, n_new, base):
+    """One greedy run of ``prompts`` on a warmed ``eng`` (fresh_run first):
+    (streams, wall s, the card's peak allocated bytes above ``base``)."""
+    from deepspeed_tpu_torch.inference import SamplingParams
+    fresh_run(eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = eng.generate(dict(enumerate(prompts)),
+                       SamplingParams(max_new_tokens=n_new))
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated() - base
+
+
+def offload_kv(torch, pa, model, prompts):
+    """serve-offload (a): phase 5's engine and traffic with the KV cache in
+    page-locked host memory, each layer copied through the working layer
+    inside the step's graph; against the same engine resident, run here
+    (streams, peak, rates)."""
+    from deepspeed_tpu_torch.inference import (InferenceConfig,
+                                               InferenceEngine,
+                                               SamplingParams)
+    tag = "serve-offload a"
+    cfg = model.config
+    L = cfg.num_layers
+    tol = first_forward_check(torch, model, prompts, tag, kv_offload=True)
+    sp = SamplingParams(max_new_tokens=SERVE_NEW_TOKENS)
+    n_dec = len(prompts) * (SERVE_NEW_TOKENS - 1)
+    res = {}
+    for name, over in (("resident", {}), ("kv_offload", dict(
+            kv_offload=True))):
+        free_engines(torch)
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng = InferenceEngine(model, InferenceConfig(**SERVE_ENGINE, **over))
+        t_build = time.perf_counter() - t0
+        kv = eng.state.kv
+        log(f"[{tag}] {name}: KV cache {tree_bytes(kv) / 1e9:.3f} GB on "
+            f"{kv.device} (pinned {kv.is_pinned()}), engine built in "
+            f"{t_build:.2f} s")
+        warm_graphs(torch, eng, prompts, (1, SERVE_NEW_TOKENS), tag)
+        pa.launches = 0
+        out, wall, peak = run_peak(torch, eng, prompts, SERVE_NEW_TOKENS,
+                                   base)
+        launches, tm = pa.launches, dict(eng.timings)
+        steps = int(tm["steps"])
+        check_tokens(out, cfg, SERVE_NEW_TOKENS, tag)
+        check_replayed(tm, f"{tag} {name}")
+        if launches != L * steps or not steps:
+            raise AssertionError(f"{tag} {name}: paged_attention launches "
+                                 f"{launches} != {L} x {steps} steps")
+        ttft = sorted(eng.ttft_ms[u] for u in out)
+        _, t_pre, _ = run_peak(torch, eng, prompts, 1, base)
+        check_replayed(eng.timings, f"{tag} {name}, 1 new")
+        # every layer of the cache in and out once a step
+        moved = 2 * tree_bytes(kv) * steps
+        r = dict(streams=out, wall=wall, steps=steps, launches=launches,
+                 peak=peak, ttft_p50_ms=statistics.median(ttft),
+                 decode_tok_s=n_dec / max(wall - t_pre, 1e-9),
+                 copy_gb_s=(moved / wall / 1e9 if over else None))
+        log(f"[{tag}] {name}: {steps} steps in {wall:.3f} s, K2 launches "
+            f"{launches} ({L} x {steps}); TTFT p50 {r['ttft_p50_ms']:.1f} ms;"
+            f" decode {r['decode_tok_s']:.1f} tok/s ({n_dec} tokens in "
+            f"{wall - t_pre:.3f} s); peak above the model "
+            f"{peak / 1e9:.3f} GB"
+            + (f"; host<->card {moved / 1e9:.1f} GB over the run, "
+               f"{moved / steps / 1e9:.2f} GB a step, {r['copy_gb_s']:.1f} "
+               "GB/s over the run's wall" if over else ""))
+        if over:
+            same = check_near_ties(torch, eng, prompts, out,
+                                   res["resident"]["streams"], tol, tag)
+
+            r["identical"] = same
+            check_prefix_and_cow(eng, prompts, sp, tag)
+        res[name] = r
+        del eng, kv
+    free_engines(torch)
+    host_empty_cache(torch)
+    a, b = res["resident"], res["kv_offload"]
+    log(f"[{tag}] peak above the model: resident {a['peak'] / 1e9:.3f} GB, "
+        f"kv_offload {b['peak'] / 1e9:.3f} GB (-"
+        f"{(a['peak'] - b['peak']) / 1e9:.3f} GB); decode tok/s "
+        f"{a['decode_tok_s']:.1f} -> {b['decode_tok_s']:.1f}; TTFT p50 "
+        f"{a['ttft_p50_ms']:.1f} -> {b['ttft_p50_ms']:.1f} ms")
+    return dict(res, tol=tol)
+
+
+def offload_weights(torch, pa, mg, model, prompts):
+    """serve-offload (b): phase 6 (a)'s configuration (int8 weights and
+    embeddings, an int8 cache, the mixed-input GEMM) with the block weights
+    spilled to a store in tmpfs and streamed back a layer at a time, every
+    step eager; against the same engine resident, run here."""
+    import shutil
+
+    from deepspeed_tpu_torch.inference import (InferenceConfig,
+                                               InferenceEngine)
+    tag = "serve-offload b"
+    cfg = model.config
+    L = cfg.num_layers
+    over = dict(QUANT_RUNS[0][1], mixed_gemm="on")
+    store = offload_dir("weights")
+    n_new = OFFLOAD_NEW_TOKENS
+    res = {}
+    for name, extra in (("resident", {}), ("weight_stream", dict(
+            weight_stream=str(store)))):
+        free_engines(torch)
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng = InferenceEngine(model, InferenceConfig(**SERVE_ENGINE, **over,
+                                                     **extra))
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        ws = eng._wstore
+        resident = tree_bytes(eng.params) + tree_bytes(eng._quant)
+        if ws is not None:
+            ws.measure = True
+            store_bytes = ws.layer_bytes * L
+            log(f"[{tag}] store {store} ({disk_facts(str(store))['fstype']}):"
+                f" {store_bytes / 1e9:.3f} GB ({ws.layer_bytes / 1e6:.1f} MB "
+                f"a layer) spilled in {ws.spill_s:.2f} s "
+                f"({store_bytes / ws.spill_s / 1e9:.2f} GB/s), engine built "
+                f"in {t_build:.2f} s; mixed gemm eligible "
+                f"{ws.mixed_gemm_eligible}, active {eng._mixed_gemm_active}")
+        if not eng._mixed_gemm_active:
+            raise AssertionError(f"{tag} {name}: the mixed-input GEMM is "
+                                 "not active")
+        if ws is None:
+            warm_graphs(torch, eng, prompts, (1, n_new), tag)
+        else:
+            ffwd = quant_first_forward_check(torch, eng, prompts, tag)
+            ws.bytes_read, ws.read_wait_s = 0, 0.0
+            ws.stall_ms()
+        mg.mixed_matmul_2d.launches = 0
+        mg.mixed_matmul_2d.design_launches = dict.fromkeys(MIXED_KERNELS, 0)
+        pa.int8_launches = 0
+        out, wall, peak = run_peak(torch, eng, prompts, n_new, base)
+        tm = dict(eng.timings)
+        steps = int(tm["steps"])
+        k3, k2 = mg.mixed_matmul_2d.launches, pa.int8_launches
+        check_tokens(out, cfg, n_new, tag)
+        if ws is None:
+            check_replayed(tm, f"{tag} {name}")
+        else:
+            check_eager(tm, ws, tag)
+        if k3 != PROJECTIONS_PER_LAYER * L * steps or k2 != L * steps \
+                or not steps:
+            raise AssertionError(
+                f"{tag} {name}: K3 launches {k3} (want "
+                f"{PROJECTIONS_PER_LAYER} x {L} x {steps}), K2 int8-cache "
+                f"launches {k2} (want {L} x {steps})")
+        ttft = sorted(eng.ttft_ms[u] for u in out)
+        design = dict(mg.mixed_matmul_2d.design_launches)
+        read = (ws.bytes_read, ws.read_wait_s) if ws is not None else None
+        # decode tok/s as phase 5 counts it: the run against a run of the
+        # prefill alone (1 new token)
+        _, t_pre, _ = run_peak(torch, eng, prompts, 1, base)
+        n_dec = len(prompts) * (n_new - 1)
+        r = dict(streams=out, wall=wall, steps=steps, peak=peak,
+                 resident=resident, k3=k3, k2=k2, design=design,
+                 ttft_p50_ms=statistics.median(ttft),
+                 decode_tok_s=n_dec / max(wall - t_pre, 1e-9))
+        line = (f"[{tag}] {name}: {steps} steps in {wall:.3f} s; K3 "
+                f"launches {k3} ({PROJECTIONS_PER_LAYER} x {L} x {steps}; "
+                f"{r['design']}), K2 int8-cache {k2} ({L} x {steps}); TTFT "
+                f"p50 {r['ttft_p50_ms']:.1f} ms; decode "
+                f"{r['decode_tok_s']:.1f} tok/s ({n_dec} tokens in "
+                f"{wall - t_pre:.3f} s); resident weights "
+                f"{resident / 1e9:.3f} GB; peak above the model "
+                f"{peak / 1e9:.3f} GB")
+        if ws is not None:
+            stall = ws.stall_ms()
+            nbytes, blocked = read
+            r.update(read_gb_s=nbytes / wall / 1e9,
+                     blocked_gb_s=nbytes / max(blocked, 1e-9) / 1e9,
+                     read_share=blocked / wall,
+                     first_forward=ffwd,
+                     stall_share=stall / 1e3 / wall,
+                     store_bytes=store_bytes, spill_s=ws.spill_s,
+                     slot_bytes=ws.slot_bytes())
+            line += (f"; read {nbytes / 1e9:.2f} GB "
+                     f"({nbytes / steps / 1e9:.3f} GB a step), "
+                     f"{r['read_gb_s']:.2f} GB/s over the run's wall; the "
+                     f"host blocked on reads {blocked:.3f} s "
+                     f"({r['read_share']:.1%} of the run; "
+                     f"{r['blocked_gb_s']:.2f} GB/s over the blocked time)"
+                     f", the compute stream waiting on a slot "
+                     f"{stall:.1f} ms ({r['stall_share']:.1%})")
+            same = check_near_ties(torch, eng, prompts, out,
+                                   res["resident"]["streams"], ffwd[1], tag)
+            r["identical"] = same
+        log(line)
+        res[name] = r
+        del eng, ws
+    free_engines(torch)
+    shutil.rmtree(store)
+    host_empty_cache(torch)
+    a, b = res["resident"], res["weight_stream"]
+    log(f"[{tag}] peak above the model: resident {a['peak'] / 1e9:.3f} GB, "
+        f"weight_stream {b['peak'] / 1e9:.3f} GB (-"
+        f"{(a['peak'] - b['peak']) / 1e9:.3f} GB); resident weights "
+        f"{a['resident'] / 1e9:.3f} -> {b['resident'] / 1e9:.3f} GB + "
+        f"{b['slot_bytes'] / 1e9:.3f} GB of slots; decode tok/s "
+        f"{a['decode_tok_s']:.1f} -> {b['decode_tok_s']:.1f}; TTFT p50 "
+        f"{a['ttft_p50_ms']:.1f} -> {b['ttft_p50_ms']:.1f} ms")
+    return res
+
+
+def offload_tier(torch, pa, model, prompts, tol):
+    """serve-offload (c): the KV block tier on TIER_ENGINE.  Round 1 serves
+    phase 5's prompts; round 2 serves distinct prompts, one at a time,
+    until no block of round 1 is left in the prefix index (all demoted:
+    the newest into the host ring, the older spilled to files); round 3
+    serves round 1's prompts again, reviving their chains from the ring
+    and from the files.  Every step replays a graph (captured in the
+    run); round 3's streams equal round 1's but at near-ties."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference import (InferenceConfig,
+                                               InferenceEngine,
+                                               SamplingParams)
+    from deepspeed_tpu_torch.inference.ragged.state import \
+        prefix_chain_digests
+    tag = "serve-offload c"
+    cfg = model.config
+    L = cfg.num_layers
+    bs = TIER_ENGINE["kv_block_size"]
+    block = L * bs * 2 * cfg.num_kv_heads * cfg.head_dim * 2
+    spill = offload_dir("tier")
+    free_engines(torch)
+    eng = InferenceEngine(model, InferenceConfig(
+        **TIER_ENGINE, kv_tier="on",
+        kv_tier_ram_mb=(TIER_RAM_BLOCKS + 0.5) * block / 2 ** 20,
+        kv_tier_dir=str(spill), kv_tier_nvme_mb=4 * 2 ** 10))
+    sp = SamplingParams(max_new_tokens=OFFLOAD_NEW_TOKENS)
+    pa.launches = 0
+    t0 = time.perf_counter()
+    first = eng.generate(dict(enumerate(prompts)), sp)
+    round1 = {h.hex() for p in prompts for h in prefix_chain_digests(p, bs)}
+    r = np.random.RandomState(1)
+    served = 0
+    while round1 & eng.state.prefix_digests():
+        p = [int(x) for x in r.randint(0, cfg.vocab_size, len(prompts[0]))]
+        eng.generate({100 + served: p}, sp)
+        served += 1
+        if served > 64:
+            raise AssertionError(f"{tag}: round 1's blocks never left the "
+                                 "index")
+    t1 = time.perf_counter()
+    tm0 = dict(eng.timings)
+    again = eng.generate(dict((200 + u, p) for u, p in enumerate(prompts)),
+                         sp)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tm = eng.timings
+    again = {u - 200: t for u, t in again.items()}
+    steps = int(tm["steps"])
+    counters = {k: int(v) for k, v in tm.items()
+                if k.startswith("kv_tier") and "_ms" not in k}
+    restage_ms = tm["kv_tier_restage_ms"]
+    log(f"[{tag}] round 1: {len(prompts)} prompts of {len(prompts[0])}, "
+        f"{OFFLOAD_NEW_TOKENS} new tokens; round 2: {served} distinct "
+        f"prompts until round 1's {len(round1)} blocks left the index "
+        f"({t1 - t0:.2f} s for rounds 1-2); round 3: round 1 again in "
+        f"{t2 - t1:.3f} s, {int(tm['steps'] - tm0['steps'])} steps, "
+        f"prefix hits {int(tm['prefix_hits'] - tm0['prefix_hits'])}, cached "
+        f"tokens {int(tm['cached_tokens'] - tm0['cached_tokens'])}")
+    log(f"[{tag}] tier counters {counters}; ring {TIER_RAM_BLOCKS} blocks "
+        f"of {block / 1e6:.2f} MB; restage drains {restage_ms:.1f} ms for "
+        f"{tm['kv_tier_restaged_bytes'] / 1e9:.3f} GB "
+        f"({tm['kv_tier_restaged_bytes'] / max(restage_ms, 1e-9) / 1e6:.2f}"
+        f" GB/s); tier stats {eng.state.tier.stats()}")
+    check_replayed(tm, tag, captures_ok=True)
+    if pa.launches != L * (steps + tm["compiles"]):
+        raise AssertionError(f"{tag}: K2 launches {pa.launches} != {L} x "
+                             f"({steps} steps + {int(tm['compiles'])} "
+                             "captures)")
+    if not (tm["kv_tier_revives_ram"] and tm["kv_tier_revives_nvme"]) \
+            or tm["kv_tier_verify_failures"]:
+        raise AssertionError(f"{tag}: want a revive from RAM and one from "
+                             f"NVMe and no verify failure: {counters}")
+    launches = pa.launches
+    same = check_near_ties(torch, eng, prompts, again, first, tol, tag)
+    del eng
+    free_engines(torch)
+    import shutil
+    shutil.rmtree(spill, ignore_errors=True)
+    return dict(launches=launches, counters=counters, identical=same,
+                restage_ms=restage_ms,
+                restaged_bytes=tm["kv_tier_restaged_bytes"])
+
+
+# what serve-offload may leave of the host's MemAvailable: less than (a)'s
+# 4.3 GB page-locked cache and (b)'s 7.0 GB store, so keeping either fails
+OFFLOAD_HOST_SLACK = 4e9
+
+
+def serve_offload(torch, pa, mg, model, prompts):
+    """serve-offload: (a), (b) and (c) on phase 5's model; every store and
+    page-locked buffer is gone at the end (train-offload, later, needs
+    the host memory): MemAvailable is back to within OFFLOAD_HOST_SLACK
+    of the start."""
+    start = host_facts()["mem_available"]
+    log(f"[serve-offload] host MemAvailable at the start {start / 1e9:.2f} GB")
+    a = offload_kv(torch, pa, model, prompts)
+    b = offload_weights(torch, pa, mg, model, prompts)
+    c = offload_tier(torch, pa, model, prompts, a["tol"])
+    host_empty_cache(torch)
+    need_host("serve-offload", start - OFFLOAD_HOST_SLACK, 1.0)
+    return dict(a=a, b=b, c=c)
 
 
 # bench.py's spec_decode_serving_bench (:1111-1187): GPT-2, 8 prompts of
@@ -3326,7 +3718,9 @@ def serve_alibi(torch, pa, seed, device=None, **overrides):
 #                  disk (a temporary directory under build/, 9p) takes the
 #                  aio check and (c)'s checkpoint; both are removed at the
 #                  end
-OFFLOAD_RUN = dict(preset="gptj-6b", seq=2048, micro=2, warmup=1, steps=3,
+# 2 measured steps: the whole run's time limit (serve-offload took the
+# third's time)
+OFFLOAD_RUN = dict(preset="gptj-6b", seq=2048, micro=2, warmup=1, steps=2,
                    remat=True, policy="flash", buffer_count=4,
                    buffer_size=32 << 20, parity_layers=2, parity_steps=2,
                    host_share=0.75)
@@ -4020,7 +4414,8 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="device,build,kernel,train,train-fp32,"
                             "train-ckpt,serve,serve-quant,serve-burst,"
-                            "serve-failover,serve-alibi,serve-mqa,"
+                            "serve-failover,serve-offload,serve-alibi,"
+                            "serve-mqa,"
                             "serve-spec,serve-moe,train-moe,train-fp16,"
                             "train-offload,train-nvme")
     ap.add_argument("--seed", type=int, default=0)
@@ -4144,11 +4539,12 @@ def main() -> int:
         flash_runs.append(train_ckpt(torch, fa, args.seed))
         phase_done("train-ckpt")
 
-    # 5., 6., 6c. and 6d. the serving paths, bf16, quantized, in decode
-    # bursts and under failures, on one model
+    # 5., 6., 6c., 6d. and 6e. the serving paths, bf16, quantized, in
+    # decode bursts, under failures and offloaded, on one model
     launches = failover_launches = None
-    quant_runs = {}
-    if phases & {"serve", "serve-quant", "serve-burst", "serve-failover"}:
+    quant_runs, offload = {}, {}
+    if phases & {"serve", "serve-quant", "serve-burst", "serve-failover",
+                 "serve-offload"}:
         model, prompts = serving_model(torch, "llama3-8b", args.seed)
         phase5 = None
         if phases & {"serve", "serve-failover"}:
@@ -4166,9 +4562,14 @@ def main() -> int:
         if "serve-failover" in phases:
             failover_launches = serve_failover(torch, pa, model, prompts,
                                                phase5, args.seed)
+        if "serve-offload" in phases:
+            t_off = time.perf_counter()
+            offload = serve_offload(torch, pa, mg, model, prompts)
+            log(f"[time] serve-offload: {time.perf_counter() - t_off:.1f} s")
         del model, phase5
         free_engines(torch)
-        phase_done("serve, serve-quant, serve-burst, serve-failover")
+        phase_done("serve, serve-quant, serve-burst, serve-failover, "
+                   "serve-offload")
 
     # 7. BLOOM-7b1 with ALiBi, after the Llama model is freed
     alibi_run = {}
@@ -4252,27 +4653,44 @@ def main() -> int:
             return quant_runs[run]["launches"][key] if run in quant_runs \
                 else None
 
+        def offload_launches(part, name, key):
+            run = offload.get(part, {})
+            return (run.get(name, run) or {}).get(key) if run else None
+
         # K2 on serve-failover's Llama scenarios (a)-(d), a path of its
-        # own (the counts zeroed before each scenario, read after it)
+        # own (the counts zeroed before each scenario, read after it);
+        # serve-offload's paths likewise: (a) the host-memory cache, (b)
+        # the streamed weights' int8 cache, (c) the KV tier's rounds
         entries = [dict(name="paged_attention", route="cuda", source=pa_src,
                         replaces=pa_replaces, launches=launches,
                         failover_launches=failover_launches,
-                        moe_launches=moe_launches, **kern)]
+                        moe_launches=moe_launches,
+                        offload_launches=offload_launches(
+                            "a", "kv_offload", "launches"),
+                        tier_launches=offload_launches("c", None,
+                                                       "launches"),
+                        **kern)]
         entries += [dict(name=f"paged_attention_{code}kv", route="cuda",
                          source=pa_src, replaces=pa_replaces,
                          launches=quant_launches(run, "kv"),
+                         **({"stream_launches": offload_launches(
+                             "b", "weight_stream", "k2")}
+                            if code == "int8" else {}),
                          **qkv_kern[code])
                     for code, run in (("int8", "a"), ("fp8", "b"))]
         entries += [flash_entry(k, dt, d) for dt, d in FLASH_VARIANTS
                     for k in FLASH_KERNELS]
         # K3: one entry per (bits, design); the prefill design keeps the
         # name of the slice that ported it
+        stream_design = offload_launches("b", "weight_stream", "design")
         entries += [dict(name=f"mixed_matmul_int{bits}"
                          + ("" if design == "prefill" else f"_{design}"),
                          route="cuda",
                          source="deepspeed_tpu_torch/ops/csrc/mixed_gemm.cu",
                          replaces=f"deepspeed_tpu/ops/mixed_gemm.py:{line}",
                          launches=quant_launches(run, design),
+                         **({"stream_launches": (stream_design or {}).get(
+                             design)} if bits == 8 else {}),
                          **mixed_kern[bits, design])
                     for bits, line, run in ((8, 49, "a"), (4, 125, "b"))
                     for design in ("decode", "prefill")]

@@ -5,9 +5,10 @@ from .overload import AdmissionVerdict, OverloadConfig
 from .ragged import BlockedAllocator, KVCacheConfig, RaggedBatch, StateManager
 from .sampler import SamplingParams
 from .spec_decode import NgramProposer
+from .weight_stream import NVMeWeightStore
 
 __all__ = ["AdmissionVerdict", "BlockedAllocator", "DispatchTimeoutError",
            "EngineDeadError", "FailureConfig", "InferenceConfig",
            "InferenceEngine", "InjectedFault", "KVCacheConfig",
-           "NgramProposer", "OverloadConfig", "RaggedBatch",
+           "NVMeWeightStore", "NgramProposer", "OverloadConfig", "RaggedBatch",
            "SamplingParams", "StateManager", "classify_failure"]

@@ -18,15 +18,18 @@ failure domains (``failure``: the watchdog, the classifier, retries and
 the bisection quarantine, ``inference/failures.py``) and the seam the
 router and the gateway call (``health``, ``snapshot``,
 ``snapshot_requests``, ``migrate_out``, ``handoff_out``,
-``load_snapshot``, ``restore``, ``drain``, ``put(..., slo_class=)``),
-with request records in the copied ``telemetry.lifecycle.RequestTracker``.
+``export_tier_chain``, ``load_snapshot``, ``restore``, ``drain``,
+``put(..., slo_class=)``), with request records in the copied
+``telemetry.lifecycle.RequestTracker``; serving offload: the KV cache in
+host memory (``kv_offload``), the block weights streamed from an NVMe
+store (``weight_stream``, ``inference/weight_stream.py``) and the KV
+block tier (``kv_tier="on"``, ``inference/ragged/tier.py``).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item when its config field is set away from the default): the
 attention-implementation probe, telemetry (tracing, device telemetry,
-anomaly detection, SLOs, captures, the flight recorder), the KV tier,
-the fp6/fp12 minifloat weight layouts, KV offload and weight streaming
-(Queue 1 item 4b) and tensor parallelism.
+anomaly detection, SLOs, captures, the flight recorder), the fp6/fp12
+minifloat weight layouts and tensor parallelism.
 
 API:
     eng = InferenceEngine(model, InferenceConfig(...))
@@ -83,10 +86,30 @@ after a sticky CUDA error too).  A real (not injected) failure may have
 left the cache half written: every live sequence is re-queued and the
 cache is zeroed in place on the engine's stream, so the captured graphs,
 which hold its address, stay valid.
+
+Serving offload.  ``kv_offload``: the cache lives in host memory
+(page-locked on the card, or construction raises; the JAX engine's
+fallback to a device cache is not copied) and every layer of a step is
+copied through one working layer on the device; on the card those
+copies sit inside the step's CUDA graph, so every step is still a
+replay.  Anything the host does to that memory (the copy-on-write
+drain, the tier's demotes and restages, the zeroing after a failure)
+first waits for the engine's stream: a queued step copies whole layers
+back into it.  ``weight_stream``: a file read cannot be replayed, so on
+the card a streamed step runs eagerly on the engine's stream (its own
+route beside the CPU's and the graphs', with the same failure policy,
+token ring and readback; ``timings["eager_steps"]`` counts them); decode
+bursts and speculation are forced off (``_force_resident_weight_modes``)
+and ``decode_burst()`` runs single steps under either mode.
+``kv_tier="on"``: evicted prefix-cache blocks are demoted to the tier
+(read on the engine's stream into page-locked memory, the host waiting
+for that copy) and revived by uploads on the engine's stream before the
+step, both outside the graphs; the ``kv_tier_*`` timings count them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import time
@@ -123,9 +146,11 @@ from .overload import (AdmissionVerdict, OverloadConfig, RequestMeta,
 from .quantization import (DENSE_ONLY_GROUPS, contract_dims,
                            quantize_model_params)
 from .ragged.state import (FEEDBACK_TOKEN, BatchStager, KVCacheConfig,
-                           StateManager, batch_from_flat)
+                           StateManager, batch_from_flat, kv_working_layer)
+from .ragged.tier import KVBlockTier
 from .sampler import SamplingParams, sample_rows
 from .spec_decode import NgramProposer
+from .weight_stream import NVMeWeightStore
 
 
 @dataclasses.dataclass
@@ -152,7 +177,12 @@ class InferenceConfig:
     # construction; "off": dequantize each layer and torch.matmul
     mixed_gemm: str = "auto"
     quantize_embeddings: bool = False
+    # the paged cache in host memory, one layer at a time through the
+    # device (page-locked on the card)
     kv_offload: bool = False
+    # a directory: the block weights (quantized under weight_quant) are
+    # spilled there and streamed back one layer a step; forces decode
+    # bursts and speculation off
     weight_stream: Optional[str] = None
     decode_burst: int = 1
     # serving-pipeline depth for generate(): 2 keeps one step in flight
@@ -181,6 +211,9 @@ class InferenceConfig:
     # failure domains (inference/failures.py); None = FailureConfig():
     # the "auto" watchdog engages after 8 steps
     failure: Optional[FailureConfig] = None
+    # the KV block tier (inference/ragged/tier.py): "on" demotes evicted
+    # prefix-cache blocks into a host-RAM ring spilling to kv_tier_dir
+    # (needs the prefix cache); "auto" resolves off, as in the reference
     kv_tier: str = "auto"
     kv_tier_ram_mb: float = 64.0
     kv_tier_dir: Optional[str] = None
@@ -191,14 +224,11 @@ class InferenceConfig:
 
 # field -> (accepted values, ROADMAP item that ports the rest)
 _HOST = "ROADMAP Queue 1, host layers above the engine"
-_SERVING_OFFLOAD = "ROADMAP Queue 1 item 4b, serving offload"
 _UNSUPPORTED = {
     "attn_impl": (("auto",), "ROADMAP Queue 1, serving slice: the kernel "
                   "is chosen by the tensors' device, there is no probe"),
     "weight_quant": ((None, "int8", "int4"), "ROADMAP Queue 1 item 7: the "
                      "fp6/fp12 minifloat layouts"),
-    "kv_offload": ((False,), _SERVING_OFFLOAD),
-    "weight_stream": ((None,), _SERVING_OFFLOAD),
     "kv_donate": (("auto", "on"), "in-place KV updates (no 'off')"),
     "comm_overlap": (("auto", "off"), "ROADMAP Queue 1, multi-GPU "
                      "training breadth (tensor parallelism)"),
@@ -208,7 +238,6 @@ _UNSUPPORTED = {
     "anomaly": (("auto", "off"), _HOST),
     "anomaly_cfg": ((None,), _HOST),
     "profile": ((None,), _HOST),
-    "kv_tier":(("auto", "off"), _HOST),
     "slo": (("auto", "off"), _HOST),
     "slo_objectives": ((None,), _HOST),
 }
@@ -245,9 +274,51 @@ _TIMINGS = ("schedule_ms", "stage_ms", "device_ms", "wait_ms",
             "compile_ms", "compile_retraces", "graph_replays",
             "spec_drafted_tokens", "spec_accepted_tokens",
             "spec_rejected_tokens", "spec_windows", "step_retries",
-            "requests_failed")
+            "requests_failed", "eager_steps") + (
+    # the KV tier: blocks demoted into the host ring, spilled on to NVMe,
+    # dropped off the bottom, revived by source tier, revives in a round
+    # that also dispatched a step, payloads failing verification, bytes,
+    # blocks imported from peers; and the restage drains' host ms and
+    # bytes uploaded
+    "kv_tier_demotions", "kv_tier_spills", "kv_tier_drops",
+    "kv_tier_revives_ram", "kv_tier_revives_nvme", "kv_tier_revives_remote",
+    "kv_tier_restage_overlap_hits", "kv_tier_verify_failures",
+    "kv_tier_demoted_bytes", "kv_tier_spilled_bytes",
+    "kv_tier_remote_blocks", "kv_tier_restage_ms", "kv_tier_restaged_bytes")
+# the tier timings the metrics registry counts too, with their help
+_TIER_COUNTERS = {
+    "kv_tier_demotions": "KV blocks demoted from the cache into the "
+                         "host-RAM tier",
+    "kv_tier_spills": "tier blocks spilled from the host ring to NVMe",
+    "kv_tier_drops": "tier blocks dropped off the bottom of the hierarchy",
+    "kv_tier_revives_ram": "tier blocks restaged from the host ring",
+    "kv_tier_revives_nvme": "tier blocks restaged from NVMe spill files",
+    "kv_tier_revives_remote": "tier blocks restaged from peer imports",
+    "kv_tier_restage_overlap_hits": "restages in a round that also "
+                                    "dispatched a step",
+    "kv_tier_verify_failures": "tier payloads rejected by the checksum "
+                               "or chain-digest check",
+    "kv_tier_demoted_bytes": "payload bytes demoted into the tier",
+    "kv_tier_spilled_bytes": "payload bytes spilled to NVMe",
+    "kv_tier_remote_blocks": "tier blocks imported from peer replicas",
+}
 
 _HEALTH_CODE = {"healthy": 0, "degraded": 1, "draining": 2, "dead": 3}
+
+
+def _tier_leaf(t: torch.Tensor) -> np.ndarray:
+    """A tier payload leaf: a numpy copy of a host tensor, its bytes as
+    integer words where numpy has no such dtype (bfloat16, float8)."""
+    if t.dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        t = t.view({2: torch.int16, 1: torch.uint8}[t.element_size()])
+    return t.numpy().copy()
+
+
+def _tier_tensor(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A payload leaf's bytes as a ``dtype`` tensor of its shape
+    (:func:`_tier_leaf`'s words, or a JAX record's own dtypes)."""
+    raw = torch.from_numpy(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
+    return raw.view(dtype).reshape(a.shape)
 
 
 def _launch_counted():
@@ -352,6 +423,17 @@ class InferenceEngine:
             raise ValueError("pipeline_depth must be >= 1")
         if self.icfg.decode_burst < 1:
             raise ValueError("decode_burst must be >= 1")
+        if self.icfg.kv_tier not in ("auto", "on", "off"):
+            raise ValueError(f"kv_tier={self.icfg.kv_tier!r}: "
+                             "expected 'auto', 'on', or 'off'")
+        if self.icfg.kv_tier == "on" and self.icfg.prefix_cache == "off":
+            raise ValueError(
+                "kv_tier='on' requires the prefix cache: the tier keys "
+                "demoted blocks by their chain digests, which only the "
+                "prefix-cache index computes (set prefix_cache to "
+                "'auto'/'on' or kv_tier to 'auto'/'off')")
+        if self.icfg.weight_stream:
+            self._force_resident_weight_modes()
         self._setup_spec_decode()
         self.device = model.device
         max_len = self.icfg.max_seq_len or self.cfg.max_seq_len
@@ -365,11 +447,22 @@ class InferenceEngine:
             block_size=self.icfg.kv_block_size,
             num_blocks=self.icfg.num_kv_blocks,
             dtype=self.icfg.kv_dtype, quant=self.icfg.kv_quant or "none",
-            device=self.device)
+            device=self.device, host=self.icfg.kv_offload)
         self.state = StateManager(kv_cfg, max_seqs=self.icfg.max_seqs,
                                   max_blocks_per_seq=self.max_blocks_per_seq,
                                   prefix_cache=self.icfg.prefix_cache
                                   != "off")
+        # kv_offload: the one working layer on the device every layer of
+        # a step passes through (allocated once: a graph holds its
+        # address)
+        self._kv_work = (kv_working_layer(self.state.kv, self.device)
+                         if self.icfg.kv_offload else None)
+        # "auto" resolves off, as in the reference
+        if self.icfg.kv_tier == "on":
+            self.state.tier = KVBlockTier(
+                ram_bytes=int(self.icfg.kv_tier_ram_mb * (1 << 20)),
+                nvme_dir=self.icfg.kv_tier_dir,
+                nvme_bytes=int(self.icfg.kv_tier_nvme_mb * (1 << 20)))
         self.params = tree_map(
             lambda x: x.to(self.icfg.param_dtype)
             if x.dtype == torch.float32 else x, model.params)
@@ -381,6 +474,10 @@ class InferenceEngine:
             self.params, self._quant = quantize_model_params(
                 self.params, bits=WEIGHT_QUANT_BITS[wq],
                 quantize_embeddings=self.icfg.quantize_embeddings)
+        self._wstore: Optional[NVMeWeightStore] = None
+        self._wstore_refusal: Optional[str] = None
+        if self.icfg.weight_stream:
+            self._setup_weight_stream()
         # "auto" takes the mixed-input GEMM wherever the tree allows it;
         # an explicit force-on with an ineligible tree is a config error:
         # fail at construction, not at the first step
@@ -435,6 +532,10 @@ class InferenceEngine:
         self.metrics = MetricsRegistry()
         self.requests = RequestTracker(
             self.metrics, max_finished=self.ocfg.status_retention)
+        self._tier_counters = {
+            k: self.metrics.counter(f"serving_{k}_total", h,
+                                    int_valued=True)
+            for k, h in _TIER_COUNTERS.items()}
         self._health_gauge = self.metrics.gauge(
             "serving_health_state",
             "engine health: 0=healthy 1=degraded 2=draining 3=dead")
@@ -509,17 +610,28 @@ class InferenceEngine:
                                       device=dev)
 
     def _mixed_gemm_refusal(self) -> Optional[str]:
-        """Why the resident quantized weights cannot take the mixed-input
-        GEMM, or None.  Every weight the projection sites consume (the
-        ``blocks`` groups outside ``DENSE_ONLY_GROUPS``; the embedding
-        table is dequantized either way) must be a row-wise int8 or
-        packed int4 layout whose flattened ``[K, N]`` the kernel family
-        takes (``mixed_gemm.shape_error``)."""
+        """Why the quantized weights cannot take the mixed-input GEMM, or
+        None: the resident ones, or once the blocks have left
+        ``self._quant`` for the weight store, what the store recorded at
+        spill time (``mixed_gemm_eligible``), as the reference reads it."""
+        if self._wstore is not None:
+            return (None if self._wstore.mixed_gemm_eligible
+                    else f"the weight-stream payloads: "
+                    f"{self._wstore_refusal}")
         if self._quant is None:
             return "no quantized weights"
+        return self._blocks_refusal(self._quant.get("blocks") or {})
+
+    @staticmethod
+    def _blocks_refusal(blocks) -> Optional[str]:
+        """Every weight of ``blocks`` the projection sites consume (the
+        groups outside ``DENSE_ONLY_GROUPS``; the embedding table is
+        dequantized either way) must be a row-wise int8 or packed int4
+        layout whose flattened ``[K, N]`` the kernel family takes
+        (``mixed_gemm.shape_error``); else the reason."""
         leaves = [(f"{gname}.{name}", qt, contract_dims(gname, name,
                                                         len(qt.shape)))
-                  for gname, group in (self._quant.get("blocks") or {}).items()
+                  for gname, group in blocks.items()
                   if gname not in DENSE_ONLY_GROUPS
                   for name, qt in group.items()
                   if isinstance(qt, QuantizedTensor)]
@@ -535,6 +647,60 @@ class InferenceEngine:
                 return f"{path} [{K}, {N}]: {why}"
         return None
 
+    def _setup_weight_stream(self) -> None:
+        """Spill the block weights (the quantized payloads under
+        ``weight_quant``) to the NVMe store; the forward streams them back
+        one layer at a time, so the device holds the embeddings, head and
+        norms, the cache and two layer slots.  Records each payload's
+        ``qmeta`` and whether the mixed-input GEMM takes them (the
+        expert and shared-expert groups are consumed dense either way)."""
+        store = NVMeWeightStore(self.icfg.weight_stream, self.cfg.num_layers,
+                                device=self.device)
+        record: Dict[str, object] = {"dense": self.params.pop("blocks")}
+        refusal = "no quantized weights"
+        if self._quant is not None and self._quant.get("blocks"):
+            qblocks = self._quant["blocks"]
+            self._quant = {**self._quant, "blocks": {}}
+            qarrays: Dict[str, dict] = {}
+            qmeta: Dict[str, dict] = {}
+            for gname, grp in qblocks.items():
+                qarrays[gname], qmeta[gname] = {}, {}
+                for name, qt in grp.items():
+                    a = {"data": qt.data, "scale": qt.scale}
+                    if qt.zero is not None:
+                        a["zero"] = qt.zero
+                    qarrays[gname][name] = a
+                    qmeta[gname][name] = (qt.bits, qt.shape[1:], qt.dtype,
+                                          qt.layout)
+            record["quant"] = qarrays
+            store.qmeta = qmeta
+            refusal = self._blocks_refusal(qblocks)
+        store.mixed_gemm_eligible = refusal is None
+        self._wstore_refusal = refusal
+        store.spill(record)
+        self._wstore = store
+
+    def _force_resident_weight_modes(self) -> None:
+        """The one needs-resident-weights gate: every decode mode that
+        runs several model invocations a host round trip (decode bursts,
+        speculative verify windows) is forced off, with the reference's
+        warning, when ``weight_stream`` keeps the block weights off the
+        device.  "auto" speculation stays as it is (it resolves off)."""
+        forced = {}
+        if self.icfg.decode_burst > 1:
+            forced["decode_burst"] = 1
+        if self.icfg.spec_decode == "on":
+            forced["spec_decode"] = "off"
+        if forced:
+            logger.warning(
+                "weight_stream: "
+                + " and ".join(f"{k}={getattr(self.icfg, k)!r}"
+                               for k in forced)
+                + (" need" if len(forced) > 1 else " needs")
+                + " resident weights; forcing "
+                + ", ".join(f"{k}={v!r}" for k, v in forced.items()))
+            self.icfg = dataclasses.replace(self.icfg, **forced)
+
     def reset_timings(self) -> None:
         """Zero the per-phase milliseconds (host scheduling, batch
         staging, the step's enqueue — ``device_ms``, of which
@@ -547,10 +713,12 @@ class InferenceEngine:
         ``compile_retraces``, ``graph_replays``) and the speculation
         counters (``spec_windows`` resolved, ``spec_drafted_tokens`` =
         ``spec_accepted_tokens`` + ``spec_rejected_tokens``) and the
-        failure counters (``step_retries``, ``requests_failed``).  The
-        graphs themselves stay captured.  Reset in place: the failure
-        policy's auto deadline reads the same dict (and, as in the JAX
-        engine, calibrates again after a reset)."""
+        failure counters (``step_retries``, ``requests_failed``), the
+        streamed steps run eagerly on the card (``eager_steps``) and the
+        KV tier's (``kv_tier_*``).  The graphs themselves stay captured.
+        Reset in place: the failure policy's auto deadline reads the same
+        dict (and, as in the JAX engine, calibrates again after a
+        reset)."""
         for k in self.timings:
             self.timings[k] = 0
 
@@ -759,10 +927,17 @@ class InferenceEngine:
             prompt_len = len(toks) if new_prompt else 0
             cached = 0
             if new_prompt and prefix_on and toks[0] != FEEDBACK_TOKEN:
+                if self.state.restaging(uid):
+                    # a tiered chain is restaging for this request: keep
+                    # it queued; the pre-dispatch drain indexes the chain
+                    # and the next round's match covers it
+                    return "ok"
                 cached = self.state.match_prefix(
                     uid, toks,
                     max_pool_take=self.state.allocator.free_blocks
                     - reserved_blocks)
+                if not cached and self.state.restaging(uid):
+                    return "ok"       # the match itself began a restage
                 if cached:
                     del toks[:cached]
                     seq = self.state.seqs[uid]
@@ -964,14 +1139,33 @@ class InferenceEngine:
                 else:
                     self._probe_groups.pop(0)
 
+    def _kv_parts(self) -> tuple:
+        kv = self.state.kv
+        return kv if isinstance(kv, tuple) else (kv,)
+
+    def _host_kv_wait(self) -> None:
+        """Before the host touches a host-memory cache: the queued steps
+        copy whole layers back into it, so wait for the engine's
+        stream."""
+        if self._cuda and self._kv_work is not None:
+            self._stream.synchronize()
+
+    def _on_stream(self):
+        """The engine's stream as the current one (a no-op on the CPU)."""
+        return (torch.cuda.stream(self._stream) if self._cuda
+                else contextlib.nullcontext())
+
     def _zero_kv(self) -> None:
         """Zero every part of the cache in place (on the card on the
-        engine's stream, behind any replay still queued there): the
-        captured graphs hold the cache's address, so it is never
-        reallocated."""
-        kv = self.state.kv
-        parts = kv if isinstance(kv, tuple) else (kv,)
-        if self._cuda:
+        engine's stream, behind any replay still queued there; a host
+        cache after that stream is done): the captured graphs hold the
+        cache's address, so it is never reallocated."""
+        parts = self._kv_parts()
+        if self._kv_work is not None:
+            self._host_kv_wait()
+            for t in parts:
+                t.zero_()
+        elif self._cuda:
             with torch.cuda.stream(self._stream):
                 for t in parts:
                     t.zero_()
@@ -1249,15 +1443,47 @@ class InferenceEngine:
 
     def handoff_out(self, uids: Sequence[int]) -> Dict:
         """Prefill-to-decode handoff: :meth:`migrate_out` with the
-        status ``handed_off``.  The JAX engine also stages each chain's
-        blocks into its KV tier; the tier is not ported (ROADMAP Queue 1
-        item 5), so the decode side re-prefills."""
-        return self._extract_and_close(uids, "handed_off")
+        status ``handed_off``.  Before closing, each request's
+        still-indexed chain blocks are staged into the KV tier (when it is
+        on) and demoted at once, while the blocks are sure to be
+        unwritten, so that :meth:`export_tier_chain` on this engine ships
+        the prefilled KV to the decode side instead of a re-prefill."""
+        eligible = [int(u) for u in uids
+                    if not self._inflight_sched.get(int(u), 0)]
+        part = self.snapshot_requests(eligible)
+        part["requests"] = [rec for rec in part["requests"]
+                            if rec["exact"] and rec["tokens"]]
+        staged = 0
+        for rec in part["requests"]:
+            staged += self.state.stage_chain_demotes(rec["uid"])
+            self._finish(rec["uid"], "handed_off")
+            self._reaped.add(rec["uid"])
+        if staged:
+            with self._on_stream():
+                self._drain_tier_demote()
+        return part
 
     def export_tier_chain(self, digests: Sequence[bytes]) -> Optional[Dict]:
-        """The KV tier's leading run of ``digests``; None while the tier
-        is off, which it always is here (ROADMAP Queue 1 item 5)."""
-        return None
+        """The leading contiguous run of ``digests`` this engine's KV tier
+        holds, as a partial snapshot payload (``tier_blocks`` records,
+        which :meth:`load_snapshot` with ``merge=True`` applies on the
+        destination).  Non-destructive.  None when the tier is off or the
+        first digest misses; every record was checksum-verified on the
+        way out, so a corrupted spill file ends the run instead of
+        exporting bad bytes."""
+        tier = self.state.tier
+        if tier is None:
+            return None
+        blocks = []
+        for h in digests:
+            rec = tier.export(bytes(h))
+            if rec is None:
+                break          # only a leading run is restageable
+            blocks.append(rec)
+        if not blocks:
+            return None
+        return {"version": self.SNAPSHOT_VERSION, "partial": True,
+                "requests": [], "tier_blocks": blocks}
 
     def load_snapshot(self, snap: Dict, merge: bool = False) -> None:
         """Re-open a snapshot's requests here: their streams re-enter as
@@ -1266,9 +1492,12 @@ class InferenceEngine:
         inexact records close ``failed``.  The engine must be fresh
         unless ``merge=True`` (a migration into live traffic; a uid
         already open here raises).  The whole payload is validated
-        before any record is applied.  No cache tensor is written or
-        allocated, so the engine's graphs stay valid.  ``tier_blocks``
-        are dropped with a warning (the tier is off)."""
+        before any record is applied, ``tier_blocks`` included: each must
+        recompute its chain digest from (parent, tokens) and match its
+        payload checksum, or the whole payload is refused.  They enter
+        the KV tier (dropped with a warning when it is off) and are
+        restaged when a prompt matches them.  No cache tensor is written
+        or allocated, so the engine's graphs stay valid."""
         if snap.get("version") != self.SNAPSHOT_VERSION:
             raise ValueError(
                 f"snapshot version {snap.get('version')!r}: this engine "
@@ -1295,6 +1524,13 @@ class InferenceEngine:
                     f"load_snapshot(merge=True): uid(s) {sorted(clash)} "
                     "already open on this engine — a request must never "
                     "run on two replicas at once")
+        tier_blocks = snap.get("tier_blocks") or []
+        bad = [i for i, rec in enumerate(tier_blocks)
+               if not KVBlockTier.verify_record(rec)]
+        if bad:
+            raise ValueError(
+                f"snapshot tier_blocks {bad} failed digest/checksum "
+                "verification: refusing the whole payload")
         now = time.perf_counter()
         tm = self.timings
         for rec in snap["requests"]:
@@ -1323,11 +1559,18 @@ class InferenceEngine:
                 open_rec.retries = int(rec.get("retries", 0))
             if self._spec is not None:
                 self._spec.observe(uid, toks)
-        if snap.get("tier_blocks"):
+        if tier_blocks and self.state.tier is None:
             logger.warning(
                 "load_snapshot: %d tier_blocks arrived but kv_tier is off "
                 "on this engine — dropping them (the request records were "
-                "applied normally)", len(snap["tier_blocks"]))
+                "applied normally)", len(tier_blocks))
+        elif tier_blocks:
+            for rec in tier_blocks:
+                ev = self.state.tier.insert_record(rec)
+                self._tier_count(kv_tier_remote_blocks=ev["stored"],
+                                 kv_tier_spills=ev["spilled"],
+                                 kv_tier_spilled_bytes=ev["spilled_bytes"],
+                                 kv_tier_drops=ev["dropped"])
 
     @classmethod
     def restore(cls, model: Model, snap: Dict,
@@ -1448,6 +1691,12 @@ class InferenceEngine:
         sched = self._schedule()
         self._close_ctx_exhausted()
         if not sched:
+            # an idle round still moves tier work: evictions the schedule
+            # queued demote, and restages resolve (a deferred request
+            # waits on exactly this)
+            with self._on_stream():
+                self._drain_tier_demote()
+                self._drain_tier_restage(dispatching=False)
             return None
         # context bucket: the step's block bound covers every scheduled
         # sequence's post-step context, rounded to a power of two (the
@@ -1517,15 +1766,20 @@ class InferenceEngine:
         """Stage the batch and run the padded step through the failure
         policy, inline and unguarded: eagerly on the CPU, as a replay of
         its CUDA graph on the card (captured at the first step of its
-        key).  Returns (tokens, their host copy, the event behind that
-        copy or None, the time staging ended)."""
+        key), or eagerly on the engine's stream when the weights stream
+        from the store.  Returns (tokens, their host copy, the event
+        behind that copy or None, the time staging ended)."""
         cuda = self._cuda
         batch = self.state.build_batch(
             sched, self.icfg.token_budget, stager=self._stager,
             draft_lens={u: len(d) for u, d in self._sched_drafts.items()},
             n_verify=self._n_verify,
             out=self._flat_dev if cuda else None)
+        # demote reads of just-evicted blocks come before any write that
+        # may reuse them (COW copies, restage uploads, the step itself)
+        self._drain_tier_demote()
         self._drain_cow()       # COW copies land before the step's write
+        self._drain_tier_restage(dispatching=True)
         t2 = time.perf_counter()
         if callable(rng):
             rng = rng()
@@ -1537,7 +1791,8 @@ class InferenceEngine:
         prev = self._last_toks if self._last_toks is not None \
             else self._zero_toks
         sample_fn = self._sample_fn(sampling)
-        mixed = self._mixed_gemm_active
+        offload = dict(mixed_gemm=self._mixed_gemm_active,
+                       kv_host=self._kv_work, stream=self._wstore)
         n_verify = self._n_verify
         key = ("p", bucket, mbs, sampling.sampler_key) + (
             (n_verify,) if n_verify > 1 else ())
@@ -1546,7 +1801,7 @@ class InferenceEngine:
                 toks, _ = pipelined_ragged_step(
                     self.cfg, self.params, self._quant, self.state.kv,
                     batch._replace(n_tokens=bucket), prev, rng, sample_fn,
-                    self.icfg.kv_block_size, mbs, mixed_gemm=mixed)
+                    self.icfg.kv_block_size, mbs, **offload)
                 return toks
 
             toks = self.failures.run(step, uids=uids, cold=True)
@@ -1565,13 +1820,29 @@ class InferenceEngine:
             toks, _ = pipelined_ragged_step(
                 self.cfg, self.params, self._quant, self.state.kv, b,
                 self._prev_dev, key_in, sample_fn, self.icfg.kv_block_size,
-                mbs, mixed_gemm=mixed)
+                mbs, **offload)
             return toks
 
         i = self._ring_i
         self._ring_i = (i + 1) % len(self._ring_dev)
         toks, host = self._ring_dev[i], self._ring_host[i]
         event = self._ring_events[i]
+
+        if self._wstore is not None:
+            # a file read cannot be replayed: the streamed step runs
+            # eagerly on the engine's stream, its tokens leaving through
+            # the same ring, copy and event as a replay's
+            def eager() -> None:
+                toks.copy_(run())
+                host.copy_(toks, non_blocking=True)
+                event.record(self._stream)
+
+            try:
+                self.failures.run(eager, uids=uids, cold=True)
+            finally:
+                forget_plan(self.device, self._stream.cuda_stream)
+            self.timings["eager_steps"] += 1
+            return toks, host, event, t2
 
         def replay() -> _Graph:
             g = self._graph_for(self._graphs, _MAX_STEP_GRAPHS, key, run)
@@ -1676,13 +1947,96 @@ class InferenceEngine:
         """Run queued copy-on-write block copies (a prefix-cache match
         that covered a whole prompt aliases its last block as a private
         copy) on the device BEFORE the step that appends into the copy;
-        a quantized cache copies codes and scales.  Asynchronous; a round
-        with no full-cover match is a no-op."""
-        kv = self.state.kv
-        parts = kv if isinstance(kv, tuple) else (kv,)
-        for src, dst in self.state.take_cow_copies():
+        a quantized cache copies codes and scales.  Asynchronous on the
+        device; a host cache is copied on the host once the engine's
+        stream is done.  A round with no full-cover match is a no-op."""
+        copies = self.state.take_cow_copies()
+        if not copies:
+            return
+        parts = self._kv_parts()
+        self._host_kv_wait()
+        for src, dst in copies:
             for t in parts:
                 t[:, dst] = t[:, src]
+
+    def _tier_count(self, **moved) -> None:
+        """Add to the ``kv_tier_*`` timings and their registry counters."""
+        tm = self.timings
+        for k, v in moved.items():
+            if v:
+                tm[k] += v
+                self._tier_counters[k].inc(v)
+
+    def _drain_tier_demote(self) -> None:
+        """Read each just-evicted (or handoff-staged) block and demote its
+        payload into the tier.  Runs before every write that could reuse
+        the block (the COW drain, restage uploads, the step), so stream
+        order makes the read see the old content: on the card a device
+        cache is gathered on the engine's stream into page-locked memory
+        and the host waits for that copy; a host cache is read once the
+        stream is done.  A round with no eviction is a no-op."""
+        q = self.state.take_tier_demotes()
+        if not q:
+            return
+        parts = self._kv_parts()
+        blocks = [blk for *_, blk in q]
+        if self._kv_work is not None or not self._cuda:
+            self._host_kv_wait()
+            staged = [t[:, blocks] for t in parts]
+        else:
+            idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+            staged = []
+            for t in parts:
+                g = t.index_select(1, idx)
+                h = torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
+                h.copy_(g, non_blocking=True)
+                staged.append(h)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
+        for i, (parent, digest, tokens, _) in enumerate(q):
+            ev = self.state.tier.put(parent, digest, tokens,
+                                     [_tier_leaf(h[:, i]) for h in staged])
+            self._tier_count(kv_tier_demotions=ev["stored"],
+                             kv_tier_demoted_bytes=ev["nbytes"],
+                             kv_tier_spills=ev["spilled"],
+                             kv_tier_spilled_bytes=ev["spilled_bytes"],
+                             kv_tier_drops=ev["dropped"])
+
+    def _drain_tier_restage(self, dispatching: bool) -> None:
+        """Resolve every queued tier restage: finish its I/O, verify the
+        payload (checksum; a remote record's chain digest was verified at
+        import), upload it into the reserved block (on the card on the
+        engine's stream, before the step) and register the digest, or
+        free the block and count a verify failure (the deferred request
+        re-prefills).  Runs after the COW drain, so uploads into
+        just-evicted blocks follow the demote reads of those blocks."""
+        q = self.state.take_tier_restage()
+        if not q:
+            return
+        t0 = time.perf_counter()
+        parts = self._kv_parts()
+        self._host_kv_wait()
+        nbytes = 0
+        for ent in q:
+            leaves = self.state.tier.resolve(ent.op)
+            if leaves is None or len(leaves) != len(parts) or any(
+                    tuple(a.shape) != tuple(t[:, ent.dst].shape)
+                    or a.itemsize != t.element_size()
+                    for a, t in zip(leaves, parts)):
+                self.state.abort_restage(ent)
+                self._tier_count(kv_tier_verify_failures=1)
+                continue
+            for a, t in zip(leaves, parts):
+                t[:, ent.dst].copy_(_tier_tensor(a, t.dtype),
+                                    non_blocking=True)
+                nbytes += a.nbytes
+            self.state.commit_restage(ent)
+            self._tier_count(**{"kv_tier_revives_" + ent.op.source: 1,
+                                "kv_tier_restage_overlap_hits":
+                                int(dispatching)})
+        self.timings["kv_tier_restage_ms"] += (time.perf_counter() - t0) * 1e3
+        self.timings["kv_tier_restaged_bytes"] += nbytes
 
     def _mark_feedback(self, uid: int, st: _InFlight) -> None:
         """Queue uid's next decode token as a deferred on-device read of
@@ -1812,6 +2166,11 @@ class InferenceEngine:
                              "to be a single-token continuation (with a "
                              "concrete, non-deferred token id); use "
                              "step() for prefill")
+        if self._kv_work is not None or self._wstore is not None:
+            # a burst reads the whole cache on the device and the block
+            # weights every iteration: single steps instead
+            out = self.step(rng=rng, sampling=sampling)
+            return {u: [t] for u, t in out.items()}
         st = self.state
         steps = min([steps] + [st.context_remaining(u) for u in pending])
         bs_blk = self.icfg.kv_block_size
@@ -1883,7 +2242,9 @@ class InferenceEngine:
         the forward (eager on the CPU, a graph replay on the card) inline,
         its read under the watchdog.  Returns (tokens [steps, S] on the
         host, the time the launch was enqueued)."""
+        self._drain_tier_demote()
         self._drain_cow()       # queued COW copies precede burst writes
+        self._drain_tier_restage(dispatching=True)
         S, nb = self.icfg.max_seqs, self.icfg.num_kv_blocks
         flat = (self._burst_host.numpy() if self._cuda
                 else np.empty(S * (nb + 3), np.int32))

@@ -48,6 +48,14 @@ table is dequantized per step (an untied model dequantizes only the
 gathered rows).  A quantized cache is a ``(codes, scales)`` pair: K/V are
 quantized on write, one symmetric scale per vector, and the attention
 reads the codes.
+
+Serving offload (:func:`ragged_forward`'s ``kv_host`` and ``stream``):
+with the cache in host memory, each layer's slice is copied into a
+working layer on the device before the layer and back after it (on the
+card, asynchronous copies between page-locked memory and fixed device
+addresses, so a step with them still captures as a CUDA graph); with an
+``NVMeWeightStore`` the block weights come from the store one layer at a
+time, left quantized for the mixed-input GEMM where it takes them.
 """
 
 from __future__ import annotations
@@ -62,8 +70,10 @@ from ..models.transformer import (TransformerConfig, _norm,
 from ..parallel.moe import moe_serving
 from ..ops.mixed_gemm import mixed_matmul
 from ..ops.paged_attention import _kv_parts, paged_attention
-from ..ops.quant import QuantizedTensor, dequantize_any, is_rowwise_int8
-from .quantization import merge_layer
+from ..ops.quant import (QuantizedTensor, dequantize_any,
+                         is_mixed_gemm_layout, is_rowwise_int8)
+from .quantization import (DENSE_ONLY_GROUPS, _row_scaled, contract_dims,
+                           merge_layer)
 from .ragged.state import RaggedBatch
 from .sampler import row_keys, window_keys
 
@@ -170,6 +180,37 @@ def _ffn(cfg: TransformerConfig, lp, h: torch.Tensor, dt,
     return d
 
 
+def _stream_layer(stream, li: int, dt: torch.dtype,
+                  mixed_gemm: bool = False):
+    """Layer ``li``'s weight tree from the weight store (views of a device
+    slot): the dense leaves as they are, each quantized payload
+    dequantized into ``dt``, or with ``mixed_gemm`` a row-wise int8 or
+    packed int4 payload left quantized as the mixed-input GEMM's operand
+    (as ``merge_layer`` does with a resident quantized tree)."""
+    rec = stream.fetch_layer(li)
+    lp = {k: (dict(v) if isinstance(v, dict) else v)
+          for k, v in rec["dense"].items()}
+    for gname, grp in rec.get("quant", {}).items():
+        g = dict(lp.get(gname, {}))
+        for name, arrs in grp.items():
+            bits, shp, odt, layout = stream.qmeta[gname][name]
+            qt = QuantizedTensor(arrs["data"], arrs["scale"],
+                                 arrs.get("zero"), bits, shp, odt,
+                                 layout=layout)
+            if mixed_gemm and gname not in DENSE_ONLY_GROUPS \
+                    and is_mixed_gemm_layout(qt):
+                g[name] = _row_scaled(qt, contract_dims(gname, name,
+                                                        len(shp) + 1))
+            else:
+                g[name] = dequantize_any(qt, dt)
+        lp[gname] = g
+    return lp
+
+
+def _parts(kv):
+    return kv if isinstance(kv, tuple) else (kv,)
+
+
 def _embed_rows(params, quant, ids: torch.Tensor, tied: bool):
     """(embedded rows [n, dm], the table for a tied unembed or None, dt).
     A quantized table is dequantized into its original dtype: whole when
@@ -190,8 +231,8 @@ def _embed_rows(params, quant, ids: torch.Tensor, tied: bool):
 @torch.no_grad()
 def ragged_forward(cfg: TransformerConfig, params, kv,
                    batch: RaggedBatch, block_size: int,
-                   max_blocks_per_seq: int, *, quant=None,
-                   mixed_gemm: bool = False):
+                   max_blocks_per_seq: int, *, quant=None, kv_host=None,
+                   stream=None, mixed_gemm: bool = False):
     """-> (last_token_logits [max_seqs, vocab] f32, kv).
 
     ``kv``: [L, blocks+1, bs, 2, Hkv, D], or a quantized ``(codes,
@@ -201,7 +242,16 @@ def ragged_forward(cfg: TransformerConfig, params, kv,
     ``quant``: the quantized half of the weights
     (``quantize_model_params``), merged one layer at a time; with
     ``mixed_gemm`` its row-wise weights go through the mixed-input GEMM,
-    else each layer is dequantized into the serving dtype.  On a
+    else each layer is dequantized into the serving dtype.
+    ``kv_host``: with ``kv`` in host memory (KV offload), the working
+    layer on the device (one layer's ``[blocks+1, bs, 2, Hkv, D]``, or
+    its codes and scales): layer ``li`` of the cache is copied into it
+    before the layer and back after it, so the device holds one layer's
+    KV (the JAX forward takes a flag and moves the layer itself).
+    ``stream``: an ``inference.weight_stream.NVMeWeightStore`` holding
+    the block weights (``params`` then has no ``blocks``): each layer's
+    tree comes from the store (:func:`_stream_layer`) and is released
+    after the layer.  On a
     speculative verify batch (``batch.verify_idx`` [S, W]) the logits are
     [S, W, vocab]: every position of each draft window (-1 pads read
     token 0 and give garbage rows).
@@ -238,10 +288,18 @@ def ragged_forward(cfg: TransformerConfig, params, kv,
     data, scales = _kv_parts(kv)
     slots = _kv_slots(batch, n, block_size, data.shape[1] - 1)
     seq_slot = batch.seq_slot[:n]
-    layers = unstack_layers(params["blocks"], cfg.num_layers)
-    for li, lp in enumerate(layers):
-        # contiguous: L is the lead dim
-        kv_layer = data[li] if scales is None else (data[li], scales[li])
+    if stream is None:
+        layers = unstack_layers(params["blocks"], cfg.num_layers)
+    for li in range(cfg.num_layers):
+        lp = (layers[li] if stream is None
+              else _stream_layer(stream, li, dt, mixed_gemm=mixed_gemm))
+        if kv_host is None:
+            # contiguous: L is the lead dim
+            kv_layer = data[li] if scales is None else (data[li], scales[li])
+        else:
+            for w, h in zip(_parts(kv_host), _parts(kv)):
+                w.copy_(h[li], non_blocking=True)
+            kv_layer = kv_host
         if quant is not None:
             lp = merge_layer(lp, quant["blocks"], li, dt, mixed=mixed_gemm)
         ap = lp["attn"]
@@ -265,6 +323,11 @@ def ragged_forward(cfg: TransformerConfig, params, kv,
         d = _ffn(cfg, lp, h, dt, act, valid=batch.token_valid[:n],
                  tokens=batch.token_ids.shape[0])
         x = x + o + d if cfg.parallel_block else x + d
+        if kv_host is not None:
+            for w, h in zip(_parts(kv_host), _parts(kv)):
+                h[li].copy_(w, non_blocking=True)
+        if stream is not None:
+            stream.release_layer()
 
     # logits only at each sequence's last scheduled token, or at every
     # position of a verify batch's draft windows; -1 pads read token 0
@@ -286,8 +349,8 @@ def pipelined_ragged_step(cfg: TransformerConfig, params, quant, kv,
                           batch: RaggedBatch, prev_toks: torch.Tensor,
                           rng: Optional[torch.Tensor], sample_fn: Callable,
                           block_size: int, max_blocks_per_seq: int,
-                          mixed_gemm: bool = False
-                          ) -> Tuple[torch.Tensor, object]:
+                          mixed_gemm: bool = False, kv_host=None,
+                          stream=None) -> Tuple[torch.Tensor, object]:
     """One serving pipeline stage, entirely on the device: substitute
     deferred feedback tokens from the previous step's on-device samples,
     run the ragged forward, sample every slot's next token.
@@ -302,7 +365,8 @@ def pipelined_ragged_step(cfg: TransformerConfig, params, quant, kv,
     greedy sampler takes ``rng=None`` and gets ``keys=None``: the JAX
     step folds a zero key that XLA then drops, which eager PyTorch
     would run, so the fold is skipped instead.
-    ``quant``/``mixed_gemm`` as in :func:`ragged_forward`.
+    ``quant``/``mixed_gemm``/``kv_host``/``stream`` as in
+    :func:`ragged_forward`.
     Returns (sampled tokens [max_seqs] i32, kv); rows whose
     ``batch.logits_idx`` is -1 are garbage.
 
@@ -322,6 +386,7 @@ def pipelined_ragged_step(cfg: TransformerConfig, params, quant, kv,
         batch = batch._replace(token_ids=tok)
     logits, kv = ragged_forward(cfg, params, kv, batch, block_size,
                                 max_blocks_per_seq, quant=quant,
+                                kv_host=kv_host, stream=stream,
                                 mixed_gemm=mixed_gemm)
     if batch.verify_idx is not None:
         S, W = batch.verify_idx.shape

@@ -1,16 +1,19 @@
 """Ragged inference state: sequence descriptors, the paged KV cache and
 batch metadata.
 
-Counterpart of ``deepspeed_tpu/inference/ragged/state.py``, ported whole
-except the KV tier hooks (``KVBlockTier``, restage and demote queues;
-ROADMAP Queue 1, host layers).  What changes with PyTorch:
+Counterpart of ``deepspeed_tpu/inference/ragged/state.py``, ported whole,
+with the KV tier's demote and restage queues (``tier.py``).  What changes
+with PyTorch:
 
 * the KV cache is one tensor [L, num_blocks + 1, block_size, 2, Hkv, D]
   on the device, updated in place by the forward (the extra row is the
   trash block budget padding writes to), or with ``quant`` "int8"/"fp8"
   a (codes, scales [L, num_blocks + 1, block_size, 2, Hkv] fp32) pair.
   L leads, so a layer's slice ``kv[li]`` stays contiguous — the
-  paged-attention kernel needs that;
+  paged-attention kernel needs that, and so does the KV offload, which
+  keeps the cache in host memory (``KVCacheConfig.host``; page-locked
+  when the serving device is the card) and copies one layer at a time
+  through a working layer on the device;
 * batch metadata is staged in ONE flat int32 host buffer per step and
   crosses to the device in one copy; :class:`RaggedBatch` holds views
   of the device copy.  With a :class:`BatchStager` on a CUDA engine the
@@ -26,7 +29,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ...platform.cuda import resolve_device
+from ...platform.cuda import host_empty, resolve_device
 from .allocator import BlockedAllocator
 
 # Sentinel token value in a pending queue meaning "the value is the
@@ -38,6 +41,26 @@ FEEDBACK_TOKEN = -1
 
 # root parent digest of every per-sequence block hash chain
 _CHAIN_ROOT = b"kv-prefix-chain-v1"
+
+# revive rounds a single queued request may trigger before match_prefix
+# stops probing the tier for it: reviving allocates destination blocks,
+# and in a tiny pool that allocation can evict (and re-demote) the very
+# ancestors the chain needs; the cap bounds that churn and falls through
+# to a plain resident match or a re-prefill
+_MAX_REVIVE_ATTEMPTS = 2
+
+
+class RestageEntry(NamedTuple):
+    """One queued tier-to-device block restage: the engine resolves
+    ``op`` (``tier.ReviveOp``) at its pre-dispatch drain, uploads the
+    verified payload into block ``dst`` and registers ``digest``, or
+    frees ``dst`` when verification fails (the caller re-prefills)."""
+    uid: int
+    digest: bytes
+    parent: bytes
+    tokens: Tuple[int, ...]
+    dst: int
+    op: object
 
 
 def chain_hash(parent: bytes, tokens) -> bytes:
@@ -87,6 +110,9 @@ class KVCacheConfig:
     quant: str = "none"
     # None = the card (raises without one)
     device: object = None
+    # the cache in host memory (KV offload): page-locked when ``device``
+    # is the card, where failing to pin raises
+    host: bool = False
 
     @property
     def max_context(self) -> int:
@@ -100,17 +126,33 @@ class KVCacheConfig:
                 "the option that also takes 'int4'")
 
     def kv_zeros(self):
-        """A pristine cache on the device: [L, blocks+1, bs, 2, Hkv, D] in
-        ``dtype``, or (codes of that shape in int8 / float8_e4m3fn, fp32
-        scales [L, blocks+1, bs, 2, Hkv]) when quantized."""
+        """A pristine cache: [L, blocks+1, bs, 2, Hkv, D] in ``dtype``, or
+        (codes of that shape in int8 / float8_e4m3fn, fp32 scales [L,
+        blocks+1, bs, 2, Hkv]) when quantized; on the device, or with
+        ``host`` in host memory (pinned for the card)."""
         shape = (self.num_layers, self.num_blocks + 1, self.block_size, 2,
                  self.num_kv_heads, self.head_dim)
         dev = resolve_device(self.device)
-        if self.quant == "none":
-            return torch.zeros(shape, dtype=self.dtype, device=dev)
-        qdt = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[self.quant]
-        return (torch.zeros(shape, dtype=qdt, device=dev),
-                torch.zeros(shape[:-1], dtype=torch.float32, device=dev))
+        parts = [(shape, self.dtype)]
+        if self.quant != "none":
+            qdt = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[self.quant]
+            parts = [(shape, qdt), (shape[:-1], torch.float32)]
+        if self.host:
+            out = [host_empty(sh, dt, pin=dev.type == "cuda").zero_()
+                   for sh, dt in parts]
+        else:
+            out = [torch.zeros(sh, dtype=dt, device=dev) for sh, dt in parts]
+        return out[0] if len(out) == 1 else tuple(out)
+
+
+def kv_working_layer(kv, device):
+    """Zeros of one layer of the cache ``kv`` (each part of a quantized
+    pair) on ``device``: the working layer a host-memory cache passes
+    through (``ragged_forward(..., kv_host=)``)."""
+    parts = kv if isinstance(kv, tuple) else (kv,)
+    out = tuple(torch.zeros(p.shape[1:], dtype=p.dtype, device=device)
+                for p in parts)
+    return out if isinstance(kv, tuple) else out[0]
 
 
 @dataclasses.dataclass
@@ -273,9 +315,29 @@ class StateManager:
         # (digest, block) index entries registered since the last
         # build_batch began (a failed step must unregister exactly these)
         self.round_registered: List[Tuple[bytes, int]] = []
+        # the KV tier (tier.py, attached by the engine when kv_tier is
+        # "on"; None discards evicted content).  Demotions and restages
+        # are queues the engine drains around its pre-dispatch device
+        # work: the scheduler never touches the device or the disk.
+        self.tier = None
+        # (parent_digest, chain_digest, block_tokens, block): content
+        # evicted from the index this round, still in the cache until the
+        # next dispatched step overwrites the block
+        self.tier_pending_demote: List[
+            Tuple[bytes, bytes, Tuple[int, ...], int]] = []
+        self.tier_pending_restage: List[RestageEntry] = []
+        # uid -> outstanding restage ops; the scheduler defers such a uid
+        # (admitted next round, once its chain is indexed again)
+        self._restaging_uids: Dict[int, int] = {}
+        self._revive_attempts: Dict[int, int] = {}
+        # block -> (parent_digest, block_tokens): what _on_evict needs to
+        # demote a block's content under its chain key; tracks
+        # _block_hash's keys exactly
+        self._block_meta: Dict[int, Tuple[bytes, Tuple[int, ...]]] = {}
         self.kv = cfg.kv_zeros()
-        self.device = (self.kv[0] if isinstance(self.kv, tuple)
-                       else self.kv).device
+        # where the batch metadata goes: the serving device, also when
+        # the cache itself is in host memory
+        self.device = resolve_device(cfg.device)
 
     # ---- sequence lifecycle ---------------------------------------------
     def get_or_create(self, uid: int) -> SequenceDescriptor:
@@ -294,6 +356,7 @@ class StateManager:
         index-registered and whose refcount hits zero retires to the
         cached-free LRU pool (matchable until evicted); the rest go back
         to the free list."""
+        self._revive_attempts.pop(uid, None)
         seq = self.seqs.pop(uid, None)
         if seq is None:
             return
@@ -311,10 +374,16 @@ class StateManager:
     # ---- prefix cache ----------------------------------------------------
     def _on_evict(self, block: int) -> None:
         """Allocator reclaimed a cached-free block: drop its index entry
-        (nothing may match content about to be overwritten)."""
+        (nothing may match content about to be overwritten).  With a tier
+        attached the content is queued for demotion instead: the engine
+        reads the block BEFORE the step that overwrites it is launched."""
         h = self._block_hash.pop(block, None)
+        meta = self._block_meta.pop(block, None)
         if h is not None:
             self._hash_index.pop(h, None)
+            if self.tier is not None and meta is not None:
+                self.tier_pending_demote.append(
+                    (meta[0], h, meta[1], block))
 
     def match_prefix(self, uid: int, tokens: List[int],
                      max_pool_take: Optional[int] = None) -> int:
@@ -330,7 +399,13 @@ class StateManager:
         the cached chain covers the whole prompt, the last matched block
         is copy-on-write'd: a fresh block is allocated, a device copy
         (queued on ``cow_pending``) duplicates the content, and the
-        sequence's table points at the private copy."""
+        sequence's table points at the private copy.
+
+        With a tier attached, a resident run that ends where the tier
+        holds the next digests starts restaging that continuation
+        (bounded by the pool headroom) and the whole match aborts with 0:
+        the caller keeps the request queued, the engine's drain indexes
+        the chain again, and the next round's match covers it."""
         bs = self.cfg.block_size
         if (not self.prefix_cache or uid in self.seqs
                 or not self._free_slots or len(tokens) <= bs):
@@ -340,10 +415,32 @@ class StateManager:
         hashes: List[bytes] = []
         blocks: List[int] = []
         takes = 0
-        for h in iter_prefix_chain_digests(tokens, bs,
-                                           self.max_blocks_per_seq):
+        revive_run: List[bytes] = []
+        digest_iter = iter_prefix_chain_digests(tokens, bs,
+                                                self.max_blocks_per_seq)
+        for h in digest_iter:
             b = self._hash_index.get(h)
             if b is None:
+                if (self.tier is not None
+                        and uid not in self._restaging_uids
+                        and self._revive_attempts.get(uid, 0)
+                        < _MAX_REVIVE_ATTEMPTS
+                        and h in self.tier):
+                    # the resident run ends in the tier: gather the
+                    # contiguous tiered continuation, bounded by the
+                    # headroom its destination blocks take (at <= 0 a
+                    # destination would take a block promised to this
+                    # round's admitted batch: the revive waits a round)
+                    budget = min(max_pool_take,
+                                 self.allocator.free_blocks)
+                    if budget <= 0:
+                        break
+                    revive_run.append(h)
+                    for h2 in digest_iter:
+                        if len(revive_run) >= budget \
+                                or h2 not in self.tier:
+                            break
+                        revive_run.append(h2)
                 break
             t = 1 if self.allocator.refcount(b) == 0 else 0
             if takes + t > max_pool_take:
@@ -351,6 +448,9 @@ class StateManager:
             takes += t
             hashes.append(h)
             blocks.append(b)
+        if revive_run and self._begin_restage(uid, revive_run):
+            # no refs were taken: the caller re-queues the request
+            return 0
         if not blocks:
             return 0
         for b in blocks:
@@ -381,6 +481,7 @@ class StateManager:
         seq.cached_tokens = matched
         seq.chain = list(tokens[:matched])
         seq.hashes = hashes
+        self._revive_attempts.pop(uid, None)
         return matched
 
     def _register_chain_blocks(self, seq: SequenceDescriptor) -> None:
@@ -397,6 +498,8 @@ class StateManager:
                 b = seq.blocks[k]
                 self._hash_index[h] = b
                 self._block_hash[b] = h
+                self._block_meta[b] = (
+                    parent, tuple(seq.chain[k * bs:(k + 1) * bs]))
                 self.allocator.mark_cached(b)
                 self.round_registered.append((h, b))
 
@@ -408,15 +511,25 @@ class StateManager:
                 continue
             del self._hash_index[h]
             self._block_hash.pop(b, None)
+            self._block_meta.pop(b, None)
             self.allocator.unmark_cached(b)
 
     def reset_prefix_cache(self) -> None:
-        """Drop every index entry; cached-free blocks become plain free."""
+        """Drop every index entry; cached-free blocks become plain free.
+        Invalidated content is neither demoted nor restaged: the demote
+        queue is dropped and every pending restage's destination freed
+        (its tier entry was consumed)."""
         for b in list(self._block_hash):
             self.allocator.unmark_cached(b)
         self._block_hash.clear()
         self._hash_index.clear()
+        self._block_meta.clear()
         self.cow_pending.clear()
+        self.tier_pending_demote.clear()
+        for ent in self.tier_pending_restage:
+            self.allocator.free([ent.dst])
+        self.tier_pending_restage.clear()
+        self._restaging_uids.clear()
 
     def prefix_digests(self) -> frozenset:
         """Hex digests resident in the prefix-cache index right now."""
@@ -441,6 +554,104 @@ class StateManager:
         engine and clear the queue."""
         out = [(s, d) for _, s, d in self.cow_pending]
         self.cow_pending.clear()
+        return out
+
+    # ---- tier plumbing (tier.py) -----------------------------------------
+    def _begin_restage(self, uid: int, run: List[bytes]) -> bool:
+        """Start restaging a contiguous run of tiered chain digests for a
+        deferred request: consume each tier entry (NVMe reads are queued
+        inside ``begin_revive``) and allocate its destination block, held
+        at refcount 1 until the engine's drain commits or aborts it."""
+        if not run or self.allocator.free_blocks < len(run):
+            return False
+        if len(self._revive_attempts) > 1024:
+            # bounded: uids cancelled while still queued never release()
+            self._revive_attempts.pop(next(iter(self._revive_attempts)))
+        self._revive_attempts[uid] = self._revive_attempts.get(uid, 0) + 1
+        started = 0
+        for h in run:
+            op = self.tier.begin_revive(h)
+            if op is None:
+                break
+            [dst] = self.allocator.allocate(1)
+            self.tier_pending_restage.append(
+                RestageEntry(uid, h, op.parent, op.tokens, dst, op))
+            started += 1
+        if not started:
+            return False
+        self._restaging_uids[uid] = \
+            self._restaging_uids.get(uid, 0) + started
+        return True
+
+    def restaging(self, uid: int) -> bool:
+        """Whether ``uid`` has restage ops in flight: the scheduler keeps
+        such a request queued and schedules nothing for it."""
+        return uid in self._restaging_uids
+
+    def commit_restage(self, ent: RestageEntry) -> None:
+        """The engine verified and uploaded ``ent``'s payload into
+        ``ent.dst``: register the digest and retire the block to the
+        cached-free pool (restaged content is cache content).  Joins
+        ``round_registered``, so a failed step unwinds it like any other
+        registration."""
+        b, h = ent.dst, ent.digest
+        if h not in self._hash_index:
+            self._hash_index[h] = b
+            self._block_hash[b] = h
+            self._block_meta[b] = (ent.parent, tuple(ent.tokens))
+            self.allocator.mark_cached(b)
+            self.round_registered.append((h, b))
+        # a prefill may have registered the digest again while the
+        # restage was in flight: the copy is then redundant and the free
+        # below retires it to the plain free list
+        self.allocator.free([b])
+        self._restage_done(ent.uid)
+
+    def abort_restage(self, ent: RestageEntry) -> None:
+        """Verification failed (or the spill file died): free the
+        destination unregistered; the request re-prefills."""
+        self.allocator.free([ent.dst])
+        self._restage_done(ent.uid)
+
+    def _restage_done(self, uid: int) -> None:
+        n = self._restaging_uids.get(uid, 0) - 1
+        if n <= 0:
+            self._restaging_uids.pop(uid, None)
+        else:
+            self._restaging_uids[uid] = n
+
+    def take_tier_demotes(self) -> List[Tuple[bytes, bytes,
+                                              Tuple[int, ...], int]]:
+        """Hand the queued (parent, digest, tokens, block) demotions to
+        the engine, which reads each block BEFORE the step that
+        overwrites it is launched."""
+        out = self.tier_pending_demote
+        self.tier_pending_demote = []
+        return out
+
+    def stage_chain_demotes(self, uid: int) -> int:
+        """Queue a copy into the tier of every still-indexed full block
+        of ``uid``'s chain and return how many were queued: the
+        prefill-to-decode handoff's KV export.  Unlike eviction the
+        blocks stay indexed here (the tier entry is a copy that
+        ``export_tier_chain`` can ship); blocks already tiered or never
+        registered are skipped."""
+        seq = self.seqs.get(uid)
+        if seq is None or self.tier is None:
+            return 0
+        n = 0
+        for b in seq.blocks:
+            h = self._block_hash.get(b)
+            meta = self._block_meta.get(b)
+            if h is None or meta is None or h in self.tier:
+                continue
+            self.tier_pending_demote.append((meta[0], h, meta[1], b))
+            n += 1
+        return n
+
+    def take_tier_restage(self) -> List[RestageEntry]:
+        out = self.tier_pending_restage
+        self.tier_pending_restage = []
         return out
 
     # ---- scheduling query ------------------------------------------------

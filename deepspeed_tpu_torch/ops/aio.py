@@ -202,13 +202,17 @@ class AsyncIOHandle:
 
     def wait(self) -> int:
         """Drain outstanding requests; returns the number of failed
-        chunks."""
+        chunks.  A no-op once the handle is destroyed (its destructor
+        drained it): an owner's finalizer may run after the handle's,
+        when the collector frees both in one cycle."""
+        if not self._h:
+            return 0
         failed = self._lib.aio_wait(self._h)
         self._inflight = []
         return failed
 
     def pending(self) -> int:
-        return self._lib.aio_pending(self._h)
+        return self._lib.aio_pending(self._h) if self._h else 0
 
     # ---- sync -----------------------------------------------------------
     def sync_pread(self, buffer: Buffer, path: str, offset: int = 0) -> int:

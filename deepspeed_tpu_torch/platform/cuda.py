@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import shutil
 import subprocess
+import weakref
 from typing import Dict, Optional, Union
 
 import torch
@@ -40,6 +41,30 @@ def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
         raise NoCudaDeviceError(f"device {dev} requested but CUDA is "
                                 "not available")
     return dev
+
+
+def host_empty(shape, dtype: torch.dtype, pin: bool) -> torch.Tensor:
+    """A host tensor, page-locked with ``cudaHostRegister`` when ``pin``
+    (PyTorch's pinned allocator rounds a block up to a power of two: up to
+    twice the bytes of a large buffer).  A failed allocation or
+    registration raises, naming the bytes; the registration is undone when
+    the tensor is freed."""
+    nbytes = torch.empty((), dtype=dtype).element_size()
+    for n in shape:
+        nbytes *= int(n)
+    try:
+        t = torch.empty(tuple(shape), dtype=dtype)
+    except RuntimeError as e:
+        raise RuntimeError(f"could not allocate {nbytes:,} bytes of host "
+                           f"memory: {e}") from e
+    if pin and nbytes:
+        cudart = torch.cuda.cudart()
+        err = int(cudart.cudaHostRegister(t.data_ptr(), nbytes, 0))
+        if err != 0 or not t.is_pinned():
+            raise RuntimeError(f"could not pin {nbytes:,} bytes of host "
+                               f"memory (cudaHostRegister: error {err})")
+        weakref.finalize(t, cudart.cudaHostUnregister, t.data_ptr())
+    return t
 
 
 def nvidia_smi_power() -> Optional[str]:

@@ -56,7 +56,6 @@ from __future__ import annotations
 
 import os
 import time
-import weakref
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -64,7 +63,7 @@ import torch
 
 from ..checkpoint import engine as ckpt
 from ..config.config import Config, load_config
-from ..platform.cuda import resolve_device
+from ..platform.cuda import host_empty, resolve_device
 from ..utils.logging import log_dist
 from ..utils.prng import PRNGKey, split
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
@@ -178,41 +177,18 @@ def _check_offload(config: Config) -> None:
 
 
 class _HostMemory:
-    """Host tensors of offloaded state, page-locked with
-    ``cudaHostRegister`` when ``pin`` (PyTorch's pinned allocator rounds
-    each block up to a power of two: up to twice the bytes of a large
-    leaf).  Every failure raises, naming the bytes asked for; the
-    registrations are undone by :meth:`release` (an engine's finalizer)."""
+    """Host tensors of offloaded state (``platform.cuda.host_empty``:
+    page-locked when ``pin``, a failure raising with the bytes asked for,
+    the registration undone when the tensor is freed)."""
 
     def __init__(self, pin: bool):
         self.pin = pin
-        self._registered = []
 
     def empty(self, shape, dtype) -> torch.Tensor:
-        nbytes = int(np.prod(shape)) * torch.empty(
-            (), dtype=dtype).element_size()
-        try:
-            t = torch.empty(tuple(shape), dtype=dtype)
-        except RuntimeError as e:
-            raise RuntimeError(f"could not allocate {nbytes:,} bytes of host "
-                               f"memory for offloaded state: {e}") from e
-        if self.pin and nbytes:
-            err = torch.cuda.cudart().cudaHostRegister(t.data_ptr(), nbytes,
-                                                       0)
-            if int(err) != 0:
-                raise RuntimeError(f"could not pin {nbytes:,} bytes of host "
-                                   f"memory for offloaded state "
-                                   f"(cudaHostRegister: error {int(err)})")
-            self._registered.append(t)
-        return t
+        return host_empty(shape, dtype, pin=self.pin)
 
     def copy(self, x: torch.Tensor, dtype) -> torch.Tensor:
         return self.empty(x.shape, dtype).copy_(x)
-
-    def release(self) -> None:
-        for t in self._registered:
-            torch.cuda.cudart().cudaHostUnregister(t.data_ptr())
-        self._registered = []
 
 
 class Engine:
@@ -354,9 +330,7 @@ class Engine:
                           loss_scale=self.scaler.init(), skipped=0)
 
     def _host_memory(self, pin: bool) -> _HostMemory:
-        mem = _HostMemory(pin)
-        weakref.finalize(self, mem.release)
-        return mem
+        return _HostMemory(pin)
 
     def _working_copy(self, params):
         """The compute-dtype working copy of ``params``: on the device, or

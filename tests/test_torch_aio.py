@@ -19,6 +19,7 @@ from deepspeed_tpu.ops.aio import AsyncIOHandle as JaxAsyncIOHandle
 from deepspeed_tpu_torch.ops import aio as port_aio
 from deepspeed_tpu_torch.ops.aio import AioError, AsyncIOHandle
 from deepspeed_tpu_torch.ops.builder import GXX_FLAGS
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 DESTROY_LIMIT_S = 10.0
 BACKENDS = ["threads", "uring"]

@@ -44,8 +44,8 @@ from deepspeed_tpu_torch.models.layers import (alibi_slopes,
 from deepspeed_tpu_torch.ops.paged_attention import (paged_attention,
                                                      paged_attention_chunked,
                                                      paged_attention_plain)
-from tests.test_torch_train import (assert_trajectories_agree,
-                                    run_trajectories, tiny_models)
+from tests.test_torch_train import (  # noqa: F401 (one_thread: autouse)
+    assert_trajectories_agree, one_thread, run_trajectories, tiny_models)
 
 NB = 4            # max_blocks_per_seq of the reference cases
 PA_MOD = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")

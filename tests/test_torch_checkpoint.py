@@ -35,7 +35,8 @@ from deepspeed_tpu_torch.checkpoint import engine as ck
 from deepspeed_tpu_torch.models import Model, TransformerConfig
 from deepspeed_tpu_torch.models import params_from_numpy
 from deepspeed_tpu_torch.runtime.runtime_utils import tree_leaves
-from tests.test_torch_train import jax_engine
+from tests.test_torch_train import (  # noqa: F401 (one_thread: autouse)
+    jax_engine, one_thread)
 
 SEQ = 32
 VOCAB = 256

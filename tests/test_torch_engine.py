@@ -20,6 +20,7 @@ from deepspeed_tpu_torch.inference import (InferenceConfig, InferenceEngine,
                                            SamplingParams)
 from deepspeed_tpu_torch.models import (Model, TransformerConfig,
                                         params_from_numpy)
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 ENGINE = dict(token_budget=32, max_seqs=4, kv_block_size=16,
               num_kv_blocks=64)
@@ -128,9 +129,9 @@ def test_step_api_matches_generate(models, reference):
 
 @pytest.mark.parametrize("field, value", [
     ("attn_impl", "pallas"), ("weight_quant", "fp6"), ("weight_quant", "fp12"),
-    ("kv_tier", "on"),
+    ("profile", "/nonexistent"),
     ("trace", True), ("device_telemetry", "on"), ("anomaly", "on"),
-    ("slo", "on"), ("kv_offload", True), ("weight_stream", "/nonexistent"),
+    ("slo", "on"), ("anomaly_cfg", {}), ("slo_objectives", {}),
     ("comm_quant", "int8"), ("kv_donate", "off")])
 def test_unsupported_config_values_raise(models, field, value):
     _, port = models

@@ -50,6 +50,7 @@ from deepspeed_tpu_torch.inference.failures import (
 from deepspeed_tpu_torch.models import (Model, TransformerConfig,
                                         params_from_numpy)
 from deepspeed_tpu_torch.utils import prng
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 # tests/test_failures.py's engine, in fp32 on both sides
 ENGINE = dict(token_budget=32, max_seqs=4, kv_block_size=8,

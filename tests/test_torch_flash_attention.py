@@ -27,6 +27,7 @@ from deepspeed_tpu.ops import flash_attention as jax_flash_attention
 from deepspeed_tpu.ops.flash_attention import _bwd as jax_bwd
 from deepspeed_tpu.ops.flash_attention import _fwd as jax_fwd
 from deepspeed_tpu_torch.models.layers import causal_attention
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 fa = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")
 

@@ -20,6 +20,7 @@ import pytest
 
 from deepspeed_tpu_torch.ops import BUILDERS
 from deepspeed_tpu_torch.ops.builder import CSRC_DIR
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 # the module (the package re-exports its function under the same name)
 fa = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")

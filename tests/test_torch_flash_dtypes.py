@@ -34,7 +34,8 @@ import torch
 
 from deepspeed_tpu.ops.flash_attention import _bwd as jax_bwd
 from deepspeed_tpu.ops.flash_attention import _fwd as jax_fwd
-from tests.test_torch_train import NULL_GRAD_LEAVES, run_trajectories
+from tests.test_torch_train import (  # noqa: F401 (one_thread: autouse)
+    NULL_GRAD_LEAVES, one_thread, run_trajectories)
 
 fa = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")
 

@@ -22,6 +22,7 @@ from deepspeed_tpu_torch.inference import engine as engine_mod
 from deepspeed_tpu_torch.inference.model import pipelined_ragged_step
 from deepspeed_tpu_torch.inference.sampler import sample_rows
 from deepspeed_tpu_torch.models import build_model
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,7 @@ from deepspeed_tpu.checkpoint import hf as jhf
 from deepspeed_tpu_torch.checkpoint import hf as thf
 from deepspeed_tpu_torch.models import Model, build_config
 from deepspeed_tpu_torch.models.presets import build_model
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 IDS = np.random.RandomState(0).randint(1, 250, (2, 16))
 

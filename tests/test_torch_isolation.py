@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import deepspeed_tpu_torch
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "deepspeed_tpu_torch"

@@ -22,6 +22,7 @@ from pathlib import Path
 import pytest
 
 from deepspeed_tpu_torch.ops.builder import CSRC_DIR
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 # the module (the package re-exports its functions under other names)
 mg = importlib.import_module("deepspeed_tpu_torch.ops.mixed_gemm")

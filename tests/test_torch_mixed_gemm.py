@@ -20,6 +20,7 @@ from deepspeed_tpu.ops import quant as jquant
 from deepspeed_tpu_torch.models import params_from_numpy
 from deepspeed_tpu_torch.ops import mixed_gemm as pmg
 from deepspeed_tpu_torch.ops import quant as pquant
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-4
 

@@ -22,6 +22,7 @@ from deepspeed_tpu.parallel import moe as jmoe
 from deepspeed_tpu_torch.models import layers as TL
 from deepspeed_tpu_torch.parallel import moe as tmoe
 from deepspeed_tpu_torch.utils import prng
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 E, DM, FF = 6, 16, 24
 

@@ -38,8 +38,8 @@ from deepspeed_tpu_torch.inference import model as port_model
 from deepspeed_tpu_torch.models import (Model, TransformerConfig, apply,
                                         params_from_numpy)
 from deepspeed_tpu_torch.parallel import moe as tmoe
-from tests.test_torch_train import (assert_trajectories_agree,
-                                    run_trajectories)
+from tests.test_torch_train import (  # noqa: F401 (one_thread: autouse)
+    assert_trajectories_agree, one_thread, run_trajectories)
 
 TINY = dict(vocab_size=256, num_layers=2, d_model=64, num_heads=4,
             num_kv_heads=2, max_seq_len=128)

@@ -38,9 +38,9 @@ from deepspeed_tpu_torch.config.config import ConfigError
 from deepspeed_tpu_torch.runtime import engine as engine_mod
 from deepspeed_tpu_torch.runtime.runtime_utils import (keep_host_heap,
                                                        tree_leaves)
-from tests.test_torch_train import (NULL_GRAD_LEAVES,
-                                    assert_trajectories_agree, jax_engine,
-                                    tiny_models)
+from tests.test_torch_train import (  # noqa: F401 (one_thread: autouse)
+    NULL_GRAD_LEAVES, assert_trajectories_agree, jax_engine, one_thread,
+    tiny_models)
 
 STEPS = 8
 KEYS = ("loss", "grad_norm", "lr", "loss_scale", "overflow")
@@ -98,14 +98,6 @@ def _port_master(engine):
         master = engine._nvme.master_tree()
     walk(master)
     return out
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 _JAX = {}

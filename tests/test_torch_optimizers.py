@@ -26,6 +26,7 @@ from deepspeed_tpu.runtime import optimizers as jax_opt
 from deepspeed_tpu_torch.models import build_model
 from deepspeed_tpu_torch.runtime import optimizers as port_opt
 from deepspeed_tpu_torch.runtime.runtime_utils import tree_leaves
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 BF16_ULP = 2.0 ** -8
 

@@ -24,6 +24,7 @@ from deepspeed_tpu_torch.ops import paged_attention as pa_reexport
 from deepspeed_tpu_torch.ops.paged_attention import (paged_attention,
                                                      paged_attention_chunked,
                                                      paged_attention_plain)
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 NB = 4            # max_blocks_per_seq of the reference cases
 

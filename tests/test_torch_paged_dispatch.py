@@ -30,6 +30,7 @@ from deepspeed_tpu_torch.inference.ragged.state import (KVCacheConfig,
                                                         StateManager)
 from deepspeed_tpu_torch.models.presets import PRESETS, build_config
 from deepspeed_tpu_torch.ops.builder import CSRC_DIR
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 # the module (the package re-exports the wrapper under the same name)
 pa = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")

@@ -29,6 +29,7 @@ from deepspeed_tpu_torch.models import (Model, TransformerConfig,
                                         build_model, params_from_numpy)
 from deepspeed_tpu_torch.runtime.param_stream import ResidencyMeter
 from deepspeed_tpu_torch.runtime.runtime_utils import param_count
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 SEQ = 32
 MODELS = {
@@ -74,15 +75,6 @@ def _config(path, gas=1, stream=True, precision=None):
 def _batch(rows, seed):
     return {"input_ids": np.random.RandomState(seed).randint(
         0, 128, (rows, SEQ))}
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Tiny models: one CPU thread is faster than many contended ones."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _losses(engine, steps, gas=1):

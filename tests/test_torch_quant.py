@@ -24,6 +24,7 @@ from deepspeed_tpu_torch.models import (build_model, params_from_numpy,
                                         quant_tree_from_numpy)
 from deepspeed_tpu_torch.ops import quant as pquant
 from tests.test_inference import tiny_model
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}

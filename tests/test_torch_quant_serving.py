@@ -40,6 +40,7 @@ from deepspeed_tpu_torch.models import (Model, TransformerConfig,
 from deepspeed_tpu_torch.models.transformer import tree_leaves
 from deepspeed_tpu_torch.ops.paged_attention import _dequant_ctx
 from tests.test_torch_ragged_forward import _to_port
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 ENGINE = dict(token_budget=32, max_seqs=4, kv_block_size=16,
               num_kv_blocks=64)

@@ -34,6 +34,7 @@ from deepspeed_tpu_torch.inference.model import ragged_forward
 from deepspeed_tpu_torch.inference.ragged.state import RaggedBatch
 from deepspeed_tpu_torch.models import (Model, TransformerConfig,
                                         params_from_numpy)
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 BS = 16
 NUM_BLOCKS = 24

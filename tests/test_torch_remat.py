@@ -32,6 +32,7 @@ from deepspeed_tpu_torch.models import Model, build_model
 from deepspeed_tpu_torch.models.transformer import REMAT_POLICIES
 from deepspeed_tpu_torch.runtime.runtime_utils import (tree_leaves,
                                                        tree_unflatten)
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 fa = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")
 

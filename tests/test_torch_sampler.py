@@ -29,6 +29,7 @@ from deepspeed_tpu_torch.inference import sampler as port_sampler
 from deepspeed_tpu_torch.models import (Model, TransformerConfig,
                                         params_from_numpy)
 from deepspeed_tpu_torch.utils import prng
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 SEEDS = [0, 1, 42, 2**31 - 1, 2**31 + 5, 2**32 - 1, 2**40 + 3, -7]
 # data folded into keys: positions, uids, and uids at or above 2**31

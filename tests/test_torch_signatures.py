@@ -51,6 +51,7 @@ from deepspeed_tpu.inference import failures as jax_failures
 from deepspeed_tpu.ops import quant as jax_quant
 from deepspeed_tpu_torch.inference import failures as port_failures
 from deepspeed_tpu_torch.ops import quant as port_quant
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 _POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
                inspect.Parameter.POSITIONAL_OR_KEYWORD)

@@ -13,6 +13,7 @@ two engines, and so is ``health()``.
 
 import importlib
 
+import numpy as np
 import pytest
 
 from deepspeed_tpu.inference import InferenceEngine as JaxEngine
@@ -23,6 +24,7 @@ from deepspeed_tpu_torch.telemetry.lifecycle import TERMINAL_STATUSES
 from tests.test_torch_failures import (GREEDY, SEEDED, jax_engine, key_for,
                                        models, pool_is_whole, port_engine,
                                        sampling_for)
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 __all__ = ["models"]          # the shared module-scoped fixture
 
@@ -221,9 +223,13 @@ def test_migrate_out_moves_open_work_like_jax(models, jax_cross, name):
 
 
 def test_handoff_out_and_tier_seam(models, monkeypatch):
-    """handoff_out closes ``handed_off`` (no KV tier: the decode side
-    re-prefills); export_tier_chain is None with the tier off, and
-    tier_blocks arriving in a payload are dropped with a warning."""
+    """handoff_out closes ``handed_off`` (the KV tier is off, as "auto"
+    resolves: the decode side re-prefills); export_tier_chain is None
+    with the tier off; a payload whose tier_blocks fail verification is
+    refused whole, and verified ones arriving at an engine with the tier
+    off are dropped with a warning."""
+    from deepspeed_tpu_torch.inference.ragged.state import chain_hash
+    from deepspeed_tpu_torch.inference.ragged.tier import payload_checksum
     src, dst = make(models, "port"), make(models, "port")
     src.put(0, PROMPTS[0])
     first = src.step()
@@ -231,6 +237,13 @@ def test_handoff_out_and_tier_seam(models, monkeypatch):
     assert src.query(0)["status"] == "handed_off"
     assert src.export_tier_chain([b"\x00" * 32]) is None
     part["tier_blocks"] = [{"digest": "00"}]
+    with pytest.raises(ValueError, match="tier_blocks"):
+        dst.load_snapshot(part, merge=True)
+    leaves = [np.arange(8, dtype=np.float32)]
+    part["tier_blocks"] = [{"digest": chain_hash(b"\x00" * 16, [1, 2]),
+                            "parent": b"\x00" * 16, "tokens": [1, 2],
+                            "leaves": leaves,
+                            "checksum": payload_checksum(leaves)}]
     warned = []
     eng_mod = importlib.import_module("deepspeed_tpu_torch.inference.engine")
     monkeypatch.setattr(eng_mod.logger, "warning",

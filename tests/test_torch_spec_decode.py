@@ -35,6 +35,7 @@ from deepspeed_tpu_torch.inference.sampler import sample_rows
 from deepspeed_tpu_torch.models import (Model, TransformerConfig,
                                         params_from_numpy)
 from deepspeed_tpu_torch.utils import prng
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 ENGINE = dict(token_budget=32, max_seqs=4, kv_block_size=16,
               num_kv_blocks=64, max_seq_len=256)

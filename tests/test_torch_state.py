@@ -29,6 +29,7 @@ from deepspeed_tpu_torch.inference.ragged.state import (FEEDBACK_TOKEN,
                                                         StateManager,
                                                         prefix_chain_digests)
 from deepspeed_tpu_torch.models import build_model
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 BS = 4
 BLOCKS = 24

@@ -55,6 +55,19 @@ from deepspeed_tpu_torch.runtime.runtime_utils import (clip_by_global_norm,
                                                        tree_leaves)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Each test runs the port's CPU ops on one intra-op thread (the other
+    port test files import this fixture, which makes it theirs too).  The
+    suite's workers run side by side, each of PyTorch's pools takes a
+    thread a core, and on tiny tensors more threads only contend: under
+    6 workers a trajectory test ran 5-10x longer than on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tree(seed):
     r = np.random.RandomState(seed)
     return {"w": r.randn(6, 5).astype(np.float32),
@@ -396,10 +409,11 @@ def test_unported_engine_features_raise(case):
 
 
 def test_unported_messages_name_their_items(tmp_path):
-    """Offload on one card (ROADMAP Queue 1 item 4) is ported for
-    training: ``offload_optimizer`` and ``offload_param`` run, checkpoints
-    of NVMe state save and load.  Serving offload (``kv_offload``,
-    ``weight_stream``) is item 4b, and its messages say so in full."""
+    """Offload on one card is ported for training (ROADMAP Queue 1 item
+    4: ``offload_optimizer`` and ``offload_param`` run, checkpoints of
+    NVMe state save and load) and for serving (item 4b).  The serving
+    fields still unported (tracing, the SLO scorecard) belong to the
+    host layers above the engine, and their messages say so in full."""
     from deepspeed_tpu_torch.inference import InferenceConfig, \
         InferenceEngine
     _, tm = tiny_models("gpt2")
@@ -414,11 +428,11 @@ def test_unported_messages_name_their_items(tmp_path):
             (2, 16), np.int64)})["loss"]))
         d = eng.save_checkpoint(str(tmp_path / f"{key}_{dev}"))
         assert eng.load_checkpoint(str(tmp_path / f"{key}_{dev}")) == (d, {})
-    for field, value in (("kv_offload", True), ("weight_stream", "/x")):
+    for field, value in (("trace", True), ("slo", "on")):
         with pytest.raises(NotImplementedError) as e:
             InferenceEngine(tm, InferenceConfig(**{field: value}))
         assert f"InferenceConfig.{field}={value!r} is not ported yet " \
-            "(ROADMAP Queue 1 item 4b, serving offload)" in str(e.value)
+            "(ROADMAP Queue 1, host layers above the engine)" in str(e.value)
 
 
 def test_engine_runs_on_the_card_unless_asked(monkeypatch, tmp_path):

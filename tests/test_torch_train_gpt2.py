@@ -13,9 +13,9 @@ frameworks round activations and probabilities at different places."""
 import numpy as np
 import pytest
 
-from tests.test_torch_train import (NULL_GRAD_LEAVES,
-                                    assert_trajectories_agree,
-                                    run_trajectories)
+from tests.test_torch_train import (  # noqa: F401 (one_thread: autouse)
+    NULL_GRAD_LEAVES, assert_trajectories_agree, one_thread,
+    run_trajectories)
 
 
 @pytest.mark.parametrize("gas", [1, 2])

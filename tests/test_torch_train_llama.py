@@ -7,8 +7,8 @@ params atol 1e-4."""
 
 import pytest
 
-from tests.test_torch_train import (assert_trajectories_agree,
-                                    run_trajectories)
+from tests.test_torch_train import (  # noqa: F401 (one_thread: autouse)
+    assert_trajectories_agree, one_thread, run_trajectories)
 
 
 @pytest.mark.parametrize("gas", [1, 2])

@@ -24,6 +24,7 @@ from deepspeed_tpu_torch.runtime.swap_tensor import (OptimizerSwapper,
                                                      TensorSpec,
                                                      TensorSwapper, spec_of,
                                                      tree_bytes)
+from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 OPTIMIZERS = [
     ("adamw", {"lr": 1e-2, "weight_decay": 0.01}),
