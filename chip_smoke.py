@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases device,build,kernel,serve-spec
     python3 chip_smoke.py --phases device,build,kernel,serve-failover
     python3 chip_smoke.py --phases device,build,kernel,serve-offload
+    python3 chip_smoke.py --phases device,build,kernel,serve-fleet
     python3 chip_smoke.py --phases device,build,kernel,train-fp16
     python3 chip_smoke.py --phases device,build,kernel,train-ckpt,serve-moe,train-moe
     python3 chip_smoke.py --phases device,build,kernel,train-offload,train-nvme
@@ -176,6 +177,28 @@ passed over):
              counters and the restage ms and GB/s.  The stores are
              deleted and the page-locked memory released: MemAvailable
              ends within 2 GB of where the phase began.
+6f. serve-fleet — a FleetRouter over two replicas of phase 5's model (the
+             weights shared, a 4.30 GB cache each; every telemetry plane
+             on: the span tracer, anomaly detection, SLO scorecards,
+             device telemetry, the flight recorder) behind the port's
+             Gateway on 127.0.0.1: phase 5's prompts as 8 streaming
+             POST /v1/completions of 32 greedy tokens (prompts 0 and 1,
+             then the other six once prompt 0's first token is back).
+             Warm-up rounds through the gateway capture every graph; the
+             measured run: every step a replay, K2 launches = layers x
+             replica steps, the streams equal phase 5's but at near-
+             ties, prompt 2 placed with prompt 0 on a 256-token prefix
+             hit, /metrics parsed (serving_mfu, serving_hbm_bw_util),
+             /healthz 200, /debug/slo with evaluated requests; TTFT p50
+             and decode tok/s through the gateway, the gateway's and the
+             router's host ms a token, the peak above the model.  Then a
+             replica killed mid-run (an injected fatal fault: its
+             streams migrate and finish, its engine_dead flight dump
+             validates, the reconciled statuses partition the requests),
+             a 2-step capture window on the survivor merged by
+             tools/tracemerge.py with paged attention on its device
+             track, and one replica's decode tok/s with telemetry on
+             against off, in turns.
 7. serve-alibi — BLOOM-7b1 at full width and depth (ALiBi, random bf16
              weights from a seed), run after the Llama model is freed,
              at phase 5's traffic and engine: a first-forward check
@@ -282,8 +305,9 @@ paged_attention's ``failover_launches`` are K2's launches in
 serve-failover's scenarios (a)-(d), its ``moe_launches`` those of
 serve-moe's measured run, its ``offload_launches`` and ``tier_launches``
 those of serve-offload (a)'s measured run and (c)'s rounds (captures
-included); ``stream_launches`` on paged_attention_int8kv and on the int8
-K3 entries, serve-offload (b)'s weight-streamed run; the flash entries'
+included), its ``fleet_launches`` those of serve-fleet's measured
+run; ``stream_launches`` on paged_attention_int8kv and on the int8 K3
+entries, serve-offload (b)'s weight-streamed run; the flash entries'
 launches include train-ckpt's, train-moe's, train-offload's and
 train-nvme (c)'s); the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -2961,6 +2985,463 @@ def serve_offload(torch, pa, mg, model, prompts):
     return dict(a=a, b=b, c=c)
 
 
+# ---------------------------------------------------------------------------
+# serve-fleet helpers
+# ---------------------------------------------------------------------------
+
+# each replica: phase 5's engine with every telemetry plane on (the span
+# tracer, anomaly detection, SLO scorecards, device telemetry; the flight
+# recorder through FailureConfig.flight_dir).  The anomaly path arms no
+# capture window of its own (a profiler session inside a measured run
+# would be timed with it): the phase arms its window explicitly
+FLEET_TELEMETRY = dict(trace=True, anomaly="on", slo="on",
+                       device_telemetry="on")
+FLEET_ANOMALY_CAPTURES = 0
+# warm-up rounds through the gateway (a 1-token and a 32-token run each)
+# until a round captures no graph
+FLEET_WARM_ROUNDS = 4
+# the kill run: tokens every stream has read before a replica is killed
+FLEET_KILL_AFTER = 8
+# the capture window on the surviving replica
+FLEET_CAPTURE_STEPS = 2
+FLEET_HTTP_TIMEOUT = 300.0
+
+
+def fleet_dir() -> Path:
+    """A fresh directory (under build/, git-ignored) for the replicas'
+    flight dumps and the capture window."""
+    import shutil
+    path = ROOT / "build" / f"chip_smoke_fleet_{os.getpid()}"
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return path
+
+
+def http_request(port, method, path, body=b"", out=None, first=None):
+    """One HTTP/1.1 request to the gateway on 127.0.0.1:``port`` over a
+    plain socket.  A ``text/event-stream`` response is read frame by
+    frame into ``out`` (``tokens``, their arrival times ``t_tokens``,
+    the request's ``uid`` from the chunk id, ``finish``), ``first`` set
+    at the first token; any other response's body is returned.  Returns
+    (status, headers, body or None)."""
+    import socket
+    out = {} if out is None else out
+    head = (f"{method} {path} HTTP/1.1\r\nHost: chip-smoke\r\n"
+            f"Content-Type: application/json\r\n"
+            f"Content-Length: {len(body)}\r\n\r\n").encode("ascii")
+    sock = socket.create_connection(("127.0.0.1", port),
+                                    timeout=FLEET_HTTP_TIMEOUT)
+    f = sock.makefile("rb")
+    try:
+        out["t_send"] = time.perf_counter()
+        sock.sendall(head + body)
+        code = int(f.readline().split()[1])
+        headers = {}
+        while True:
+            line = f.readline().decode("latin-1").strip()
+            if not line:
+                break
+            k, _, v = line.partition(":")
+            headers[k.strip().lower()] = v.strip()
+        if "text/event-stream" not in headers.get("content-type", ""):
+            n = headers.get("content-length")
+            return code, headers, f.read(int(n)) if n else f.read()
+        out.setdefault("tokens", [])
+        out.setdefault("t_tokens", [])
+        while True:
+            line = f.readline()
+            if not line:
+                break
+            line = line.strip()
+            if not line.startswith(b"data: "):
+                continue
+            data = line[len(b"data: "):]
+            if data == b"[DONE]":
+                break
+            ev = json.loads(data)
+            out["uid"] = int(ev["id"].rsplit("-", 1)[1])
+            choice = ev["choices"][0]
+            if choice["token"] is not None:
+                out["t_tokens"].append(time.perf_counter())
+                out["tokens"].append(int(choice["token"]))
+                if first is not None:
+                    first.set()
+            if choice["finish_reason"] is not None:
+                out["finish"] = choice["finish_reason"]
+        return code, headers, None
+    finally:
+        f.close()
+        sock.close()
+
+
+def fleet_run(port, prompts, n_new, during=None):
+    """The 8 prompts as 8 streaming ``POST /v1/completions`` of ``n_new``
+    greedy tokens each, one client thread a stream: prompts 0 and 1 first
+    and, once prompt 0's first token is back (its blocks are then in its
+    replica's prefix index), the other six, so that the router's affinity
+    can place prompt 2 with prompt 0; all 8 streams are then open at
+    once.  ``during(outs)`` runs on the calling thread while the streams
+    run.  Returns (the per-prompt stream dicts, the wall seconds)."""
+    import threading
+    outs = [dict() for _ in prompts]
+    codes = [None] * len(prompts)
+    first0 = threading.Event()
+
+    def go(i, first=None):
+        body = json.dumps({"prompt": prompts[i], "max_tokens": n_new,
+                           "stream": True}).encode()
+        codes[i] = http_request(port, "POST", "/v1/completions", body,
+                                out=outs[i], first=first)[0]
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=go, args=(0, first0)),
+               threading.Thread(target=go, args=(1,))]
+    for t in threads:
+        t.start()
+    if not first0.wait(FLEET_HTTP_TIMEOUT):
+        raise AssertionError("serve-fleet: no first token for prompt 0")
+    later = [threading.Thread(target=go, args=(i,))
+             for i in range(2, len(prompts))]
+    for t in later:
+        t.start()
+    if during is not None:
+        during(outs)
+    for t in threads + later:
+        t.join(FLEET_HTTP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for i, (o, c) in enumerate(zip(outs, codes)):
+        if c != 200 or len(o.get("tokens", ())) != n_new \
+                or o.get("finish") != "length":
+            raise AssertionError(f"serve-fleet: stream {i} came back "
+                                 f"{c}, {len(o.get('tokens', ()))} of "
+                                 f"{n_new} tokens, finish "
+                                 f"{o.get('finish')}")
+    return outs, wall
+
+
+def thread_cpu_s(thread) -> float:
+    """CPU seconds a live thread has used (Linux per-thread clock)."""
+    return time.clock_gettime(time.pthread_getcpuclockid(thread.ident))
+
+
+def record_of(engines, uid):
+    """(replica name, request record) of ``uid``'s finished record."""
+    for name, e in engines.items():
+        for rec in e.requests.records():
+            if rec.uid == uid and rec.status == "finished":
+                return name, rec
+    raise AssertionError(f"serve-fleet: no finished record of uid {uid}")
+
+
+def decode_rate(torch, eng, prompts):
+    """Phase 5's decode tok/s on one warmed engine: 8 x 31 tokens / (the
+    32-token run's wall - the 1-token run's)."""
+    from deepspeed_tpu_torch.inference import SamplingParams
+    walls = []
+    for n in (1, SERVE_NEW_TOKENS):
+        fresh_run(eng)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.generate(dict(enumerate(prompts)),
+                     SamplingParams(max_new_tokens=n))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        check_replayed(eng.timings, f"serve-fleet rate, {n} new")
+    return len(prompts) * (SERVE_NEW_TOKENS - 1) / (walls[1] - walls[0])
+
+
+def serve_fleet(torch, pa, model, prompts, phase5):
+    """serve-fleet: a ``FleetRouter`` over two replicas of phase 5's model
+    (the weights shared, a cache each) behind the port's ``Gateway`` on
+    127.0.0.1, every telemetry plane on.  Warm-up rounds through the
+    gateway capture every graph; the measured 1- and 32-token runs give
+    TTFT and decode tok/s through the gateway and the gateway's and the
+    router's host ms a token; then checks (streams against phase 5 by
+    the near-tie rule, prompt 2 placed with prompt 0 on a prefix hit,
+    every step a replay, K2 = layers x steps, ``/metrics``, ``/healthz``,
+    ``/debug/slo``), a replica killed mid-run (its streams migrate and
+    finish, its flight dump validates, the reconciled statuses partition
+    the requests), a 2-step capture window merged by tools/tracemerge.py
+    with paged attention on its device track, and one replica's decode
+    tok/s with telemetry on against off.  Returns K2's launches over the
+    measured 32-token run."""
+    from deepspeed_tpu_torch.gateway import GatewayConfig, spawn_gateway
+    from deepspeed_tpu_torch.inference import (FailureConfig,
+                                               InferenceConfig,
+                                               InferenceEngine)
+    from deepspeed_tpu_torch.serving import (FleetRouter,
+                                             reconciled_terminal_statuses)
+    from deepspeed_tpu_torch.telemetry import (AnomalyConfig,
+                                               parse_prometheus_text,
+                                               validate_flight_dump)
+    from deepspeed_tpu_torch.models.transformer import tree_leaves
+    from tools import tracemerge
+
+    tag = "serve-fleet"
+    L = model.config.num_layers
+    n = len(prompts)
+    ref, tol = phase5["streams"], phase5["tol"]
+    contexts = dict(enumerate(prompts))
+    t_phase = time.perf_counter()
+    root = fleet_dir()
+    free_engines(torch)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engines = {name: InferenceEngine(model, InferenceConfig(
+        **SERVE_ENGINE, **FLEET_TELEMETRY,
+        anomaly_cfg=AnomalyConfig(max_captures=FLEET_ANOMALY_CAPTURES),
+        failure=FailureConfig(flight_dir=str(root / name))))
+        for name in ("r0", "r1")}
+    ptrs = [x.data_ptr() for x in tree_leaves(model.params)]
+    shared = all([x.data_ptr() for x in tree_leaves(e.params)] == ptrs
+                 for e in engines.values())
+    log(f"[{tag}] replicas r0, r1 over one model (weights shared: "
+        f"{shared}), a {tree_bytes(engines['r0'].state.kv) / 1e9:.3f} GB "
+        f"cache each; allocated above the model "
+        f"{(torch.cuda.memory_allocated() - base) / 1e9:.3f} GB")
+    if not shared:
+        raise AssertionError(f"{tag}: the replicas copied the weights")
+    router = FleetRouter(engines)
+    handle = spawn_gateway(router, GatewayConfig(
+        ops="on", install_signals=False, max_tokens_cap=SERVE_NEW_TOKENS))
+    gw, port = handle.gateway, handle.port
+
+    # host time: the router's step wall less its engines' steps; the
+    # gateway's pump wall less the router's step, and its event loop's
+    # CPU time
+    walls = dict(router=0.0, engines=0.0, pump=0.0)
+
+    def timed(fn, key):
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                walls[key] += time.perf_counter() - t
+        return call
+
+    router.step = timed(router.step, "router")
+    for e in engines.values():
+        e.step = timed(e.step, "engines")
+    gw._pump = timed(gw._pump, "pump")
+
+    def fresh(all_metrics=False):
+        for e in engines.values():
+            e.state.reset_prefix_cache()
+            if all_metrics:
+                e.reset_metrics()
+            else:
+                e.reset_timings()
+            e.ttft_ms.clear()
+
+    t0 = time.perf_counter()
+    for rnd in range(FLEET_WARM_ROUNDS):
+        caps = 0
+        for n_new in (1, SERVE_NEW_TOKENS):
+            fresh()
+            fleet_run(port, prompts, n_new)
+            caps += sum(int(e.timings["compiles"]) for e in engines.values())
+        log(f"[{tag}] warm-up round {rnd}: {caps} graphs captured; held "
+            + ", ".join(f"{k} {len(e._graphs)}" for k, e in engines.items()))
+        if caps == 0:
+            break
+    else:
+        raise AssertionError(f"{tag}: graphs still captured after "
+                             f"{FLEET_WARM_ROUNDS} warm-up rounds")
+    torch.cuda.synchronize()
+    log(f"[{tag}] warm-up {time.perf_counter() - t0:.1f} s")
+
+    def measured(n_new):
+        fresh(all_metrics=True)
+        for k in walls:
+            walls[k] = 0.0
+        cpu0 = thread_cpu_s(handle._thread)
+        pa.launches = 0
+        torch.cuda.synchronize()
+        outs, wall = fleet_run(port, prompts, n_new)
+        torch.cuda.synchronize()
+        return outs, wall, pa.launches, thread_cpu_s(handle._thread) - cpu0
+
+    _, wall1, _, _ = measured(1)
+    outs, wall, launches, loop_cpu = measured(SERVE_NEW_TOKENS)
+    steps = {k: int(e.timings["steps"]) for k, e in engines.items()}
+    for k, e in engines.items():
+        check_replayed(e.timings, f"{tag} {k}")
+        tm = e.timings
+        log(f"[{tag} {k}] host phases per step over {steps[k]} steps (ms): "
+            + ", ".join(f"{ph.split('_')[0]} {tm[ph] / steps[k]:.3f}"
+                        for ph in ("schedule_ms", "stage_ms", "device_ms",
+                                   "wait_ms", "readback_ms"))
+            + " (device = the enqueue)")
+    log(f"[{tag}] K2 launches {launches} over {sum(steps.values())} replica "
+        f"steps {steps} (x {L} layers = {L * sum(steps.values())})")
+    if launches != L * sum(steps.values()) or launches == 0:
+        raise AssertionError(f"{tag}: K2 did not run in every layer of "
+                             "every replica step")
+    got = {i: o["tokens"] for i, o in enumerate(outs)}
+    check_near_ties(torch, engines["r0"], contexts, got, ref, tol, tag)
+    placed = {i: record_of(engines, o["uid"]) for i, o in enumerate(outs)}
+    log(f"[{tag}] placement: " + ", ".join(
+        f"prompt {i} -> {name} (cached {rec.cached_tokens})"
+        for i, (name, rec) in placed.items()))
+    shared_tokens = 4 * SERVE_ENGINE["kv_block_size"]
+    if placed[2][0] != placed[0][0] \
+            or placed[2][1].cached_tokens < shared_tokens:
+        raise AssertionError(f"{tag}: affinity did not place prompt 2 on "
+                             f"prompt 0's replica with its {shared_tokens} "
+                             "shared tokens cached")
+    ttft = sorted((o["t_tokens"][0] - o["t_send"]) * 1e3 for o in outs)
+    tokens = n * SERVE_NEW_TOKENS
+    decode = n * (SERVE_NEW_TOKENS - 1) / max(wall - wall1, 1e-9)
+    eng_ms = sum(e.timings[k] for e in engines.values()
+                 for k in ("schedule_ms", "stage_ms", "device_ms", "wait_ms",
+                           "readback_ms"))
+    router_ms = (walls["router"] - walls["engines"]) * 1e3
+    pump_ms = (walls["pump"] - walls["router"]) * 1e3
+    log(f"[{tag}] through the gateway: TTFT p50 "
+        f"{statistics.median(ttft):.1f} ms (min {ttft[0]:.1f}, max "
+        f"{ttft[-1]:.1f}; phase 5 engine-direct {phase5['ttft_p50_ms']:.1f});"
+        f" decode {decode:.1f} tok/s ({n} x {SERVE_NEW_TOKENS - 1} tokens in "
+        f"{wall - wall1:.3f} s; phase 5 engine-direct "
+        f"{phase5['decode_tok_s']:.1f}); walls 1-token {wall1:.3f} s, "
+        f"32-token {wall:.3f} s")
+    log(f"[{tag}] host ms per emitted token ({tokens} tokens): router "
+        f"{router_ms / tokens:.4f} (router.step {walls['router'] * 1e3:.1f}"
+        f" ms less its engine steps {walls['engines'] * 1e3:.1f}); gateway "
+        f"pump {pump_ms / tokens:.4f} (pump {walls['pump'] * 1e3:.1f} ms "
+        f"less router.step), gateway event loop CPU "
+        f"{loop_cpu * 1e3 / tokens:.4f}; engines' own phases "
+        f"{eng_ms / tokens:.4f}")
+
+    code, _, text = http_request(port, "GET", "/metrics")
+    metrics = parse_prometheus_text(text.decode())
+    gauges = {name: metrics.get(name, {}).get("samples", {})
+              for name in ("serving_mfu", "serving_hbm_bw_util")}
+    log(f"[{tag}] /metrics {code}: {len(metrics)} metric families; "
+        + "; ".join(f"{name} " + ", ".join(
+            f"{dict(labels).get('replica', '-')} {v:.6f}"
+            for (_, labels), v in sorted(samples.items()))
+            for name, samples in gauges.items()))
+    if code != 200 or "serving_steps_total" not in metrics \
+            or not all(gauges.values()):
+        raise AssertionError(f"{tag}: /metrics lacks the serving series or "
+                             "the utilization gauges")
+    code, _, body = http_request(port, "GET", "/healthz")
+    log(f"[{tag}] /healthz {code}: {body.decode()[:200]}")
+    if code != 200:
+        raise AssertionError(f"{tag}: /healthz answered {code}")
+    code, _, body = http_request(port, "GET", "/debug/slo")
+    card = json.loads(body)
+    evaluated = sum(o["evaluated"] for c in card.get("classes", {}).values()
+                    for o in c["objectives"].values())
+    log(f"[{tag}] /debug/slo {code}: {evaluated} objective evaluations "
+        f"over classes {sorted(card.get('classes', {}))}")
+    if code != 200 or not card.get("enabled") or evaluated <= 0:
+        raise AssertionError(f"{tag}: /debug/slo shows no evaluated request")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    log(f"[{tag}] max_memory_allocated above the model {peak:.2f} GiB (two "
+        f"caches, two graph pools)")
+
+    # a replica killed mid-run: its open streams migrate to the other
+    victim = {}
+
+    def kill(outs_k):
+        t_end = time.perf_counter() + FLEET_HTTP_TIMEOUT
+        while not all(len(o.get("tokens", ())) >= FLEET_KILL_AFTER
+                      for o in outs_k):
+            if time.perf_counter() > t_end:
+                raise AssertionError(f"{tag}: the streams stalled")
+            time.sleep(0.001)
+        name = max(engines, key=lambda k: len(engines[k].state.seqs))
+        victim["name"] = name
+        victim["live"] = len(engines[name].state.seqs)
+        engines[name].failures.inject("fatal")
+
+    fresh(all_metrics=True)
+    outs_k, wall_k = fleet_run(port, prompts, SERVE_NEW_TOKENS, during=kill)
+    dead = victim["name"]
+    survivor = next(k for k in engines if k != dead)
+    if not router.replica(dead).dead:
+        raise AssertionError(f"{tag}: the killed replica is not dead")
+    check_near_ties(torch, engines[survivor], contexts,
+                    {i: o["tokens"] for i, o in enumerate(outs_k)}, ref, tol,
+                    f"{tag} kill")
+    dumps = sorted((root / dead).glob("flight_engine_dead_*.json"))
+    problems = [validate_flight_dump(json.loads(p.read_text()))
+                for p in dumps]
+    statuses = reconciled_terminal_statuses(router)
+    log(f"[{tag}] killed {dead} with {victim['live']} live streams after "
+        f"{FLEET_KILL_AFTER} tokens each: every stream finished in "
+        f"{wall_k:.3f} s on {survivor}; flight dumps {[p.name for p in dumps]}"
+        f" problems {problems}; reconciled statuses {statuses}; migrations "
+        f"{int(router.metrics.series_sum('serving_fleet_migrations_total'))}")
+    if not dumps or any(problems):
+        raise AssertionError(f"{tag}: no valid flight dump of {dead}")
+    if statuses != {"finished": n}:
+        raise AssertionError(f"{tag}: the reconciled terminal statuses do "
+                             f"not partition the {n} requests: {statuses}")
+
+    # a 2-step capture window on the survivor, armed in steady decode
+    cdir = {}
+
+    def arm(outs_c):
+        while not all(len(o.get("tokens", ())) >= FLEET_KILL_AFTER
+                      for o in outs_c):
+            time.sleep(0.001)
+        cdir["dir"] = engines[survivor].capture(
+            FLEET_CAPTURE_STEPS, reason="serve_fleet",
+            out_dir=str(root / "captures"))
+
+    fresh()
+    fleet_run(port, prompts, SERVE_NEW_TOKENS, during=arm)
+    handle.stop()
+    captures = engines[survivor].capture_dirs
+    if cdir.get("dir") not in captures:
+        raise AssertionError(f"{tag}: the capture window did not complete: "
+                             f"{cdir} {captures}")
+    merged = json.loads(Path(tracemerge.merge_capture(cdir["dir"]))
+                        .read_text())
+    problems = tracemerge.validate_merged_trace(merged)
+    kernels = sorted({e["name"] for e in merged["traceEvents"]
+                      if e.get("pid", 0) >= 10_000 and e.get("ph") == "X"
+                      and e.get("cat") == "kernel"})
+    paged = [k for k in kernels if "paged" in k]
+    log(f"[{tag}] capture {Path(cdir['dir']).name}: {len(kernels)} distinct "
+        f"kernels on the device track, paged attention: "
+        f"{[k[:60] for k in paged]}; merge problems {problems}")
+    if problems or not paged:
+        raise AssertionError(f"{tag}: the merged capture lacks the "
+                             "paged-attention kernel on its device track")
+
+    # one replica's decode tok/s, telemetry on against off, in turns, on
+    # two fresh engines built and warmed alike
+    del router, handle, gw, engines
+    free_engines(torch)
+    on = InferenceEngine(model, InferenceConfig(
+        **SERVE_ENGINE, **FLEET_TELEMETRY,
+        anomaly_cfg=AnomalyConfig(max_captures=FLEET_ANOMALY_CAPTURES),
+        failure=FailureConfig(flight_dir=str(root / "on"))))
+    off = InferenceEngine(model, InferenceConfig(**SERVE_ENGINE))
+    for name, e in (("on", on), ("off", off)):
+        warm_graphs(torch, e, prompts, (1, SERVE_NEW_TOKENS),
+                    f"{tag} telemetry {name}")
+    rates = {"on": [], "off": []}
+    for name in ("on", "off", "off", "on"):
+        rates[name].append(decode_rate(torch, on if name == "on" else off,
+                                       prompts))
+    log(f"[{tag}] one replica's decode tok/s, telemetry on "
+        f"{[round(r, 1) for r in rates['on']]} vs off "
+        f"{[round(r, 1) for r in rates['off']]} (on, off, off, on): "
+        f"{100 * (1 - statistics.mean(rates['on']) / statistics.mean(rates['off'])):+.1f}% "
+        f"cost")
+    del on, off
+    free_engines(torch)
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[time] serve-fleet: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # bench.py's spec_decode_serving_bench (:1111-1187): GPT-2, 8 prompts of
 # 64 tokens, each a 4-6 token motif repeated, 96 greedy new tokens, the
 # sync driver, drafts of at most 4
@@ -4414,7 +4895,8 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="device,build,kernel,train,train-fp32,"
                             "train-ckpt,serve,serve-quant,serve-burst,"
-                            "serve-failover,serve-offload,serve-alibi,"
+                            "serve-failover,serve-offload,serve-fleet,"
+                            "serve-alibi,"
                             "serve-mqa,"
                             "serve-spec,serve-moe,train-moe,train-fp16,"
                             "train-offload,train-nvme")
@@ -4541,13 +5023,13 @@ def main() -> int:
 
     # 5., 6., 6c., 6d. and 6e. the serving paths, bf16, quantized, in
     # decode bursts, under failures and offloaded, on one model
-    launches = failover_launches = None
+    launches = failover_launches = fleet_launches = None
     quant_runs, offload = {}, {}
     if phases & {"serve", "serve-quant", "serve-burst", "serve-failover",
-                 "serve-offload"}:
+                 "serve-offload", "serve-fleet"}:
         model, prompts = serving_model(torch, "llama3-8b", args.seed)
         phase5 = None
-        if phases & {"serve", "serve-failover"}:
+        if phases & {"serve", "serve-failover", "serve-fleet"}:
             # serve-failover's reference streams are phase 5's own
             phase5 = serve(torch, pa, model, prompts)
             launches = phase5["launches"]
@@ -4566,10 +5048,12 @@ def main() -> int:
             t_off = time.perf_counter()
             offload = serve_offload(torch, pa, mg, model, prompts)
             log(f"[time] serve-offload: {time.perf_counter() - t_off:.1f} s")
+        if "serve-fleet" in phases:
+            fleet_launches = serve_fleet(torch, pa, model, prompts, phase5)
         del model, phase5
         free_engines(torch)
         phase_done("serve, serve-quant, serve-burst, serve-failover, "
-                   "serve-offload")
+                   "serve-offload, serve-fleet")
 
     # 7. BLOOM-7b1 with ALiBi, after the Llama model is freed
     alibi_run = {}
@@ -4660,10 +5144,12 @@ def main() -> int:
         # K2 on serve-failover's Llama scenarios (a)-(d), a path of its
         # own (the counts zeroed before each scenario, read after it);
         # serve-offload's paths likewise: (a) the host-memory cache, (b)
-        # the streamed weights' int8 cache, (c) the KV tier's rounds
+        # the streamed weights' int8 cache, (c) the KV tier's rounds; and
+        # serve-fleet's measured run through the gateway
         entries = [dict(name="paged_attention", route="cuda", source=pa_src,
                         replaces=pa_replaces, launches=launches,
                         failover_launches=failover_launches,
+                        fleet_launches=fleet_launches,
                         moe_launches=moe_launches,
                         offload_launches=offload_launches(
                             "a", "kv_offload", "launches"),

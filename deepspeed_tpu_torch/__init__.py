@@ -12,8 +12,11 @@ threefry keys (``utils.prng``), quantized serving with the mixed-input
 GEMM, and one-device training (``runtime``: ``initialize`` ->
 ``Engine.train_batch``) with flash attention forward and backward as
 hand-written Hopper kernels (``ops``), checkpoints in the JAX package's
-fragment format and HuggingFace import (``checkpoint``), and
-mixture-of-experts layers (``parallel.moe``) for training and serving.
+fragment format and HuggingFace import (``checkpoint``),
+mixture-of-experts layers (``parallel.moe``) for training and serving,
+offload, and the host layers above the engine: telemetry
+(``telemetry``, ``monitor``), the fleet router (``serving``) and the
+HTTP gateway (``gateway``).
 """
 
 __version__ = "0.1.0"

@@ -20,16 +20,19 @@ router and the gateway call (``health``, ``snapshot``,
 ``snapshot_requests``, ``migrate_out``, ``handoff_out``,
 ``export_tier_chain``, ``load_snapshot``, ``restore``, ``drain``,
 ``put(..., slo_class=)``), with request records in the copied
-``telemetry.lifecycle.RequestTracker``; serving offload: the KV cache in
-host memory (``kv_offload``), the block weights streamed from an NVMe
-store (``weight_stream``, ``inference/weight_stream.py``) and the KV
-block tier (``kv_tier="on"``, ``inference/ragged/tier.py``).
+``telemetry.lifecycle.RequestTracker``; telemetry (the span tracer, the
+metrics registry and its exposition, device telemetry, anomaly
+detection, SLO scorecards, deep-capture windows on ``torch.profiler``
+and the flight recorder: ``trace``, ``device_telemetry``, ``anomaly``,
+``profile``, ``slo``, ``FailureConfig.flight_dir``); serving offload:
+the KV cache in host memory (``kv_offload``), the block weights streamed
+from an NVMe store (``weight_stream``, ``inference/weight_stream.py``)
+and the KV block tier (``kv_tier="on"``, ``inference/ragged/tier.py``).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item when its config field is set away from the default): the
-attention-implementation probe, telemetry (tracing, device telemetry,
-anomaly detection, SLOs, captures, the flight recorder), the fp6/fp12
-minifloat weight layouts and tensor parallelism.
+attention-implementation probe, the fp6/fp12 minifloat weight layouts,
+tensor parallelism and ``refresh_params``.
 
 API:
     eng = InferenceEngine(model, InferenceConfig(...))
@@ -112,6 +115,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import os
 import time
 from collections import OrderedDict, deque
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, \
@@ -120,7 +124,8 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, \
 import numpy as np
 import torch
 
-from ..models.transformer import Model, TransformerConfig, tree_map
+from ..models.transformer import (Model, TransformerConfig, tree_leaves,
+                                  tree_map)
 from ..ops import mixed_gemm as _mixed_gemm_mod
 from ..ops.mixed_gemm import flat_kn
 from ..ops.mixed_gemm import held_workspaces as _mixed_workspaces
@@ -129,8 +134,11 @@ from ..ops.paged_attention import forget_plan
 from ..ops.paged_attention import held_workspaces as _paged_workspaces
 from ..ops.quant import (WEIGHT_QUANT_BITS, QuantizedTensor,
                          is_mixed_gemm_layout, is_rowwise_int4)
-from ..telemetry.lifecycle import RequestTracker
-from ..telemetry.metrics import MetricsRegistry
+from ..telemetry import (AnomalyConfig, AnomalyMonitor, CounterDictView,
+                         DeviceTelemetry, FlightRecorder, MetricsRegistry,
+                         ProfilerCapture, RequestTracker, SloTracker,
+                         SpanTracer, default_serving_detectors,
+                         default_slo_objectives, prime_profiler, step_cost)
 from ..utils.logging import logger
 from ..utils.prng import PRNGKey, split
 from . import model as _model_mod
@@ -223,7 +231,6 @@ class InferenceConfig:
 
 
 # field -> (accepted values, ROADMAP item that ports the rest)
-_HOST = "ROADMAP Queue 1, host layers above the engine"
 _UNSUPPORTED = {
     "attn_impl": (("auto",), "ROADMAP Queue 1, serving slice: the kernel "
                   "is chosen by the tensors' device, there is no probe"),
@@ -233,13 +240,6 @@ _UNSUPPORTED = {
     "comm_overlap": (("auto", "off"), "ROADMAP Queue 1, multi-GPU "
                      "training breadth (tensor parallelism)"),
     "comm_quant": ((None,), "ROADMAP Queue 1, multi-GPU training breadth"),
-    "trace": ((False,), _HOST),
-    "device_telemetry": (("auto", "off"), _HOST),
-    "anomaly": (("auto", "off"), _HOST),
-    "anomaly_cfg": ((None,), _HOST),
-    "profile": ((None,), _HOST),
-    "slo": (("auto", "off"), _HOST),
-    "slo_objectives": ((None,), _HOST),
 }
 
 # retained CUDA graphs (the JAX engine's executable-cache bounds)
@@ -267,40 +267,95 @@ class _InFlight(NamedTuple):
     registered: Tuple[Tuple[bytes, int], ...] = ()
 
 
-_TIMINGS = ("schedule_ms", "stage_ms", "device_ms", "wait_ms",
-            "readback_ms", "steps", "prompt_tokens", "cached_tokens",
-            "prefix_hits", "generated_tokens", "decode_steps",
-            "decode_device_ms", "bursts", "burst_iterations", "compiles",
-            "compile_ms", "compile_retraces", "graph_replays",
-            "spec_drafted_tokens", "spec_accepted_tokens",
-            "spec_rejected_tokens", "spec_windows", "step_retries",
-            "requests_failed", "eager_steps") + (
-    # the KV tier: blocks demoted into the host ring, spilled on to NVMe,
-    # dropped off the bottom, revived by source tier, revives in a round
-    # that also dispatched a step, payloads failing verification, bytes,
-    # blocks imported from peers; and the restage drains' host ms and
-    # bytes uploaded
-    "kv_tier_demotions", "kv_tier_spills", "kv_tier_drops",
-    "kv_tier_revives_ram", "kv_tier_revives_nvme", "kv_tier_revives_remote",
-    "kv_tier_restage_overlap_hits", "kv_tier_verify_failures",
-    "kv_tier_demoted_bytes", "kv_tier_spilled_bytes",
-    "kv_tier_remote_blocks", "kv_tier_restage_ms", "kv_tier_restaged_bytes")
-# the tier timings the metrics registry counts too, with their help
-_TIER_COUNTERS = {
-    "kv_tier_demotions": "KV blocks demoted from the cache into the "
-                         "host-RAM tier",
-    "kv_tier_spills": "tier blocks spilled from the host ring to NVMe",
-    "kv_tier_drops": "tier blocks dropped off the bottom of the hierarchy",
-    "kv_tier_revives_ram": "tier blocks restaged from the host ring",
-    "kv_tier_revives_nvme": "tier blocks restaged from NVMe spill files",
-    "kv_tier_revives_remote": "tier blocks restaged from peer imports",
-    "kv_tier_restage_overlap_hits": "restages in a round that also "
-                                    "dispatched a step",
-    "kv_tier_verify_failures": "tier payloads rejected by the checksum "
-                               "or chain-digest check",
-    "kv_tier_demoted_bytes": "payload bytes demoted into the tier",
-    "kv_tier_spilled_bytes": "payload bytes spilled to NVMe",
-    "kv_tier_remote_blocks": "tier blocks imported from peer replicas",
+# engine.timings: key -> (registry counter, help); the phase milliseconds
+# are float counters, every other key an integer one.  The JAX engine's
+# keys carry its metric names; the rest are the port's own (the decode
+# share of the enqueue, bursts, graph replays, streamed steps run eagerly,
+# the KV tier restage drains' host ms and bytes)
+_MS_TIMINGS = {
+    k: (f"serving_{k}_total",
+        f"cumulative serving-loop {k.split('_')[0]} phase milliseconds")
+    for k in ("schedule_ms", "stage_ms", "device_ms", "wait_ms",
+              "readback_ms")}
+_MS_TIMINGS.update({
+    "compile_ms": ("serving_compile_wall_ms_total",
+                   "cumulative CUDA-graph capture wall ms (the first "
+                   "eager run of the key included)"),
+    "decode_device_ms": ("serving_decode_device_ms_total",
+                         "enqueue ms of steps whose rows are all single "
+                         "decode tokens"),
+    "kv_tier_restage_ms": ("serving_kv_tier_restage_ms_total",
+                           "host ms of the KV tier restage drains"),
+})
+_INT_TIMINGS = {
+    "steps": ("serving_steps_total", "dispatched serving steps"),
+    "prompt_tokens": ("serving_prompt_tokens_total",
+                      "prompt tokens of admitted requests"),
+    "cached_tokens": ("serving_cached_tokens_total",
+                      "prompt tokens served from the prefix cache"),
+    "prefix_hits": ("serving_prefix_hits_total",
+                    "admitted requests with a nonzero prefix match"),
+    "generated_tokens": ("serving_generated_tokens_total",
+                         "tokens emitted to live sequences"),
+    "spec_drafted_tokens": ("serving_spec_drafted_tokens_total",
+                            "draft tokens scored by verify steps"),
+    "spec_accepted_tokens": ("serving_spec_accepted_tokens_total",
+                             "draft tokens accepted and emitted"),
+    "spec_rejected_tokens": ("serving_spec_rejected_tokens_total",
+                             "draft tokens rolled back"),
+    "spec_windows": ("serving_spec_windows_total",
+                     "verify windows resolved (mean accepted draft length "
+                     "= accepted / windows)"),
+    "step_retries": ("serving_step_retries_total",
+                     "serving steps that failed and were recovered by "
+                     "re-queue (retry or bisect probe)"),
+    "requests_failed": ("serving_requests_failed_total",
+                        "requests terminally closed with status 'failed' "
+                        "(poison quarantine / unreplayable after a "
+                        "failure)"),
+    "compiles": ("serving_compiles_total",
+                 "serving CUDA graphs captured"),
+    "compile_retraces": ("serving_compile_retraces_total",
+                         "captures of a graph key this engine had already "
+                         "captured (each warns loudly)"),
+    "kv_tier_demotions": ("serving_kv_tier_demotions_total",
+                          "KV blocks demoted from the cache into the "
+                          "host-RAM tier"),
+    "kv_tier_spills": ("serving_kv_tier_spills_total",
+                       "tier blocks spilled from the host ring to NVMe"),
+    "kv_tier_drops": ("serving_kv_tier_drops_total",
+                      "tier blocks dropped off the bottom of the hierarchy"),
+    "kv_tier_revives_ram": ("serving_kv_tier_revives_ram_total",
+                            "blocks restaged from the host ring"),
+    "kv_tier_revives_nvme": ("serving_kv_tier_revives_nvme_total",
+                             "blocks restaged from NVMe spill files"),
+    "kv_tier_revives_remote": ("serving_kv_tier_revives_remote_total",
+                               "blocks restaged from peer-replica fetches"),
+    "kv_tier_restage_overlap_hits": (
+        "serving_kv_tier_restage_overlap_hits_total",
+        "revives resolved in a round that also dispatched a step"),
+    "kv_tier_verify_failures": (
+        "serving_kv_tier_verify_failures_total",
+        "restage/fetch payloads rejected by checksum or chain-digest "
+        "verification (fell back to re-prefill)"),
+    "kv_tier_demoted_bytes": ("serving_kv_tier_demoted_bytes_total",
+                              "payload bytes demoted into the host ring"),
+    "kv_tier_spilled_bytes": ("serving_kv_tier_spilled_bytes_total",
+                              "payload bytes spilled to NVMe"),
+    "kv_tier_remote_blocks": ("serving_kv_tier_remote_blocks_total",
+                              "tier blocks imported from peer replicas"),
+    "decode_steps": ("serving_decode_steps_total",
+                     "steps whose rows are all single decode tokens"),
+    "bursts": ("serving_bursts_total", "decode bursts dispatched"),
+    "burst_iterations": ("serving_burst_iterations_total",
+                         "decode iterations run inside bursts"),
+    "graph_replays": ("serving_graph_replays_total",
+                      "CUDA graph replays (steps and bursts)"),
+    "eager_steps": ("serving_eager_steps_total",
+                    "streamed-weight steps run eagerly on the card"),
+    "kv_tier_restaged_bytes": ("serving_kv_tier_restaged_bytes_total",
+                               "payload bytes uploaded by the KV tier "
+                               "restage drains"),
 }
 
 _HEALTH_CODE = {"healthy": 0, "degraded": 1, "draining": 2, "dead": 3}
@@ -527,27 +582,13 @@ class InferenceEngine:
         self._preempt_gen: Dict[int, List[int]] = {}  # pre-eviction tokens
         self._closing: Dict[int, str] = {}        # uid -> staged status
         self._reaped: set = set()   # engine-closed uids drivers must drop
-        # request records (lifecycle, terminal statuses in a ring of
-        # ``status_retention``), first-token ms by uid
-        self.metrics = MetricsRegistry()
-        self.requests = RequestTracker(
-            self.metrics, max_finished=self.ocfg.status_retention)
-        self._tier_counters = {
-            k: self.metrics.counter(f"serving_{k}_total", h,
-                                    int_valued=True)
-            for k, h in _TIER_COUNTERS.items()}
-        self._health_gauge = self.metrics.gauge(
-            "serving_health_state",
-            "engine health: 0=healthy 1=degraded 2=draining 3=dead")
+        # first-token ms by uid
         self.ttft_ms: Dict[int, float] = {}
-        self.timings: Dict[str, float] = dict.fromkeys(_TIMINGS, 0)
-        # --- failure-domain state (inference/failures.py) --------------
         self.fcfg = self.icfg.failure or FailureConfig()
-        if self.fcfg.flight_dir is not None:
-            raise NotImplementedError(
-                f"FailureConfig.flight_dir={self.fcfg.flight_dir!r}: the "
-                f"flight recorder is not ported yet ({_HOST}); accepted "
-                "here: None")
+        self._weight_numel: Optional[int] = None    # device telemetry's
+        self._weight_bytes = 0
+        self._setup_telemetry()
+        # --- failure-domain state (inference/failures.py) --------------
         self.failures = FailurePolicy(self.fcfg, self.timings)
         self._strikes: Dict[int, int] = {}   # uid -> failing-batch count
         self._probe_groups: List[List[int]] = []  # bisection quarantine
@@ -558,6 +599,123 @@ class InferenceEngine:
         self._health = "healthy"             # healthy|degraded computed;
         self._draining = False               # draining|dead are sticky
         self.state.on_release = self._on_state_release
+
+    def _setup_telemetry(self) -> None:
+        """The metrics registry (``timings`` is a dict-shaped view over
+        its counters), the span tracer, the request-lifecycle tracker
+        and, each only when its config field turns it on, device
+        telemetry, anomaly detection, the capture manager and the SLO
+        tracker (docs/OBSERVABILITY.md).  Host-side counters and floats
+        only: telemetry never touches a device tensor on the serving
+        path, and an engine with every gate off adds no clock read."""
+        self.metrics = reg = MetricsRegistry()
+        self.tracer = SpanTracer(capacity=self.icfg.trace_capacity,
+                                 enabled=self.icfg.trace)
+        # request records (lifecycle, terminal statuses in a ring of
+        # ``status_retention``)
+        self.requests = RequestTracker(
+            reg, max_finished=self.ocfg.status_retention)
+        # 0 healthy, 1 degraded, 2 draining, 3 dead: what the router's
+        # liveness probe scrapes
+        self._health_gauge = reg.gauge(
+            "serving_health_state",
+            "engine health: 0=healthy 1=degraded 2=draining 3=dead")
+        counters = {k: reg.counter(name, h)
+                    for k, (name, h) in _MS_TIMINGS.items()}
+        counters.update({k: reg.counter(name, h, int_valued=True)
+                         for k, (name, h) in _INT_TIMINGS.items()})
+        self.timings = CounterDictView(counters)
+        # the decomposed TP collectives' counters: always 0 until tensor
+        # parallelism is ported (ROADMAP Queue 1 item 6); registered so
+        # the exposition carries every series of the reference's, which
+        # the parity tests compare
+        reg.counter("serving_comm_ops_total", "decomposed TP collectives "
+                    "dispatched (kind: exact|quant)", int_valued=True)
+        reg.counter("serving_comm_tiles_total", "tiles across dispatched "
+                    "decomposed TP collectives", int_valued=True)
+        reg.counter("serving_comm_bytes_total", "modeled bytes on the wire "
+                    "for decomposed TP collectives (kind: exact|quant)")
+        # KV-pool occupancy and tier gauges: read from allocator (tier)
+        # truth at export time, never updated by the serving loop
+        pool = lambda k: (lambda: self.state.pool_stats()[k])  # noqa: E731
+        reg.gauge_fn("serving_kv_blocks_free", pool("free"),
+                     "plain-free KV blocks (excludes cached-free)")
+        reg.gauge_fn("serving_kv_blocks_cached_free", pool("cached_free"),
+                     "evictable prefix-cached free KV blocks")
+        reg.gauge_fn("serving_kv_blocks_referenced", pool("referenced"),
+                     "KV blocks referenced by live sequences")
+        reg.gauge_fn("serving_kv_blocks_peak_referenced",
+                     pool("peak_referenced"),
+                     "high-water mark of referenced KV blocks")
+        reg.gauge_fn("serving_kv_blocks_total", pool("total"),
+                     "KV pool size")
+        reg.gauge_fn("serving_prefix_index_entries",
+                     pool("prefix_index_entries"),
+                     "content hashes resident in the prefix-cache index")
+        reg.gauge_fn("serving_prefix_hit_rate", self._prefix_hit_rate,
+                     "cached_tokens / prompt_tokens over the measured "
+                     "window (absent before any prompt token)")
+        tg = lambda k: (lambda: (self.state.tier.stats()[k]  # noqa: E731
+                                 if self.state.tier is not None else None))
+        for k, h in (("ram_entries", "blocks resident in the host-RAM tier "
+                      "ring"), ("ram_bytes", "payload bytes resident in the "
+                                "host-RAM tier ring"),
+                     ("nvme_entries", "blocks resident in NVMe spill files"),
+                     ("nvme_bytes", "payload bytes resident in NVMe spill "
+                      "files")):
+            reg.gauge_fn(f"serving_kv_tier_{k}", tg(k), h)
+        # the flight recorder: always built, touched only on the failure
+        # path and by dumps
+        self.flight = FlightRecorder()
+        for name in ("device_telemetry", "anomaly", "slo"):
+            mode = getattr(self.icfg, name)
+            if mode not in ("auto", "on", "off"):
+                raise ValueError(f"{name}={mode!r}: expected 'auto', "
+                                 "'on', or 'off'")
+        # every gate's "auto" resolves off, as in the reference
+        self.devtel = DeviceTelemetry(
+            reg, "serving", device=self.device,
+            step_ms_fn=lambda: (self.timings["device_ms"]
+                                + self.timings["wait_ms"])) \
+            if self.icfg.device_telemetry == "on" else None
+        self._acfg = self.icfg.anomaly_cfg or AnomalyConfig()
+        self._anom = None
+        if self.icfg.anomaly == "on":
+            self._anom = AnomalyMonitor(self._acfg, reg, "serving")
+            self._anom.watch_all(default_serving_detectors(self._acfg))
+        # per-step signal scratch, touched only when the monitor exists
+        self._anom_prev: Dict[str, float] = {}
+        # deep-capture windows (telemetry/profiler.py): built when a
+        # capture directory is configured, or lazily by capture(out_dir=)
+        # and the anomaly path (falling back to FailureConfig.flight_dir)
+        self._cap = None
+        self._warned_no_capture_dir = False
+        if self.icfg.profile:
+            self._cap = ProfilerCapture(
+                self.icfg.profile, tracer=self.tracer,
+                max_captures=self._acfg.max_captures)
+            if self.icfg.profile_steps > 0:
+                self._cap.arm(self.icfg.profile_steps, "config")
+        elif self.fcfg.flight_dir:
+            # the anomaly path and the gateway may build the manager on
+            # a worker thread: prime the profiler here, on the caller's
+            prime_profiler()
+        # the SLO scorecard rides the tracker's stamp sites (no new clock
+        # reads) and feeds its burn detectors into the anomaly plane
+        self._slo = None
+        if self.icfg.slo == "on":
+            self._slo = SloTracker(
+                self.icfg.slo_objectives or default_slo_objectives(), reg)
+            self.requests.slo = self._slo
+            if self._anom is not None:
+                self._slo.bind(self._anom, lambda: self._steps_done,
+                               self._on_anomaly)
+
+    def _prefix_hit_rate(self):
+        prompt = self.timings["prompt_tokens"]
+        if not prompt:
+            return None
+        return self.timings["cached_tokens"] / prompt
 
     def _setup_spec_decode(self) -> None:
         """Resolve ``spec_decode`` to a proposer (or None) and the fixed
@@ -717,10 +875,176 @@ class InferenceEngine:
         streamed steps run eagerly on the card (``eager_steps``) and the
         KV tier's (``kv_tier_*``).  The graphs themselves stay captured.
         Reset in place: the failure policy's auto deadline reads the same
-        dict (and, as in the JAX engine, calibrates again after a
-        reset)."""
-        for k in self.timings:
-            self.timings[k] = 0
+        counters (and, as in the JAX engine, calibrates again after a
+        reset).  ``timings`` is a view over ``metrics`` registry counters;
+        :meth:`reset_metrics` also clears request records, latency
+        histograms and the span ring."""
+        self.timings.reset()
+
+    def reset_metrics(self) -> None:
+        """Full telemetry reset: every registry metric (timings
+        included), the request-lifecycle tracker and the span ring, with
+        the pool's high-water mark, the anomaly baselines, the capture
+        budget and the SLO windows."""
+        self.metrics.reset()
+        self.requests.clear()
+        self.tracer.clear()
+        self.state.allocator.reset_peaks()
+        if self._anom is not None:
+            self._anom.reset()
+            self._anom_prev.clear()
+        if self._cap is not None:
+            self._cap.reset_budget()
+        if self._slo is not None:
+            self._slo.reset()
+
+    def device_snapshot(self) -> Optional[Dict]:
+        """Device-telemetry summary (per-graph reckoned costs, derived
+        MFU and memory-rate utilization, the last memory poll); None
+        when ``device_telemetry`` is off."""
+        return None if self.devtel is None else self.devtel.snapshot()
+
+    def anomaly_summary(self) -> Optional[Dict]:
+        """Anomaly tally (fires by signal, recent events) and the
+        completed capture directories; None when anomaly detection is
+        off."""
+        if self._anom is None:
+            return None
+        return {**self._anom.summary(), "captures": self.capture_dirs}
+
+    def slo_scorecard(self) -> Dict:
+        """The per-class SLO scorecard (telemetry/slo.py);
+        ``{"enabled": False}`` when ``slo`` resolves off, the shape the
+        gateway's ``GET /debug/slo`` serves either way."""
+        if self._slo is None:
+            return {"enabled": False}
+        return self._slo.scorecard()
+
+    @property
+    def capture_dirs(self) -> List[str]:
+        """Completed deep-capture directories (each mergeable into one
+        Perfetto timeline by ``tools/tracemerge.py``)."""
+        return [] if self._cap is None else list(self._cap.captures)
+
+    def capture(self, steps: Optional[int] = None, reason: str = "manual",
+                out_dir: Optional[str] = None) -> Optional[str]:
+        """Arm an explicit deep-capture window around the next ``steps``
+        engine steps (default ``AnomalyConfig.capture_steps``): a bounded
+        ``torch.profiler`` trace, the window's host spans and a flight
+        dump.  Returns the capture directory (recording starts at the
+        next step boundary), or None when a window is already armed or
+        active.  Raises with no directory configured or passed."""
+        cap = self._ensure_capture(out_dir)
+        if cap is None:
+            raise ValueError(
+                "no capture directory: pass out_dir=, or set "
+                "InferenceConfig.profile / FailureConfig.flight_dir")
+        return cap.arm(steps or self._acfg.capture_steps, reason,
+                       budgeted=False)
+
+    def arm_budgeted_capture(self, reason: str = "ops") -> Optional[str]:
+        """Arm a capture window under the anomaly path's budget
+        (``AnomalyConfig.max_captures``, one window at a time): what the
+        gateway's ``POST /debug/capture`` rides.  None when no directory
+        is configured, the budget is spent or a window is open."""
+        cap = self._ensure_capture()
+        if cap is None:
+            return None
+        return cap.arm(self._acfg.capture_steps, reason, budgeted=True)
+
+    def _ensure_capture(self, out_dir: Optional[str] = None):
+        """The capture manager, built on first need from the first
+        configured directory (``out_dir``, ``InferenceConfig.profile``,
+        ``FailureConfig.flight_dir``); None, warned once, without one."""
+        if self._cap is None:
+            d = out_dir or self.icfg.profile or self.fcfg.flight_dir
+            if not d:
+                if not self._warned_no_capture_dir:
+                    self._warned_no_capture_dir = True
+                    logger.warning(
+                        "anomaly capture skipped: no capture directory "
+                        "(set InferenceConfig.profile or FailureConfig."
+                        "flight_dir) — detectors still fire/count")
+                return None
+            self._cap = ProfilerCapture(
+                d, tracer=self.tracer, max_captures=self._acfg.max_captures)
+        return self._cap
+
+    def _on_anomaly(self, ev) -> None:
+        """One fired detector: a flight-recorder breadcrumb and, budget
+        and one-window-at-a-time permitting, a deep capture around the
+        next ``capture_steps`` steps."""
+        self.flight.note("anomaly", **ev.as_dict())
+        cap = self._ensure_capture()
+        if cap is not None:
+            cap.arm(self._acfg.capture_steps, f"anomaly_{ev.signal}",
+                    budgeted=True)
+
+    def _feed_step_signals(self, t0: float, t2: float, t3: float) -> None:
+        """Feed the per-dispatch anomaly signals from the timestamps and
+        counters the step already took (no added clock reads).  Called
+        only when the monitor exists."""
+        anom, prev, tm = self._anom, self._anom_prev, self.timings
+        step = self._steps_done
+        fired = []
+        last_t0 = prev.get("t0")
+        prev["t0"] = t0
+        if last_t0 is not None:
+            fired.append(anom.observe("step_interval_ms",
+                                      (t0 - last_t0) * 1e3, step))
+        fired.append(anom.observe("step_device_ms", (t3 - t2) * 1e3, step))
+        fired.append(anom.observe("step_host_ms", (t2 - t0) * 1e3, step))
+        retr = tm["compile_retraces"]
+        fired.append(anom.observe("retrace", retr - prev.get("retrace", 0),
+                                  step))
+        prev["retrace"] = retr
+        ref = float(self.state.pool_stats()["referenced"])
+        last_ref = prev.get("referenced")
+        prev["referenced"] = ref
+        if last_ref is not None:
+            fired.append(anom.observe("kv_referenced_delta", ref - last_ref,
+                                      step))
+        prompt, cached = tm["prompt_tokens"], tm["cached_tokens"]
+        dp = prompt - prev.get("prompt", 0)
+        if dp > 0:
+            fired.append(anom.observe(
+                "prefix_hit_rate", (cached - prev.get("cached", 0)) / dp,
+                step))
+        prev["prompt"], prev["cached"] = prompt, cached
+        for ev in fired:
+            if ev is not None:
+                self._on_anomaly(ev)
+
+    def _observe(self, signal: str, value: float) -> None:
+        """One anomaly observation outside the per-step feed (the
+        monitor exists)."""
+        ev = self._anom.observe(signal, value, self._steps_done)
+        if ev is not None:
+            self._on_anomaly(ev)
+
+    def request_metrics(self) -> Dict:
+        """Per-request lifecycle records and their aggregate:
+        ``{"aggregate": {...}, "requests": [record dicts]}``; the records'
+        token counts reconcile with the ``timings`` counters."""
+        return {"aggregate": self.requests.aggregate(),
+                "requests": [r.as_dict() for r in self.requests.records()]}
+
+    def metrics_snapshot(self) -> Dict:
+        """JSON-able snapshot of every serving metric; see also
+        ``metrics.prometheus_text()`` and ``metrics.write_jsonl(path)``."""
+        return self.metrics.snapshot()
+
+    def publish_metrics(self, monitor, step: int = 0) -> None:
+        """Fan the current metric values out through a ``monitor/``
+        writer (CSV/TensorBoard/WandB/Comet)."""
+        self.metrics.publish(monitor, step)
+
+    def refresh_params(self, params) -> None:
+        """Swap in new weights between steps (the RLHF hybrid engine's
+        seam): not ported yet."""
+        raise NotImplementedError(
+            "InferenceEngine.refresh_params is not ported yet (ROADMAP "
+            "Queue 1 item 7: runtime/hybrid_engine.py)")
 
     # ------------------------------------------------------------------
     # request API
@@ -827,7 +1151,12 @@ class InferenceEngine:
         self._strikes.pop(uid, None)
         if self._spec is not None:
             self._spec.forget(uid)
+        rec = self.requests.open.get(uid) if self._anom is not None \
+            else None
         self.requests.on_finish(uid, status=status)
+        if rec is not None and rec.tpot_ms is not None:
+            # TPOT is final only at the terminal close
+            self._observe("tpot_ms", rec.tpot_ms)
 
     def _on_state_release(self, uid: int) -> None:
         """``StateManager.on_release`` hook: preemption is the one
@@ -932,10 +1261,12 @@ class InferenceEngine:
                     # it queued; the pre-dispatch drain indexes the chain
                     # and the next round's match covers it
                     return "ok"
-                cached = self.state.match_prefix(
-                    uid, toks,
-                    max_pool_take=self.state.allocator.free_blocks
-                    - reserved_blocks)
+                with self.tracer.span("prefix_match", track="schedule",
+                                      uid=uid):
+                    cached = self.state.match_prefix(
+                        uid, toks,
+                        max_pool_take=self.state.allocator.free_blocks
+                        - reserved_blocks)
                 if not cached and self.state.restaging(uid):
                     return "ok"       # the match itself began a restage
                 if cached:
@@ -1174,10 +1505,13 @@ class InferenceEngine:
                 t.zero_()
 
     def _die(self, exc: BaseException, phase: str) -> None:
-        """Mark the engine dead and raise :class:`EngineDeadError` from
-        ``exc``; touches no device state."""
+        """Mark the engine dead, leave the flight dump, and raise
+        :class:`EngineDeadError` from ``exc``; touches no device state."""
         self._health = "dead"
         self._health_gauge.set(_HEALTH_CODE["dead"])
+        self.flight.note("engine_dead", phase=phase, exc=type(exc).__name__,
+                         step=self._steps_done)
+        self._flight_autodump("engine_dead")
         raise EngineDeadError(
             f"serving backend dead after {type(exc).__name__} at "
             f"{phase}; snapshot() holds the host-side truth — "
@@ -1217,11 +1551,24 @@ class InferenceEngine:
             consecutive_timeouts=self._consec_timeouts, cfg=self.fcfg)
         if verdict is None:
             raise exc
+        # the first failure of a window flips health() to degraded: the
+        # transition, not every failure, triggers a flight dump
+        fresh_degrade = self._steps_done - self._last_failure_step \
+            > self.fcfg.health_window_steps
         self._consec_failures += 1
         self._last_failure_step = self._steps_done
         logger.warning(
             f"serving step failure at {phase} ({type(exc).__name__}: "
             f"{(str(exc).splitlines() or [''])[0][:120]}) -> {verdict}")
+        self.flight.note(
+            "step_failure", verdict=verdict, phase=phase,
+            exc=type(exc).__name__, step=self._steps_done,
+            uids=[int(u) for u in uids])
+        if self._cap is not None and self._cap.active:
+            # a capture that witnessed the failure closes with what it has
+            fin = self._cap.finish_now()
+            if fin is not None:
+                self._finish_capture(fin)
         if verdict == FATAL_ENGINE:
             self._die(exc, phase)
         tm = self.timings
@@ -1297,6 +1644,81 @@ class InferenceEngine:
             self._backoff_rounds = min(
                 self.fcfg.max_backoff_rounds,
                 1 << min(self._consec_failures - 1, 6))
+        # the non-fatal dump triggers: a watchdog expiry (the abandoned
+        # call's artifact) and a fresh healthy -> degraded transition
+        if isinstance(exc, DispatchTimeoutError):
+            self._flight_autodump("watchdog_expiry")
+        elif fresh_degrade:
+            self._flight_autodump("health_degraded")
+
+    def _finish_capture(self, cdir: str) -> None:
+        """A capture window completed: the flight dump goes next to its
+        traces, and a breadcrumb into the recorder."""
+        self.flight.note("capture_complete", path=cdir)
+        self.debug_dump(os.path.join(cdir, "flight.json"), reason="capture")
+
+    def finish_capture(self) -> Optional[str]:
+        """Close an active capture window now, with the steps it has (the
+        artifact is written, the profiler session and the force-enabled
+        tracer released).  The ``generate`` drivers and ``drain`` call it
+        when their work runs out; a ``step()`` caller may.  Returns the
+        capture directory, or None when no window was active."""
+        if self._cap is None or not self._cap.active:
+            return None
+        fin = self._cap.finish_now()
+        if fin is not None:
+            self._finish_capture(fin)
+        return fin
+
+    def _flight_autodump(self, reason: str) -> Optional[str]:
+        """Write one black-box artifact into ``FailureConfig.flight_dir``
+        (no-op unset), under a name no earlier engine sharing the
+        directory used.  Best-effort: the recorder swallows I/O errors."""
+        d = self.fcfg.flight_dir
+        if not d:
+            return None
+        try:
+            os.makedirs(d, exist_ok=True)
+        except OSError as e:
+            logger.warning("flight_dir %r unusable (%s)", d, e)
+            return None
+        n = self.flight.dumps
+        while True:
+            path = os.path.join(
+                d, f"flight_{reason}_s{self._steps_done}_{n}.json")
+            if not os.path.exists(path):
+                break
+            n += 1
+        self.flight.note("dump", reason=reason, path=path)
+        return self.flight.dump(path, reason, snap=self._flight_snapshot(
+            reason))
+
+    def _flight_snapshot(self, reason: str) -> Dict:
+        return self.flight.snapshot(
+            reason, metrics=self.metrics, tracer=self.tracer,
+            requests=self.requests, health=self.health(),
+            steps=self._steps_done,
+            extra={"device": None if self.devtel is None
+                   else self.devtel.snapshot(),
+                   "anomalies": self.anomaly_summary()})
+
+    def ops_dump(self) -> Optional[str]:
+        """The gateway's ``POST /debug/dump``: one flight artifact into
+        ``FailureConfig.flight_dir`` through the failure path's writer;
+        None without a flight_dir."""
+        return self._flight_autodump("ops")
+
+    def debug_dump(self, path: Optional[str] = None,
+                   reason: str = "debug") -> Dict:
+        """On-demand flight-recorder snapshot: the last spans, the
+        metrics, recent request records, the config fingerprint, health,
+        the failure breadcrumbs and the device-telemetry summary.
+        Returns the dict; with ``path`` also writes it.  Valid on a dead
+        engine (everything it reads is host state)."""
+        snap = self._flight_snapshot(reason)
+        if path is not None:
+            self.flight.dump(path, reason, snap=snap)
+        return snap
 
     # ------------------------------------------------------------------
     # health, snapshots, migration, drain (the router's seam)
@@ -1310,16 +1732,22 @@ class InferenceEngine:
         if state == "healthy" and self._steps_done \
                 - self._last_failure_step <= self.fcfg.health_window_steps:
             state = "degraded"
+        if state == "healthy" and self._anom is not None \
+                and self._anom.sustained(self._steps_done):
+            # sustained anomaly fires: not failing, not behaving either
+            state = "degraded"
         return state
 
     def health(self) -> Dict:
         """Engine health for a router's liveness probe; also sets the
         ``serving_health_state`` gauge (0 healthy, 1 degraded, 2
-        draining, 3 dead).  Reads host state only, so a dead engine
-        answers too.  Anomaly detection and captures are not ported
-        (ROADMAP Queue 1 item 5): ``anomalies`` and ``captures`` are 0."""
+        draining, 3 dead), and with device telemetry on polls the
+        allocator's memory gauges (a phase boundary).  Reads host state
+        only, so a dead engine answers too."""
         state = self.health_state()
         self._health_gauge.set(_HEALTH_CODE[state])
+        if self.devtel is not None:
+            self.devtel.poll_memory()
         tm = self.timings
         return {
             "state": state,
@@ -1333,8 +1761,8 @@ class InferenceEngine:
             "backoff_rounds": self._backoff_rounds,
             "live": len(self.state.seqs),
             "queued": sum(1 for t in self._pending.values() if t),
-            "anomalies": 0,
-            "captures": 0,
+            "anomalies": 0 if self._anom is None else self._anom.total(),
+            "captures": len(self.capture_dirs),
         }
 
     # the snapshot schema the JAX engine emits and restores: a snapshot
@@ -1590,11 +2018,6 @@ class InferenceEngine:
         eng.load_snapshot(snap)
         return eng
 
-    def finish_capture(self) -> Optional[str]:
-        """Close an active capture window; captures are not ported
-        (ROADMAP Queue 1 item 5), so there is never one: None."""
-        return None
-
     def drain(self, deadline_ms: Optional[float] = None,
               sampling: SamplingParams = SamplingParams(),
               rng: Optional[torch.Tensor] = None) -> Dict:
@@ -1715,6 +2138,27 @@ class InferenceEngine:
         bucket = self.token_bucket(sum(len(t) for _, t in sched))
         decode = all(uid in self.state.seqs and len(toks) == 1 + len(
             self._sched_drafts.get(uid, ())) for uid, toks in sched)
+        key = ("p", bucket, mbs, sampling.sampler_key) + (
+            (self._n_verify,) if self._n_verify > 1 else ())
+        cap = self._cap
+        if cap is not None:
+            # a profiler window opens at the boundary of a step known to
+            # launch, and never spans a CUDA graph capture: a step that
+            # will capture closes an active window first and defers an
+            # armed one
+            cold = self._cuda and self._wstore is None \
+                and key not in self._graphs
+            if cold and cap.active:
+                self.finish_capture()
+            elif cap.armed and not cold:
+                cap.begin(sid=self._dispatch_seq + 1, step=self._steps_done)
+        tm = self.timings
+        captures = tm["compiles"]
+        cost = None
+        if self.devtel is not None and key not in self.devtel.program_costs:
+            # reckoned from this step's shapes, before the launch
+            # advances the contexts
+            cost = self._step_cost(sched, bucket)
         t1 = time.perf_counter()
         uids = tuple(uid for uid, _ in sched)
         try:
@@ -1724,11 +2168,11 @@ class InferenceEngine:
                 self._stream.wait_stream(cur)
                 with torch.cuda.stream(self._stream):
                     toks, host, event, t2 = self._launch_step(
-                        sched, sampling, rng, bucket, mbs, uids)
+                        sched, sampling, rng, bucket, mbs, uids, key)
                 cur.wait_stream(self._stream)
             else:
                 toks, host, event, t2 = self._launch_step(
-                    sched, sampling, rng, bucket, mbs, uids)
+                    sched, sampling, rng, bucket, mbs, uids, key)
         except Exception as e:
             # the failure seam: build_batch's registrations are the
             # live ledger of this step
@@ -1739,7 +2183,6 @@ class InferenceEngine:
         t3 = time.perf_counter()
         self._steps_done += 1
         self._last_toks = toks
-        tm = self.timings
         tm["schedule_ms"] += (t1 - t0) * 1e3
         tm["stage_ms"] += (t2 - t1) * 1e3
         tm["device_ms"] += (t3 - t2) * 1e3
@@ -1747,8 +2190,27 @@ class InferenceEngine:
         if decode:
             tm["decode_steps"] += 1
             tm["decode_device_ms"] += (t3 - t2) * 1e3
+        if self.devtel is not None:
+            if cost is not None:
+                self.devtel.probe_program(key, lambda: cost)
+            self.devtel.on_dispatch(key)
+        if self._anom is not None:
+            # fed from the timestamps and counters above
+            self._feed_step_signals(t0, t2, t3)
         for uid in uids:
             self.requests.on_prefill_start(uid, t3)
+        tr = self.tracer
+        if tr.enabled:
+            # the phase timestamps the timings took, one track a stage;
+            # a capture ("compile" in the reference) rides the dispatch
+            sid = self._dispatch_seq + 1
+            tr.record("schedule", t0, t1, track="schedule", sid=sid)
+            tr.record("stage", t1, t2, track="stage", sid=sid)
+            tr.record("dispatch", t2, t3, track="dispatch", sid=sid,
+                      n_tokens=sum(len(t) for _, t in sched))
+            if tm["compiles"] != captures:
+                tr.record("compile", t2, t3, track="dispatch", sid=sid,
+                          key=repr(key))
         emit = tuple((uid, self.state.slot(uid)) for uid in uids
                      if not self._pending.get(uid))
         for uid in uids:
@@ -1761,8 +2223,41 @@ class InferenceEngine:
                          stop=sampling.stop_token,
                          registered=tuple(self.state.round_registered))
 
+    def _step_cost(self, sched, tokens: int, iterations: int = 1) -> Dict:
+        """A step's flops and bytes from its shapes (device telemetry):
+        ``tokens`` through the projections each iteration, and each
+        scheduled row's tokens attending over its context."""
+        if self._weight_numel is None:
+            # the quantized payloads count their logical elements (the
+            # dense shape) and their stored bytes (codes and scales)
+            numel = nbytes = 0
+            for tree in (self.params, self._quant or {}):
+                for t in tree_leaves(tree):
+                    if isinstance(t, QuantizedTensor):
+                        numel += int(np.prod(t.shape))
+                        nbytes += sum(x.numel() * x.element_size()
+                                      for x in (t.data, t.scale, t.zero)
+                                      if x is not None)
+                    elif isinstance(t, torch.Tensor):
+                        numel += t.numel()
+                        nbytes += t.numel() * t.element_size()
+            self._weight_numel, self._weight_bytes = numel, nbytes
+        pairs = keys = 0
+        for uid, toks in sched:
+            seq = self.state.seqs.get(uid)
+            seen, n = (seq.seen_tokens if seq else 0), len(toks)
+            pairs += n * seen + n * (n + 1) // 2
+            keys += seen + n
+        cfg = self.cfg
+        kv_bytes = 1 if self.icfg.kv_quant else self.icfg.kv_dtype.itemsize
+        one = step_cost(self._weight_numel, self._weight_bytes, tokens,
+                        pairs, keys, cfg.num_layers, cfg.num_heads,
+                        cfg.num_kv_heads, cfg.head_dim, kv_bytes)
+        return {k: v * iterations for k, v in one.items()}
+
     def _launch_step(self, sched, sampling: SamplingParams, rng,
-                     bucket: int, mbs: int, uids: Tuple[int, ...]):
+                     bucket: int, mbs: int, uids: Tuple[int, ...],
+                     key: tuple):
         """Stage the batch and run the padded step through the failure
         policy, inline and unguarded: eagerly on the CPU, as a replay of
         its CUDA graph on the card (captured at the first step of its
@@ -1794,8 +2289,6 @@ class InferenceEngine:
         offload = dict(mixed_gemm=self._mixed_gemm_active,
                        kv_host=self._kv_work, stream=self._wstore)
         n_verify = self._n_verify
-        key = ("p", bucket, mbs, sampling.sampler_key) + (
-            (n_verify,) if n_verify > 1 else ())
         if not cuda:
             def step():
                 toks, _ = pipelined_ragged_step(
@@ -1955,17 +2448,17 @@ class InferenceEngine:
             return
         parts = self._kv_parts()
         self._host_kv_wait()
-        for src, dst in copies:
-            for t in parts:
-                t[:, dst] = t[:, src]
+        with self.tracer.span("cow_drain", track="stage", n=len(copies)):
+            for src, dst in copies:
+                for t in parts:
+                    t[:, dst] = t[:, src]
 
     def _tier_count(self, **moved) -> None:
-        """Add to the ``kv_tier_*`` timings and their registry counters."""
+        """Add to the ``kv_tier_*`` timings."""
         tm = self.timings
         for k, v in moved.items():
             if v:
                 tm[k] += v
-                self._tier_counters[k].inc(v)
 
     def _drain_tier_demote(self) -> None:
         """Read each just-evicted (or handoff-staged) block and demote its
@@ -1978,6 +2471,10 @@ class InferenceEngine:
         q = self.state.take_tier_demotes()
         if not q:
             return
+        with self.tracer.span("tier_demote", track="stage", n=len(q)):
+            self._demote_blocks(q)
+
+    def _demote_blocks(self, q) -> None:
         parts = self._kv_parts()
         blocks = [blk for *_, blk in q]
         if self._kv_work is not None or not self._cuda:
@@ -2014,6 +2511,10 @@ class InferenceEngine:
         q = self.state.take_tier_restage()
         if not q:
             return
+        with self.tracer.span("tier_restage", track="stage", n=len(q)):
+            self._restage_blocks(q, dispatching)
+
+    def _restage_blocks(self, q, dispatching: bool) -> None:
         t0 = time.perf_counter()
         parts = self._kv_parts()
         self._host_kv_wait()
@@ -2089,6 +2590,8 @@ class InferenceEngine:
         self._note_step_success(st.uids)
         tm = self.timings
         tm["wait_ms"] += (t2 - t0) * 1e3
+        if self._anom is not None:
+            self._observe("step_wait_ms", (t2 - t0) * 1e3)
         spec = self._n_verify > 1
         drafts = dict(st.drafts)
         out: Dict[int, List[int]] = {}
@@ -2114,6 +2617,9 @@ class InferenceEngine:
                     tm["spec_rejected_tokens"] += len(d) - (len(emitted)
                                                             - 1)
                     self.requests.on_draft(uid, len(d), len(emitted) - 1)
+                    if self._anom is not None:
+                        self._observe("spec_acceptance",
+                                      (len(emitted) - 1) / len(d))
             else:
                 emitted = [int(row[0] if spec else row)]
             if live:
@@ -2123,6 +2629,10 @@ class InferenceEngine:
                 rec = self.requests.open.get(uid)
                 if uid not in self.ttft_ms and rec is not None:
                     self.ttft_ms[uid] = rec.ttft_ms
+                if self._anom is not None and rec is not None \
+                        and rec.generated_tokens == len(emitted):
+                    # this emission was the first token
+                    self._observe("ttft_ms", rec.ttft_ms)
                 if self._spec is not None:
                     self._spec.observe(uid, emitted)
             out[uid] = emitted
@@ -2133,7 +2643,17 @@ class InferenceEngine:
                     # markers are never speculated for drafting rows, so
                     # the last emitted token is column 0's sample
                     p[0] = emitted[-1]
-        tm["readback_ms"] += (time.perf_counter() - t2) * 1e3
+        t3 = time.perf_counter()
+        tm["readback_ms"] += (t3 - t2) * 1e3
+        tr = self.tracer
+        if tr.enabled:
+            tr.record("wait", t0, t2, track="wait", sid=st.sid)
+            tr.record("readback", t2, t3, track="readback", sid=st.sid)
+        cap = self._cap
+        if cap is not None and cap.active:
+            fin = cap.end_step(sid=st.sid, step=self._steps_done)
+            if fin is not None:
+                self._finish_capture(fin)
         return out
 
     # ------------------------------------------------------------------
@@ -2189,18 +2709,33 @@ class InferenceEngine:
                     f"uid {uid}: cannot reserve {steps} tokens of KV")
         if rng is None:
             self._rng, rng = split(self._rng)
+        gkey = self._burst_key(pending, steps, sampling)
+        cap = self._cap
+        if cap is not None:
+            # as at a step: a burst that will capture its graph closes an
+            # active window first and defers an armed one
+            cold = self._cuda and gkey not in self._burst_graphs
+            if cold and cap.active:
+                self.finish_capture()
+            elif cap.armed and not cold:
+                cap.begin(sid=self._dispatch_seq, step=self._steps_done)
+        cost = None
+        if self.devtel is not None:
+            # S rows an iteration, each pending row over its context
+            cost = self._step_cost(
+                [(u, [0]) for u in pending], self.icfg.max_seqs, steps)
         t0 = time.perf_counter()
         try:
             if self._cuda:
                 cur = torch.cuda.current_stream(self.device)
                 self._stream.wait_stream(cur)
                 with torch.cuda.stream(self._stream):
-                    toks_np, t1 = self._launch_burst(pending, steps,
-                                                     sampling, rng)
+                    toks_np, t1 = self._launch_burst(
+                        pending, steps, sampling, rng, gkey)
                 cur.wait_stream(self._stream)
             else:
                 toks_np, t1 = self._launch_burst(pending, steps, sampling,
-                                                 rng)
+                                                 rng, gkey)
         except Exception as e:
             # the blocks reserved ahead release with the re-queue;
             # seen_tokens was not advanced, so a resumable chain
@@ -2215,6 +2750,19 @@ class InferenceEngine:
         tm["wait_ms"] += (t2 - t1) * 1e3
         tm["bursts"] += 1
         tm["burst_iterations"] += steps
+        if self.devtel is not None:
+            self.devtel.probe_program(gkey, lambda: cost)
+            self.devtel.on_dispatch(gkey)
+        tr = self.tracer
+        if tr.enabled:
+            tr.record("burst", t0, t1, track="dispatch", steps=steps,
+                      n_seqs=len(pending))
+            tr.record("burst_readback", t1, t2, track="readback",
+                      steps=steps)
+        if cap is not None and cap.active:
+            fin = cap.end_step(sid=self._dispatch_seq, step=self._steps_done)
+            if fin is not None:
+                self._finish_capture(fin)
         out: Dict[int, List[int]] = {}
         for uid in pending:
             seq_toks = [int(t) for t in toks_np[:, st.slot(uid)]]
@@ -2236,8 +2784,24 @@ class InferenceEngine:
             out[uid] = seq_toks
         return out
 
+    def _burst_key(self, pending: Dict[int, List[int]], steps: int,
+                   sampling: SamplingParams) -> tuple:
+        """A burst's graph key: (steps, sampler, prefix bucket P).  P
+        takes doubling block-aligned sizes over the longest pending
+        context, so a long context makes O(log) burst graphs, not one
+        per 256 tokens of growth."""
+        bs = self.icfg.kv_block_size
+        chunk = bs * max(1, -(-256 // bs))
+        cap = self.max_blocks_per_seq * bs
+        longest = max(self.state.seqs[u].seen_tokens for u in pending)
+        P = chunk
+        while P < min(longest, cap):
+            P *= 2
+        return ("b", steps, sampling.sampler_key, int(min(P, cap)))
+
     def _launch_burst(self, pending: Dict[int, List[int]], steps: int,
-                      sampling: SamplingParams, rng: torch.Tensor):
+                      sampling: SamplingParams, rng: torch.Tensor,
+                      gkey: tuple):
         """Stage one burst's inputs and run it through the failure policy:
         the forward (eager on the CPU, a graph replay on the card) inline,
         its read under the watchdog.  Returns (tokens [steps, S] on the
@@ -2263,19 +2827,10 @@ class InferenceEngine:
             tok0[slot] = toks[0]
             uid_bits.view(np.uint32)[slot] = np.uint32(uid & 0xFFFFFFFF)
             tables[slot, :len(seq.blocks)] = seq.blocks
-        # prefix bucket: doubling block-aligned sizes, so a long context
-        # makes O(log) burst graphs, not one per 256 tokens of growth
-        bs = self.icfg.kv_block_size
-        chunk = bs * max(1, -(-256 // bs))
-        cap = self.max_blocks_per_seq * bs
-        P = chunk
-        while P < min(int(base.max()), cap):
-            P *= 2
-        P = int(min(P, cap))
+        bs, P = self.icfg.kv_block_size, gkey[3]
         key_in = rng.to(self.device) if sampling.needs_rng else None
         sample_fn = self._sample_fn(sampling)
         mixed = self._mixed_gemm_active
-        gkey = ("b", steps, sampling.sampler_key, P)
         uids = tuple(pending)
 
         def run_on(buf, key):
@@ -2402,6 +2957,8 @@ class InferenceEngine:
             i += 1
             if i > 100_000:
                 raise RuntimeError("generate() did not terminate")
+        # the work ran out before an active capture window did
+        self.finish_capture()
         return done
 
     def _generate_pipelined(self, done: Dict[int, List[int]], active: set,
@@ -2480,4 +3037,5 @@ class InferenceEngine:
                 stall += 1
                 if stall > 100_000:
                     raise RuntimeError("generate() did not terminate")
+        self.finish_capture()
         return done

@@ -168,9 +168,7 @@ class FailureConfig:
     health_window_steps: int = 64
     # post-mortem flight recorder: directory to auto-dump the black-box
     # JSON into on watchdog expiry, on the fatal engine-dead transition,
-    # and on the first healthy->degraded transition of a failure window.
-    # The recorder is not ported yet (ROADMAP Queue 1 item 5): the
-    # port's engine refuses anything but None.
+    # and on the first healthy->degraded transition of a failure window
     flight_dir: Optional[str] = None
 
     def __post_init__(self):

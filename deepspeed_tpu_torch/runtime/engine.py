@@ -47,7 +47,10 @@ either runs or raises; nothing falls back to device-resident state:
   (``param_stream.py``): the layers stream from NVMe, one at a time.  ``save_checkpoint`` /
 ``load_checkpoint`` / ``wait_checkpoint`` write and read the JAX
 package's fragment format (``checkpoint/engine.py``), synchronously or,
-with ``checkpoint.async_save``, from a worker thread.  Every other
+with ``checkpoint.async_save``, from a worker thread.  Telemetry (the
+``telemetry`` config: phase spans, device telemetry, anomaly detection,
+capture windows on ``torch.profiler``) and the ``monitor`` writers run as
+in the reference.  Every other
 engine feature raises ``NotImplementedError`` naming its ROADMAP item
 when it is configured.
 """
@@ -56,7 +59,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -64,6 +67,9 @@ import torch
 from ..checkpoint import engine as ckpt
 from ..config.config import Config, load_config
 from ..platform.cuda import host_empty, resolve_device
+from ..telemetry import (AnomalyConfig, AnomalyMonitor, DeviceTelemetry,
+                         MetricsRegistry, ProfilerCapture, SpanTracer,
+                         default_training_detectors)
 from ..utils.logging import log_dist
 from ..utils.prng import PRNGKey, split
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
@@ -80,7 +86,6 @@ PRECISION_DTYPE = {"fp32": torch.float32, "fp16": torch.float16,
                    "bf16": torch.bfloat16}
 
 _MULTI = "ROADMAP Queue 1 item 6 (multi-GPU training breadth)"
-_HOST = "ROADMAP Queue 1 item 5 (host layers: telemetry, monitor)"
 _AUX = "ROADMAP Queue 1 item 7 (aux subsystems)"
 
 
@@ -130,11 +135,6 @@ def _reject_unported(config: Config) -> None:
          _AUX),
         (config.quantize_training.enabled, "quantize_training (MoQ)", _AUX),
         (config.flops_profiler.enabled, "flops_profiler", _AUX),
-        (config.telemetry.trace or config.telemetry.device
-         or config.telemetry.anomaly or config.telemetry.profile is not None,
-         "telemetry", _HOST),
-        (config.tensorboard.enabled or config.csv_monitor.enabled
-         or config.wandb.enabled or config.comet.enabled, "monitor", _HOST),
     ]
     for configured, what, item in checks:
         if configured:
@@ -209,8 +209,6 @@ class Engine:
         have no effect on one device."""
         if topology is not None:
             raise _not_ported("a prebuilt mesh topology", _MULTI)
-        if monitor is not None:
-            raise _not_ported("monitor", _HOST)
         _reject_unported(config)
         _check_offload(config)
         self.config = config
@@ -290,6 +288,17 @@ class Engine:
         self.tput = ThroughputTimer(batch_size=self.train_batch_size)
         self._last_metrics: Optional[Dict[str, Any]] = None
         self._last_metrics_host: Optional[Dict[str, Any]] = None
+        if monitor is None and (config.tensorboard.enabled
+                                or config.csv_monitor.enabled
+                                or config.wandb.enabled
+                                or config.comet.enabled):
+            # the writers the monitor sub-configs name (rank 0 only)
+            from ..monitor import MonitorMaster
+            monitor = MonitorMaster(config)
+            if not monitor.enabled:
+                monitor = None
+        self.monitor = monitor
+        self._setup_telemetry()
         self._async_saver = None
         if self._offload == "host":
             log_dist(
@@ -302,6 +311,145 @@ class Engine:
             f"precision={self.precision} | zero_stage={self.zero_stage} | "
             f"device={self.device} | batch={self.train_batch_size} "
             f"(micro={self.micro_batch_size} x gas={self.gas} x dp=1)")
+
+    # ------------------------------------------------------------------
+    # telemetry (docs/OBSERVABILITY.md)
+    # ------------------------------------------------------------------
+    def _setup_telemetry(self) -> None:
+        """The metrics registry and span tracer of the training step's
+        host phases (pre-step, batch staging, the step's dispatch, the
+        metrics fetch), and, each only when ``telemetry`` turns it on,
+        device telemetry, anomaly detection and the capture manager.
+        The step runs eagerly, so no program is built: the compile
+        counters are registered for the reference's exposition and stay
+        0, and the retrace signal with them."""
+        tcfg = self.config.telemetry
+        self.metrics = reg = MetricsRegistry()
+        self.tracer = SpanTracer(capacity=tcfg.trace_capacity,
+                                 enabled=tcfg.trace)
+        self._phase_ms = {
+            k: reg.counter(f"training_{k}_ms_total",
+                           f"cumulative host milliseconds in the {k} "
+                           "phase of train_batch")
+            for k in ("pre_step", "stage", "dispatch", "fetch")}
+        self._c_steps = reg.counter("training_steps_total",
+                                    "optimizer steps taken", int_valued=True)
+        self._h_step_host = reg.histogram(
+            "training_step_host_ms",
+            (0.5, 1.0, 2.0, 5.0, 10.0, 20.0, 50.0, 100.0, 200.0, 500.0,
+             1000.0, 2000.0, 5000.0, 10000.0, 60000.0),
+            "host-side wall ms per train_batch call")
+        # the grad-sync collectives' and step programs' counters stay 0
+        # (one card, no compiled programs); registered so the exposition
+        # names every series the reference's does
+        reg.counter("training_comm_ops_total", "explicit grad-sync "
+                    "collectives dispatched (kind: exact|quant)",
+                    int_valued=True)
+        reg.counter("training_comm_tiles_total", "tiles across dispatched "
+                    "grad-sync collectives", int_valued=True)
+        reg.counter("training_comm_bytes_total", "modeled bytes on the wire "
+                    "for explicit grad-sync collectives (kind: exact|quant)")
+        reg.counter("training_compiles_total", "training step programs "
+                    "built", int_valued=True)
+        self._c_retraces = reg.counter(
+            "training_compile_retraces_total", "re-builds of a program key "
+            "this engine had already built", int_valued=True)
+        # the utilization gauges divide by the throughput timer's step
+        # wall; the memory gauges poll at the steps_per_print boundary
+        self.devtel = DeviceTelemetry(
+            reg, "training", device=self.device,
+            step_ms_fn=lambda: self.tput.total_elapsed_time * 1e3) \
+            if tcfg.device else None
+        self._acfg = AnomalyConfig()
+        self._anom = None
+        self._anom_prev: Dict[str, float] = {}
+        if tcfg.anomaly:
+            self._anom = AnomalyMonitor(self._acfg, reg, "training")
+            self._anom.watch_all(default_training_detectors(self._acfg))
+        self._cap = None
+        if tcfg.profile:
+            self._cap = ProfilerCapture(tcfg.profile, tracer=self.tracer,
+                                        max_captures=self._acfg.max_captures)
+            if tcfg.profile_steps > 0:
+                self._cap.arm(tcfg.profile_steps, "config")
+
+    def anomaly_summary(self) -> Optional[Dict[str, Any]]:
+        """Anomaly tally (total, by signal, recent events) and the
+        completed capture directories; None while detection is off."""
+        if self._anom is None:
+            return None
+        return {**self._anom.summary(), "captures": self.capture_dirs}
+
+    @property
+    def capture_dirs(self) -> List[str]:
+        return [] if self._cap is None else list(self._cap.captures)
+
+    def capture(self, steps: Optional[int] = None, reason: str = "manual",
+                out_dir: Optional[str] = None) -> Optional[str]:
+        """Arm an explicit deep-capture window over the next ``steps``
+        train steps (a ``torch.profiler`` trace and the host phase spans,
+        merged by ``tools/tracemerge.py``); returns the capture directory,
+        or None when a window is already armed or active."""
+        if self._cap is None:
+            if not out_dir:
+                raise ValueError("no capture directory: pass out_dir= "
+                                 "or set config telemetry.profile")
+            self._cap = ProfilerCapture(out_dir, tracer=self.tracer,
+                                        max_captures=self._acfg.max_captures)
+        return self._cap.arm(steps or self._acfg.capture_steps, reason,
+                             budgeted=False)
+
+    def finish_capture(self) -> Optional[str]:
+        """Close an active capture window now, with the steps it has."""
+        if self._cap is None or not self._cap.active:
+            return None
+        return self._cap.finish_now()
+
+    def _feed_step_signals(self, t0: float, t3: float) -> None:
+        """Per-step anomaly feed from timestamps already taken; called
+        only when the monitor exists."""
+        anom, prev = self._anom, self._anom_prev
+        step = self.global_steps
+        fired = []
+        last_t0 = prev.get("t0")
+        prev["t0"] = t0
+        if last_t0 is not None:
+            fired.append(anom.observe("step_interval_ms",
+                                      (t0 - last_t0) * 1e3, step))
+        fired.append(anom.observe("step_host_ms", (t3 - t0) * 1e3, step))
+        retr = self._c_retraces.value()
+        fired.append(anom.observe("retrace", retr - prev.get("retrace", 0),
+                                  step))
+        prev["retrace"] = retr
+        for ev in fired:
+            if ev is not None:
+                logger.warning(
+                    "training anomaly: %s observed=%.3f baseline=%.3f "
+                    "score=%.1f (step %d)", ev.signal, ev.observed,
+                    ev.baseline, ev.score, ev.step)
+                if self._cap is not None:
+                    self._cap.arm(self._acfg.capture_steps,
+                                  f"anomaly_{ev.signal}", budgeted=True)
+
+    def _step_cost(self, batch) -> Dict[str, float]:
+        """One step's flops and bytes from its shapes (device telemetry):
+        6 x params x tokens, and each parameter's compute-dtype copy read
+        twice and its gradient written once, its fp32 master and two
+        moments read and written once."""
+        leaves = [x for x in tree_leaves(dict(batch))
+                  if isinstance(x, torch.Tensor)]
+        ids = batch.get("input_ids") if isinstance(batch, dict) else None
+        tokens = (ids.numel() if isinstance(ids, torch.Tensor)
+                  else leaves[0].numel() if leaves else 0)
+        n = self.num_params
+        elem = PRECISION_DTYPE[self.precision].itemsize
+        return {"flops": 6.0 * n * tokens,
+                "bytes_accessed": float(n * (3 * elem + 6 * 4))}
+
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        """JSON-able snapshot of the training metrics registry; see also
+        ``metrics.prometheus_text()`` and ``metrics.write_jsonl(path)``."""
+        return self.metrics.snapshot()
 
     # ------------------------------------------------------------------
     # state
@@ -626,32 +774,83 @@ class Engine:
         ``gas * micro``; with gas > 1 reshaped to [gas, micro, ...]).
         ``rng``: a threefry key, default ``PRNGKey(seed + global_steps)``
         (the JAX engine's)."""
+        if self._cap is not None and self._cap.armed:
+            # an armed capture window opens at the step boundary
+            self._cap.begin(step=self.global_steps)
+        t0 = time.perf_counter()
         if rng is None:
             rng = PRNGKey(self.config.seed + self.global_steps)
         if self._stream is not None:
-            # per-layer streaming: the host loop is the step
+            # per-layer streaming: the host loop is the step, and its
+            # phases are not the four this instrumentation names
             self.tput.start()
             return self._finish_step(self._stream.train_batch(batch, rng))
+        t1 = time.perf_counter()
         batch = self.shard_batch(batch)
+        t2 = time.perf_counter()
         self.tput.start()
         metrics = self._train_step(batch, rng)
+        t3 = time.perf_counter()
+        if self.devtel is not None:
+            if "train_step" not in self.devtel.program_costs:
+                self.devtel.probe_program("train_step",
+                                          lambda: self._step_cost(batch))
+            self.devtel.on_dispatch("train_step")
+        self._phase_ms["pre_step"].inc((t1 - t0) * 1e3)
+        self._phase_ms["stage"].inc((t2 - t1) * 1e3)
+        self._phase_ms["dispatch"].inc((t3 - t2) * 1e3)
+        self._h_step_host.observe((t3 - t0) * 1e3)
+        if self._anom is not None:
+            self._feed_step_signals(t0, t3)
+        tr = self.tracer
+        if tr.enabled:
+            sid = self.global_steps + 1
+            tr.record("pre_step", t0, t1, track="pre_step", step=sid)
+            tr.record("stage", t1, t2, track="stage", step=sid)
+            tr.record("dispatch", t2, t3, track="dispatch", step=sid)
         return self._finish_step(metrics)
 
     def _finish_step(self, metrics) -> Dict[str, Any]:
         self.global_steps += 1
         self.global_samples += self.train_batch_size
+        self._c_steps.inc()
+        if self._cap is not None and self._cap.active:
+            self._cap.end_step(step=self.global_steps)
         # metrics stay on the device: reading them every step would make
-        # the host wait for the card; fetch at the print cadence only
+        # the host wait for the card; fetch at the print cadence (or for
+        # a monitor) only
         self._last_metrics = metrics
         self._last_metrics_host = None
         self.tput.stop()
-        if self.global_steps % self.config.steps_per_print == 0:
+        printing = self.global_steps % self.config.steps_per_print == 0
+        if printing or self.monitor is not None:
+            if self.devtel is not None and printing:
+                # the print boundary is the loop's phase boundary
+                self.devtel.poll_memory()
+            t_f0 = time.perf_counter()
             fetched = self._fetch(metrics)
+            t_f1 = time.perf_counter()
+            self._phase_ms["fetch"].inc((t_f1 - t_f0) * 1e3)
+            if self.tracer.enabled:
+                self.tracer.record("fetch", t_f0, t_f1, track="fetch",
+                                   step=self.global_steps)
             self._last_metrics_host = fetched
-            log_dist(
-                f"step={self.global_steps} loss={fetched['loss']:.4f} "
-                f"lr={fetched['lr']:.3e} gnorm={fetched['grad_norm']:.3f} "
-                f"tput={self.tput.avg_samples_per_sec():.1f} samples/s")
+            if printing:
+                log_dist(
+                    f"step={self.global_steps} loss={fetched['loss']:.4f} "
+                    f"lr={fetched['lr']:.3e} "
+                    f"gnorm={fetched['grad_norm']:.3f} "
+                    f"tput={self.tput.avg_samples_per_sec():.1f} samples/s")
+            if self.monitor is not None:
+                self.monitor.write_scalars(self.global_steps, {
+                    "Train/loss": float(fetched["loss"]),
+                    "Train/lr": float(fetched["lr"]),
+                    "Train/grad_norm": float(fetched["grad_norm"]),
+                    "Train/loss_scale": float(fetched["loss_scale"]),
+                })
+                # the registry rides the same writers, at the print cadence
+                if printing:
+                    self.metrics.publish(self.monitor, self.global_steps)
             metrics = fetched
         return metrics
 

@@ -129,14 +129,55 @@ def test_step_api_matches_generate(models, reference):
 
 @pytest.mark.parametrize("field, value", [
     ("attn_impl", "pallas"), ("weight_quant", "fp6"), ("weight_quant", "fp12"),
-    ("profile", "/nonexistent"),
-    ("trace", True), ("device_telemetry", "on"), ("anomaly", "on"),
-    ("slo", "on"), ("anomaly_cfg", {}), ("slo_objectives", {}),
     ("comm_quant", "int8"), ("kv_donate", "off")])
 def test_unsupported_config_values_raise(models, field, value):
     _, port = models
     with pytest.raises(NotImplementedError, match=field):
         _port_engine(port, **{field: value})
+
+
+@pytest.mark.parametrize("field", [
+    "profile", "trace", "device_telemetry", "anomaly", "slo", "anomaly_cfg",
+    "slo_objectives"])
+def test_ported_telemetry_config_values_are_honoured(models, tmp_path,
+                                                     field):
+    """The serving telemetry fields (ROADMAP Queue 1 item 5) are
+    accepted and act: each turns its plane on, and a short ``generate``
+    feeds it."""
+    from deepspeed_tpu_torch.telemetry import AnomalyConfig, SloObjective
+    _, port = models
+    over = {
+        "profile": dict(profile=str(tmp_path / "cap"), profile_steps=2),
+        "trace": dict(trace=True),
+        "device_telemetry": dict(device_telemetry="on"),
+        "anomaly": dict(anomaly="on"),
+        "slo": dict(slo="on"),
+        "anomaly_cfg": dict(anomaly="on",
+                            anomaly_cfg=AnomalyConfig(max_captures=5)),
+        "slo_objectives": dict(slo="on", slo_objectives={
+            "standard": SloObjective(ttft_ms=1e9)}),
+    }[field]
+    eng = _port_engine(port, **over)
+    eng.generate({1: [3, 4, 5, 6, 7]}, SamplingParams(max_new_tokens=4))
+    if field == "profile":
+        (cdir,) = eng.capture_dirs
+        assert cdir.startswith(str(tmp_path / "cap"))
+    elif field == "trace":
+        names = {e["name"] for e in eng.tracer.chrome_trace()["traceEvents"]}
+        assert {"schedule", "dispatch", "wait", "readback"} <= names
+    elif field == "device_telemetry":
+        assert eng.device_snapshot()["programs"]
+    elif field in ("anomaly", "anomaly_cfg"):
+        assert eng.anomaly_summary() is not None
+        assert eng._acfg.max_captures == over.get(
+            "anomaly_cfg", AnomalyConfig()).max_captures
+    else:
+        card = eng.slo_scorecard()
+        assert card["enabled"] and sum(
+            c["error_budget"]["evaluated"]
+            for c in card["classes"].values()) == 1
+        if field == "slo_objectives":
+            assert list(card["classes"]) == ["standard"]
 
 
 def test_bad_values_and_seeded_sampling_raise(models):

@@ -274,8 +274,10 @@ def test_engine_accepts_failure_config(models):
     assert dflt.failures.deadline_ms() == 10_000.0
     dflt.reset_timings()        # in place: the policy reads the same dict
     assert dflt.failures.deadline_ms() is None
-    with pytest.raises(NotImplementedError, match="host layers"):
-        port_engine(pm, failure=dict(flight_dir="/nonexistent"))
+    # the flight recorder is ported: the directory is taken as given and
+    # made at the first dump
+    assert port_engine(pm, failure=dict(
+        flight_dir="/nonexistent")).fcfg.flight_dir == "/nonexistent"
 
 
 # --------------------------------------------------------------------------

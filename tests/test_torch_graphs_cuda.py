@@ -334,3 +334,95 @@ def test_moe_engine_graphs_equal_eager():
         assert tm["bursts"] > 0 or not over
         assert out_g == out_e
         assert _kv_equal(g, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("burst", [1, 4])
+def test_telemetry_under_graphs_and_a_capture_window(model, tmp_path,
+                                                     burst):
+    """Every telemetry plane on, a 2-step capture window armed before
+    the first step: the window waits for a step or a decode burst that
+    replays (one that captures a graph never runs inside a profiler
+    session), the streams equal the eager engine's, each graph key is
+    reckoned once, and the merged capture lists paged attention on its
+    device track (single steps) or the burst's span and kernels
+    (``decode_burst=4``: the window opens at the second burst, and the
+    cold single steps of the tail close it)."""
+    import json
+
+    from tools.tracemerge import merge_capture, validate_merged_trace
+    tel = dict(trace=True, anomaly="on", slo="on", device_telemetry="on",
+               decode_burst=burst,
+               failure=FailureConfig(flight_dir=str(tmp_path / "flight")))
+    g, e = _pair(model, **tel)
+    inside = []
+    capture = g._capture
+
+    def watched(run):
+        inside.append(g._cap is not None and g._cap.active)
+        return capture(run)
+    g._capture = watched
+    cdir = g.capture(2, out_dir=str(tmp_path / "cap"))
+    sp = SamplingParams(max_new_tokens=12)
+    out_g = g.generate({u: list(p) for u, p in PROMPTS.items()}, sp)
+    torch.cuda.synchronize()
+    out_e = e.generate({u: list(p) for u, p in PROMPTS.items()}, sp)
+    assert out_g == out_e
+    assert inside and not any(inside)
+    assert g.capture_dirs == [cdir]
+    meta = json.load(open(f"{cdir}/meta.json"))
+    assert meta["profiler"] and meta["step_start"] >= 1
+    merged = json.load(open(merge_capture(cdir)))
+    assert validate_merged_trace(merged) == []
+    kernels = {ev["name"] for ev in merged["traceEvents"]
+               if ev.get("pid", 0) >= 10_000 and ev.get("cat") == "kernel"}
+    if burst == 1:
+        assert any("paged_attention_kernel" in k for k in kernels)
+    else:
+        assert g.timings["bursts"] >= 2 and kernels
+        assert any(ev.get("name") == "burst" for ev in merged["traceEvents"])
+    snap = g.device_snapshot()
+    assert set(snap["programs"]) == {repr(k) for k in [*g._graphs,
+                                                       *g._burst_graphs]}
+    assert snap["memory"] and snap["model_flops_total"] > 0
+    assert g.metrics.get("serving_hbm_bytes_in_use") is not None
+    assert g.slo_scorecard()["enabled"] and g.health()["captures"] == 1
+
+
+@pytest.mark.cuda
+def test_a_cold_burst_closes_an_active_capture_window(model, tmp_path):
+    """A window opened at a warm step and still counting when a decode
+    burst must capture its graph closes before that capture (the burst
+    graph is never captured inside a profiler session), after the two
+    steps it covered; the burst then captures and serves."""
+    import json
+    g = InferenceEngine(model, InferenceConfig(**ENGINE, trace=True))
+    inside = []
+    capture = g._capture
+
+    def watched(run):
+        inside.append(g._cap is not None and g._cap.active)
+        return capture(run)
+    g._capture = watched
+    r = torch.Generator().manual_seed(3)
+
+    def prompt():
+        return [int(t) for t in torch.randint(1, 500, (20,), generator=r)]
+    for uid in (9, 10):
+        # uid 9 warms the prefill, decode and burst keys; uid 10 finds
+        # the first two warm and the burst key cold again
+        if uid == 10:
+            g._burst_graphs.clear()
+            cdir = g.capture(3, out_dir=str(tmp_path / "cap"))
+        g.put(uid, prompt())
+        g.put(uid, [g.step()[uid]])
+        if uid == 10:
+            assert g._cap.active
+        g.put(uid, [g.step()[uid]])
+        assert len(g.decode_burst(4)[uid]) == 4
+    torch.cuda.synchronize()
+    assert inside and not any(inside)
+    assert g.capture_dirs == [cdir] and not g._cap.active
+    meta = json.load(open(f"{cdir}/meta.json"))
+    assert meta["profiler"] and meta["steps"] == 3
+    assert meta["step_end"] == meta["step_start"] + 2

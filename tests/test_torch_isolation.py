@@ -35,7 +35,12 @@ def test_fresh_interpreter_imports_no_jax():
     assert "deepspeed_tpu_torch.inference.engine" in mods
     for sub in ("checkpoint.engine", "checkpoint.hf", "parallel.moe",
                 "ops.aio", "runtime.swap_tensor", "runtime.zero_infinity",
-                "runtime.param_stream"):
+                "runtime.param_stream", "telemetry.tracer", "telemetry.flight",
+                "telemetry.anomaly", "telemetry.slo", "telemetry.device",
+                "telemetry.profiler", "monitor.monitor", "serving.placement",
+                "serving.replica", "serving.fleet_telemetry",
+                "serving.router", "serving.autoscaler", "gateway.protocol",
+                "gateway.sloclass", "gateway.server", "gateway.__main__"):
         assert f"deepspeed_tpu_torch.{sub}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

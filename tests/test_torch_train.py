@@ -394,8 +394,6 @@ UNPORTED = {
     "random_ltd": ({"data_efficiency": {"enabled": True}}, "item 7"),
     "moq": ({"quantize_training": {"enabled": True}}, "item 7"),
     "flops_profiler": ({"flops_profiler": {"enabled": True}}, "item 7"),
-    "telemetry": ({"telemetry": {"trace": True}}, "item 5"),
-    "monitor": ({"csv_monitor": {"enabled": True}}, "item 5"),
 }
 
 
@@ -408,14 +406,44 @@ def test_unported_engine_features_raise(case):
             "train_micro_batch_size_per_device": 2, **extra})
 
 
+PORTED = {
+    "telemetry": {"telemetry": {"trace": True, "anomaly": True}},
+    "monitor": {"csv_monitor": {"enabled": True}},
+}
+
+
+@pytest.mark.parametrize("case", sorted(PORTED))
+def test_ported_engine_features_are_accepted(case, tmp_path):
+    """The training ``telemetry`` and ``monitor`` configs (ROADMAP Queue
+    1 item 5) are accepted and act on a step: the tracer records the
+    step's phases, the CSV writer its loss."""
+    import copy
+    extra = copy.deepcopy(PORTED[case])
+    if case == "monitor":
+        extra["csv_monitor"]["output_path"] = str(tmp_path / "csv")
+    _, tm = tiny_models("gpt2")
+    eng = tds.initialize(model=tm, device="cpu", config={
+        "train_micro_batch_size_per_device": 2, **extra})
+    eng.train_batch({"input_ids": np.zeros((2, 16), np.int64)})
+    if case == "telemetry":
+        assert eng.tracer.enabled and eng.anomaly_summary() is not None
+        names = {e["name"] for e in eng.tracer.chrome_trace()["traceEvents"]}
+        assert {"pre_step", "stage", "dispatch"} <= names
+    else:
+        (csv_file,) = (tmp_path / "csv").rglob("Train_loss.csv")
+        assert csv_file.read_text().strip()
+
+
 def test_unported_messages_name_their_items(tmp_path):
     """Offload on one card is ported for training (ROADMAP Queue 1 item
     4: ``offload_optimizer`` and ``offload_param`` run, checkpoints of
-    NVMe state save and load) and for serving (item 4b).  The serving
-    fields still unported (tracing, the SLO scorecard) belong to the
-    host layers above the engine, and their messages say so in full."""
-    from deepspeed_tpu_torch.inference import InferenceConfig, \
-        InferenceEngine
+    NVMe state save and load) and for serving (item 4b), and so are the
+    host layers above the engine (item 5): the serving telemetry fields,
+    the flight recorder's directory, the training ``telemetry`` and the
+    ``monitor`` writers are accepted.  The fields still unported name
+    their items in full."""
+    from deepspeed_tpu_torch.inference import FailureConfig, \
+        InferenceConfig, InferenceEngine
     _, tm = tiny_models("gpt2")
     for key, dev in (("offload_optimizer", "cpu"), ("offload_param", "cpu"),
                      ("offload_optimizer", "nvme")):
@@ -428,11 +456,36 @@ def test_unported_messages_name_their_items(tmp_path):
             (2, 16), np.int64)})["loss"]))
         d = eng.save_checkpoint(str(tmp_path / f"{key}_{dev}"))
         assert eng.load_checkpoint(str(tmp_path / f"{key}_{dev}")) == (d, {})
-    for field, value in (("trace", True), ("slo", "on")):
+    for field, value in (("trace", True), ("slo", "on"), ("anomaly", "on"),
+                         ("device_telemetry", "on"),
+                         ("profile", str(tmp_path / "cap")),
+                         ("failure", FailureConfig(
+                             flight_dir=str(tmp_path / "flight")))):
+        InferenceEngine(tm, InferenceConfig(**{field: value}))
+    eng = tds.initialize(model=tm, device="cpu", config={
+        "train_micro_batch_size_per_device": 2,
+        "telemetry": {"trace": True, "anomaly": True, "device": True},
+        "csv_monitor": {"enabled": True,
+                        "output_path": str(tmp_path / "csv")}})
+    assert eng.monitor is not None and eng.metrics_snapshot()
+    for field, value, item in (
+            ("comm_quant", "int8", "ROADMAP Queue 1, multi-GPU training "
+             "breadth"),
+            ("comm_overlap", "on", "ROADMAP Queue 1, multi-GPU training "
+             "breadth (tensor parallelism)")):
         with pytest.raises(NotImplementedError) as e:
             InferenceEngine(tm, InferenceConfig(**{field: value}))
         assert f"InferenceConfig.{field}={value!r} is not ported yet " \
-            "(ROADMAP Queue 1, host layers above the engine)" in str(e.value)
+            f"({item})" in str(e.value)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7: "
+                       "runtime/hybrid_engine.py"):
+        InferenceEngine(tm, InferenceConfig()).refresh_params(tm.params)
+    with pytest.raises(NotImplementedError) as e:
+        tds.initialize(model=tm, device="cpu", config={
+            "train_micro_batch_size_per_device": 2,
+            "flops_profiler": {"enabled": True}})
+    assert "flops_profiler is not ported yet (ROADMAP Queue 1 item 7 " \
+        "(aux subsystems))" in str(e.value)
 
 
 def test_engine_runs_on_the_card_unless_asked(monkeypatch, tmp_path):
