@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phases device,build,kernel,train-fp16
     python3 chip_smoke.py --phases device,build,kernel,train-ckpt,serve-moe,train-moe
     python3 chip_smoke.py --phases device,build,kernel,train-offload,train-nvme
+    python3 chip_smoke.py --phases device,build,kernel,hybrid,train-de
 
 Phases, in order; any failure exits non-zero (nothing is caught and
 passed over):
@@ -240,6 +241,19 @@ passed over):
              prefill and decode step's device ms by MoE part (gating,
              dispatch/combine, expert bmm, shared expert, attention,
              dense GEMMs, other) and the resident bytes.
+4d. train-de — phase 4's GPT-2-small (bf16, ZeRO-1, flash, micro-batch
+             32) with four data-efficiency features at once for 6 steps:
+             a seqlen curriculum 256 -> 1024 in steps of 128, random-LTD
+             keeping 512 -> 1024 tokens in steps of 128, PLD (theta 0.5,
+             gamma 0.001) and MoQ (16 -> 8 bits, period 2); per step the
+             length, kept tokens, theta, bits, loss and K1's launches
+             (once a kept layer: a dropped layer is skipped); the flops
+             profiler's count at step 2 equal to 2 x M x N x K summed over
+             the step's products from the shapes, its TFLOP/s beside
+             phase 4's MFU; a first-step parity check of the LTD path
+             (640 tokens, 512 kept) against the plain attention; then one
+             eigenvalue-paced MoQ boundary under attention_impl "xla"
+             (max_iter 3): the eigenvalue (finite) and its seconds.
 8b. train-moe — qwen2-moe-a2.7b at its published widths with depth cut
              to 2 layers (1.76 B params), bf16, seq 1024, micro-batch 4,
              1 + 3 steps: finite loss, aux/moe_aux_loss in the metrics,
@@ -259,11 +273,25 @@ passed over):
              steps, a first-step parity check against the plain attention
              within 2x the fp16 noise floor, tokens/s, MFU and the device
              profile.
+8c. hybrid — the DeepSpeed-Chat actor loop through HybridEngine: phi-2
+             at full width and depth (2.78 B params), bf16, ZeRO-1, AdamW,
+             remat "flash", flash attention; a serving engine of bf16
+             weights and cache (prefix cache on, 64-token blocks, 160
+             blocks): 8 prompts of 512 tokens rolled out for 32 greedy
+             tokens, 2 actor steps at micro-batch 4, seq 1024 (32
+             launches of each flash kernel a step, all bf16 D 80), the
+             prompts rolled out again after the refresh: the served
+             weights bitwise compute_params, no prefix token reused,
+             every step a replay, K2 = layers x steps, the first forward
+             on the new weights against the dense forward, the streams
+             against a freshly built engine (near-tie rule); the refresh
+             ms, TTFT, decode tok/s, training tokens/s, the peak against
+             its reckoning.
 9. train-offload — ZeRO-Offload (offload_optimizer cpu, pinned) of
              gptj-6b at full width and depth (6.05 B params; the host's
              MemAvailable is below what Llama-3-8B's 96.4 GB of pinned
              state needs, see OFFLOAD_RUN), bf16, seq 2048, micro-batch 2,
-             remat "flash", 1 + 2 steps: finite loss and norm, one launch
+             remat "flash", 1 + 1 steps: finite loss and norm, one launch
              of each flash kernel per layer a step (D 256), the master and
              moments pinned CPU tensors, peak device memory under 80 GB;
              each step split into device forward/backward, grad D2H, host
@@ -281,7 +309,7 @@ passed over):
              filesystem, with each backend and O_DIRECT on and off (bytes
              equal, GB/s with the filesystem's name); (b) offload_optimizer nvme and
              (c) plus offload_param nvme with model= (per-layer
-             streaming), 1 + 2 steps each: seconds of each sweep and NVMe
+             streaming), 1 + 1 steps each: seconds of each sweep and NVMe
              bytes a step; losses within 2x the bf16 floor of the
              device-resident engine's and consolidated masters within the
              stated bound; (c)'s peak device memory under its reckoning
@@ -309,7 +337,10 @@ included), its ``fleet_launches`` those of serve-fleet's measured
 run; ``stream_launches`` on paged_attention_int8kv and on the int8 K3
 entries, serve-offload (b)'s weight-streamed run; the flash entries'
 launches include train-ckpt's, train-moe's, train-offload's and
-train-nvme (c)'s); the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+train-nvme (c)'s, train-de's and hybrid's, and the bf16 D 64 entries
+carry train-de's own as ``de_launches``; ``paged_attention_d80``,
+timed on phi-2's mixed batch, carries hybrid's refreshed rollout's
+launches); the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 """
 
@@ -615,6 +646,7 @@ FLASH_CASES = [
     ("llama3-8b train", "bfloat16", (2, 32, 8, 2048, 128, 10)),
     ("gptj-6b train", "bfloat16", (2, 16, 16, 2048, 256, 10)),
     ("phi-2 train", "float16", (4, 32, 32, 2048, 80, 10)),
+    ("phi-2 actor", "bfloat16", (4, 32, 32, 1024, 80, 10)),
     ("gpt2 train", "float16", (32, 12, 12, 1024, 64, 10)),
     *((name, dt, shape) for name, shape in (
         ("gptj-6b", (1, 16, 16, 2048, 256, 10)),
@@ -970,6 +1002,8 @@ TRAIN_RUNS = {
                       policy="nothing", model=dict(num_layers=2)),
 }
 PARITY_MICRO = 4
+# what a phase's later readers need of it (phase 4's MFU for train-de)
+RESULTS = {}
 
 # first-step parity, flash kernels vs the plain attention (both in the
 # run's precision): the bar is PARITY_FACTOR x the noise floor measured in
@@ -1149,6 +1183,7 @@ def train(torch, fa, seed, run="train", device=None, **overrides):
         seq - 1)                                  # bench.py:207-211
     peak_flops = PEAK_FLOPS["float32" if prec == "fp32" else "bfloat16"]
     mfu = tok_s * flops_per_token / peak_flops
+    RESULTS[run] = dict(mfu=mfu, tok_s=tok_s)
     smi = nvidia_smi_line()
     log(f"[{run}] {steps} steps in {wall:.3f} s "
         f"({wall / steps * 1e3:.1f} ms/step): {tok_s:.0f} tokens/s, "
@@ -4186,12 +4221,12 @@ def serve_alibi(torch, pa, seed, device=None, **overrides):
 #                  bf16, seq 2048, micro-batch 2, AdamW lr 3e-4, clip 1.0,
 #                  ZeRO-2, offload_optimizer cpu (pinned), remat "flash";
 #                  the staging ring 4 x 32 MiB (each chunk updated in
-#                  spans of 2^20 elements), 1 warm-up + 3 measured steps;
+#                  spans of 2^20 elements), 1 warm-up + 1 measured step;
 #                  parity at 2 layers
 #   train-nvme     gptj-6b at its published widths, depth cut to 4 layers
 #                  (1.22 B params); bf16, seq 2048, micro-batch 1, AdamW,
 #                  clip 1.0, ZeRO-3; (b) offload_optimizer nvme, (c) plus
-#                  offload_param nvme with model= (streaming); 1 + 2 steps
+#                  offload_param nvme with model= (streaming); 1 + 1 steps
 #                  each.  The machine has no local disk: its root is 9p,
 #                  which takes 45 GiB of writes a machine, and (b) and (c)
 #                  write 15-22 GB a step.  So nvme_path is a temporary
@@ -4199,14 +4234,15 @@ def serve_alibi(torch, pa, seed, device=None, **overrides):
 #                  disk (a temporary directory under build/, 9p) takes the
 #                  aio check and (c)'s checkpoint; both are removed at the
 #                  end
-# 2 measured steps: the whole run's time limit (serve-offload took the
-# third's time)
-OFFLOAD_RUN = dict(preset="gptj-6b", seq=2048, micro=2, warmup=1, steps=2,
+# 1 measured step each: the whole run's time limit (serve-offload took
+# the third's time, hybrid and train-de the second's; a step's host update
+# ran 18-32 s on the card's machines)
+OFFLOAD_RUN = dict(preset="gptj-6b", seq=2048, micro=2, warmup=1, steps=1,
                    remat=True, policy="flash", buffer_count=4,
                    buffer_size=32 << 20, parity_layers=2, parity_steps=2,
                    host_share=0.75)
 NVME_RUN = dict(preset="gptj-6b", num_layers=4, seq=2048, micro=1, warmup=1,
-                steps=2, aio_bytes=2 << 30, host_share=0.75,
+                steps=1, aio_bytes=2 << 30, host_share=0.75,
                 store_dir="/dev/shm")
 # the writes the card's machine's disk takes in one run (its 9p root ends a
 # process once its disk file passes 45 GiB, deleted files included)
@@ -4816,6 +4852,411 @@ def train_nvme(torch, fa, seed, device=None, **overrides):
         shutil.rmtree(store, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# hybrid: the DeepSpeed-Chat actor loop; train-de: data-efficient training
+# ---------------------------------------------------------------------------
+
+# the actor: phi-2 at full width and depth, bf16, ZeRO-1, AdamW, remat
+# "flash", K1 in the actor's steps; its rollouts through the serving
+# engine (bf16 weights and cache, prefix cache on, 64-token blocks): 8
+# prompts of 512 tokens (8 full blocks each), 32 greedy new tokens
+HYBRID_RUN = dict(preset="phi-2", micro=4, seq=1024, steps=2, prompt_len=512,
+                  new=32)
+HYBRID_ENGINE = dict(token_budget=1024, max_seqs=8, kv_block_size=64,
+                     num_kv_blocks=160, prefix_cache="on")
+
+
+def reckon_hybrid_peak(cfg, n_params, micro, seq, kv_bytes):
+    """The actor's card memory at the start of its backward, from the
+    shapes (bytes): the model's bf16 parameters (the served weights are
+    these tensors), the step's bf16 compute copy and its bf16 gradients,
+    the fp32 master, AdamW's m and v and the fp32 gradients (16 B a
+    parameter), the activations remat "flash" saves (reckon_peak's
+    count), the bf16 logits and their gradient, and the serving cache."""
+    B, S, dm, dff = micro, seq, cfg.d_model, cfg.d_ff
+    acts = cfg.num_layers * (2 * B * S * (7 * dm + dff)
+                             + 4 * B * S * cfg.num_heads)
+    logits = 2 * 2 * B * S * cfg.vocab_size
+    parts = dict(weights=2 * n_params, compute=2 * n_params,
+                 grads16=2 * n_params, state=16 * n_params, acts=acts,
+                 logits=logits, kv=kv_bytes)
+    return sum(parts.values()), parts
+
+
+def hybrid(torch, fa, pa, seed, device=None, **overrides):
+    """The actor loop through ``deepspeed_tpu_torch.HybridEngine``: roll
+    out, take HYBRID_RUN["steps"] actor steps, roll out again (the
+    refresh happens there).  Checks the served weights bitwise
+    ``compute_params``, the first forward against the dense forward on
+    them, the refreshed rollout against a freshly built engine on them
+    (equal but at near-ties; no stale prefix block reused), every
+    rollout step a graph replay with K2 launched layers x steps, and
+    each flash kernel once a layer a train step, all of the bf16 variant
+    at the model's head dim.  Returns (the flash launches by variant, the
+    measured rollout's K2 launches).  ``device`` and ``overrides`` exist
+    for a CPU rehearsal at a tiny size."""
+    import numpy as np
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.inference import (InferenceConfig,
+                                               InferenceEngine,
+                                               SamplingParams)
+    from deepspeed_tpu_torch.models import Model, build_model
+    from deepspeed_tpu_torch.models.transformer import tree_leaves
+    from deepspeed_tpu_torch.runtime import param_count, synthetic_lm_data
+
+    tag, run = "hybrid", HYBRID_RUN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    micro = overrides.pop("micro", run["micro"])
+    seq = overrides.pop("max_seq_len", run["seq"])
+    plen = overrides.pop("prompt_len", run["prompt_len"])
+    t0 = time.perf_counter()
+    model = build_model(run["preset"], seed=seed, device=device,
+                        dtype=torch.bfloat16, max_seq_len=max(seq, 2048),
+                        remat=True, remat_policy="flash",
+                        attention_impl="flash", **overrides)
+    cfg = model.config
+    n_params = param_count(model.params)
+    icfg = InferenceConfig(**HYBRID_ENGINE)
+    kv_bytes = (2 * 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim
+                * icfg.kv_block_size * (icfg.num_kv_blocks + 1))
+    reckoned, parts = reckon_hybrid_peak(cfg, n_params, micro, seq, kv_bytes)
+    log(f"[{tag}] {run['preset']}: {n_params / 1e9:.3f} B params, "
+        f"{cfg.num_layers} layers, {cfg.num_heads} heads of {cfg.head_dim}, "
+        f"d_model {cfg.d_model}; bf16, ZeRO-1, AdamW lr 3e-4, clip 1.0, "
+        f"remat 'flash', micro-batch {micro}, seq {seq}; rollouts: 8 x "
+        f"{plen}-token prompts, {run['new']} greedy tokens, engine "
+        f"{HYBRID_ENGINE}; reckoned peak {reckoned / 2**30:.2f} GiB ("
+        + ", ".join(f"{k} {v / 2**30:.2f}" for k, v in parts.items())
+        + f" GiB); built in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    he = ds.HybridEngine(model, train_config(micro, "bf16"),
+                         inference_config=icfg, device=device)
+    r = np.random.RandomState(seed + 1)
+    prompts = {u: list(map(int, r.randint(0, cfg.vocab_size, plen)))
+               for u in range(8)}
+    sp = SamplingParams(max_new_tokens=run["new"])
+
+    # rollout 1: captures every graph the refreshed rollout replays
+    t1 = time.perf_counter()
+    he.generate(dict(prompts), sp)
+    eng = he.inference_engine
+    torch.cuda.synchronize()
+    log(f"[{tag}] rollout 1 (serving engine built, graphs captured): "
+        f"{time.perf_counter() - t1:.2f} s, {int(eng.timings['compiles'])} "
+        f"graphs; KV cache {tree_bytes(eng.state.kv) / 1e9:.3f} GB")
+
+    # the actor's steps: flash counts to 0 just before, read just after
+    data = synthetic_lm_data(cfg.vocab_size, micro * run["steps"], seq,
+                             seed=seed)["input_ids"]
+    fa.reset_launches()
+    fa.flash_attention.fallbacks = 0
+    losses, step_s = [], []
+    for s in range(run["steps"]):
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        met = he.train_batch({"input_ids": data[s * micro:(s + 1) * micro]})
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t2)
+    counts = flash_counts(fa)
+    variants = {k: dict(getattr(fa, k).variant_launches)
+                for k in FLASH_KERNELS}
+    variant = ("bfloat16", fa.kernel_head_dim(cfg.head_dim))
+    want = cfg.num_layers * run["steps"]
+    mem = torch.cuda.memory_stats()
+    log(f"[{tag}] allocator after the actor steps: reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB, allocation retries "
+        f"{mem.get('num_alloc_retries', 0)}, cudaMalloc calls "
+        f"{mem.get('num_device_alloc', 'n/a')}, cudaFree calls "
+        f"{mem.get('num_device_free', 'n/a')}")
+    log(f"[{tag}] {run['steps']} actor steps: "
+        f"{[round(x * 1e3, 1) for x in step_s]} ms (the first builds the "
+        f"engine's state and warms the card), losses "
+        f"{[round(x, 4) for x in losses]}, {micro * seq / step_s[-1]:.0f} "
+        f"training tokens/s at the last step; "
+        f"flash launches fwd={counts[0]} dq={counts[1]} dkv={counts[2]} "
+        f"(want {want} each), routed to causal_attention {counts[3]}; by "
+        f"(dtype, head dim) {variants}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{tag}: non-finite actor loss")
+    if counts != (want, want, want, 0) or any(
+            v != {variant: want} for v in variants.values()):
+        raise AssertionError(f"{tag}: each flash kernel must run once a "
+                             f"layer a step, all of the {variant} variant")
+
+    # rollout 2: the refresh, then the measured rollout (K2 counts to 0
+    # just before, read just after)
+    eng.reset_timings()
+    eng.ttft_ms.clear()
+    pa.launches = 0
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    got = he.generate(dict(prompts), sp)
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t3
+    launches = pa.launches
+    tm = dict(eng.timings)
+    refresh_ms = he.refresh_seconds[-1] * 1e3
+    ttft = sorted(eng.ttft_ms[u] for u in got)
+    check_tokens(got, cfg, run["new"], tag)
+    check_replayed(tm, tag)
+    steps = int(tm["steps"])
+    log(f"[{tag}] rollout 2: refresh (masters -> served weights, prefix "
+        f"cache reset) {refresh_ms:.1f} ms; {steps} steps in {t_all:.3f} s "
+        f"(refresh included); cached prompt tokens {int(tm['cached_tokens'])}"
+        f"; paged_attention launches {launches} ({cfg.num_layers} layers x "
+        f"{steps} steps = {cfg.num_layers * steps})")
+    if tm["cached_tokens"] or launches != cfg.num_layers * steps \
+            or launches == 0:
+        raise AssertionError(f"{tag}: the refreshed rollout reused a cached "
+                             "prefix or did not launch K2 in every layer of "
+                             "every step")
+    # prefill alone on the same weights, for the decode rate
+    fresh_run(eng)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    eng.generate(dict(prompts), SamplingParams(max_new_tokens=1))
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t4
+    check_replayed(eng.timings, f"{tag} prefill")
+    decode_tok_s = len(prompts) * (run["new"] - 1) / max(
+        t_all - refresh_ms / 1e3 - t_pre, 1e-9)
+    cp = he.engine.compute_params
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(eng.params),
+                                                  tree_leaves(cp)))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] served weights bitwise compute_params: {same}; TTFT p50 "
+        f"{statistics.median(ttft):.1f} ms (min {ttft[0]:.1f}, max "
+        f"{ttft[-1]:.1f}); prefill {t_pre:.3f} s; decode {decode_tok_s:.0f} "
+        f"tok/s; max_memory_allocated {peak / 2**30:.2f} GiB (reckoned "
+        f"{reckoned / 2**30:.2f} GiB) [{nvidia_smi_line()}]")
+    if not same:
+        raise AssertionError(f"{tag}: the served weights are not the "
+                             "trained ones")
+    del he, eng
+    free_engines(torch)
+    # the first forward on the new weights (the served tensors are the
+    # model's, refreshed in place), and a fresh engine's streams on them
+    served = Model.from_params(cfg, cp)
+    plist = [prompts[u] for u in range(8)]
+    tol = first_forward_check(torch, served, plist, tag)
+    fresh = InferenceEngine(served, icfg)
+    want_out = fresh.generate(dict(prompts), sp)
+    check_near_ties(torch, fresh, prompts, got, want_out, tol,
+                    f"{tag} vs a fresh engine")
+    del fresh, served, cp, model
+    free_engines(torch)
+    return variants, launches
+
+
+# train-de: phase 4's GPT-2-small (bf16, ZeRO-1, flash, micro-batch 32)
+# with four data-efficiency features at once for 6 steps; every length a
+# multiple of K1's 128-row tile (the JAX routing keeps each step on K1)
+DE_RUN = dict(preset="gpt2", micro=32, seq=1024, steps=6, profile_step=2)
+DE_FEATURES = {
+    "curriculum_learning": {"enabled": True, "min_difficulty": 256,
+                            "max_difficulty": 1024,
+                            "schedule_type": "fixed_linear",
+                            "schedule_config": {"total_curriculum_step": 6,
+                                                "difficulty_step": 128}},
+    "data_efficiency": {"enabled": True, "data_routing": {
+        "enabled": True, "random_ltd": {
+            "enabled": True, "min_value": 512, "max_value": 1024,
+            "require_steps": 6, "seq_per_step": 128}}},
+    "progressive_layer_drop": {"enabled": True, "theta": 0.5,
+                               "gamma": 0.001},
+    "quantize_training": {"enabled": True, "start_bits": 16,
+                          "target_bits": 8, "quantize_period": 2},
+}
+# the eigenvalue-paced MoQ boundary: attention_impl "xla", micro-batch 4,
+# seq 512, 16 -> 8 -> 4 bits a period of 1: step 1 is a boundary
+EIG_RUN = dict(micro=4, seq=512, max_iter=3)
+
+
+def reckon_step_products(cfg, B, S, keep, kept_layers):
+    """2 x M x N x K summed over one training step's matrix products of a
+    dense GPT-style model (the flops profiler's count): per kept layer the
+    projections on ``keep`` tokens a row, forward and the backward's
+    input and weight gradients, and flash attention's causal products at
+    length ``keep`` (fwd 2, dq 3, dk/dv 4: flash_bound's count); the tied
+    head on all S tokens, forward and both gradients."""
+    dm, dff, H, D, V = (cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.head_dim,
+                        cfg.vocab_size)
+    proj = 2 * B * keep * dm * (3 * dm + dm + 2 * dff)
+    flash = 2 * B * H * (keep * keep // 2) * D * (2 + 3 + 4)
+    return kept_layers * (3 * proj + flash) + 3 * 2 * B * S * dm * V
+
+
+def train_de(torch, fa, seed, device=None, **overrides):
+    """GPT-2-small with the seqlen curriculum, random-LTD, PLD and MoQ on
+    at once (DE_FEATURES), the flops profiler at DE_RUN["profile_step"],
+    through deepspeed_tpu_torch.initialize; then one eigenvalue-paced
+    MoQ boundary under attention_impl "xla".  Returns the flash launches
+    by variant over the 6 steps.  ``device`` and ``overrides`` exist for
+    a CPU rehearsal at a tiny size."""
+    import dataclasses
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import Model, build_model
+    from deepspeed_tpu_torch.models.transformer import layer_keys, pld_drops
+    from deepspeed_tpu_torch.runtime import param_count, synthetic_lm_data
+    from deepspeed_tpu_torch.utils.prng import PRNGKey
+
+    tag, run = "train-de", DE_RUN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    micro = overrides.pop("micro", run["micro"])
+    seq = overrides.pop("max_seq_len", run["seq"])
+    features = overrides.pop("features", DE_FEATURES)
+    eig_run = overrides.pop("eig_run", EIG_RUN)
+    model = build_model(run["preset"], seed=seed, device=device,
+                        max_seq_len=seq, attention_impl="flash", **overrides)
+    cfg = model.config
+    config = {**train_config(micro, "bf16"), **features,
+              "flops_profiler": {"enabled": True,
+                                 "profile_step": run["profile_step"]}}
+    engine = ds.initialize(model=model, config=config, device=device)
+    data = synthetic_lm_data(cfg.vocab_size, micro * run["steps"], seq,
+                             seed=seed)["input_ids"]
+    log(f"[{tag}] {run['preset']}: {param_count(model.params) / 1e6:.2f} M "
+        f"params, bf16, ZeRO-1, AdamW, flash, micro-batch {micro}, batches "
+        f"of {seq}; {json.dumps(features)}")
+    fa.reset_launches()
+    fa.flash_attention.fallbacks = 0
+    rows, walls = [], []
+    for s in range(run["steps"]):
+        before = flash_counts(fa)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        met = engine.train_batch({"input_ids": data[s * micro:(s + 1)
+                                                    * micro]})
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        per = tuple(b - a for a, b in zip(before, flash_counts(fa)))
+        length = engine.curriculum.get_difficulty(s + 1)
+        keep = engine._ltd_keep or length
+        theta = engine.pld.current_theta
+        rng = PRNGKey(engine.config.seed + s)
+        _, keys = layer_keys(cfg, rng, keep < length, True)
+        kept = cfg.num_layers - sum(pld_drops(cfg, keys, theta))
+        rows.append((s, length, keep, theta, engine._moq_bits, loss, per,
+                     kept))
+        log(f"[{tag}] step {s}: length {length}, kept tokens {keep}, PLD "
+            f"theta {theta:.6f} ({cfg.num_layers - kept} layers dropped), "
+            f"MoQ bits {engine._moq_bits}, loss {loss:.4f}, K1 launches "
+            f"fwd/dq/dkv {per[:3]} (routed {per[3]}), {walls[-1] * 1e3:.1f} "
+            f"ms")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{tag}: non-finite loss at step {s}")
+        if per != (kept, kept, kept, 0):
+            raise AssertionError(f"{tag}: step {s} must launch each flash "
+                                 f"kernel once a kept layer ({kept})")
+    variants = {k: dict(getattr(fa, k).variant_launches)
+                for k in FLASH_KERNELS}
+    if any(set(v) != {("bfloat16", fa.kernel_head_dim(cfg.head_dim))}
+           for v in variants.values()):
+        raise AssertionError(f"{tag}: a flash launch of another variant: "
+                             f"{variants}")
+    if not any(r[2] < r[1] for r in rows) or rows[-1][4] != 8:
+        raise AssertionError(f"{tag}: random-LTD never dropped tokens or "
+                             "MoQ never reached 8 bits")
+    # the flops profiler's count at the profiled step against the shapes
+    k = run["profile_step"] - 1
+    _, length, keep, _, _, _, _, kept = rows[k]
+    want = reckon_step_products(cfg, micro, length, keep, kept)
+    prof = engine.flops_profile
+    tflops = prof["flops"] / walls[k] / 1e12
+    mfu4 = RESULTS.get("train", {}).get("mfu")
+    log(f"[{tag}] flops profiler at step {run['profile_step']}: "
+        f"{prof['flops']:.6e} flops (reckoned from the shapes "
+        f"{want:.6e}); by op {prof['by_op']}; {tflops:.1f} TFLOP/s over that "
+        f"step's {walls[k] * 1e3:.1f} ms (profiled, with the count's host "
+        f"cost); phase 4's MFU "
+        + (f"{100 * mfu4:.2f}%" if mfu4 is not None else "not measured "
+           "(train not run)") + f" [{nvidia_smi_line()}]")
+    if prof["flops"] != want:
+        raise AssertionError(f"{tag}: the profiler counted {prof['flops']}, "
+                             f"the shapes give {want}")
+    del engine
+    free_engines(torch)
+    de_parity(torch, model, data, features, micro, device)
+
+    # one eigenvalue-paced MoQ boundary under the plain attention
+    xm = Model.from_params(dataclasses.replace(cfg, attention_impl="xla"),
+                           model.params)
+    eng = ds.initialize(model=xm, device=device, config={
+        **train_config(eig_run["micro"], "bf16"),
+        "quantize_training": {"enabled": True, "start_bits": 16,
+                              "target_bits": 4, "quantize_period": 1,
+                              "eigenvalue": {"enabled": True,
+                                             "max_iter": eig_run["max_iter"]}}})
+    for s in range(2):
+        eng.train_batch({"input_ids": data[s * eig_run["micro"]:(s + 1)
+                                           * eig_run["micro"],
+                                           :eig_run["seq"]]})
+    eig = eng._moq_eig0
+    log(f"[{tag}] eigenvalue-paced MoQ boundary (attention_impl xla, "
+        f"micro-batch {eig_run['micro']}, seq {eig_run['seq']}, max_iter "
+        f"{eig_run['max_iter']}): |eigenvalue| {eig}, power iteration "
+        f"{eng.eigenvalue_seconds[-1]:.3f} s, MoQ bits then {eng._moq_bits}, "
+        f"period {eng.moq.period}")
+    if eig is None or not math.isfinite(eig) or len(
+            eng.eigenvalue_seconds) != 1:
+        raise AssertionError(f"{tag}: the eigenvalue was not measured once "
+                             "or is not finite")
+    del eng, xm, model
+    free_engines(torch)
+    return variants
+
+
+def de_parity(torch, model, data, features, micro, device):
+    """The random-LTD path's first step, flash kernels (bf16) against the
+    plain causal_attention (bf16), with the plain attention in fp32 as the
+    noise-floor reference: the batch cut to 640 tokens, 512 of them kept
+    (random_ltd alone, its schedule at its start), micro-batch
+    PARITY_MICRO."""
+    import dataclasses
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import Model
+
+    rl = features["data_efficiency"]["data_routing"]["random_ltd"]
+    S = min(640, data.shape[1])
+    keep = rl["min_value"] if rl["min_value"] < S else S // 2
+    ltd = {"data_efficiency": {"enabled": True, "data_routing": {
+        "enabled": True, "random_ltd": {**rl, "min_value": keep,
+                                        "require_steps": 10 ** 6}}}}
+    batch = {"input_ids": data[:PARITY_MICRO, :S]}
+    res = {}
+    for tag, impl, bf16 in (("flash", "flash", True), ("plain", "xla", True),
+                            ("fp32", "xla", False)):
+        m = Model.from_params(dataclasses.replace(
+            model.config, attention_impl=impl), model.params)
+        eng = ds.initialize(model=m, device=device, config={
+            **train_config(PARITY_MICRO, "bf16" if bf16 else "fp32"), **ltd})
+        met = eng.train_batch(dict(batch))
+        if eng._ltd_keep != keep:
+            raise AssertionError("de parity: random-LTD was not active")
+        res[tag] = (float(met["loss"]), float(met["grad_norm"]))
+        del eng
+        free_engines(torch)
+    for i, what in enumerate(("loss", "grad_norm")):
+        got, ref, ref32 = res["flash"][i], res["plain"][i], res["fp32"][i]
+        noise = abs(ref - ref32)
+        tol = PARITY_FACTOR * max(noise, PARITY_FLOOR["bf16"] * abs(ref32))
+        log(f"[train-de] LTD parity (micro-batch {PARITY_MICRO}, {S} tokens, "
+            f"{keep} kept, first step) {what}: flash {got:.6f} vs plain "
+            f"{ref:.6f} (|d| {abs(got - ref):.3e}); fp32 plain {ref32:.6f}: "
+            f"noise {noise:.3e}, tol {tol:.3e}")
+        if not math.isfinite(got) or abs(got - ref) > tol:
+            raise AssertionError(f"train-de: the LTD step's {what} with the "
+                                 "flash kernels disagrees with the plain "
+                                 "attention")
+
+
 def device_profile(torch, run, wall_unprofiled, tag="serve", split=()):
     """The kernels that take the device time, over one more full run under
     torch.profiler (``run(prof)`` returns its wall seconds), and the
@@ -4894,12 +5335,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="device,build,kernel,train,train-fp32,"
-                            "train-ckpt,serve,serve-quant,serve-burst,"
+                            "train-ckpt,train-de,serve,serve-quant,"
+                            "serve-burst,"
                             "serve-failover,serve-offload,serve-fleet,"
                             "serve-alibi,"
                             "serve-mqa,"
                             "serve-spec,serve-moe,train-moe,train-fp16,"
-                            "train-offload,train-nvme")
+                            "hybrid,train-offload,train-nvme")
     ap.add_argument("--seed", type=int, default=0)
     # serve-failover (e) runs this script again as its child process
     ap.add_argument("--failover-child", metavar="SNAPSHOT_PATH",
@@ -4968,7 +5410,7 @@ def main() -> int:
     # 3. kernels vs plain
     kern = None
     qkv_kern, mixed_kern, alibi_kern, flash_kern = {}, {}, {}, {}
-    mqa_kern = {}
+    mqa_kern, d80_kern = {}, {}
     if "kernel" in phases:
         from deepspeed_tpu_torch.models.layers import alibi_slopes
         dev = torch.device("cuda")
@@ -4982,6 +5424,8 @@ def main() -> int:
                 alibi_kern.setdefault("bf16", res)
             elif name.startswith("falcon-7b"):
                 mqa_kern.setdefault("bf16", res)
+            elif name == "phi-2 mixed":      # the hybrid rollouts' width
+                d80_kern.setdefault("bf16", res)
             elif kern is None:
                 kern = res
             if name in ("llama3-8b mixed", "llama3-8b decode",
@@ -5020,6 +5464,12 @@ def main() -> int:
     if "train-ckpt" in phases:
         flash_runs.append(train_ckpt(torch, fa, args.seed))
         phase_done("train-ckpt")
+    # 4d. data-efficient training of phase 4's GPT-2
+    de_flash = None
+    if "train-de" in phases:
+        de_flash = train_de(torch, fa, args.seed)
+        flash_runs.append(de_flash)
+        phase_done("train-de")
 
     # 5., 6., 6c., 6d. and 6e. the serving paths, bf16, quantized, in
     # decode bursts, under failures and offloaded, on one model
@@ -5093,6 +5543,14 @@ def main() -> int:
         flash_runs.append(train(torch, fa, args.seed, "train-fp16"))
         phase_done("train-fp16")
 
+    # 8c. the RLHF actor loop on phi-2 (bf16): training and rollouts on
+    # one set of weights through HybridEngine
+    hybrid_launches = None
+    if "hybrid" in phases:
+        hybrid_flash, hybrid_launches = hybrid(torch, fa, pa, args.seed)
+        flash_runs.append(hybrid_flash)
+        phase_done("hybrid")
+
     # 9. ZeRO-Offload (gptj-6b, full width and depth, state in pinned host
     # memory) and 10. ZeRO-Infinity (gptj-6b cut to 4 layers: the NVMe
     # optimizer, then per-layer parameter streaming), last: their pinned
@@ -5127,10 +5585,14 @@ def main() -> int:
             src = ("flash_attention_sm90.cuh"
                    if flash_design(k, dt, d) == "wgmma"
                    else "flash_attention_fp32.cu")
+            # train-de's own launches on the bf16 D 64 entries
+            de = ({"de_launches": de_flash[k].get((dt, d), 0)
+                   if de_flash is not None else None}
+                  if (dt, d) == ("bfloat16", 64) else {})
             return dict(name=flash_name(k, dt, d), route="cuda",
                         source=f"deepspeed_tpu_torch/ops/csrc/{src}",
                         replaces=replaces[k], launches=launches,
-                        design=flash_design(k, dt, d),
+                        design=flash_design(k, dt, d), **de,
                         **flash_kern[dt, d][k])
 
         def quant_launches(run, key):
@@ -5190,6 +5652,11 @@ def main() -> int:
         entries += [dict(name="paged_attention_mqa", route="cuda",
                          source=pa_src, replaces=pa_replaces,
                          launches=mqa_launches, **mqa_kern["bf16"])]
+        # K2 at phi-2's head dim 80 (timed on its mixed batch): the hybrid
+        # phase's refreshed rollout
+        entries += [dict(name="paged_attention_d80", route="cuda",
+                         source=pa_src, replaces=pa_replaces,
+                         launches=hybrid_launches, **d80_kern["bf16"])]
         print(json.dumps({"kernels": entries}), flush=True)
     print(rep["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

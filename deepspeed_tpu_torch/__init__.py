@@ -16,7 +16,11 @@ fragment format and HuggingFace import (``checkpoint``),
 mixture-of-experts layers (``parallel.moe``) for training and serving,
 offload, and the host layers above the engine: telemetry
 (``telemetry``, ``monitor``), the fleet router (``serving``) and the
-HTTP gateway (``gateway``).
+HTTP gateway (``gateway``), and RLHF and data-efficient training: the
+hybrid engine (``HybridEngine``: training and serving on one set of
+weights), LoRA (``linear``), progressive layer drop, random-LTD, the
+curriculum, MoQ with eigenvalue pacing (``runtime``), compression
+(``compression``) and the flops profiler (``profiling``).
 """
 
 __version__ = "0.1.0"
@@ -25,3 +29,4 @@ from .config import Config, load_config                     # noqa: F401
 from .inference import (InferenceConfig, InferenceEngine,   # noqa: F401
                         SamplingParams)
 from .runtime.engine import Engine, initialize              # noqa: F401
+from .runtime.hybrid_engine import HybridEngine             # noqa: F401

@@ -152,7 +152,7 @@ from .overload import (AdmissionVerdict, OverloadConfig, RequestMeta,
                        admission_decision, effective_priority,
                        select_victim)
 from .quantization import (DENSE_ONLY_GROUPS, contract_dims,
-                           quantize_model_params)
+                           mixed_operand, quantize_model_params)
 from .ragged.state import (FEEDBACK_TOKEN, BatchStager, KVCacheConfig,
                            StateManager, batch_from_flat, kv_working_layer)
 from .ragged.tier import KVBlockTier
@@ -424,6 +424,62 @@ def add_launches(delta: Dict[tuple, object], sign: int = 1) -> None:
                 cur[n] = cur.get(n, 0) + sign * c
         else:
             setattr(fn, name, cur + sign * d)
+
+
+def _placements(dst, src, path: str) -> List[tuple]:
+    """(served tensor, new tensor) pairs of two trees of one structure, or
+    ValueError naming the first leaf that cannot be placed."""
+    if isinstance(dst, dict) or isinstance(src, dict):
+        if not (isinstance(dst, dict) and isinstance(src, dict)) \
+                or set(dst) != set(src):
+            raise ValueError(
+                f"refresh_params: {path} has keys "
+                f"{sorted(src) if isinstance(src, dict) else type(src)}, "
+                f"the served tree "
+                f"{sorted(dst) if isinstance(dst, dict) else type(dst)}")
+        return [p for k in dst
+                for p in _placements(dst[k], src[k], f"{path}.{k}")]
+    if not isinstance(src, torch.Tensor) or src.shape != dst.shape \
+            or src.dtype != dst.dtype:
+        got = (f"{tuple(src.shape)} {src.dtype}"
+               if isinstance(src, torch.Tensor) else type(src).__name__)
+        raise ValueError(f"refresh_params: {path} is {got}, the served "
+                         f"leaf {tuple(dst.shape)} {dst.dtype}")
+    return [(dst, src.to(dst.device))]
+
+
+def _quant_placements(dst, src, path: str = "quant") -> List[tuple]:
+    """:func:`_placements` for quantized trees: each payload's codes,
+    scales and zero points, and the mixed-input GEMM's per-layer operands
+    whose scales were expanded into tensors of their own."""
+    if isinstance(dst, dict):
+        if not isinstance(src, dict) or set(dst) != set(src):
+            raise ValueError(f"refresh_params: {path} does not match the "
+                             "served quantized tree")
+        return [p for k in dst
+                for p in _quant_placements(dst[k], src[k], f"{path}.{k}")]
+    if (dst.bits, dst.shape, dst.layout) != (src.bits, src.shape,
+                                             src.layout):
+        raise ValueError(f"refresh_params: {path} is {src!r}, the served "
+                         f"payload {dst!r}")
+    pairs = []
+    for name in ("data", "scale", "zero"):
+        d, s_ = getattr(dst, name), getattr(src, name)
+        if (d is None) != (s_ is None):
+            raise ValueError(f"refresh_params: {path}.{name} does not "
+                             "match the served payload")
+        if d is not None:
+            pairs += _placements(d, s_, f"{path}.{name}")
+    if dst.operands is not None:
+        cdims = contract_dims(path.split(".")[-2], path.split(".")[-1],
+                              len(dst.shape)) if path.count(".") >= 2 \
+            else 1
+        for j, op in enumerate(dst.operands):
+            new = mixed_operand(src, j, cdims)
+            if op.scale.data_ptr() != dst.scale[j].data_ptr():
+                pairs += _placements(op.scale, new.scale,
+                                     f"{path}.operands[{j}].scale")
+    return pairs
 
 
 class _Graph:
@@ -1040,11 +1096,58 @@ class InferenceEngine:
         self.metrics.publish(monitor, step)
 
     def refresh_params(self, params) -> None:
-        """Swap in new weights between steps (the RLHF hybrid engine's
-        seam): not ported yet."""
-        raise NotImplementedError(
-            "InferenceEngine.refresh_params is not ported yet (ROADMAP "
-            "Queue 1 item 7: runtime/hybrid_engine.py)")
+        """Serve new weights (the RLHF hybrid engine's seam), between
+        steps.  ``params``: a dense tree of the model's structure (the
+        training engine's ``compute_params``), cast to ``param_dtype``
+        where it is fp32 and re-quantized under ``weight_quant``, as the
+        JAX engine's ``refresh_params`` does.
+
+        The new values are copied into the served tensors in place (the
+        dense leaves and each quantized payload's codes and scales, and
+        the mixed-input GEMM's expanded scale operands): every CUDA graph
+        captured so far read those addresses and serves the new weights
+        at its next replay.  On the card the copies run on the engine's
+        stream, behind any step it has queued, and the call waits for
+        them.  A tree whose leaves do not match the served ones in key,
+        shape and dtype raises (nothing is placed).  A dense served leaf
+        that is the model's own tensor (a model already in the serving
+        dtype) is updated with it.
+
+        The prefix cache is reset and the KV tier emptied: their blocks
+        were computed under the old weights and their digests hash tokens
+        only, so a prompt of full blocks would otherwise reuse stale KV
+        (the JAX engine keeps its prefix cache here; ROADMAP Queue 3).
+        Under ``weight_stream`` it raises: the store holds the spilled
+        weights (rebuild the engine)."""
+        if self._wstore is not None:
+            raise NotImplementedError(
+                "refresh_params under weight_stream: re-spill the store "
+                "by rebuilding the engine")
+        dense = tree_map(lambda x: x.to(self.icfg.param_dtype)
+                         if x.dtype == torch.float32 else x, params)
+        quant = None
+        if self._quant is not None:
+            if not self.icfg.weight_quant:
+                raise ValueError(
+                    "refresh_params: this engine serves a pre-built "
+                    "quant_tree and cannot re-quantize dense weights "
+                    "(build it with weight_quant to refresh)")
+            dense, quant = quantize_model_params(
+                dense, bits=WEIGHT_QUANT_BITS[self.icfg.weight_quant],
+                quantize_embeddings=self.icfg.quantize_embeddings)
+        pairs = _placements(self.params, dense, "params")
+        if quant is not None:
+            pairs += _quant_placements(self._quant, quant)
+        if self._cuda:
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.no_grad(), self._on_stream():
+            for dst, src in pairs:
+                dst.copy_(src)
+        if self._cuda:
+            self._stream.synchronize()
+        self.state.reset_prefix_cache()
+        if self.state.tier is not None:
+            self.state.tier.clear()
 
     # ------------------------------------------------------------------
     # request API

@@ -360,6 +360,12 @@ class KVBlockTier:
                 "leaves": [np.array(a) for a in leaves],
                 "checksum": ent.checksum}
 
+    def clear(self) -> None:
+        """Drop every entry, in RAM and on NVMe (their content is stale:
+        the weights that computed it were replaced)."""
+        for digest in list(self.digests()):
+            self._drop(digest)
+
     def _drop(self, digest: bytes) -> None:
         ent = self._ram.pop(digest, None)
         if ent is not None:

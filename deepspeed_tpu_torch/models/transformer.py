@@ -21,6 +21,11 @@ shared expert) run every layer's FFN through ``parallel.moe.moe_ffn``;
 ``forward``/``apply`` take the training ``rng`` (its gating noise) and
 ``with_aux`` (the layers' mean load-balancing loss), and ``lm_loss_fn``
 adds ``aux_loss_coef`` times that loss, as the JAX package does.
+Progressive layer drop (``pld_theta``) and random-LTD (``ltd_keep``)
+draw from the same ``rng`` as the JAX ``apply`` splits it
+(:func:`layer_keys`, :func:`pld_drops`); ``lm_loss_fn`` carries the
+engine's ``uses_pld`` / ``with_ltd`` / ``base_eval`` hooks and
+``hvp_loss``, the twice-differentiable loss of the eigenvalue.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..parallel.moe import moe_ffn
 from ..platform.cuda import resolve_device
-from ..utils.prng import split
+from ..utils.prng import fold_in, split, uniform
 from . import layers as L
 
 
@@ -230,7 +235,8 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 # numpy dtypes torch.from_numpy rejects (ml_dtypes) -> (same-width integer
 # view, torch dtype): carried bit for bit
 _VIEW_DTYPES = {"bfloat16": (np.uint16, torch.bfloat16),
-                "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+                "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+                "float8_e5m2": (np.uint8, torch.float8_e5m2)}
 
 # dtype names of a JAX tree's static metadata -> torch dtypes
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -252,10 +258,39 @@ def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
     leaf of a JAX tree) into the port on ``device``, bit for bit (bf16
     arrays, numpy dtype ``bfloat16``, which ``torch.from_numpy`` rejects,
     go through a uint16 view).  ``dtype`` None keeps each leaf's own
-    type."""
+    type.  A quantized leaf (a LoRA node's frozen ``base``: a
+    QuantizedTensor-like object with numpy ``data``/``scale``/``zero``,
+    int8, int4 or fp8) becomes the port's
+    :class:`~..ops.quant.QuantizedTensor`, payload and scales exact, and
+    ``dtype`` leaves it as it is."""
     dev = resolve_device(device)
-    return tree_map(lambda a: _from_numpy(a).to(device=dev, dtype=dtype),
-                    tree)
+
+    def conv(a):
+        if _quantized_like(a):
+            return _quantized_from_numpy(a, dev)
+        return _from_numpy(a).to(device=dev, dtype=dtype)
+
+    return tree_map(conv, tree)
+
+
+def _quantized_like(x) -> bool:
+    # an array is a leaf (numpy's ``.data`` of a bf16 or fp8 array raises)
+    return not isinstance(x, (np.ndarray, torch.Tensor)) and all(
+        hasattr(x, a) for a in ("layout", "bits", "scale", "zero", "data",
+                                "shape"))
+
+
+def _quantized_from_numpy(qt, dev):
+    from ..ops.quant import QuantizedTensor
+    name = np.dtype(qt.dtype).name
+    if name not in _TORCH_DTYPES:
+        raise ValueError(f"quantized leaf of dtype {name}: expected one "
+                         f"of {sorted(_TORCH_DTYPES)}")
+    return QuantizedTensor(
+        _from_numpy(qt.data).to(dev), _from_numpy(qt.scale).to(dev),
+        None if qt.zero is None else _from_numpy(qt.zero).to(dev),
+        int(qt.bits), tuple(qt.shape), _TORCH_DTYPES[name],
+        layout=qt.layout)
 
 
 def quant_tree_from_numpy(tree, device=None):
@@ -265,23 +300,8 @@ def quant_tree_from_numpy(tree, device=None):
     ``layout`` (e.g. a JAX tree after ``jax.tree.map(np.asarray, ...)``)
     into the port's :class:`~..ops.quant.QuantizedTensor`s on ``device``;
     payloads and scales stay bitwise exact."""
-    from ..ops.quant import QuantizedTensor
     dev = resolve_device(device)
-
-    def conv(qt):
-        if isinstance(qt, dict):
-            return {k: conv(v) for k, v in qt.items()}
-        name = np.dtype(qt.dtype).name
-        if name not in _TORCH_DTYPES:
-            raise ValueError(f"quantized leaf of dtype {name}: expected one "
-                             f"of {sorted(_TORCH_DTYPES)}")
-        return QuantizedTensor(
-            _from_numpy(qt.data).to(dev), _from_numpy(qt.scale).to(dev),
-            None if qt.zero is None else _from_numpy(qt.zero).to(dev),
-            int(qt.bits), tuple(qt.shape), _TORCH_DTYPES[name],
-            layout=qt.layout)
-
-    return conv(tree)
+    return tree_map(lambda qt: _quantized_from_numpy(qt, dev), tree)
 
 
 # --------------------------------------------------------------------------
@@ -312,11 +332,14 @@ def _shared_expert(sp, h: torch.Tensor, act: Callable,
 
 def block_apply(cfg: TransformerConfig, lp, x: torch.Tensor, cos, sin,
                 mask=None, attention_fn: Optional[Callable] = None,
-                rng: Optional[torch.Tensor] = None):
+                rng: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None):
     """One decoder layer.  lp: this layer's params; x: [B, S, dm].
     ``attention_fn`` None: ``causal_attention`` at ``attn_scale(cfg)``.
-    ``rng``: this layer's threefry key (MoE gating noise).  Returns (x,
-    metrics), the metrics non-empty for MoE."""
+    ``rng``: this layer's threefry key (MoE gating noise).  ``positions``:
+    optional [B, S] original token positions (random-LTD's gathered
+    subsequences keep their rotary phases).  Returns (x, metrics), the
+    metrics non-empty for MoE."""
     if attention_fn is None:
         attention_fn = partial(L.causal_attention, scale=attn_scale(cfg))
     norm = _norm(cfg)
@@ -332,8 +355,8 @@ def block_apply(cfg: TransformerConfig, lp, x: torch.Tensor, cos, sin,
         k = k + ap["bk"].to(dt)
         v = v + ap["bv"].to(dt)
     if cfg.position == "rope":
-        q = L.apply_rope(q, cos, sin)
-        k = L.apply_rope(k, cos, sin)
+        q = L.apply_rope(q, cos, sin, positions=positions)
+        k = L.apply_rope(k, cos, sin, positions=positions)
     o = attention_fn(q, k, v, mask=mask)
     o = torch.einsum("bshk,hkd->bsd", o, ap["wo"].to(dt))
     if cfg.attn_out_bias:
@@ -367,17 +390,61 @@ def block_apply(cfg: TransformerConfig, lp, x: torch.Tensor, cos, sin,
     return x + d, metrics
 
 
+def layer_keys(cfg: TransformerConfig, rng: Optional[torch.Tensor],
+               ltd: bool, pld: bool):
+    """The keys a forward draws from ``rng``, as the JAX ``apply`` splits
+    them: random-LTD's selection key first (``rng, sel = split(rng)``),
+    then one key a layer (``split(rng, num_layers)``), made when a layer
+    draws from it (MoE gating noise, PLD's coin).  Returns (selection
+    key or None, [layer key or None] * num_layers)."""
+    sel = None
+    if ltd:
+        rng, sel = split(rng)
+    if rng is not None and (pld or cfg.num_experts > 1):
+        return sel, list(split(rng, cfg.num_layers))
+    return sel, [None] * cfg.num_layers
+
+
+def pld_drops(cfg: TransformerConfig, keys, pld_theta) -> list:
+    """Progressive layer drop's whole-batch coin of each layer: layer i
+    drops with probability (i / L)(1 - theta), a ``bernoulli`` draw of
+    ``fold_in(key_i, 1)``, all in float32 as the JAX ``apply`` computes
+    it.  The keys live on the host in training, so the coins cost no
+    device round trip."""
+    theta = np.float32(pld_theta)
+    drops = []
+    for li, r in enumerate(keys):
+        keep_p = np.float32(1.0) - (np.float32(li) / np.float32(
+            cfg.num_layers)) * (np.float32(1.0) - theta)
+        p = np.float32(1.0) - keep_p
+        drops.append(bool(uniform(fold_in(r, 1), ()) < float(p)))
+    return drops
+
+
 def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor,
             mask: Optional[torch.Tensor] = None,
             attention_fn: Optional[Callable] = None,
             dtype=None, rng: Optional[torch.Tensor] = None,
-            with_aux: bool = False):
-    """Forward -> logits [B, S, vocab], differentiable (the JAX ``apply``
-    without PLD/LTD), or (logits, aux) with ``with_aux``: aux holds the
-    MoE layers' metrics averaged over layers (empty for a dense model).
-    ``rng``: a threefry key (``utils.prng``), split over the layers for
-    the MoE gating noise.  ``cfg.remat`` recomputes each layer in the
-    backward (``torch.utils.checkpoint``) under ``cfg.remat_policy``."""
+            with_aux: bool = False, pld_theta: Optional[float] = None,
+            ltd_keep: Optional[int] = None):
+    """Forward -> logits [B, S, vocab], differentiable (the JAX ``apply``),
+    or (logits, aux) with ``with_aux``: aux holds the MoE layers' metrics
+    averaged over layers (empty for a dense model).  ``rng``: a threefry
+    key (``utils.prng``), split over the layers for the MoE gating noise
+    and PLD's coins.  ``cfg.remat`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``) under ``cfg.remat_policy``.
+
+    ``pld_theta``: progressive layer drop's theta (a host float): layer i
+    is dropped for the whole batch with probability (i / L)(1 - theta)
+    (:func:`pld_drops`).  The JAX package runs every layer and selects
+    ``where(drop, h, y)``; a dense layer that drops is skipped here (the
+    same numbers: its output is discarded and its weights' gradients are
+    zero either way), an MoE layer runs for its load-balancing metrics and
+    its output is discarded.  ``ltd_keep``: random-LTD's kept-token count:
+    a sorted random subset of positions (``data_pipeline
+    .random_ltd_select``) runs through the layer stack with RoPE at their
+    original positions, and the dropped positions bypass it with their
+    embedding (``random_ltd_scatter``)."""
     remat = _remat(cfg)
     dt = dtype or params["embed"]["table"].dtype
     x = L.embed(params["embed"], input_ids).to(dt)
@@ -396,17 +463,35 @@ def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor,
     else:
         cos, sin = L.rope_freqs(cfg.rotary_dim, cfg.max_seq_len,
                                 cfg.rope_theta, device=x.device)
-    # the layers' keys (only the MoE gating noise draws from them)
-    layer_rngs = (split(rng, cfg.num_layers)
-                  if rng is not None and cfg.num_experts > 1
-                  else [None] * cfg.num_layers)
+    if (pld_theta is not None or ltd_keep is not None) and rng is None:
+        raise ValueError("pld_theta / ltd_keep need a training rng")
+    ltd = ltd_keep is not None and ltd_keep < x.shape[1]
+    sel, layer_rngs = layer_keys(cfg, rng, ltd, pld_theta is not None)
+    positions = full_x = idx = None
+    if ltd:
+        from ..runtime.data_pipeline import random_ltd_select
+        full_x = x
+        x, idx = random_ltd_select(x, ltd_keep, sel)
+        positions = idx
+        if mask is not None:
+            mask = torch.gather(mask, 1, idx)
+    drops = (pld_drops(cfg, layer_rngs, pld_theta) if pld_theta is not None
+             else [False] * cfg.num_layers)
     per_layer = []
-    for lp, r in zip(unstack_layers(params["blocks"], cfg.num_layers),
-                     layer_rngs):
+    for lp, r, drop in zip(unstack_layers(params["blocks"], cfg.num_layers),
+                           layer_rngs, drops):
+        if drop and cfg.num_experts == 1:
+            continue
         layer = partial(block_apply, cfg, lp, cos=cos, sin=sin, mask=mask,
-                        attention_fn=attention_fn, rng=r)
-        x, metrics = remat(layer, x) if remat else layer(x)
+                        attention_fn=attention_fn, rng=r,
+                        positions=positions)
+        y, metrics = remat(layer, x) if remat else layer(x)
+        if not drop:
+            x = y
         per_layer.append(metrics)
+    if idx is not None:
+        from ..runtime.data_pipeline import random_ltd_scatter
+        x = random_ltd_scatter(full_x, x, idx)
     x = _norm(cfg)(params["ln_f"], x)
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["table"].to(dt).T
@@ -425,13 +510,16 @@ def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor,
 def apply(cfg: TransformerConfig, params, input_ids: torch.Tensor,
           mask: Optional[torch.Tensor] = None,
           attention_fn: Optional[Callable] = None, dtype=None,
-          rng: Optional[torch.Tensor] = None, with_aux: bool = False):
+          rng: Optional[torch.Tensor] = None, with_aux: bool = False,
+          pld_theta: Optional[float] = None,
+          ltd_keep: Optional[int] = None):
     """:func:`forward` without autograd (the serving path's dense forward);
     the positional order is the reference's (``mask, attention_fn,
-    dtype, rng, with_aux``)."""
+    dtype, rng, with_aux, pld_theta, ltd_keep``)."""
     return forward(cfg, params, input_ids, mask=mask,
                    attention_fn=attention_fn, dtype=dtype, rng=rng,
-                   with_aux=with_aux)
+                   with_aux=with_aux, pld_theta=pld_theta,
+                   ltd_keep=ltd_keep)
 
 
 # --------------------------------------------------------------------------
@@ -607,6 +695,27 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     return _CrossEntropy.apply(logits, labels, w)
 
 
+def plain_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """:func:`cross_entropy_loss`'s function in plain, twice-differentiable
+    ops (``logsumexp - target logit`` in fp32, the JAX package's
+    ``cross_entropy_loss`` term for term), for Hessian-vector products.
+    It holds an fp32 copy of the logits, which the training loss avoids."""
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    tgt = logits.gather(-1, labels[..., None].long())[..., 0].float()
+    nll = lse - tgt
+    if mask is not None:
+        m = mask.float()
+        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return nll.mean()
+
+
+def _first_order_only(attention_fn: Optional[Callable]) -> bool:
+    from ..ops.flash_attention import flash_attention
+    return attention_fn is flash_attention
+
+
 def lm_loss_fn(cfg: TransformerConfig,
                attention_fn: Optional[Callable] = None,
                pld: bool = False, ltd_keep: Optional[int] = None):
@@ -614,24 +723,50 @@ def lm_loss_fn(cfg: TransformerConfig,
     ``loss_fn(params, batch, rng) -> loss``, or ``(loss, aux)`` for an MoE
     model, whose loss adds ``aux_loss_coef`` times the layers' mean
     load-balancing loss.  ``rng``: the threefry key of the MoE gating
-    noise (a dense model draws no randomness)."""
+    noise, PLD's coins and random-LTD's selection.
+
+    ``pld``: read progressive layer drop's theta from the batch's
+    ``_pld_theta`` column (element 0; the engine keeps that column on
+    the host).  ``ltd_keep``: random-LTD's kept-token count; the engine
+    swaps losses through the ``with_ltd`` hook as the schedule anneals.
+    With either, ``base_eval`` is the clean loss evaluation runs.
+    ``hvp_loss`` is the same loss with :func:`plain_cross_entropy` (the
+    engine's eigenvalue takes Hessian-vector products through it); it
+    raises under the flash kernels, which have no second derivative."""
+
+    def make(ce, second_order: bool):
+        def loss_fn(params, batch, rng=None):
+            if second_order and _first_order_only(attention_fn):
+                raise TypeError(
+                    "a Hessian-vector product through attention_impl="
+                    "'flash' is not defined: the flash kernels' backward "
+                    "has no derivative of its own (the JAX package's "
+                    "Pallas kernels have no JVP rule either); measure "
+                    "the eigenvalue with attention_impl='xla'")
+            ids = batch["input_ids"]
+            mask = batch.get("attention_mask")
+            theta = (float(batch["_pld_theta"].reshape(-1)[0]) if pld
+                     else None)
+            logits, aux = forward(cfg, params, ids, mask=mask,
+                                  attention_fn=attention_fn, rng=rng,
+                                  with_aux=True, pld_theta=theta,
+                                  ltd_keep=ltd_keep)
+            labels, tgt_mask = rolled_lm_targets(ids, mask)
+            loss = ce(logits, labels, tgt_mask)
+            if "moe_aux_loss" in aux:
+                return loss + cfg.aux_loss_coef * aux["moe_aux_loss"], aux
+            return loss
+        return loss_fn
+
+    loss_fn = make(cross_entropy_loss, False)
+    loss_fn.hvp_loss = make(plain_cross_entropy, True)
+    loss_fn.uses_pld = pld
+    loss_fn.with_ltd = lambda keep: lm_loss_fn(cfg, attention_fn, pld=pld,
+                                               ltd_keep=keep)
     if pld or ltd_keep is not None:
-        raise NotImplementedError(
-            "progressive layer drop / random-LTD are not ported yet "
-            "(ROADMAP Queue 1 item 7, data_pipeline)")
-
-    def loss_fn(params, batch, rng=None):
-        ids = batch["input_ids"]
-        mask = batch.get("attention_mask")
-        logits, aux = forward(cfg, params, ids, mask=mask,
-                              attention_fn=attention_fn, rng=rng,
-                              with_aux=True)
-        labels, tgt_mask = rolled_lm_targets(ids, mask)
-        loss = cross_entropy_loss(logits, labels, tgt_mask)
-        if "moe_aux_loss" in aux:
-            return loss + cfg.aux_loss_coef * aux["moe_aux_loss"], aux
-        return loss
-
+        # evaluation runs the clean forward: no theta column in eval
+        # batches, no token dropping
+        loss_fn.base_eval = lm_loss_fn(cfg, attention_fn)
     return loss_fn
 
 

@@ -28,7 +28,10 @@ by ``ops/builder.py`` at first use and bound through ``ctypes``.
   op, returning ``(o, lse)``: a selective-checkpoint policy sees it (a
   ctypes call inside an ``autograd.Function`` is invisible to a
   ``TorchDispatchMode``) and can save its outputs, as the JAX ``flash``
-  remat policy saves ``flash_out`` (``:377-379``).
+  remat policy saves ``flash_out`` (``:377-379``).  ``flash_dq`` and
+  ``flash_dkv`` are custom ops too, and all three carry flop formulas
+  (:func:`flash_products_flops`), so ``torch.utils.flop_counter`` counts
+  the kernels it cannot see inside.
 * :class:`FlashAttentionFunction` is the ``torch.autograd.Function``: its
   forward calls that op and saves ``(q, k, v, o, lse)``; its backward
   computes ``delta = rowsum(dO * O)`` in fp32 and calls dq and dkv
@@ -348,6 +351,61 @@ def _(q, k, v, scale, causal):
     return torch.empty_like(q), q.new_empty((B, H, S), dtype=torch.float32)
 
 
+@torch.library.custom_op(
+    "deepspeed_tpu_torch::flash_dq", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, "
+           "Tensor delta, float scale, bool causal) -> Tensor")
+def flash_dq_op(q, k, v, do, lse, delta, scale, causal):
+    """:func:`flash_dq` as a dispatcher op (a flop counter sees it)."""
+    return flash_dq(q, k, v, do, lse, delta, scale, causal)
+
+
+@flash_dq_op.register_fake
+def _(q, k, v, do, lse, delta, scale, causal):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op(
+    "deepspeed_tpu_torch::flash_dkv", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, "
+           "Tensor delta, float scale, bool causal) -> (Tensor, Tensor)")
+def flash_dkv_op(q, k, v, do, lse, delta, scale, causal):
+    """:func:`flash_dkv` as a dispatcher op (a flop counter sees it)."""
+    return flash_dkv(q, k, v, do, lse, delta, scale, causal)
+
+
+@flash_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, scale, causal):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+def flash_products_flops(q_shape, k_shape, products: int,
+                         causal: bool) -> int:
+    """2 x the multiply-adds of ``products`` [S, S] x [S, D] matrix
+    products per (batch, query head), half of them under the causal mask:
+    the count ``chip_smoke.flash_bound`` takes (fwd 2 products: QK^T and
+    PV; dq 3: QK^T, dO V^T, dS K; dk/dv 4: those less dS K, plus
+    P^T dO and dS^T Q)."""
+    B, H, S, D = q_shape
+    return products * 2 * B * H * ((S * S // 2) if causal else S * S) * D
+
+
+# the products each kernel computes, read by torch.utils.flop_counter
+FLASH_PRODUCTS = {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4}
+
+
+def _register_flop_formulas() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+    ops = torch.ops.deepspeed_tpu_torch
+    for name, n in FLASH_PRODUCTS.items():
+        def formula(q, k, *rest, out_shape=None, _n=n, **kw):
+            return flash_products_flops(q, k, _n, bool(rest[-1]))
+        register_flop_formula(getattr(ops, name))(formula)
+
+
+_register_flop_formulas()
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """o = attention(q, k, v) in ``[B, H, S, D]`` (the JAX ``_flash``)."""
 
@@ -364,8 +422,9 @@ class FlashAttentionFunction(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
         delta = (do.float() * o.float()).sum(-1)
-        dq = flash_dq(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
-        dk, dv = flash_dkv(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
+        dq = flash_dq_op(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
+        dk, dv = flash_dkv_op(q, k, v, do, lse, delta, ctx.scale,
+                              ctx.causal)
         return dq, dk, dv, None, None
 
 

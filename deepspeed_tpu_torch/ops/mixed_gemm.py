@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..profiling import flops_profiler as _flops
 from .builder import CUDAOpBuilder
 from .quant import (QuantizedTensor, dequantize, is_mixed_gemm_layout,
                     is_rowwise_int4, unpack_nibbles)
@@ -231,6 +232,8 @@ def mixed_matmul_2d(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
     mixed_matmul_2d.launches += 1
     if design is not None:
         mixed_matmul_2d.design_launches[design] += 1
+    if _flops._ACTIVE:
+        _flops.note_kernel_flops("mixed_matmul_2d", 2.0 * M * K * data.shape[1])
     return out
 
 
@@ -260,6 +263,8 @@ def mixed4_matmul_2d(x: torch.Tensor, data: torch.Tensor,
     mixed4_matmul_2d.launches += 1
     if design is not None:
         mixed4_matmul_2d.design_launches[design] += 1
+    if _flops._ACTIVE:
+        _flops.note_kernel_flops("mixed4_matmul_2d", 2.0 * M * K * data.shape[1])
     return out
 
 

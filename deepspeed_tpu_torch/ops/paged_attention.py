@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
+from ..profiling import flops_profiler as _flops
 from .builder import CUDAOpBuilder
 
 NEG_INF = -1e30
@@ -391,6 +392,9 @@ def paged_attention(kv_layer: KVLayer, q: torch.Tensor,
         paged_attention.fp8_launches += 1
     if slopes is not None:
         paged_attention.alibi_launches += 1
+    if _flops._ACTIVE:       # 2 products over each token's context
+        _flops.note_kernel_flops("paged_attention", 4.0 * H * D * float(
+            (positions.long() + 1).sum()))
     return out
 
 

@@ -11,8 +11,11 @@ row j + K/2), with their dequantizers.
 Payload codes and scales are bitwise equal to the JAX package's on the
 same input, so one quantized checkpoint feeds both packages: the same
 fp32 divisions, ``torch.round`` (half to even, as ``jnp.round``), the
-same clips.  Stochastic rounding, the quantized collectives and the
-fp6/fp12 minifloat layouts are not ported (ROADMAP Queue 1).
+same clips.  :func:`fp_quantize` (fp8 e4m3 / e5m2 with per-group scales,
+the frozen base of LoRA's quantized layers) casts with PyTorch's
+round-to-nearest-even fp8 conversion.  Stochastic rounding, the quantized
+collectives and the fp6/fp12 minifloat layouts are not ported (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -234,6 +237,31 @@ def dequantize(qt: QuantizedTensor,
     if qt.zero is not None:
         g = g + qt.zero
     return g.reshape(qt.shape).to(out_dt)
+
+
+_FP8_FORMATS = {
+    "fp8_e4m3": (torch.float8_e4m3fn, 448.0),
+    "fp8_e5m2": (torch.float8_e5m2, 57344.0),
+}
+
+
+def fp_quantize(x: torch.Tensor, fmt: str = "fp8_e4m3",
+                num_groups: Optional[int] = None) -> QuantizedTensor:
+    """Float-to-float quantization: per-group scales stretch each group
+    onto the fp8 format's range, the payload is that format.  fp6/fp12
+    have no fp8-style hardware type (their layouts stay ROADMAP item 7)."""
+    if fmt not in _FP8_FORMATS:
+        raise ValueError(f"unknown fp format {fmt!r}; "
+                         f"known: {sorted(_FP8_FORMATS)}")
+    dtype, fmax = _FP8_FORMATS[fmt]
+    orig_shape, orig_dtype = tuple(x.shape), x.dtype
+    if num_groups is None:
+        num_groups = default_groups(x.numel())
+    g = _group(x.float(), num_groups)
+    scale = g.abs().amax(dim=1, keepdim=True) / fmax
+    scale = torch.where(scale == 0, 1.0, scale)
+    q = (g / scale).to(dtype)
+    return QuantizedTensor(q, scale, None, 8, orig_shape, orig_dtype)
 
 
 def dequantize_any(qt: QuantizedTensor,

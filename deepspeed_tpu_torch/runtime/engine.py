@@ -50,9 +50,14 @@ package's fragment format (``checkpoint/engine.py``), synchronously or,
 with ``checkpoint.async_save``, from a worker thread.  Telemetry (the
 ``telemetry`` config: phase spans, device telemetry, anomaly detection,
 capture windows on ``torch.profiler``) and the ``monitor`` writers run as
-in the reference.  Every other
-engine feature raises ``NotImplementedError`` naming its ROADMAP item
-when it is configured.
+in the reference, and so do the data-efficiency hooks (:meth:`Engine.
+_data_efficiency_pre_step`: the seqlen curriculum, random-LTD's loss
+swap, PLD's theta column, MoQ's bits with eigenvalue pacing; the metric
+curriculum's :meth:`Engine.curriculum_dataloader`), MoQ's fake
+quantization in the compute cast, and the flops profiler (the profiled
+step runs under ``profiling.count_flops``).  Every other engine feature
+raises ``NotImplementedError`` naming its ROADMAP item when it is
+configured.
 """
 
 from __future__ import annotations
@@ -86,7 +91,8 @@ PRECISION_DTYPE = {"fp32": torch.float32, "fp16": torch.float16,
                    "bf16": torch.bfloat16}
 
 _MULTI = "ROADMAP Queue 1 item 6 (multi-GPU training breadth)"
-_AUX = "ROADMAP Queue 1 item 7 (aux subsystems)"
+_AUX_LEFT = ("ROADMAP Queue 1 item 7 (the aux subsystems left: autotuning, "
+             "elasticity, the launcher, env_report)")
 
 
 class TrainState(NamedTuple):
@@ -96,6 +102,11 @@ class TrainState(NamedTuple):
     opt_state: Any             # optimizer moments (fp32 or moment_dtype)
     loss_scale: LossScaleState
     skipped: int               # overflow-skipped steps
+
+
+# batch columns that stay in host memory when a batch is staged (the loss
+# reads them on the host: PLD's theta)
+_HOST_KEYS = ("_pld_theta",)
 
 
 class _StagedBatch(dict):
@@ -128,13 +139,7 @@ def _reject_unported(config: Config) -> None:
         (config.comm.overlap or config.comm.quantized_allreduce is not None,
          "comm.overlap / comm.quantized_allreduce", _MULTI),
         (config.sparse_gradients, "sparse_gradients", _MULTI),
-        (config.progressive_layer_drop.enabled, "progressive_layer_drop",
-         _AUX),
-        (config.data_efficiency.enabled or config.curriculum_learning.enabled,
-         "data_efficiency / curriculum_learning (random-LTD, curriculum)",
-         _AUX),
-        (config.quantize_training.enabled, "quantize_training (MoQ)", _AUX),
-        (config.flops_profiler.enabled, "flops_profiler", _AUX),
+        (config.elasticity.enabled, "elasticity", _AUX_LEFT),
     ]
     for configured, what, item in checks:
         if configured:
@@ -299,6 +304,7 @@ class Engine:
                 monitor = None
         self.monitor = monitor
         self._setup_telemetry()
+        self._setup_data_efficiency()
         self._async_saver = None
         if self._offload == "host":
             log_dist(
@@ -452,6 +458,197 @@ class Engine:
         return self.metrics.snapshot()
 
     # ------------------------------------------------------------------
+    # data efficiency: curriculum, random-LTD, PLD, MoQ (the JAX engine's
+    # config-driven hooks, :734-916)
+    # ------------------------------------------------------------------
+    def _setup_data_efficiency(self) -> None:
+        cfg = self.config
+        self.curriculum = None
+        self.curriculum_sampler = None
+        ccfg = cfg.curriculum_learning
+        de = cfg.data_efficiency
+        if de.enabled and de.data_sampling.enabled \
+                and de.data_sampling.curriculum_learning.enabled:
+            ccfg = de.data_sampling.curriculum_learning
+        if ccfg.enabled:
+            from .data_pipeline import (CurriculumDataSampler,
+                                        CurriculumScheduler)
+
+            def sched():
+                return CurriculumScheduler({
+                    "min_difficulty": ccfg.min_difficulty,
+                    "max_difficulty": ccfg.max_difficulty,
+                    "schedule_type": ccfg.schedule_type,
+                    "schedule_config": ccfg.schedule_config})
+
+            if ccfg.curriculum_type == "seqlen":
+                # the batch-shape curriculum: each batch truncated in
+                # _data_efficiency_pre_step
+                self.curriculum = sched()
+            else:
+                # a metric curriculum: a DataAnalyzer metric drives the
+                # sampling order (curriculum_dataloader)
+                if not ccfg.data_analyzer_path:
+                    raise ConfigError(
+                        f"curriculum_type={ccfg.curriculum_type!r}: a "
+                        "metric curriculum needs data_analyzer_path "
+                        "pointing at a DataAnalyzer save dir containing "
+                        f"{ccfg.curriculum_type}/sample_to_metric.npy")
+                try:
+                    self.curriculum_sampler = CurriculumDataSampler\
+                        .from_analyzer(
+                            ccfg.data_analyzer_path, ccfg.curriculum_type,
+                            sched(), self.train_batch_size, seed=cfg.seed)
+                except FileNotFoundError as e:
+                    raise ConfigError(
+                        f"curriculum_type={ccfg.curriculum_type!r}: no "
+                        f"analyzer index under "
+                        f"{ccfg.data_analyzer_path!r} ({e}); run "
+                        "runtime.data_analyzer.DataAnalyzer first") from e
+
+        self.pld = None
+        if cfg.progressive_layer_drop.enabled:
+            if not getattr(self.loss_fn, "uses_pld", False):
+                raise ConfigError(
+                    "progressive_layer_drop: this loss_fn does not "
+                    "consume _pld_theta — initialize with model=")
+            from .progressive_layer_drop import ProgressiveLayerDrop
+            self.pld = ProgressiveLayerDrop(
+                cfg.progressive_layer_drop.theta,
+                cfg.progressive_layer_drop.gamma)
+
+        self._ltd_cfg = None
+        self._ltd_sched = None
+        self._ltd_keep = None
+        rl = de.data_routing.random_ltd
+        if de.enabled and de.data_routing.enabled and rl.enabled:
+            if not hasattr(self.loss_fn, "with_ltd"):
+                raise ConfigError(
+                    "random_ltd: this loss_fn has no with_ltd hook — "
+                    "initialize with model=")
+            self._ltd_base_loss = self.loss_fn
+            # max_value=0 means the batch's seqlen, resolved against the
+            # first batch
+            self._ltd_cfg = rl
+
+        self.moq = None
+        self._moq_bits = None
+        self._moq_eig0 = None
+        self._eig = None
+        self.eigenvalue_seconds: List[float] = []
+        qt = cfg.quantize_training
+        if qt.enabled:
+            from .quantize import Quantizer
+            self.moq = Quantizer(
+                q_start_bits=qt.start_bits, q_target_bits=qt.target_bits,
+                q_period=qt.quantize_period, q_groups=qt.quantize_groups)
+            if qt.eigenvalue.enabled:
+                from .eigenvalue import Eigenvalue
+                self._eig = Eigenvalue(max_iter=qt.eigenvalue.max_iter,
+                                       tol=qt.eigenvalue.tol,
+                                       stability=qt.eigenvalue.stability)
+        self.flops_profile: Optional[Dict[str, Any]] = None
+
+    def _data_efficiency_pre_step(self, batch, rng):
+        """The scheduled per-step transforms of a host batch; returns the
+        (possibly new) batch."""
+        step = self.global_steps
+        if self.curriculum is not None:
+            from .data_pipeline import truncate_to_difficulty
+            batch = truncate_to_difficulty(
+                batch, self.curriculum.get_difficulty(step + 1))
+        if self._ltd_cfg is not None:
+            from .data_pipeline import RandomLTDScheduler
+            S = int(np.shape(batch["input_ids"])[1])
+            max_t = min(self._ltd_cfg.max_value or S, S)
+            if self._ltd_sched is None or self._ltd_sched.max != max_t:
+                self._ltd_sched = RandomLTDScheduler(
+                    total_layers=0,
+                    start_tokens=min(self._ltd_cfg.min_value, max_t),
+                    max_tokens=max_t,
+                    schedule_steps=self._ltd_cfg.require_steps,
+                    step_size=self._ltd_cfg.seq_per_step)
+            keep = min(self._ltd_sched.kept_tokens(step), S)
+            keep_eff = None if keep >= S else keep
+            if keep_eff != self._ltd_keep:
+                self._ltd_keep = keep_eff
+                self.loss_fn = (self._ltd_base_loss if keep_eff is None
+                                else self._ltd_base_loss.with_ltd(keep_eff))
+        if self.pld is not None:
+            # before MoQ: the eigenvalue reads this batch's theta column
+            theta = self.pld.update_state(step)
+            B = int(np.shape(batch["input_ids"])[0])
+            batch = dict(batch)
+            batch["_pld_theta"] = np.full((B,), theta, np.float32)
+        if self.moq is not None:
+            bits = self.moq.current_bits(step)
+            boundary = (step > 0 and step % self.moq.period == 0
+                        and bits > self.moq.target_bits)
+            if self._eig is not None and boundary:
+                # eigenvalue pacing: growing curvature postpones the next
+                # bit reduction
+                eig = self._measure_eigenvalue(batch, rng)
+                if self._moq_eig0 is None:
+                    self._moq_eig0 = abs(eig)
+                elif abs(eig) > 1.5 * self._moq_eig0:
+                    self.moq.period *= 2
+                    logger.info(
+                        f"MoQ: |eigenvalue| grew {abs(eig):.3g} vs "
+                        f"{self._moq_eig0:.3g}; quantize_period -> "
+                        f"{self.moq.period}")
+                    bits = self.moq.current_bits(step)
+            self._moq_bits = bits
+        return batch
+
+    def curriculum_dataloader(self, data, **kwargs):
+        """A :class:`~.dataloader.DataLoader` whose sampling order follows
+        the configured metric curriculum (``curriculum_type`` other than
+        ``seqlen``, with ``data_analyzer_path``)."""
+        if self.curriculum_sampler is None:
+            raise ConfigError(
+                "curriculum_dataloader() needs a metric curriculum "
+                "(curriculum_learning with curriculum_type != 'seqlen' "
+                "and data_analyzer_path set)")
+        from .dataloader import DataLoader
+        return DataLoader(data, self.train_batch_size,
+                          sampler=self.curriculum_sampler, **kwargs)
+
+    def _measure_eigenvalue(self, batch, rng) -> float:
+        """Dominant Hessian eigenvalue of the micro-loss at the current
+        parameters (host-driven power iteration; period boundaries only),
+        through the loss's twice-differentiable ``hvp_loss``.  Its
+        seconds are appended to ``eigenvalue_seconds``."""
+        t0 = time.perf_counter()
+        micro = self.shard_batch(
+            {k: v[:self.micro_batch_size] for k, v in batch.items()},
+            accumulate=False)
+        cparams = self._step_params()
+        fn = getattr(self.loss_fn, "hvp_loss", self.loss_fn)
+
+        def scalar_loss(p):
+            out = fn(p, micro, rng)
+            return out[0] if isinstance(out, tuple) else out
+
+        eig, _ = self._eig.compute_eigenvalue(scalar_loss, cparams, rng)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.eigenvalue_seconds.append(time.perf_counter() - t0)
+        return float(eig)
+
+    def _moq_quantize(self, c: torch.Tensor) -> torch.Tensor:
+        """MoQ's fake quantization of a 2-D+ compute weight at the
+        scheduled bits (nothing above 8 bits)."""
+        bits = self._moq_bits
+        if bits is None or bits > 8 or c.dim() < 2:
+            return c
+        from ..compression.compress import weight_quantization
+        with torch.no_grad():
+            return weight_quantization(
+                c, bits=bits,
+                groups=self.config.quantize_training.quantize_groups
+            ).to(c.dtype)
+
+    # ------------------------------------------------------------------
     # state
     # ------------------------------------------------------------------
     @property
@@ -551,14 +748,18 @@ class Engine:
         def one(w):
             if self._host_params:
                 w = w.to(self.device, non_blocking=True)
-            return w.detach().requires_grad_(requires_grad)
+            return self._moq_quantize(w.detach()).requires_grad_(
+                requires_grad)
         return tree_map(one, self._work)
 
     def _compute_params(self, master, requires_grad: bool = False):
         """The master cast to the compute dtype (a fresh tensor per leaf,
-        also in fp32, so the update never writes into a live graph)."""
+        also in fp32, so the update never writes into a live graph), and
+        fake-quantized at MoQ's scheduled bits (the gradient taken at the
+        quantized weights and applied to the master: straight through)."""
         def cast(p):
-            c = p.detach().to(self.compute_dtype, copy=True)
+            c = self._moq_quantize(p.detach().to(self.compute_dtype,
+                                                 copy=True))
             return c.requires_grad_(requires_grad)
         return tree_map(cast, master)
 
@@ -780,6 +981,8 @@ class Engine:
         t0 = time.perf_counter()
         if rng is None:
             rng = PRNGKey(self.config.seed + self.global_steps)
+        if self.curriculum or self.pld or self._ltd_cfg or self.moq:
+            batch = self._data_efficiency_pre_step(batch, rng)
         if self._stream is not None:
             # per-layer streaming: the host loop is the step, and its
             # phases are not the four this instrumentation names
@@ -789,7 +992,17 @@ class Engine:
         batch = self.shard_batch(batch)
         t2 = time.perf_counter()
         self.tput.start()
-        metrics = self._train_step(batch, rng)
+        fp_cfg = self.config.flops_profiler
+        if fp_cfg.enabled and self.global_steps + 1 == fp_cfg.profile_step:
+            # the profiled step itself runs under the flop count (no
+            # extra execution)
+            from ..profiling import count_flops
+            with count_flops() as counted:
+                metrics = self._train_step(batch, rng)
+            self.flops_profile = {"flops": counted.total,
+                                  "by_op": dict(counted.by_op)}
+        else:
+            metrics = self._train_step(batch, rng)
         t3 = time.perf_counter()
         if self.devtel is not None:
             if "train_step" not in self.devtel.program_costs:
@@ -822,6 +1035,10 @@ class Engine:
         self._last_metrics = metrics
         self._last_metrics_host = None
         self.tput.stop()
+        fp_cfg = self.config.flops_profiler
+        if fp_cfg.enabled and self.global_steps == fp_cfg.profile_step \
+                and self.flops_profile is not None:
+            self._write_flops_profile()
         printing = self.global_steps % self.config.steps_per_print == 0
         if printing or self.monitor is not None:
             if self.devtel is not None and printing:
@@ -859,6 +1076,28 @@ class Engine:
         return {k: (float(v) if isinstance(v, torch.Tensor) else v)
                 for k, v in metrics.items()}
 
+    def _write_flops_profile(self) -> None:
+        """The flops profiler's report of the profiled step: its counted
+        flops (``profiling.count_flops``), the parameter count, and the
+        mean host seconds a step and TFLOP/s over the steps the
+        throughput timer counts (none before its start step).  Kept on
+        ``flops_profile``; written to ``output_file`` when set."""
+        from ..profiling import FlopsProfiler
+        stats = {"flops": self.flops_profile["flops"],
+                 "params": float(self.num_params)}
+        counted = self.tput.global_step_count - self.tput.start_step
+        if counted > 0 and self.tput.total_elapsed_time:
+            stats["latency_s"] = self.tput.total_elapsed_time / counted
+            stats["tflops_per_s"] = (stats["flops"] / stats["latency_s"]
+                                     / 1e12)
+        self.flops_profile.update(stats)
+        report = FlopsProfiler.report(stats,
+                                      batch_size=self.train_batch_size)
+        log_dist("\n" + report)
+        if self.config.flops_profiler.output_file:
+            with open(self.config.flops_profiler.output_file, "w") as f:
+                f.write(report + "\n")
+
     def eval_batch(self, batch, rng: Optional[torch.Tensor] = None):
         """The loss (``eval_fn`` or ``loss_fn``) on the current parameters,
         without gradients, as a numpy scalar."""
@@ -866,6 +1105,8 @@ class Engine:
             out = self._stream.eval_batch(batch, rng)
             return np.asarray(out.detach().float().cpu().numpy())
         fn = self.eval_fn or self.loss_fn
+        # PLD / random-LTD losses carry a clean variant for evaluation
+        fn = getattr(fn, "base_eval", None) or fn
         batch = self.shard_batch(batch, accumulate=False)
         with torch.no_grad():
             out = fn(self._step_params(), batch,
@@ -906,7 +1147,13 @@ class Engine:
                 return t.pin_memory().to(self.device, non_blocking=True)
             return t.to(self.device)
 
-        out = _StagedBatch({k: put(v) for k, v in batch.items()})
+        def host(x):          # PLD's theta column, read by the host
+            t = torch.as_tensor(np.asarray(x))
+            return t.reshape((gas, -1) + tuple(t.shape[1:])) if gas > 1 \
+                else t
+
+        out = _StagedBatch({k: host(v) if k in _HOST_KEYS else put(v)
+                            for k, v in batch.items()})
         out.accumulate = gas > 1
         return out
 
@@ -1061,6 +1308,26 @@ def initialize(loss_fn: Callable = None, params: Any = None,
         raise _not_ported("sequence parallelism", _MULTI)
     if max(cfg.mesh.pipe, cfg.pipeline.stages) > 1:
         raise _not_ported("pipeline parallelism", _MULTI)
+    de_routing = cfg.data_efficiency.enabled \
+        and cfg.data_efficiency.data_routing.enabled \
+        and cfg.data_efficiency.data_routing.random_ltd.enabled
+    if (cfg.progressive_layer_drop.enabled or de_routing) \
+            and loss_fn is None:
+        # PLD / random-LTD change the transformer forward: the loss is
+        # rebuilt with their hooks from the model's config
+        if model is None or not hasattr(model, "config"):
+            raise ConfigError(
+                "progressive_layer_drop / random_ltd need model= with a "
+                "TransformerConfig (the loss must expose the layer stack)")
+        if de_routing and model.config.position == "alibi":
+            raise ConfigError(
+                "random_ltd does not compose with position='alibi' "
+                "(the distance bias would see gathered, not original, "
+                "token positions)")
+        from ..models.transformer import lm_loss_fn
+        loss_fn = lm_loss_fn(model.config,
+                             getattr(model, "attention_fn", None),
+                             pld=cfg.progressive_layer_drop.enabled)
     if model is not None:
         params = params if params is not None else model.params
         param_axes = param_axes if param_axes is not None else getattr(

@@ -146,7 +146,7 @@ def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     k1 = key[..., 0].reshape(*lead, 1)
     k2 = key[..., 1].reshape(*lead, 1)
     y1, y2 = threefry2x32(k1, k2, hi, lo)
-    return (y1 ^ y2).reshape(*lead, *shape)
+    return (y1 ^ y2).reshape(tuple(lead) + shape)
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,

@@ -40,7 +40,12 @@ def test_fresh_interpreter_imports_no_jax():
                 "telemetry.profiler", "monitor.monitor", "serving.placement",
                 "serving.replica", "serving.fleet_telemetry",
                 "serving.router", "serving.autoscaler", "gateway.protocol",
-                "gateway.sloclass", "gateway.server", "gateway.__main__"):
+                "gateway.sloclass", "gateway.server", "gateway.__main__",
+                "linear.optimized_linear", "compression.compress",
+                "profiling.flops_profiler", "runtime.hybrid_engine",
+                "runtime.data_pipeline", "runtime.indexed_dataset",
+                "runtime.data_analyzer", "runtime.eigenvalue",
+                "runtime.quantize", "runtime.progressive_layer_drop"):
         assert f"deepspeed_tpu_torch.{sub}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -51,6 +51,26 @@ from deepspeed_tpu.inference import failures as jax_failures
 from deepspeed_tpu.ops import quant as jax_quant
 from deepspeed_tpu_torch.inference import failures as port_failures
 from deepspeed_tpu_torch.ops import quant as port_quant
+from deepspeed_tpu import compression as jax_compression
+from deepspeed_tpu import linear as jax_linear
+from deepspeed_tpu import profiling as jax_profiling
+from deepspeed_tpu.runtime import data_analyzer as jax_analyzer
+from deepspeed_tpu.runtime import data_pipeline as jax_pipeline
+from deepspeed_tpu.runtime import eigenvalue as jax_eigen
+from deepspeed_tpu.runtime import hybrid_engine as jax_hybrid
+from deepspeed_tpu.runtime import indexed_dataset as jax_indexed
+from deepspeed_tpu.runtime import quantize as jax_moq
+from deepspeed_tpu.compression import compress as jax_compress
+from deepspeed_tpu_torch import compression as port_compression
+from deepspeed_tpu_torch import linear as port_linear
+from deepspeed_tpu_torch import profiling as port_profiling
+from deepspeed_tpu_torch.compression import compress as port_compress
+from deepspeed_tpu_torch.runtime import data_analyzer as port_analyzer
+from deepspeed_tpu_torch.runtime import data_pipeline as port_pipeline
+from deepspeed_tpu_torch.runtime import eigenvalue as port_eigen
+from deepspeed_tpu_torch.runtime import hybrid_engine as port_hybrid
+from deepspeed_tpu_torch.runtime import indexed_dataset as port_indexed
+from deepspeed_tpu_torch.runtime import quantize as port_moq
 from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
 _POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
@@ -116,6 +136,46 @@ PAIRS = {
     "inference.failures.FailurePolicy.run": (
         port_failures.FailurePolicy.run, jax_failures.FailurePolicy.run),
     "ops.quant.quantize": (port_quant.quantize, jax_quant.quantize),
+    # the RLHF and data-efficiency slice (item 7's training side)
+    "InferenceEngine.refresh_params": (InferenceEngine.refresh_params,
+                                       JaxInferenceEngine.refresh_params),
+    "ops.quant.fp_quantize": (port_quant.fp_quantize, jax_quant.fp_quantize),
+    **{f"runtime.hybrid_engine.HybridEngine.{m}": (
+        getattr(port_hybrid.HybridEngine, m),
+        getattr(jax_hybrid.HybridEngine, m)) for m in ("__init__",
+                                                      "generate")},
+    "runtime.hybrid_engine.fuse_lora_tree": (port_hybrid.fuse_lora_tree,
+                                             jax_hybrid.fuse_lora_tree),
+    **{f"runtime.eigenvalue.Eigenvalue.{m}": (
+        getattr(port_eigen.Eigenvalue, m), getattr(jax_eigen.Eigenvalue, m))
+       for m in ("__init__", "compute_eigenvalue")},
+    **{f"runtime.quantize.Quantizer.{m}": (
+        getattr(port_moq.Quantizer, m), getattr(jax_moq.Quantizer, m))
+       for m in ("__init__", "quantize")},
+    **{f"runtime.data_pipeline.{f}": (getattr(port_pipeline, f),
+                                      getattr(jax_pipeline, f))
+       for f in ("random_ltd_select", "random_ltd_scatter",
+                 "truncate_to_difficulty")},
+    **{f"runtime.data_pipeline.{c}.__init__": (
+        getattr(port_pipeline, c).__init__, getattr(jax_pipeline, c).__init__)
+       for c in ("CurriculumDataSampler", "RandomLTDScheduler")},
+    "runtime.data_analyzer.DataAnalyzer.__init__": (
+        port_analyzer.DataAnalyzer.__init__,
+        jax_analyzer.DataAnalyzer.__init__),
+    "runtime.indexed_dataset.MMapIndexedDataset.batch": (
+        port_indexed.MMapIndexedDataset.batch,
+        jax_indexed.MMapIndexedDataset.batch),
+    **{f"linear.{f}": (getattr(port_linear, f), getattr(jax_linear, f))
+       for f in ("init_optimized_linear", "apply_optimized_linear",
+                 "merge_lora")},
+    **{f"compression.{f}": (getattr(port_compression, f),
+                            getattr(jax_compression, f))
+       for f in ("weight_quantization", "head_pruning", "sparse_pruning")},
+    **{f"compression.compress.{f}": (getattr(port_compress, f),
+                                     getattr(jax_compress, f))
+       for f in ("student_initialization", "kd_loss")},
+    "profiling.FlopsProfiler.profile": (port_profiling.FlopsProfiler.profile,
+                                        jax_profiling.FlopsProfiler.profile),
 }
 
 # the positional parameters each port signature must have at least
@@ -209,6 +269,49 @@ MUST_HAVE = {
     "inference.failures.FailurePolicy.run": ["self", "fn", "uids", "cold"],
     "ops.quant.quantize": ["x", "bits", "num_groups", "symmetric",
                            "stochastic", "rng"],
+    "InferenceEngine.refresh_params": ["self", "params"],
+    "ops.quant.fp_quantize": ["x", "fmt", "num_groups"],
+    "runtime.hybrid_engine.HybridEngine.__init__": [
+        "self", "model", "config", "inference_config", "lora_config"],
+    "runtime.hybrid_engine.HybridEngine.generate": ["self", "prompts",
+                                                    "sampling", "rng"],
+    "runtime.hybrid_engine.fuse_lora_tree": ["params", "lora_config"],
+    "runtime.eigenvalue.Eigenvalue.__init__": [
+        "self", "verbose", "max_iter", "tol", "stability",
+        "gas_boundary_resolution"],
+    "runtime.eigenvalue.Eigenvalue.compute_eigenvalue": [
+        "self", "loss_fn", "params", "rng"],
+    "runtime.quantize.Quantizer.__init__": [
+        "self", "q_start_bits", "q_target_bits", "q_period", "q_groups",
+        "use_quantizer_kernel"],
+    "runtime.quantize.Quantizer.quantize": ["self", "params", "step"],
+    "runtime.data_pipeline.random_ltd_select": ["x", "keep", "rng"],
+    "runtime.data_pipeline.random_ltd_scatter": ["full", "processed",
+                                                 "idx"],
+    "runtime.data_pipeline.truncate_to_difficulty": [
+        "batch", "difficulty", "seq_keys", "pad_to"],
+    "runtime.data_pipeline.CurriculumDataSampler.__init__": [
+        "self", "metric_values", "scheduler", "batch_size", "seed"],
+    "runtime.data_pipeline.RandomLTDScheduler.__init__": [
+        "self", "total_layers", "start_tokens", "max_tokens",
+        "schedule_steps", "step_size"],
+    "runtime.data_analyzer.DataAnalyzer.__init__": [
+        "self", "dataset", "metric_functions", "save_path", "num_workers",
+        "worker_id", "batch_size"],
+    "runtime.indexed_dataset.MMapIndexedDataset.batch": [
+        "self", "indices", "seq_len", "pad_id"],
+    "linear.init_optimized_linear": ["rng", "in_dim", "out_dim", "lora",
+                                     "quant", "dtype", "base_weight"],
+    "linear.apply_optimized_linear": ["params", "x", "lora"],
+    "linear.merge_lora": ["params", "lora"],
+    "compression.weight_quantization": ["w", "bits", "groups"],
+    "compression.head_pruning": ["w", "num_heads", "ratio"],
+    "compression.sparse_pruning": ["w", "ratio", "method"],
+    "compression.compress.student_initialization": [
+        "student_params", "teacher_params", "ds_config"],
+    "compression.compress.kd_loss": ["student_logits", "teacher_logits",
+                                     "temperature"],
+    "profiling.FlopsProfiler.profile": ["self", "fn"],
 }
 
 # keyword-only parameters the reference has no counterpart of: where the
@@ -219,6 +322,8 @@ PORT_ONLY_KEYWORDS = {
     "parallel.moe.gate_init": {"device", "dtype"},
     # read the groups into pinned memory (the streamed layers, on the card)
     "runtime.swap_tensor.OptimizerSwapper.__init__": {"pin"},
+    "runtime.hybrid_engine.HybridEngine.__init__": {"device"},
+    "linear.init_optimized_linear": {"device"},
 }
 
 
