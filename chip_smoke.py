@@ -16,6 +16,7 @@
     python3 chip_smoke.py --phases device,build,kernel,train-ckpt,serve-moe,train-moe
     python3 chip_smoke.py --phases device,build,kernel,train-offload,train-nvme
     python3 chip_smoke.py --phases device,build,kernel,hybrid,train-de
+    python3 chip_smoke.py --phases device,encode,clip,diffusion,attn-variants
 
 Phases, in order; any failure exits non-zero (nothing is caught and
 passed over):
@@ -254,6 +255,52 @@ passed over):
              (640 tokens, 512 kept) against the plain attention; then one
              eigenvalue-paced MoQ boundary under attention_impl "xla"
              (max_iter 3): the eigenvalue (finite) and its seconds.
+4e. encode — BERT-base (google-bert/bert-base-uncased's config: 12 layers
+             of 768, 12 heads, 512 positions, 2 token types, vocab 30522)
+             in bf16: random weights from a seed drawn on the card,
+             renamed to BertModel's state dict and imported back through
+             checkpoint.hf.load_hf_bert (bitwise the same draw made
+             again); then encode_batch on 4 batches of 32 requests with
+             lengths in (S/2, S] for S = 64, 128, 256, 512, pool "cls" and
+             "mean": sequences/s and tokens/s per bucket; each bucket's
+             first batch within NOISE_FACTOR x the bf16 noise floor of an
+             fp32 run of the same weights (the floor: each request alone
+             in bf16), and a request alone and padded into the 512 bucket
+             likewise.  DistilBERT (6 layers, no token types, no pooler)
+             the same way through load_hf_distilbert, at S = 128.
+4f. clip — CLIP ViT-B/32 (openai/clip-vit-base-patch32's config) in
+             bf16 through load_hf_clip from CLIPModel's names (bitwise):
+             images/s and texts/s over 32 images of 224x224x3 and 32 texts
+             of up to 77 tokens, similarity of the two; the logits within
+             the noise-floor rule of fp32 (the floor: 16 images at a time)
+             and each image's argmax equal or at a near-tie.
+4g. diffusion — the SD-1.x UNet (runwayml/stable-diffusion-v1-5's unet
+             config, ~860 M params) and VAE in bf16: a classifier-free
+             guidance loop (7.5, tests/test_diffusion.py's toy update) on
+             a batch of 2 (uncond + cond) 64x64x4 latents with a 77x768
+             context for 10 steps from t 999 down, the VAE's decode to
+             one 512x512x3 image and its encode (the mean and a threefry-
+             sampled posterior): ms a UNet call, decode and encode ms; the
+             first UNet call and the decode within the noise-floor rule of
+             fp32 (the floor: each sample alone; the decode of a batch of
+             2), every output finite.
+4h. attn-variants — GPT-2-small at phase 4's width, seq 1024, micro-batch
+             8, bf16 through initialize: (a) attention_impl "xla_flash"
+             (ops/xla_attention.py) against "xla", 2 + 3 steps each on
+             fresh engines from the same weights, first-step loss and grad
+             norm within phase 4's parity rule (the floor: "xla" in fp32),
+             both peak memories and step ms; (b) block-sparse attention
+             (BSLongformer, block 64) 2 + 3 steps: its density and step ms,
+             and DenseSparsityConfig's first-step loss against "xla"; (c)
+             evoformer_attention at AlphaFold-2's MSA row attention with
+             pair bias at its 256-residue crop (Q/K/V [1, 128, 256, 8, 32],
+             both biases), forward and backward in bf16 within the
+             noise-floor rule of autograd through the plain formula in
+             fp32 (the floor: that formula in bf16), and its ms.  No port
+             kernel launches across 4e-4h (K1, K2 and K3's counts read
+             before and after): these are the JAX package's plain paths.
+             Each of 4e-4h prints its wall seconds, max_memory_allocated
+             and weight bytes.
 8b. train-moe — qwen2-moe-a2.7b at its published widths with depth cut
              to 2 layers (1.76 B params), bf16, seq 1024, micro-batch 4,
              1 + 3 steps: finite loss, aux/moe_aux_loss in the metrics,
@@ -1434,7 +1481,7 @@ def tree_bytes(tree) -> int:
         return sum(tree_bytes(v) for v in tree.values())
     if hasattr(tree, "tensors"):                  # a QuantizedTensor
         return sum(t.numel() * t.element_size() for t in tree.tensors())
-    if isinstance(tree, tuple):                   # a quantized KV cache
+    if isinstance(tree, (tuple, list)):     # a quantized KV cache; stages
         return sum(tree_bytes(t) for t in tree)
     return tree.numel() * tree.element_size()
 
@@ -3033,8 +3080,12 @@ FLEET_TELEMETRY = dict(trace=True, anomaly="on", slo="on",
                        device_telemetry="on")
 FLEET_ANOMALY_CAPTURES = 0
 # warm-up rounds through the gateway (a 1-token and a 32-token run each)
-# until a round captures no graph
-FLEET_WARM_ROUNDS = 4
+# until FLEET_CLEAN_ROUNDS rounds in a row capture no graph: when the six
+# later streams reach the router relative to its steps varies run to run,
+# and with it the prefill steps' token buckets (one clean round once left
+# a bucket for the measured run to capture)
+FLEET_WARM_ROUNDS = 6
+FLEET_CLEAN_ROUNDS = 2
 # the kill run: tokens every stream has read before a replica is killed
 FLEET_KILL_AFTER = 8
 # the capture window on the surviving replica
@@ -3270,6 +3321,7 @@ def serve_fleet(torch, pa, model, prompts, phase5):
             e.ttft_ms.clear()
 
     t0 = time.perf_counter()
+    clean = 0
     for rnd in range(FLEET_WARM_ROUNDS):
         caps = 0
         for n_new in (1, SERVE_NEW_TOKENS):
@@ -3278,7 +3330,8 @@ def serve_fleet(torch, pa, model, prompts, phase5):
             caps += sum(int(e.timings["compiles"]) for e in engines.values())
         log(f"[{tag}] warm-up round {rnd}: {caps} graphs captured; held "
             + ", ".join(f"{k} {len(e._graphs)}" for k, e in engines.items()))
-        if caps == 0:
+        clean = clean + 1 if caps == 0 else 0
+        if clean == FLEET_CLEAN_ROUNDS:
             break
     else:
         raise AssertionError(f"{tag}: graphs still captured after "
@@ -5257,6 +5310,651 @@ def de_parity(torch, model, data, features, micro, device):
                                  "attention")
 
 
+# ---------------------------------------------------------------------------
+# 4e-4h. the model families and attention variants (no port kernel on their
+# paths: the JAX package runs them on plain XLA ops)
+# ---------------------------------------------------------------------------
+
+def port_launches(fa, pa, mg):
+    """Every launch count of the port's kernels (K1, K2, K3)."""
+    return dict(flash_fwd=fa.flash_fwd.launches,
+                flash_dq=fa.flash_dq.launches,
+                flash_dkv=fa.flash_dkv.launches,
+                paged=pa.launches, paged_int8=pa.int8_launches,
+                paged_fp8=pa.fp8_launches, paged_alibi=pa.alibi_launches,
+                mixed8=mg.mixed_matmul_2d.launches,
+                mixed4=mg.mixed4_matmul_2d.launches)
+
+
+def within_bf16_floor(torch, tag, name, got, ref, wide):
+    """The bf16 result within NOISE_FACTOR x the bf16 noise floor of the
+    fp32 run: max|got - wide| <= NOISE_FACTOR x max|ref - wide| (fp64),
+    ``ref`` an independent bf16 evaluation of the same function (each
+    sample alone, another batch, or the plain formula), ``wide`` the fp32
+    run on the same (bf16-exact) weights and inputs.  Returns the
+    tolerance."""
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{tag}: {name} has non-finite values")
+    noise = float((ref.double() - wide.double()).abs().max())
+    err = float((got.double() - wide.double()).abs().max())
+    tol = NOISE_FACTOR * noise
+    log(f"[{tag}] {name}: bf16 vs fp32 max|d| {err:.4e}; bf16 noise floor "
+        f"{noise:.4e} -> tol {tol:.4e}; |fp32|max "
+        f"{float(wide.abs().max()):.4f}")
+    if err > tol:
+        raise AssertionError(f"{tag}: {name}: bf16 max|d| {err} from fp32 "
+                             f"> {NOISE_FACTOR} x the floor {noise}")
+    return tol
+
+
+def widened(tree):
+    """An fp32 copy of a (bf16) tree: the same weights, exactly."""
+    from deepspeed_tpu_torch.runtime.runtime_utils import tree_map
+    return tree_map(lambda x: x.float(), tree)
+
+
+def check_same_tree(torch, tag, got, want):
+    """The imported tree bitwise the drawn one, key for key."""
+    g, w = flat_tree(got), flat_tree(want)
+    bad = [k for k in w if k not in g or g[k].dtype != w[k].dtype
+           or not torch.equal(g[k], w[k])]
+    if bad or sorted(g) != sorted(w):
+        raise AssertionError(f"{tag}: the imported tree differs from the "
+                             f"drawn one at {bad[:5]}")
+
+
+def phase_head(torch):
+    """TF32 off (the fp32 references are fp32), the peak reset; the
+    phase's start time."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    free_engines(torch)
+    torch.cuda.reset_peak_memory_stats()
+    return time.perf_counter()
+
+
+def phase_tail(torch, tag, t0, weight_bytes):
+    torch.cuda.synchronize()
+    log(f"[{tag}] phase wall {time.perf_counter() - t0:.2f} s; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB; weights {weight_bytes / 1e9:.3f} GB [{nvidia_smi_line()}]")
+
+
+def encoder_state_dict(torch, cfg, params, layer_fmt, names):
+    """The HF state dict (``BertModel`` / ``DistilBertModel`` names,
+    [out, in] linears) of an encoder tree, its layers ``layer_fmt`` and
+    per-layer names ``names`` (checkpoint.hf's spelling of each family):
+    the inverse of the importer, built here to feed it.  CONSUMES
+    ``params``."""
+    H, D, dm, nl = cfg.num_heads, cfg.head_dim, cfg.d_model, cfg.num_layers
+    T = lambda w: w.transpose(-1, -2).contiguous()      # noqa: E731
+    b, sd = params.pop("blocks"), {}
+    emb = "embeddings."
+    sd[emb + "word_embeddings.weight"] = params.pop("embed")["table"]
+    sd[emb + "position_embeddings.weight"] = params.pop("pos_embed")["table"]
+    if "type_embed" in params:
+        sd[emb + "token_type_embeddings.weight"] = \
+            params.pop("type_embed")["table"]
+    ln = params.pop("ln_embed")
+    sd[emb + "LayerNorm.weight"], sd[emb + "LayerNorm.bias"] = \
+        ln["scale"], ln["bias"]
+    per = {f"{names[n]}.weight": lambda i, n=n: T(
+        b["attn"]["w" + n][i].reshape(dm, H * D)) for n in "qkv"}
+    per.update({f"{names[n]}.bias": lambda i, n=n: b["attn"]["b" + n][i]
+                .reshape(H * D).clone() for n in "qkv"})
+    per[f"{names['o']}.weight"] = lambda i: T(
+        b["attn"]["wo"][i].reshape(H * D, dm))
+    per[f"{names['o']}.bias"] = lambda i: b["attn"]["bo"][i].clone()
+    for key, (grp, w) in (("fc1", ("mlp", "i")), ("fc2", ("mlp", "o"))):
+        per[f"{names[key]}.weight"] = lambda i, w=w: T(b["mlp"]["w" + w][i])
+        per[f"{names[key]}.bias"] = lambda i, w=w: b["mlp"]["b" + w][i].clone()
+    for key in ("ln_attn", "ln_mlp"):
+        per[f"{names[key]}.weight"] = lambda i, k=key: b[k]["scale"][i].clone()
+        per[f"{names[key]}.bias"] = lambda i, k=key: b[k]["bias"][i].clone()
+    for i in range(nl):
+        for name, fn in per.items():
+            sd[layer_fmt.format(i) + name] = fn(i)
+    del b
+    if "pooler" in params:
+        p = params.pop("pooler")
+        sd["pooler.dense.weight"], sd["pooler.dense.bias"] = \
+            T(p["kernel"]), p["bias"]
+    return sd
+
+
+def encoder_from_hf_names(torch, tag, cfg, seed, loader, layer_fmt, names,
+                          device):
+    """An encoder drawn on the card in bf16 from ``seed``, renamed to HF
+    names and imported back through ``loader`` (both dicts consumed),
+    held bitwise against the same draw made again."""
+    from deepspeed_tpu_torch.models import Encoder
+    drawn = Encoder(cfg, seed=seed, dtype=torch.bfloat16, device=device)
+    sd = encoder_state_dict(torch, cfg, drawn.params, layer_fmt, names)
+    n_hf = len(sd)
+    t0 = time.perf_counter()
+    params = loader(cfg, sd)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    left = len(sd)
+    del sd, drawn
+    ref = Encoder(cfg, seed=seed, dtype=torch.bfloat16, device=device)
+    check_same_tree(torch, tag, params, ref.params)
+    if left:
+        raise AssertionError(f"{tag}: {left} HF entries not consumed")
+    del ref
+    log(f"[{tag}] {n_hf} HF tensors imported by {loader.__name__} in "
+        f"{t1 - t0:.3f} s, bitwise the drawn tree; {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} heads, vocab "
+        f"{cfg.vocab_size}, type_vocab {cfg.type_vocab_size}, pooler "
+        f"{cfg.pooler}")
+    return Encoder.from_params(cfg, params)
+
+
+ENCODE_BUCKETS = (64, 128, 256, 512)
+ENCODE_BATCHES = 4
+ENCODE_BATCH = 32
+
+
+def encode_traffic(seed, cfg):
+    """For each bucket S: ENCODE_BATCHES batches of ENCODE_BATCH requests
+    of lengths in (S/2, S], ids in [1, vocab)."""
+    import numpy as np
+    r = np.random.RandomState(seed)
+    return {S: [[list(map(int, r.randint(1, cfg.vocab_size, n)))
+                 for n in r.randint(S // 2 + 1, S + 1, ENCODE_BATCH)]
+                for _ in range(ENCODE_BATCHES)] for S in ENCODE_BUCKETS}
+
+
+def encode_rates(torch, tag, enc, traffic, buckets):
+    """Sequences/s and tokens/s of each bucket's batches, one warm-up
+    batch first, each pool once."""
+    for S in buckets:
+        batches = traffic[S]
+        enc.encode_batch(batches[0], pool="cls")
+        for pool in ("cls", "mean"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for reqs in batches:
+                out = enc.encode_batch(reqs, pool=pool)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            if out.shape != (len(batches[-1]), enc.config.d_model):
+                raise AssertionError(f"{tag}: embeddings of shape "
+                                     f"{tuple(out.shape)}")
+            n_seq = sum(len(b) for b in batches)
+            n_tok = sum(len(q) for b in batches for q in b)
+            log(f"[{tag}] bucket {S}, pool {pool}: {len(batches)} batches "
+                f"of {len(batches[0])} in {wall * 1e3:.2f} ms: "
+                f"{n_seq / wall:.0f} sequences/s, {n_tok / wall:.0f} "
+                f"tokens/s ({n_tok} real tokens)")
+
+
+def encode_checks(torch, tag, enc, traffic):
+    """bf16 CLS and mean vectors of each bucket's first batch within the
+    noise-floor rule of the fp32 run (the floor: each request alone, in
+    bf16); one request alone and padded into the 512 bucket."""
+    from deepspeed_tpu_torch.models import Encoder
+    wide = Encoder.from_params(enc.config, widened(enc.params))
+    for S in traffic:
+        reqs = traffic[S][0]
+        for pool in ("cls", "mean"):
+            got = enc.encode_batch(reqs, pool=pool)
+            ref = torch.cat([enc.encode_batch([q], pool=pool) for q in reqs])
+            within_bf16_floor(torch, tag, f"bucket {S} {pool}", got, ref,
+                              wide.encode_batch(reqs, pool=pool))
+    short, long_ = traffic[64][0][0], traffic[512][0][0]
+    for pool in ("cls", "mean"):
+        padded = enc.encode_batch([short, long_], pool=pool)[:1]
+        within_bf16_floor(torch, tag, f"a {len(short)}-token request padded "
+                          f"to 512 vs alone (bucket 64), {pool}", padded,
+                          enc.encode_batch([short], pool=pool),
+                          wide.encode_batch([short], pool=pool))
+    del wide
+    free_engines(torch)
+
+
+def encode_phase(torch, seed, device=None, **over):
+    """4e. BERT-base and DistilBERT (encode).  ``device`` and ``over``
+    (EncoderConfig fields) exist for a CPU rehearsal at a tiny size."""
+    from deepspeed_tpu_torch.checkpoint.hf import (_BERT_NAMES,
+                                                   _DISTILBERT_NAMES,
+                                                   load_hf_bert,
+                                                   load_hf_distilbert)
+    from deepspeed_tpu_torch.models import EncoderConfig
+    tag = "encode"
+    t0 = phase_head(torch)
+    # google-bert/bert-base-uncased
+    cfg = EncoderConfig(**{"vocab_size": 30522, **over})
+    enc = encoder_from_hf_names(torch, tag, cfg, seed, load_hf_bert,
+                                "encoder.layer.{}.", _BERT_NAMES, device)
+    wbytes = tree_bytes(enc.params)
+    traffic = encode_traffic(seed, cfg)
+    encode_rates(torch, tag, enc, traffic, ENCODE_BUCKETS)
+    encode_checks(torch, tag, enc, traffic)
+    del enc
+    free_engines(torch)
+    # distilbert-base-uncased
+    dcfg = EncoderConfig(**{"vocab_size": 30522, **over, "num_layers": 6,
+                            "type_vocab_size": 0, "pooler": False})
+    enc = encoder_from_hf_names(torch, f"{tag} distilbert", dcfg, seed,
+                                load_hf_distilbert, "transformer.layer.{}.",
+                                _DISTILBERT_NAMES, device)
+    encode_rates(torch, f"{tag} distilbert", enc, traffic, (128,))
+    within_bf16_floor(
+        torch, f"{tag} distilbert", "bucket 128 mean",
+        enc.encode_batch(traffic[128][0], pool="mean"),
+        torch.cat([enc.encode_batch([q], pool="mean")
+                   for q in traffic[128][0]]),
+        type(enc).from_params(dcfg, widened(enc.params)).encode_batch(
+            traffic[128][0], pool="mean"))
+    del enc
+    phase_tail(torch, tag, t0, wbytes)
+
+
+def clip_state_dict(torch, cfg, params):
+    """The HF ``CLIPModel`` state dict of a CLIP tree (the patch kernel
+    HWIO -> OIHW, [out, in] linears): the importer's inverse.  CONSUMES
+    ``params``."""
+    T = lambda w: w.transpose(-1, -2).contiguous()      # noqa: E731
+    sd = {}
+
+    def tower(pre, tw, b):
+        H, D, w = tw.num_heads, tw.width // tw.num_heads, tw.width
+        for i in range(tw.num_layers):
+            L = f"{pre}encoder.layers.{i}."
+            for n in ("1", "2"):
+                sd[L + f"layer_norm{n}.weight"] = b[f"ln{n}"]["scale"][i]
+                sd[L + f"layer_norm{n}.bias"] = b[f"ln{n}"]["bias"][i]
+            a = b["attn"]
+            for n in "qkv":
+                sd[L + f"self_attn.{n}_proj.weight"] = T(
+                    a["w" + n][i].reshape(w, H * D))
+                sd[L + f"self_attn.{n}_proj.bias"] = a["b" + n][i].reshape(
+                    H * D).clone()
+            sd[L + "self_attn.out_proj.weight"] = T(a["wo"][i].reshape(
+                H * D, w))
+            sd[L + "self_attn.out_proj.bias"] = a["bo"][i]
+            m = b["mlp"]
+            sd[L + "mlp.fc1.weight"], sd[L + "mlp.fc1.bias"] = \
+                T(m["wi"][i]), m["bi"][i]
+            sd[L + "mlp.fc2.weight"], sd[L + "mlp.fc2.bias"] = \
+                T(m["wo"][i]), m["bo"][i]
+
+    v, t = params.pop("visual"), params.pop("text")
+    V, X = "vision_model.", "text_model."
+    sd[V + "embeddings.patch_embedding.weight"] = v["patch_embed"][
+        "kernel"].permute(3, 2, 0, 1).contiguous()
+    sd[V + "embeddings.class_embedding"] = v["class_embed"]
+    sd[V + "embeddings.position_embedding.weight"] = v["pos_embed"]
+    sd[V + "pre_layrnorm.weight"] = v["ln_pre"]["scale"]
+    sd[V + "pre_layrnorm.bias"] = v["ln_pre"]["bias"]
+    tower(V, cfg.vision, v["blocks"])
+    sd[V + "post_layernorm.weight"] = v["ln_post"]["scale"]
+    sd[V + "post_layernorm.bias"] = v["ln_post"]["bias"]
+    sd["visual_projection.weight"] = T(v["proj"])
+    sd[X + "embeddings.token_embedding.weight"] = t["embed"]["table"]
+    sd[X + "embeddings.position_embedding.weight"] = t["pos_embed"]
+    tower(X, cfg.text, t["blocks"])
+    sd[X + "final_layer_norm.weight"] = t["ln_final"]["scale"]
+    sd[X + "final_layer_norm.bias"] = t["ln_final"]["bias"]
+    sd["text_projection.weight"] = T(t["proj"])
+    sd["logit_scale"] = params.pop("logit_scale")
+    return sd
+
+
+CLIP_BATCH = 32
+CLIP_ITERS = 5
+
+
+def clip_phase(torch, seed, device=None, **over):
+    """4f. CLIP ViT-B/32 (clip).  ``device`` and ``over`` (CLIPConfig
+    fields) exist for a CPU rehearsal."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.checkpoint.hf import load_hf_clip
+    from deepspeed_tpu_torch.models import CLIP, CLIPConfig
+    tag = "clip"
+    t0 = phase_head(torch)
+    cfg = CLIPConfig(**over)                   # openai/clip-vit-base-patch32
+    dev = torch.device(device or "cuda")
+    drawn = CLIP(cfg, seed=seed, dtype=torch.bfloat16, device=dev)
+    sd = clip_state_dict(torch, cfg, drawn.params)
+    n_hf = len(sd)
+    params = load_hf_clip(cfg, sd)
+    left = len(sd)
+    del sd, drawn
+    check_same_tree(torch, tag, params, CLIP(
+        cfg, seed=seed, dtype=torch.bfloat16, device=dev).params)
+    if left:
+        raise AssertionError(f"{tag}: {left} HF entries not consumed")
+    m = CLIP.from_params(cfg, params)
+    wbytes = tree_bytes(params)
+    log(f"[{tag}] {n_hf} HF tensors imported by load_hf_clip, bitwise the "
+        f"drawn tree; vision {cfg.vision.num_layers} x {cfg.vision.width} "
+        f"(patch {cfg.patch_size}, {cfg.image_size}px), text "
+        f"{cfg.text.num_layers} x {cfg.text.width}, embed {cfg.embed_dim}")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    imgs = torch.randn((CLIP_BATCH, cfg.image_size, cfg.image_size, 3),
+                       generator=g, device=dev).to(torch.bfloat16)
+    r = np.random.RandomState(seed)
+    ids = np.zeros((CLIP_BATCH, cfg.max_text_len), np.int64)
+    for i, n in enumerate(r.randint(5, cfg.max_text_len + 1, CLIP_BATCH)):
+        ids[i, :n - 1] = r.randint(1, cfg.vocab_size - 1, n - 1)
+        ids[i, n - 1] = cfg.vocab_size - 1     # EOT, the highest id
+    ids = torch.from_numpy(ids).to(dev)
+    rates = {}
+    for name, fn, n in (("images", lambda: m.encode_image(imgs), CLIP_BATCH),
+                        ("texts", lambda: m.encode_text(ids), CLIP_BATCH),
+                        ("similarity", lambda: m.similarity(imgs, ids),
+                         CLIP_BATCH)):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(CLIP_ITERS):
+            fn()
+        torch.cuda.synchronize()
+        rates[name] = CLIP_ITERS * n / (time.perf_counter() - t)
+    log(f"[{tag}] {rates['images']:.0f} images/s, {rates['texts']:.0f} "
+        f"texts/s (batches of {CLIP_BATCH}; texts padded to "
+        f"{cfg.max_text_len}); similarity of {CLIP_BATCH} x {CLIP_BATCH}: "
+        f"{1e3 * CLIP_BATCH / rates['similarity']:.2f} ms")
+    got, _ = m.similarity(imgs, ids)
+    half = CLIP_BATCH // 2
+    ref = torch.cat([m.similarity(imgs[:half], ids)[0],
+                     m.similarity(imgs[half:], ids)[0]])
+    wide, _ = CLIP.from_params(cfg, widened(params)).similarity(
+        imgs.float(), ids)
+    tol = within_bf16_floor(torch, tag, "logits per image", got, ref, wide)
+    a, b = got.float().argmax(-1), wide.argmax(-1)
+    rows = torch.arange(CLIP_BATCH, device=dev)
+    gap = (wide[rows, b] - wide[rows, a]).abs()
+    bad = (a != b) & (gap > tol)
+    log(f"[{tag}] argmax per image: {int((a == b).sum())} of {CLIP_BATCH} "
+        f"equal, {int(((a != b) & ~bad).sum())} near-ties (fp32 gap <= tol)")
+    if bool(bad.any()):
+        raise AssertionError(f"{tag}: the bf16 argmax differs from fp32's "
+                             "beyond a near-tie")
+    del m, params, wide
+    phase_tail(torch, tag, t0, wbytes)
+
+
+DIFFUSION_STEPS = 10
+DIFFUSION_GUIDANCE = 7.5
+
+
+def diffusion_phase(torch, seed, device=None, unet=None, vae=None,
+                    latent=64):
+    """4g. the SD-1.x UNet and VAE (diffusion).  ``device``, ``unet`` /
+    ``vae`` (config fields) and ``latent`` (the latents' side) exist for a
+    CPU rehearsal."""
+    from deepspeed_tpu_torch.models import (AutoencoderKL, UNet2DCondition,
+                                            UNetConfig, VAEConfig)
+    from deepspeed_tpu_torch.utils.prng import PRNGKey
+    tag = "diffusion"
+    t0 = phase_head(torch)
+    dev = torch.device(device or "cuda")
+    ucfg = UNetConfig(**(unet or {}))   # runwayml/stable-diffusion-v1-5
+    vcfg = VAEConfig(**(vae or {}))
+    unet = UNet2DCondition(ucfg, seed=seed, dtype=torch.bfloat16, device=dev)
+    ubytes = tree_bytes(unet.params)
+    vae = AutoencoderKL(vcfg, seed=seed, dtype=torch.bfloat16, device=dev)
+    vbytes = tree_bytes(vae.params)
+    log(f"[{tag}] UNet {ubytes / 2 / 1e6:.1f} M params (channels "
+        f"{ucfg.block_out_channels}, {ucfg.layers_per_block} res a block, "
+        f"{ucfg.attention_head_dim} heads, context {ucfg.cross_attention_dim})"
+        f"; VAE {vbytes / 2 / 1e6:.1f} M params; bf16")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lat = torch.randn((1, latent, latent, ucfg.in_channels), generator=g,
+                      device=dev)
+    cond = torch.randn((1, 77, ucfg.cross_attention_dim), generator=g,
+                       device=dev)
+    ctx2 = torch.cat([torch.zeros_like(cond), cond]).to(torch.bfloat16)
+    lat = lat.to(torch.bfloat16)
+    # the first call against fp32 (the floor: each sample alone in bf16)
+    t_first = torch.full((2,), 999, device=dev)
+    first = unet(torch.cat([lat, lat]), t_first, ctx2)
+    alone = torch.cat([unet(lat, t_first[:1], ctx2[i:i + 1])
+                       for i in range(2)])
+    wide_unet = UNet2DCondition.from_params(ucfg, widened(unet.params))
+    within_bf16_floor(torch, tag, "first UNet call (batch 2)", first, alone,
+                      wide_unet(torch.cat([lat, lat]).float(), t_first,
+                                ctx2.float()))
+    del wide_unet, alone
+    free_engines(torch)
+    steps = [999 - i * (999 // (DIFFUSION_STEPS - 1))
+             for i in range(DIFFUSION_STEPS)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for step in steps:
+        e_un, e_c = unet(torch.cat([lat, lat]), torch.full(
+            (2,), step, device=dev), ctx2).chunk(2)
+        lat = lat - 0.1 * (e_un + DIFFUSION_GUIDANCE * (e_c - e_un))
+    torch.cuda.synchronize()
+    unet_ms = (time.perf_counter() - t) / len(steps) * 1e3
+    if not bool(torch.isfinite(lat).all()):
+        raise AssertionError(f"{tag}: non-finite latents after the loop")
+    log(f"[{tag}] classifier-free guidance ({DIFFUSION_GUIDANCE}) on a "
+        f"batch of 2 x {latent}x{latent}x4 latents, context 77x"
+        f"{ucfg.cross_attention_dim}, t {steps}: "
+        f"{unet_ms:.2f} ms a UNet call (with the guidance update)")
+    z = lat * vcfg.scaling_factor
+    vae.decode(z)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    img = vae.decode(z)
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t) * 1e3
+    side = latent * 2 ** (len(vcfg.block_out_channels) - 1)
+    if img.shape != (1, side, side, 3):
+        raise AssertionError(f"{tag}: decoded {tuple(img.shape)}")
+    wide_vae = AutoencoderKL.from_params(vcfg, widened(vae.params))
+    within_bf16_floor(torch, tag, "VAE decode", img,
+                      vae.decode(torch.cat([z, z]))[:1],
+                      wide_vae.decode(z.float()))
+    del wide_vae
+    free_engines(torch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mean = vae.encode(img)
+    torch.cuda.synchronize()
+    enc_ms = (time.perf_counter() - t) * 1e3
+    sample = vae.encode(img, rng=PRNGKey(seed, device=dev))
+    for name, x in (("encode mean", mean), ("encode sample", sample),
+                    ("image", img)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{tag}: {name} has non-finite values")
+    if mean.shape != lat.shape or torch.equal(mean, sample):
+        raise AssertionError(f"{tag}: the posterior mean {tuple(mean.shape)}"
+                             " or its sample is wrong")
+    log(f"[{tag}] VAE decode to {side}x{side}x3 {dec_ms:.2f} ms, encode "
+        f"{enc_ms:.2f} ms (the mean; a threefry-sampled posterior too); "
+        f"every output finite")
+    del unet, vae
+    phase_tail(torch, tag, t0, ubytes + vbytes)
+
+
+ATTN_RUN = dict(preset="gpt2", seq=1024, micro=8, warmup=2, steps=3)
+EVO_SHAPE = (1, 128, 256, 8, 32)       # [B, N (MSA rows), S, H, D]
+
+
+def attn_first_step(torch, model, attention_fn, impl, batch, precision,
+                    device):
+    """One step of a fresh engine from ``model``'s weights: (loss, norm)."""
+    import dataclasses
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import Model
+    m = Model.from_params(dataclasses.replace(
+        model.config, attention_impl=impl), model.params,
+        attention_fn=attention_fn)
+    eng = ds.initialize(model=m, config=train_config(
+        batch["input_ids"].shape[0], precision), device=device)
+    met = eng.train_batch(dict(batch))
+    res = (float(met["loss"]), float(met["grad_norm"]))
+    del eng, met
+    free_engines(torch)
+    return res
+
+
+def attn_engine_run(torch, model, attention_fn, impl, batches, tag, device):
+    """A fresh bf16 engine from ``model``'s weights under ``impl`` (or
+    ``attention_fn``): ATTN_RUN's warm-up + timed steps; (first step's
+    loss and grad norm, ms a timed step, peak memory)."""
+    import dataclasses
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import Model
+    m = Model.from_params(dataclasses.replace(
+        model.config, attention_impl=impl), model.params,
+        attention_fn=attention_fn)
+    eng = ds.initialize(model=m, config=train_config(ATTN_RUN["micro"]),
+                        device=device)
+    free_engines(torch)
+    torch.cuda.reset_peak_memory_stats()
+    mets = []
+    for i, batch in enumerate(batches):
+        if i == ATTN_RUN["warmup"]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        mets.append(eng.train_batch(dict(batch)))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) / ATTN_RUN["steps"] * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x["loss"]) for x in mets]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{tag}: non-finite loss {losses}")
+    log(f"[{tag}] losses {[round(x, 4) for x in losses]}; {step_ms:.1f} ms a"
+        f" step; max_memory_allocated {peak / 2**30:.2f} GiB")
+    first = (losses[0], float(mets[0]["grad_norm"]))
+    del eng, mets
+    free_engines(torch)
+    return first, step_ms, peak
+
+
+def parity_rule(tag, what, got, ref, wide):
+    """The first-step rule of phase 4's parity: |got - ref| <=
+    PARITY_FACTOR x max(|ref - wide|, PARITY_FLOOR bf16 x |wide|)."""
+    noise = abs(ref - wide)
+    tol = PARITY_FACTOR * max(noise, PARITY_FLOOR["bf16"] * abs(wide))
+    log(f"[{tag}] {what}: {got:.6f} vs xla {ref:.6f} (|d| "
+        f"{abs(got - ref):.3e}); fp32 xla {wide:.6f}: noise {noise:.3e}, "
+        f"tol {tol:.3e}")
+    if not math.isfinite(got) or abs(got - ref) > tol:
+        raise AssertionError(f"{tag}: first-step {what} disagrees with the "
+                             "plain attention")
+
+
+def evo_plain(torch, Q, K, V, b1, b2):
+    s = torch.einsum("bnqhd,bnkhd->bnhqk", Q, K).float() / math.sqrt(
+        Q.shape[-1])
+    p = torch.softmax(s + b1.float() + b2.float(), dim=-1).to(Q.dtype)
+    return torch.einsum("bnhqk,bnkhd->bnqhd", p, V)
+
+
+def evoformer_check(torch, seed, tag, device=None, shape=EVO_SHAPE):
+    """(c) AlphaFold-2's MSA row attention with pair bias at its 256-residue
+    crop: forward and backward against autograd through the plain
+    formula, in bf16 against fp32."""
+    from deepspeed_tpu_torch.ops import evoformer_attention
+    B, N, S, H, D = shape
+    dev = torch.device(device or "cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Q, K, V = (torch.randn(shape, generator=g, device=dev)
+               for _ in range(3))
+    b1 = torch.where(torch.rand((B, N, 1, 1, S), generator=g,
+                                device=dev) < 0.1, -1e9, 0.0)
+    b2 = torch.randn((B, 1, H, S, S), generator=g, device=dev)
+    do = torch.randn(shape, generator=g, device=dev)
+    inputs = [x.to(torch.bfloat16) for x in (Q, K, V, b1, b2)]
+
+    def run(fn, xs):
+        xs = [x.detach().requires_grad_() for x in xs]
+        o = fn(*xs)
+        return [o.detach(), *torch.autograd.grad(o, xs, do.to(o.dtype))]
+
+    fast = lambda Q, K, V, b1, b2: evoformer_attention(   # noqa: E731
+        Q, K, V, [b1, b2])
+    plain = lambda *xs: evo_plain(torch, *xs)           # noqa: E731
+    got = run(fast, inputs)
+    ref = run(plain, inputs)
+    wide = run(plain, [x.float() for x in inputs])
+    for name, a, b, c in zip(("out", "dQ", "dK", "dV", "db1", "db2"), got,
+                             ref, wide):
+        within_bf16_floor(torch, tag, f"evoformer {name}", a, b, c)
+    times = {}
+    for name, fn in (("evoformer_attention", fast), ("plain", plain)):
+        run(fn, inputs)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            run(fn, inputs)
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t) / 5 * 1e3
+    log(f"[{tag}] (c) evoformer Q/K/V {list(shape)} bf16, mask and pair "
+        f"bias: forward + backward {times['evoformer_attention']:.2f} ms "
+        f"(autograd through the plain formula {times['plain']:.2f} ms)")
+
+
+def attn_variants_phase(torch, seed, device=None, evo_shape=EVO_SHAPE,
+                        **overrides):
+    """4h. the attention variants on GPT-2-small (attn-variants).
+    ``device``, ``evo_shape`` and ``overrides`` (model-config fields) exist
+    for a CPU rehearsal at a tiny size."""
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.ops import (BSLongformerSparsityConfig,
+                                         DenseSparsityConfig,
+                                         make_block_sparse_attention)
+    from deepspeed_tpu_torch.ops.sparse_attention import density
+    from deepspeed_tpu_torch.runtime import synthetic_lm_data
+    tag = "attn-variants"
+    t0 = phase_head(torch)
+    seq = overrides.pop("max_seq_len", ATTN_RUN["seq"])
+    model = build_model(ATTN_RUN["preset"], seed=seed, device=device,
+                        max_seq_len=seq, **overrides)
+    n = ATTN_RUN["warmup"] + ATTN_RUN["steps"]
+    micro = ATTN_RUN["micro"]
+    data = synthetic_lm_data(model.config.vocab_size, micro * n, seq,
+                             seed=seed)["input_ids"]
+    batches = [{"input_ids": data[i * micro:(i + 1) * micro]}
+               for i in range(n)]
+    log(f"[{tag}] {ATTN_RUN['preset']}: {model.config.num_layers} layers, "
+        f"d_model {model.config.d_model}, seq {seq}, micro-batch {micro}, "
+        f"bf16, ZeRO-1, AdamW; {ATTN_RUN['warmup']} + {ATTN_RUN['steps']} "
+        f"steps an engine")
+    runs = {impl: attn_engine_run(torch, model, None, impl, batches,
+                                  f"{tag} {impl}", device)
+            for impl in ("xla", "xla_flash")}
+    # the noise floor: the plain attention's first step in fp32
+    wide = attn_first_step(torch, model, None, "xla", batches[0], "fp32",
+                           device)
+    ref = runs["xla"][0]
+    for i, what in enumerate(("loss", "grad_norm")):
+        parity_rule(tag, f"(a) xla_flash first-step {what}",
+                    runs["xla_flash"][0][i], ref[i], wide[i])
+    log(f"[{tag}] (a) max_memory_allocated xla_flash "
+        f"{runs['xla_flash'][2] / 2**30:.2f} GiB vs xla "
+        f"{runs['xla'][2] / 2**30:.2f} GiB; ms a step "
+        f"{runs['xla_flash'][1]:.1f} vs {runs['xla'][1]:.1f}")
+    sparse = BSLongformerSparsityConfig(block=64)
+    _, ms, _ = attn_engine_run(torch, model, make_block_sparse_attention(
+        sparse), "xla", batches, f"{tag} bslongformer", device)
+    log(f"[{tag}] (b) BSLongformer (block 64, window 3, global block 0): "
+        f"density {density(sparse.make_layout(seq // 64)):.4f} of the "
+        f"causal triangle; {ms:.1f} ms a step")
+    dense = attn_first_step(torch, model, make_block_sparse_attention(
+        DenseSparsityConfig(block=64)), "xla", batches[0], "bf16", device)
+    parity_rule(tag, "(b) DenseSparsityConfig first-step loss", dense[0],
+                ref[0], wide[0])
+    wbytes = tree_bytes(model.params)
+    del model
+    free_engines(torch)
+    evoformer_check(torch, seed, tag, device, evo_shape)
+    phase_tail(torch, tag, t0, wbytes)
+
+
+FAMILY_PHASES = ("encode", "clip", "diffusion", "attn-variants")
+
+
 def device_profile(torch, run, wall_unprofiled, tag="serve", split=()):
     """The kernels that take the device time, over one more full run under
     torch.profiler (``run(prof)`` returns its wall seconds), and the
@@ -5335,7 +6033,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="device,build,kernel,train,train-fp32,"
-                            "train-ckpt,train-de,serve,serve-quant,"
+                            "train-ckpt,train-de,encode,clip,diffusion,"
+                            "attn-variants,serve,serve-quant,"
                             "serve-burst,"
                             "serve-failover,serve-offload,serve-fleet,"
                             "serve-alibi,"
@@ -5470,6 +6169,25 @@ def main() -> int:
         de_flash = train_de(torch, fa, args.seed)
         flash_runs.append(de_flash)
         phase_done("train-de")
+
+    # 4e-4h. the model families and the attention variants: their paths
+    # hold no port kernel, and none launches across them
+    if phases & set(FAMILY_PHASES):
+        before = port_launches(fa, pa, mg)
+        for name, run_phase in (("encode", encode_phase),
+                                ("clip", clip_phase),
+                                ("diffusion", diffusion_phase),
+                                ("attn-variants", attn_variants_phase)):
+            if name in phases:
+                run_phase(torch, args.seed)
+                phase_done(name)
+        after = port_launches(fa, pa, mg)
+        log(f"[families] port kernel launches across "
+            f"{sorted(phases & set(FAMILY_PHASES))}: before {before}, after "
+            f"{after}")
+        if after != before:
+            raise AssertionError("a port kernel launched on a model-family "
+                                 "or attention-variant path")
 
     # 5., 6., 6c., 6d. and 6e. the serving paths, bf16, quantized, in
     # decode bursts, under failures and offloaded, on one model

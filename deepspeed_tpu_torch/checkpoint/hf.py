@@ -17,8 +17,9 @@ the stacked result, so the two never both exist whole.  Pass a copy of
 the dict to keep it.
 
 The encoder importers (``load_hf_bert``, ``load_hf_distilbert``,
-``load_hf_clip``) need ``models/encoder.py`` and ``clip.py``, which are
-not ported: they raise, naming ROADMAP Queue 1 item 7.
+``load_hf_clip``, the JAX package's ``:784-992``) map BERT, DistilBERT
+and CLIPModel state dicts onto the trees of ``models/encoder.py`` and
+``models/clip.py`` the same way.
 """
 
 from __future__ import annotations
@@ -30,10 +31,6 @@ import torch
 
 from ..models.transformer import TransformerConfig
 from ..utils.logging import logger
-
-_ENCODERS = ("the HF encoder importers (models/encoder.py, clip.py) are not "
-             "ported yet (ROADMAP Queue 1 item 7, model families)")
-
 
 def _tensor(t) -> torch.Tensor:
     if isinstance(t, torch.Tensor):
@@ -710,15 +707,9 @@ def load_hf_state_dict(cfg: TransformerConfig, state_dict: Dict[str, Any],
 
     ``reference_params`` (e.g. ``model.params``) enables a structural
     check: every leaf converted must match the target's tree and shape."""
-    from ..models.transformer import tree_map
     n = len(state_dict)
     fam = family_of(family)
-    params = CONVERTERS[fam](cfg, state_dict)
-    if isinstance(dtype, str):
-        dtype = getattr(torch, dtype)
-    # a transposed or sliced leaf becomes a tensor of its own
-    params = tree_map(lambda x: (x if dtype is None else x.to(dtype))
-                      .contiguous(), params)
+    params = _cast_contiguous(CONVERTERS[fam](cfg, state_dict), dtype)
     if reference_params is not None:
         ref_flat, got_flat = _flat(reference_params), _flat(params)
         missing = set(ref_flat) - set(got_flat)
@@ -737,14 +728,189 @@ def load_hf_state_dict(cfg: TransformerConfig, state_dict: Dict[str, Any],
     return params
 
 
+def _cast_contiguous(params, dtype):
+    """Each leaf a tensor of its own (a transposed or sliced one too), cast
+    to ``dtype`` (a torch dtype or its name) unless None."""
+    from ..models.transformer import tree_map
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    return tree_map(lambda x: (x if dtype is None else x.to(dtype))
+                    .contiguous(), params)
+
+
+def _prefix(sd: Dict[str, Any], pre: str) -> str:
+    """``pre`` where the checkpoint carries the model-class prefix (a
+    ``BertForMaskedLM``'s ``bert.``), else ''."""
+    return pre if f"{pre}embeddings.word_embeddings.weight" in sd else ""
+
+
+def _encoder_blocks(sd, Lf, nl, H, D, names):
+    """The stacked encoder ``blocks`` tree from per-layer HF entries
+    ``Lf.format(i) + name`` (``names``: the family's spelling of q, k, v,
+    the attention output, the two LayerNorms and the two MLP linears)."""
+    def w(key, fn=None):
+        return _stack(sd, Lf + key, nl, fn)
+
+    qkv = lambda x: _qkv_heads(x, H, D, True)        # noqa: E731
+    heads = lambda b: b.reshape(H, D)                 # noqa: E731
+    return {
+        "attn": {
+            "wq": w(f"{names['q']}.weight", qkv),
+            "bq": w(f"{names['q']}.bias", heads),
+            "wk": w(f"{names['k']}.weight", qkv),
+            "bk": w(f"{names['k']}.bias", heads),
+            "wv": w(f"{names['v']}.weight", qkv),
+            "bv": w(f"{names['v']}.bias", heads),
+            "wo": w(f"{names['o']}.weight", lambda x: _o_heads(x, H, D,
+                                                               True)),
+            "bo": w(f"{names['o']}.bias"),
+        },
+        "ln_attn": {"scale": w(f"{names['ln_attn']}.weight"),
+                    "bias": w(f"{names['ln_attn']}.bias")},
+        "mlp": {"wi": w(f"{names['fc1']}.weight", _T),
+                "bi": w(f"{names['fc1']}.bias"),
+                "wo": w(f"{names['fc2']}.weight", _T),
+                "bo": w(f"{names['fc2']}.bias")},
+        "ln_mlp": {"scale": w(f"{names['ln_mlp']}.weight"),
+                   "bias": w(f"{names['ln_mlp']}.bias")},
+    }
+
+
+_BERT_NAMES = dict(q="attention.self.query", k="attention.self.key",
+                   v="attention.self.value", o="attention.output.dense",
+                   ln_attn="attention.output.LayerNorm",
+                   fc1="intermediate.dense", fc2="output.dense",
+                   ln_mlp="output.LayerNorm")
+_DISTILBERT_NAMES = dict(q="attention.q_lin", k="attention.k_lin",
+                         v="attention.v_lin", o="attention.out_lin",
+                         ln_attn="sa_layer_norm", fc1="ffn.lin1",
+                         fc2="ffn.lin2", ln_mlp="output_layer_norm")
+
+
 def load_hf_bert(cfg, state_dict: Dict[str, Any], dtype=None) -> Dict:
-    raise NotImplementedError(_ENCODERS)
+    """A BERT state dict (``BertModel``, or with the ``bert.`` prefix) ->
+    the ``models/encoder.py`` tree; ``cfg``: an ``EncoderConfig``.  The
+    dict is consumed."""
+    sd = state_dict
+    n = len(sd)
+    H, D, nl = cfg.num_heads, cfg.head_dim, cfg.num_layers
+    pre = _prefix(sd, "bert.")
+    params = {
+        "embed": {"table": _take(sd, f"{pre}embeddings.word_embeddings."
+                                 "weight")},
+        "pos_embed": {"table": _take(sd, f"{pre}embeddings."
+                                     "position_embeddings.weight")},
+        "type_embed": {"table": _take(sd, f"{pre}embeddings."
+                                      "token_type_embeddings.weight")},
+        "ln_embed": {"scale": _take(sd, f"{pre}embeddings.LayerNorm.weight"),
+                     "bias": _take(sd, f"{pre}embeddings.LayerNorm.bias")},
+        "blocks": _encoder_blocks(sd, pre + "encoder.layer.{}.", nl, H, D,
+                                  _BERT_NAMES),
+    }
+    if cfg.pooler:
+        pk = next((k for k in (f"{pre}pooler.dense.weight",
+                               "pooler.dense.weight") if k in sd), None)
+        if pk is None:
+            raise KeyError(
+                "cfg.pooler=True but the checkpoint has no pooler "
+                "weights (e.g. BertForMaskedLM / add_pooling_layer="
+                "False); build with EncoderConfig(pooler=False)")
+        params["pooler"] = {"kernel": _T(_take(sd, pk)),
+                            "bias": _take(sd, pk.replace(".weight",
+                                                         ".bias"))}
+    logger.info("converted %d HF tensors (bert encoder)", n)
+    return _cast_contiguous(params, dtype)
 
 
 def load_hf_distilbert(cfg, state_dict: Dict[str, Any],
                        dtype=None) -> Dict:
-    raise NotImplementedError(_ENCODERS)
+    """A DistilBERT state dict -> the encoder tree.  DistilBERT has no
+    segment embeddings and no pooler: build with
+    ``EncoderConfig(type_vocab_size=0, pooler=False)``.  The dict is
+    consumed."""
+    sd = state_dict
+    n = len(sd)
+    H, D, nl = cfg.num_heads, cfg.head_dim, cfg.num_layers
+    pre = _prefix(sd, "distilbert.")
+    params = {
+        "embed": {"table": _take(sd, f"{pre}embeddings.word_embeddings."
+                                 "weight")},
+        "pos_embed": {"table": _take(sd, f"{pre}embeddings."
+                                     "position_embeddings.weight")},
+        "ln_embed": {"scale": _take(sd, f"{pre}embeddings.LayerNorm.weight"),
+                     "bias": _take(sd, f"{pre}embeddings.LayerNorm.bias")},
+        "blocks": _encoder_blocks(sd, pre + "transformer.layer.{}.", nl, H,
+                                  D, _DISTILBERT_NAMES),
+    }
+    logger.info("converted %d HF tensors (distilbert encoder)", n)
+    return _cast_contiguous(params, dtype)
 
 
 def load_hf_clip(cfg, state_dict: Dict[str, Any], dtype=None) -> Dict:
-    raise NotImplementedError(_ENCODERS)
+    """An HF ``CLIPModel`` state dict -> the ``models/clip.py`` tree (the
+    patch kernel OIHW -> HWIO; HF's ``pre_layrnorm`` spelling read as
+    well as ``pre_layernorm``); ``cfg``: a ``CLIPConfig``.  The dict is
+    consumed."""
+    sd = state_dict
+    n = len(sd)
+
+    def tower(pre, tw):
+        H, D, nl = tw.num_heads, tw.width // tw.num_heads, tw.num_layers
+        Lf = pre + "encoder.layers.{}."
+
+        def w(key, fn=None):
+            return _stack(sd, Lf + key, nl, fn)
+
+        qkv = lambda x: _qkv_heads(x, H, D, True)    # noqa: E731
+        heads = lambda b: b.reshape(H, D)             # noqa: E731
+        return {
+            "ln1": {"scale": w("layer_norm1.weight"),
+                    "bias": w("layer_norm1.bias")},
+            "ln2": {"scale": w("layer_norm2.weight"),
+                    "bias": w("layer_norm2.bias")},
+            "attn": {
+                **{wn: w(f"self_attn.{hn}_proj.weight", qkv)
+                   for wn, hn in (("wq", "q"), ("wk", "k"), ("wv", "v"))},
+                **{bn: w(f"self_attn.{hn}_proj.bias", heads)
+                   for bn, hn in (("bq", "q"), ("bk", "k"), ("bv", "v"))},
+                "wo": w("self_attn.out_proj.weight",
+                        lambda x: _o_heads(x, H, D, True)),
+                "bo": w("self_attn.out_proj.bias"),
+            },
+            "mlp": {"wi": w("mlp.fc1.weight", _T), "bi": w("mlp.fc1.bias"),
+                    "wo": w("mlp.fc2.weight", _T), "bo": w("mlp.fc2.bias")},
+        }
+
+    v, t = "vision_model.", "text_model."
+    # HF's key really is spelled "pre_layrnorm"
+    pre_ln = v + ("pre_layrnorm" if v + "pre_layrnorm.weight" in sd
+                  else "pre_layernorm")
+    params = {
+        "visual": {
+            "patch_embed": {"kernel": _take(
+                sd, v + "embeddings.patch_embedding.weight").permute(
+                    2, 3, 1, 0)},                    # OIHW -> HWIO
+            "class_embed": _take(sd, v + "embeddings.class_embedding"),
+            "pos_embed": _take(sd, v + "embeddings.position_embedding."
+                               "weight"),
+            "ln_pre": {"scale": _take(sd, pre_ln + ".weight"),
+                       "bias": _take(sd, pre_ln + ".bias")},
+            "blocks": tower(v, cfg.vision),
+            "ln_post": {"scale": _take(sd, v + "post_layernorm.weight"),
+                        "bias": _take(sd, v + "post_layernorm.bias")},
+            "proj": _T(_take(sd, "visual_projection.weight")),
+        },
+        "text": {
+            "embed": {"table": _take(sd, t + "embeddings.token_embedding."
+                                     "weight")},
+            "pos_embed": _take(sd, t + "embeddings.position_embedding."
+                               "weight"),
+            "blocks": tower(t, cfg.text),
+            "ln_final": {"scale": _take(sd, t + "final_layer_norm.weight"),
+                         "bias": _take(sd, t + "final_layer_norm.bias")},
+            "proj": _T(_take(sd, "text_projection.weight")),
+        },
+        "logit_scale": _take(sd, "logit_scale"),
+    }
+    logger.info("converted %d HF tensors (clip dual-tower)", n)
+    return _cast_contiguous(params, dtype)

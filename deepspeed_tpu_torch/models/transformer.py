@@ -42,6 +42,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..parallel.moe import moe_ffn
 from ..platform.cuda import resolve_device
+from ..runtime.runtime_utils import tree_leaves, tree_map
 from ..utils.prng import fold_in, split, uniform
 from . import layers as L
 
@@ -125,18 +126,6 @@ class TransformerConfig:
 # --------------------------------------------------------------------------
 # parameter trees
 # --------------------------------------------------------------------------
-
-def tree_map(fn: Callable, tree):
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def tree_leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in tree_leaves(v)]
-    return [tree]
-
 
 def unstack_layers(blocks, num_layers: int):
     """Per-layer weight trees: views into the stacked tensors (one
@@ -561,19 +550,6 @@ def _either(*tests):
     return lambda func, args: any(t(func, args) for t in tests)
 
 
-@torch.library.custom_op("deepspeed_tpu_torch::attn_out", mutates_args=(),
-                         schema="(Tensor x) -> Tensor")
-def attn_out(x):
-    """Identity (a copy) that names the eager attention's output for the
-    ``xla_flash`` policy, as ``checkpoint_name(o, "attn_out")`` does in the
-    JAX package's XLA attention."""
-    return x.clone()
-
-
-attn_out.register_fake(lambda x: torch.empty_like(x))
-attn_out.register_autograd(lambda ctx, g: g)
-
-
 # per-layer recompute policies of the JAX package (transformer.py:119-135):
 # None = one torch.utils.checkpoint per layer that saves nothing inside it
 # ("nothing" is jax.checkpoint's default, "everything" nothing_saveable:
@@ -584,11 +560,9 @@ attn_out.register_autograd(lambda ctx, g: g)
 #   flash          those, plus the flash forward's (o, lse)
 #                  (deepspeed_tpu_torch::flash_fwd; the JAX policy saves
 #                  flash_out, the output only)
-#   xla_flash      those, plus the attention output of the eager attention
-#                  (deepspeed_tpu_torch::attn_out).  The port's "xla_flash"
-#                  attention is the plain causal_attention, with no custom
-#                  VJP of its own: its backward recomputes the softmax that
-#                  the JAX package's XLA attention keeps as attn_lse.
+#   xla_flash      those, plus the XLA-style attention forward's (o, lse)
+#                  (deepspeed_tpu_torch::xla_attention_fwd: the JAX
+#                  policy's attn_out and attn_lse)
 # No policy changes the numbers, only what is kept and what is recomputed.
 REMAT_POLICIES = {
     "nothing": None,
@@ -598,7 +572,7 @@ REMAT_POLICIES = {
     "flash": _either(_dot_no_batch,
                      _named("deepspeed_tpu_torch::flash_fwd")),
     "xla_flash": _either(_dot_no_batch,
-                         _named("deepspeed_tpu_torch::attn_out")),
+                         _named("deepspeed_tpu_torch::xla_attention_fwd")),
 }
 
 
@@ -771,11 +745,11 @@ def lm_loss_fn(cfg: TransformerConfig,
 
 
 def _resolve_attention(cfg: TransformerConfig) -> Callable:
-    """attention_impl -> callable: ``"flash"`` is the K1 kernels' wrapper;
-    ``"xla"`` and ``"xla_flash"`` (an XLA memory schedule of the same
-    function, ops/xla_attention.py in the JAX package) are the plain
-    ``causal_attention``.  ALiBi wraps the eager attention with the
-    per-head bias (the flash kernels have no bias operand)."""
+    """attention_impl -> callable: ``"flash"`` is the K1 kernels' wrapper,
+    ``"xla_flash"`` the flash-style backward of ``ops/xla_attention.py``
+    (``fused_attention``), ``"xla"`` the plain ``causal_attention``.
+    ALiBi wraps the eager attention with the per-head bias (neither
+    flash form has a bias operand)."""
     if cfg.attn_scale is not None and cfg.attention_impl in (
             "flash", "xla_flash"):
         raise ValueError(
@@ -792,20 +766,12 @@ def _resolve_attention(cfg: TransformerConfig) -> Callable:
     if cfg.attention_impl == "flash":
         from ..ops.flash_attention import flash_attention
         return flash_attention
-    if cfg.attention_impl not in ("xla", "xla_flash"):
+    if cfg.attention_impl == "xla_flash":
+        from ..ops.xla_attention import fused_attention
+        return fused_attention
+    if cfg.attention_impl != "xla":
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
-    fn = partial(L.causal_attention, scale=attn_scale(cfg))
-    if (cfg.attention_impl, cfg.remat, cfg.remat_policy) == (
-            "xla_flash", True, "xla_flash"):
-        return _named_output(fn)
-    return fn
-
-
-def _named_output(fn: Callable) -> Callable:
-    """``fn`` with its output passed through :func:`attn_out`."""
-    def attn(*args, **kw):
-        return attn_out(fn(*args, **kw))
-    return attn
+    return partial(L.causal_attention, scale=attn_scale(cfg))
 
 
 class Model:

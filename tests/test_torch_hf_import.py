@@ -5,7 +5,9 @@ same tiny random ``transformers`` state dict (megatron: a synthetic state
 dict in its naming), keeps the source dtype and device, and consumes the
 dict; the port's forward on the converted weights matches the
 ``transformers`` forward for gpt2, llama (GQA), mixtral and qwen2-moe;
-the encoder importers raise, naming ROADMAP Queue 1 item 7.
+the encoder importers (held against HF and JAX in
+tests/test_torch_encoder.py and test_torch_clip.py) raise KeyError on a
+dict without their entries, as the JAX package's do.
 
 Tolerances: trees bitwise.  Logits against ``transformers`` atol 2e-3 /
 rtol 1e-3 (fp32, another attention and norm arithmetic), 8e-3 for the
@@ -20,7 +22,7 @@ import transformers as tf
 
 from deepspeed_tpu.checkpoint import hf as jhf
 from deepspeed_tpu_torch.checkpoint import hf as thf
-from deepspeed_tpu_torch.models import Model, build_config
+from deepspeed_tpu_torch.models import Model
 from deepspeed_tpu_torch.models.presets import build_model
 from tests.test_torch_train import one_thread  # noqa: F401 (autouse)
 
@@ -257,7 +259,19 @@ def test_family_of_and_encoders():
             continue
         assert thf.family_of(name) == want
     assert sorted(thf.CONVERTERS) == sorted(jhf.CONVERTERS)
-    cfg = build_config("gpt2")
-    for fn in (thf.load_hf_bert, thf.load_hf_distilbert, thf.load_hf_clip):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            fn(cfg, {})
+    # the encoder importers are ported (tests/test_torch_encoder.py and
+    # test_torch_clip.py hold them against HF and JAX); a dict without
+    # the family's entries raises KeyError in both packages
+    from deepspeed_tpu.models.clip import CLIPConfig as JaxCLIPConfig
+    from deepspeed_tpu.models.encoder import EncoderConfig as JaxEncoderConfig
+    from deepspeed_tpu_torch.models import CLIPConfig, EncoderConfig
+    for jfn, tfn, jcfg, tcfg in (
+            (jhf.load_hf_bert, thf.load_hf_bert, JaxEncoderConfig(64),
+             EncoderConfig(64)),
+            (jhf.load_hf_distilbert, thf.load_hf_distilbert,
+             JaxEncoderConfig(64), EncoderConfig(64)),
+            (jhf.load_hf_clip, thf.load_hf_clip, JaxCLIPConfig(),
+             CLIPConfig())):
+        for fn, cfg in ((jfn, jcfg), (tfn, tcfg)):
+            with pytest.raises(KeyError):
+                fn(cfg, {})

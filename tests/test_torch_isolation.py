@@ -45,7 +45,10 @@ def test_fresh_interpreter_imports_no_jax():
                 "profiling.flops_profiler", "runtime.hybrid_engine",
                 "runtime.data_pipeline", "runtime.indexed_dataset",
                 "runtime.data_analyzer", "runtime.eigenvalue",
-                "runtime.quantize", "runtime.progressive_layer_drop"):
+                "runtime.quantize", "runtime.progressive_layer_drop",
+                "ops.xla_attention", "ops.spatial", "ops.sparse_attention",
+                "ops.evoformer", "models.diffusion", "models.encoder",
+                "models.clip"):
         assert f"deepspeed_tpu_torch.{sub}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

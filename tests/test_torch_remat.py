@@ -2,8 +2,9 @@
 ``REMAT_POLICIES``, the JAX package's ``transformer.py:119-135``): each
 gives a loss and gradients bitwise equal to no remat on the CPU; the
 selective ones (``dots``, ``dots_no_batch``, ``flash``, ``xla_flash``)
-save what their JAX counterparts save; and the flash forward runs no more
-often than in the JAX program.
+save what their JAX counterparts save (``xla_flash``: the forward op of
+``ops/xla_attention.py``); and the flash forward runs no more often than
+in the JAX program.
 
 The JAX gradient of ``phi-tiny`` with ``attention_impl="flash"`` holds 3
 ``pallas_call``s without remat (fwd, dq, dkv) and 4 under every policy,
@@ -68,14 +69,18 @@ def counted_fwd(monkeypatch):
 
 
 class _CountDots(TorchDispatchMode):
+    """Matrix products run (``n``) and every op run (``ops``)."""
+
     def __init__(self):
         super().__init__()
         self.n = 0
+        self.ops = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
                     torch.ops.aten.bmm.default):
             self.n += 1
+        self.ops[func] = self.ops.get(func, 0) + 1
         return func(*args, **(kwargs or {}))
 
 
@@ -102,8 +107,8 @@ def test_six_policies():
 @pytest.mark.parametrize("attention_impl", ["flash", "xla_flash"])
 def test_policy_is_bitwise_no_remat(deterministic, attention_impl, policy):
     """No policy changes the numbers: loss and every gradient bitwise equal
-    to remat=False (with the flash kernels' plain versions, and with the
-    eager attention, which under ``xla_flash`` names its output)."""
+    to remat=False (with the flash kernels' plain versions, and with
+    ``fused_attention`` under ``xla_flash``)."""
     base = _base(attention_impl)
     ref_loss, ref_grads = _loss_and_grads(base)
     loss, grads = _loss_and_grads(base, remat=True, remat_policy=policy)
@@ -175,15 +180,19 @@ def test_selective_policies_save_the_products(policy, replayed):
 
 
 def test_xla_flash_saves_the_attention_output():
-    """Under ``xla_flash`` with the eager attention, the products of the
-    attention itself (batch dots: scores and P V) are replayed, and its
-    named output is saved; ``dots`` saves those products too."""
+    """Under ``xla_flash`` the attention is ``fused_attention``, whose
+    forward is one op (``deepspeed_tpu_torch::xla_attention_fwd``, its
+    products inside it): the policy saves that op's (o, lse), as the JAX
+    policy saves attn_out and attn_lse, so neither it nor a product is
+    replayed; ``dots`` saves the products but replays the forward op."""
     base = _base("xla_flash")
+    fwd = torch.ops.deepspeed_tpu_torch.xla_attention_fwd.default
     counts = {}
     for policy in ("xla_flash", "dots", None):
         cfg = {} if policy is None else dict(remat=True, remat_policy=policy)
         with _CountDots() as c:
             _loss_and_grads(base, **cfg)
-        counts[policy] = c.n
-    assert counts["dots"] == counts[None]
-    assert counts["xla_flash"] == counts[None] + 2 * LAYERS
+        counts[policy] = (c.n, c.ops.get(fwd, 0))
+    assert counts["xla_flash"] == counts[None]
+    assert counts[None][1] == LAYERS
+    assert counts["dots"] == (counts[None][0], 2 * LAYERS)

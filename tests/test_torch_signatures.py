@@ -398,9 +398,12 @@ def test_model_positionals_are_the_reference_ones():
     third and ignores it (the loss still runs)."""
     from deepspeed_tpu_torch.models import build_config
     from deepspeed_tpu_torch.models.layers import causal_attention
+    # attention_impl "xla": from_params resolves the same causal_attention
+    # that Model is handed by position ("xla_flash" would resolve to
+    # fused_attention, the same function in another summation order)
     cfg = build_config("llama-tiny", vocab_size=64, num_layers=1,
                        d_model=32, num_heads=2, num_kv_heads=1, d_ff=64,
-                       max_seq_len=16)
+                       max_seq_len=16, attention_impl="xla")
     m = Model(cfg, 0, causal_attention, device="cpu")
     ids = torch.randint(0, 64, (2, 8))
     loss = m.loss_fn(m.params, {"input_ids": ids})

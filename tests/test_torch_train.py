@@ -312,13 +312,15 @@ def test_lm_loss_and_grads_match_jax(name):
 
 def test_attention_impl_mapping_and_unported_remat():
     from deepspeed_tpu_torch.models.layers import causal_attention
-    from deepspeed_tpu_torch.ops import flash_attention
+    from deepspeed_tpu_torch.ops import flash_attention, fused_attention
     _, tm = tiny_models("gpt2")
     assert tm.attention_fn is flash_attention
-    for impl in ("xla", "xla_flash"):
-        m = Model.from_params(dataclasses.replace(
-            tm.config, attention_impl=impl), tm.params)
-        assert m.attention_fn.func is causal_attention
+    m = Model.from_params(dataclasses.replace(
+        tm.config, attention_impl="xla"), tm.params)
+    assert m.attention_fn.func is causal_attention
+    m = Model.from_params(dataclasses.replace(
+        tm.config, attention_impl="xla_flash"), tm.params)
+    assert m.attention_fn is fused_attention
     with pytest.raises(ValueError, match="attn_scale"):
         Model.from_params(dataclasses.replace(tm.config, attn_scale=1.0),
                           tm.params)
@@ -515,13 +517,6 @@ def test_unported_messages_name_their_items(tmp_path):
         (2, 16), np.int64)})["loss"]))
     assert eng.flops_profile["flops"] > 0
     # what item 7 still holds names itself in full
-    from deepspeed_tpu_torch.checkpoint import hf
-    for fn in (hf.load_hf_bert, hf.load_hf_distilbert, hf.load_hf_clip):
-        with pytest.raises(NotImplementedError) as e:
-            fn(tm.config, {})
-        assert "the HF encoder importers (models/encoder.py, clip.py) are " \
-            "not ported yet (ROADMAP Queue 1 item 7, model families)" \
-            in str(e.value)
     with pytest.raises(NotImplementedError) as e:
         InferenceEngine(tm, InferenceConfig(weight_quant="fp6"))
     assert "InferenceConfig.weight_quant='fp6' is not ported yet (ROADMAP " \
