@@ -17,6 +17,7 @@
     python3 chip_smoke.py --phases device,build,kernel,train-offload,train-nvme
     python3 chip_smoke.py --phases device,build,kernel,hybrid,train-de
     python3 chip_smoke.py --phases device,encode,clip,diffusion,attn-variants
+    python3 chip_smoke.py --phases device,build,serve-quant,aux
 
 Phases, in order; any failure exits non-zero (nothing is caught and
 passed over):
@@ -115,7 +116,18 @@ passed over):
              attention, a first-forward check against the plain path on
              the same quantized weights and cache, TTFT, token rates,
              resident bytes, the device profile (K3's two kernels as two
-             kinds) and K3's device ms a decode and a prefill step.
+             kinds) and K3's device ms a decode and a prefill step.  Then
+             the fp6/fp12 minifloat weights through the same steps, each
+             with a bf16 cache (no kernel of their own: each layer
+             dequantized with plain torch ops, as in the JAX package):
+             (c) weight_quant="fp6" with quantize_embeddings (the
+             embedding in the emulated layout), (d) weight_quant="fp12";
+             paged attention launches = layers x steps and no
+             mixed-input GEMM launch; besides, resident bytes equal to the
+             reckoning from the shapes, layer 0's wq payload and scales
+             bitwise those quantized on the CPU, the device ms of
+             dequantizing every block weight once (its share of a decode
+             step), and the device profile of a 4-token run.
 6c. serve-burst — the same model in bench.py's llama8b_serving_bench
              configuration (:744-758, decode_burst=8): int8 weights and
              embeddings, an int8 cache, phase 5's prompts prefilled by
@@ -186,8 +198,10 @@ passed over):
              Gateway on 127.0.0.1: phase 5's prompts as 8 streaming
              POST /v1/completions of 32 greedy tokens (prompts 0 and 1,
              then the other six once prompt 0's first token is back).
-             Warm-up rounds through the gateway capture every graph; the
-             measured run: every step a replay, K2 launches = layers x
+             Each replica first captures every step shape the router
+             can place on it (each token bucket, prompt chunks alone or
+             beside a decoding row), then warm-up rounds run through the
+             gateway; the measured run: every step a replay, K2 launches = layers x
              replica steps, the streams equal phase 5's but at near-
              ties, prompt 2 placed with prompt 0 on a 256-token prefix
              hit, /metrics parsed (serving_mfu, serving_hbm_bw_util),
@@ -301,6 +315,19 @@ passed over):
              before and after): these are the JAX package's plain paths.
              Each of 4e-4h prints its wall seconds, max_memory_allocated
              and weight bytes.
+4i. aux     — the aux subsystems: env_report's rows (torch, CUDA, the
+             card, page-locked memory, nvcc, triton, each kernel library
+             built or not, the aio pool built with g++); see_memory_usage
+             against the allocator's counters; autotune over phase 4's
+             GPT-2-small (bf16, flash, seq 1024) on the card: micro-batches
+             {4, 8} x remat {"nothing", "everything"}, the model-based
+             tuner, budget 4, 2 timed steps (each experiment's ms a step,
+             flop count, peak and the ranking; K1 launches = 12 x steps,
+             the forward twice under "everything"); the launcher's
+             LocalRunner under --elastic_training starting a child that
+             joins a world-1 group through init_distributed_from_env,
+             all-reduces a CUDA tensor (NCCL) and exits non-zero once,
+             then relaunching it (2 launches, rc 0).
 8b. train-moe — qwen2-moe-a2.7b at its published widths with depth cut
              to 2 layers (1.76 B params), bf16, seq 1024, micro-batch 4,
              1 + 3 steps: finite loss, aux/moe_aux_loss in the metrics,
@@ -384,8 +411,10 @@ included), its ``fleet_launches`` those of serve-fleet's measured
 run; ``stream_launches`` on paged_attention_int8kv and on the int8 K3
 entries, serve-offload (b)'s weight-streamed run; the flash entries'
 launches include train-ckpt's, train-moe's, train-offload's and
-train-nvme (c)'s, train-de's and hybrid's, and the bf16 D 64 entries
-carry train-de's own as ``de_launches``; ``paged_attention_d80``,
+train-nvme (c)'s, train-de's, aux's and hybrid's, and the bf16 D 64 entries
+carry train-de's own as ``de_launches`` and the autotuner's (aux) as
+``aux_launches``; paged_attention's ``fp6_launches`` and
+``fp12_launches`` are serve-quant (c)'s and (d)'s; ``paged_attention_d80``,
 timed on phi-2's mixed batch, carries hybrid's refreshed rollout's
 launches); the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -1626,11 +1655,12 @@ def check_prefix_and_cow(eng, prompts, sp, tag):
     eng.flush(100)
 
 
-def serve_rates(torch, make_engine, prompts, ttft, tag, profile=True):
+def serve_rates(torch, make_engine, prompts, ttft, tag, profile=True,
+                profile_new=SERVE_NEW_TOKENS):
     """Prefill alone (1 new token) vs the full 32-token run on fresh
     engines from ``make_engine()``; TTFT (from the main run), token rates,
     peak memory, host phases per step and (``profile``) the device
-    profile."""
+    profile of a ``profile_new``-token run."""
     from deepspeed_tpu_torch.inference import SamplingParams
 
     e = make_engine()
@@ -1663,7 +1693,7 @@ def serve_rates(torch, make_engine, prompts, ttft, tag, profile=True):
     log(f"[{tag}] TTFT p50={rates['ttft_p50_ms']:.1f} ms "
         f"(min {ttft[0]:.1f}, max {ttft[-1]:.1f}); prefill "
         f"{rates['prefill_tok_s']:.0f} tok/s ({computed} prompt tokens in "
-        f"{t_pre:.3f} s); decode {rates['decode_tok_s']:.0f} tok/s "
+        f"{t_pre:.3f} s); decode {rates['decode_tok_s']:.1f} tok/s "
         f"({len(prompts)} x {SERVE_NEW_TOKENS - 1} tokens in "
         f"{t_all - t_pre:.3f} s); max_memory_allocated="
         f"{rates['peak_gib']:.2f} GiB")
@@ -1679,9 +1709,10 @@ def serve_rates(torch, make_engine, prompts, ttft, tag, profile=True):
         / max(tm["steps"] - tm["decode_steps"], 1))
     rates["wait_ms"] = tm["wait_ms"] / n
     if profile:
+        wall = (t_all if profile_new == SERVE_NEW_TOKENS
+                else run(profile_new)[0])
         rates["device_ms_by_kind"] = device_profile(
-            torch, lambda prof: run(SERVE_NEW_TOKENS, prof)[0], t_all,
-            tag=tag)
+            torch, lambda prof: run(profile_new, prof)[0], wall, tag=tag)
     del e
     free_engines(torch)
     return rates
@@ -1693,10 +1724,13 @@ def serve_rates(torch, make_engine, prompts, ttft, tag, profile=True):
 
 # the quantized serving runs: (a) bench.py's llama8b_serving_bench
 # configuration (:752-758) without decode bursts, (b) the packed-int4
-# weights with an fp8 cache
+# weights with an fp8 cache, (c) fp6 weights and embeddings and (d) fp12
+# weights, both with phase 5's bf16 cache
 QUANT_RUNS = [("a", dict(weight_quant="int8", quantize_embeddings=True,
                          kv_quant="int8")),
-              ("b", dict(weight_quant="int4", kv_quant="fp8"))]
+              ("b", dict(weight_quant="int4", kv_quant="fp8")),
+              ("c", dict(weight_quant="fp6", quantize_embeddings=True)),
+              ("d", dict(weight_quant="fp12"))]
 # projections per layer that take the mixed-input GEMM: wq wk wv wo, and
 # the MLP's wi wg wo
 PROJECTIONS_PER_LAYER = 7
@@ -1744,10 +1778,11 @@ def quant_first_forward_check(torch, eng, prompts, tag):
     # store (in fp32 for the fp32 reference, as a resident tree would be)
     stream = eng._wstore
 
-    def forward(params, quant, mixed):
+    def forward(params, quant, mixed, kv_dtype=torch.bfloat16):
         sm = StateManager(KVCacheConfig(
             cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, block_size=64,
-            num_blocks=32, dtype=torch.bfloat16, quant=eng.icfg.kv_quant,
+            num_blocks=32, dtype=kv_dtype,
+            quant=eng.icfg.kv_quant or "none",
             device=eng.device), max_seqs=2)
         batch = sm.build_batch([(0, prompts[0]), (1, prompts[1])], 1024)
         logits, _ = ragged_forward(cfg, params, sm.kv, batch, 64, 8,
@@ -1766,8 +1801,10 @@ def quant_first_forward_check(torch, eng, prompts, tag):
     got = forward(eng.params, eng._quant, True)
     with plain_kernels():
         ref = forward(eng.params, eng._quant, True)
+        # a bf16 cache (the minifloat runs) is fp32 in the fp32 reference;
+        # a quantized one dequantizes into the query's dtype either way
         ref32 = forward(tree_map(lambda t: t.float(), eng.params),
-                        retype(eng._quant), False)
+                        retype(eng._quant), False, torch.float32)
     torch.cuda.empty_cache()
     noise = float((ref - ref32).abs().max())
     tol = NOISE_FACTOR * noise
@@ -1790,16 +1827,110 @@ def quant_first_forward_check(torch, eng, prompts, tag):
     return max_err, tol
 
 
+# new tokens of the profiled minifloat runs of serve-quant (their device
+# time by kind: every step dequantizes every layer, thousands of kernels)
+MINIFLOAT_PROFILE_TOKENS = 4
+
+
+def reckon_minifloat_bytes(params, bits, embed):
+    """The resident weights of a minifloat engine from the shapes, in
+    bytes: each block projection's payload in the layout its shape takes
+    and one fp32 scale a (layer, row); the embedding, when quantized, in
+    the emulated layout with an fp32 scale a group of default_groups;
+    everything else as it is."""
+    from deepspeed_tpu_torch.inference.quantization import _BLOCK_WEIGHTS
+    from deepspeed_tpu_torch.ops.quant import (default_groups,
+                                               minifloat_layout,
+                                               minifloat_payload_bytes)
+    total = tree_bytes(params)
+    for grp in params["blocks"].values():
+        if not isinstance(grp, dict):
+            continue
+        for name, w in grp.items():
+            if name in _BLOCK_WEIGHTS and w.dim() >= 3:
+                total += (minifloat_payload_bytes(
+                    bits, w.shape, minifloat_layout(bits, w.shape))
+                    + 4 * w.shape[0] * w.shape[1]
+                    - w.numel() * w.element_size())
+    if embed:
+        tab = params["embed"]["table"]
+        total += (minifloat_payload_bytes(bits, tab.shape, None)
+                  + 4 * default_groups(tab.numel())
+                  - tab.numel() * tab.element_size())
+    return total
+
+
+def check_minifloat_tree(torch, eng, model, over, tag):
+    """A minifloat engine's resident weights equal the reckoning from the
+    shapes, and layer 0's wq quantized on the card is bitwise the same
+    slice quantized on the CPU (payload and scales)."""
+    from deepspeed_tpu_torch.ops.quant import (WEIGHT_QUANT_BITS,
+                                               _quantize_rowwise_minifloat)
+    resident = tree_bytes(eng.params) + tree_bytes(eng._quant)
+    reckoned = reckon_minifloat_bytes(
+        model.params, WEIGHT_QUANT_BITS[over["weight_quant"]],
+        over.get("quantize_embeddings", False))
+    blocks = tree_bytes(eng._quant["blocks"])
+    embed = tree_bytes(eng._quant["embed"] if "embed" in eng._quant
+                       else eng.params["embed"])
+    log(f"[{tag}] resident {resident / 1e9:.3f} GB: block payloads and "
+        f"scales {blocks / 1e9:.3f} GB, embedding {embed / 1e9:.3f} GB "
+        f"{'emulated' if 'embed' in eng._quant else 'bf16'}, the rest "
+        f"{(resident - blocks - embed) / 1e9:.3f} GB; reckoned "
+        f"{reckoned / 1e9:.3f} GB")
+    if resident != reckoned:
+        raise AssertionError(f"{tag}: resident {resident} B, reckoned "
+                             f"{reckoned} B")
+    qt = eng._quant["blocks"]["attn"]["wq"]
+    cpu = _quantize_rowwise_minifloat(
+        model.params["blocks"]["attn"]["wq"][0].cpu(), qt.layout)
+    same = (torch.equal(qt.data[0].cpu(), cpu.data)
+            and torch.equal(qt.scale[0].cpu().view(torch.int32),
+                            cpu.scale.view(torch.int32)))
+    log(f"[{tag}] layer 0 wq {qt.layout} payload {tuple(qt.data[0].shape)} "
+        f"uint8 + scales {tuple(qt.scale[0].shape)}: card bitwise the CPU's "
+        f"= {same}")
+    if not same:
+        raise AssertionError(f"{tag}: layer 0's wq payload on the card "
+                             "differs from the CPU's")
+
+
+def dequant_ms_per_step(torch, eng):
+    """Device ms of dequantizing every block weight of every layer into
+    the serving dtype once (and the embedding table, when quantized):
+    what each serving step does, eagerly here; CUDA events, median of 3."""
+    from deepspeed_tpu_torch.inference.quantization import layer_weight
+    from deepspeed_tpu_torch.ops.quant import dequantize_any
+    dt = eng.icfg.param_dtype
+
+    def run():
+        for grp in eng._quant["blocks"].values():
+            for qt in grp.values():
+                for i in range(qt.shape[0]):
+                    layer_weight(qt, i, dt)
+        if "embed" in eng._quant:
+            dequantize_any(eng._quant["embed"]["table"])
+
+    return device_ms(torch, run, iters=3, warmup=1)
+
+
 def serve_quant(torch, pa, mg, model, prompts, tag, over):
     """One quantized serving run of Llama-3-8B (full width and depth) at
-    phase 5's traffic; returns the kernels' launch counts and the rates."""
+    phase 5's traffic; returns the kernels' launch counts and the rates.
+    int8/int4 weights take K3 in every projection; the minifloat ones take
+    no K3 (each layer dequantized with plain torch ops) and add their
+    resident bytes against the reckoning, layer 0's wq quantized on the
+    card against the CPU, and the dequantization's device ms a step."""
     from deepspeed_tpu_torch.inference import (InferenceConfig,
                                                InferenceEngine,
                                                SamplingParams)
     from deepspeed_tpu_torch.models import Model
+    from deepspeed_tpu_torch.ops.quant import (MINIFLOAT_BY_BITS,
+                                               WEIGHT_QUANT_BITS)
 
     cfg = model.config
     tag = f"serve-quant {tag}"
+    minifloat = WEIGHT_QUANT_BITS[over["weight_quant"]] in MINIFLOAT_BY_BITS
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     icfg = InferenceConfig(**SERVE_ENGINE, **over)
@@ -1816,45 +1947,53 @@ def serve_quant(torch, pa, mg, model, prompts, tag, over):
         f"{tree_bytes(model.params) / 1e9:.3f} GB; KV cache "
         f"{tree_bytes(eng.state.kv) / 1e9:.3f} GB; mixed gemm active="
         f"{eng._mixed_gemm_active}")
-    if not eng._mixed_gemm_active:
-        raise AssertionError(f"{tag}: the mixed-input GEMM is not active")
+    if eng._mixed_gemm_active == minifloat:
+        raise AssertionError(f"{tag}: the mixed-input GEMM is "
+                             f"{'' if minifloat else 'not '}active")
+    if minifloat:
+        check_minifloat_tree(torch, eng, model, over, tag)
     ffwd = quant_first_forward_check(torch, eng, prompts, tag)
 
-    int8 = over["weight_quant"] == "int8"
-    k3, k3_other = ((mg.mixed_matmul_2d, mg.mixed4_matmul_2d) if int8
-                    else (mg.mixed4_matmul_2d, mg.mixed_matmul_2d))
-    kv_attr = f"{over['kv_quant']}_launches"
+    k3 = {"int8": mg.mixed_matmul_2d,
+          "int4": mg.mixed4_matmul_2d}.get(over["weight_quant"])
+    k3_all = (mg.mixed_matmul_2d, mg.mixed4_matmul_2d)
+    kv = over.get("kv_quant")
+    kv_attr = f"{kv}_launches" if kv else "launches"
     sp = SamplingParams(max_new_tokens=SERVE_NEW_TOKENS)
     warm_graphs(torch, eng, prompts, (SERVE_NEW_TOKENS,), tag)
     # the main path: counts to 0 just before, read just after
-    mg.mixed_matmul_2d.launches = mg.mixed4_matmul_2d.launches = 0
-    for fn in (mg.mixed_matmul_2d, mg.mixed4_matmul_2d):
+    for fn in k3_all:
+        fn.launches = 0
         fn.design_launches = dict.fromkeys(MIXED_KERNELS, 0)
     pa.launches = pa.int8_launches = pa.fp8_launches = 0
     t0 = time.perf_counter()
     out = eng.generate(dict(enumerate(prompts)), sp)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(k3=k3.launches, k3_other=k3_other.launches,
+    all_k3 = sum(fn.launches for fn in k3_all)
+    launches = dict(k3=k3.launches if k3 else 0,
+                    k3_other=all_k3 - (k3.launches if k3 else 0),
                     kv=getattr(pa, kv_attr),
                     other_pa=pa.launches + pa.int8_launches
                     + pa.fp8_launches - getattr(pa, kv_attr),
-                    **k3.design_launches)
+                    **(k3.design_launches if k3
+                       else dict.fromkeys(MIXED_KERNELS, 0)))
     steps = int(eng.timings["steps"])
     L = cfg.num_layers
+    want_k3 = PROJECTIONS_PER_LAYER * L * steps if k3 else 0
     log(f"[{tag}] generate: 8 x 512-token prompts, {SERVE_NEW_TOKENS} new "
-        f"tokens each, {steps} steps in {wall:.3f} s; mixed gemm int"
-        f"{8 if int8 else 4} launches={launches['k3']} "
-        f"({PROJECTIONS_PER_LAYER} x {L} layers x {steps} steps = "
-        f"{PROJECTIONS_PER_LAYER * L * steps}: decode design "
-        f"{launches['decode']}, prefill design {launches['prefill']}); "
-        f"paged_attention "
-        f"{over['kv_quant']} cache launches={launches['kv']} ({L} x {steps} = "
-        f"{L * steps}); other variants: {launches['k3_other']} GEMM, "
-        f"{launches['other_pa']} attention")
+        f"tokens each, {steps} steps in {wall:.3f} s; mixed gemm "
+        f"{over['weight_quant']} launches={launches['k3']} (expected "
+        f"{want_k3}" + (f": {PROJECTIONS_PER_LAYER} x {L} layers x {steps} "
+                        f"steps; decode design {launches['decode']}, "
+                        f"prefill design {launches['prefill']}" if k3 else
+                        ": a minifloat layer takes no mixed-input GEMM")
+        + f"); paged_attention {kv or 'bf16'} cache launches="
+        f"{launches['kv']} ({L} x {steps} = {L * steps}); other variants: "
+        f"{launches['k3_other']} GEMM, {launches['other_pa']} attention")
     check_tokens(out, cfg, SERVE_NEW_TOKENS, tag)
     check_replayed(eng.timings, tag)
-    if launches["k3"] != PROJECTIONS_PER_LAYER * L * steps or steps == 0 \
+    if launches["k3"] != want_k3 or steps == 0 \
             or launches["kv"] != L * steps or launches["k3_other"] \
             or launches["other_pa"]:
         raise AssertionError(f"{tag}: the serving path did not run the "
@@ -1862,6 +2001,7 @@ def serve_quant(torch, pa, mg, model, prompts, tag, over):
                              f"of every step: {launches}")
     ttft = sorted(eng.ttft_ms[u] for u in out)
     check_prefix_and_cow(eng, prompts, sp, tag)
+    dq_ms = dequant_ms_per_step(torch, eng) if minifloat else None
     # the rate runs reuse this quantized tree through quant_tree=
     dense = Model.from_params(cfg, eng.params)
     quant = eng._quant
@@ -1869,15 +2009,38 @@ def serve_quant(torch, pa, mg, model, prompts, tag, over):
     free_engines(torch)
     rates = serve_rates(
         torch, lambda: InferenceEngine(dense, icfg, quant_tree=quant),
-        prompts, ttft, tag)
+        prompts, ttft, tag,
+        profile_new=MINIFLOAT_PROFILE_TOKENS if minifloat
+        else SERVE_NEW_TOKENS)
     del dense, quant
     torch.cuda.empty_cache()
-    # K3's device time a step of each kind (the profiled run repeats the
-    # main run's schedule on a fresh engine: the same steps)
     by_kind = rates.pop("device_ms_by_kind") or {}
     if "mixed gemm other" in by_kind:
         raise AssertionError(f"{tag}: the profile shows a K3 kernel that is "
                              f"neither design's: {by_kind}")
+    if minifloat:
+        step_ms = 1e3 * len(prompts) / rates["decode_tok_s"]
+        rates.update(dequant_ms=dq_ms, dequant_share=dq_ms / step_ms)
+        log(f"[{tag}] dequantizing every block weight once (the embedding "
+            f"too, when quantized): {dq_ms:.2f} ms of device time = "
+            f"{100 * rates['dequant_share']:.1f}% of a {step_ms:.2f} ms "
+            f"decode step")
+        total = sum(by_kind.values())
+        if total:
+            rates["elementwise_share"] = sum(
+                by_kind.get(k, 0.0) for k in ("elementwise",
+                                              "copies and casts",
+                                              "other")) / total
+            log(f"[{tag}] the profiled run ({MINIFLOAT_PROFILE_TOKENS} new "
+                f"tokens): elementwise, copies and casts and other (the "
+                f"dequantization's gathers among them) "
+                f"{100 * rates['elementwise_share']:.1f}% of the device "
+                "time")
+        return dict(launches=launches, first_forward=ffwd, streams=out,
+                    weight_bytes=dense_bytes + quant_bytes, t_quant=t_quant,
+                    **rates)
+    # K3's device time a step of each kind (the profiled run repeats the
+    # main run's schedule on a fresh engine: the same steps)
     per_step = {}
     for design in MIXED_KERNELS:
         n = launches[design] / (PROJECTIONS_PER_LAYER * L)
@@ -1893,7 +2056,8 @@ def serve_quant(torch, pa, mg, model, prompts, tag, over):
         + f" ({launches['prefill'] // (PROJECTIONS_PER_LAYER * L)} steps)")
     rates["k3_ms_per_step"] = per_step
     return dict(launches=launches, first_forward=ffwd, streams=out,
-                weight_bytes=dense_bytes + quant_bytes, **rates)
+                weight_bytes=dense_bytes + quant_bytes, t_quant=t_quant,
+                **rates)
 
 
 # ---------------------------------------------------------------------------
@@ -3236,6 +3400,74 @@ def decode_rate(torch, eng, prompts):
     return len(prompts) * (SERVE_NEW_TOKENS - 1) / (walls[1] - walls[0])
 
 
+def capture_step_shapes(torch, eng, tag):
+    """Capture the graph of every step shape that phase 5's traffic can
+    give one replica of the fleet, wherever its requests land, through
+    put/step with random prompts on the idle engine; fails if a shape was
+    not captured.  A step's graph is keyed by its token bucket (a power
+    of two from max_seqs to the token budget) and its context bucket: a
+    step of prompt chunks alone ends every context in 257..512 tokens (a
+    512-token prompt, after a cached 256-token prefix or a cut chunk:
+    8 blocks), a step with a decoding row holds a context past 512 (16
+    blocks).  Leaves the engine as fresh."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference import SamplingParams
+    sp = SamplingParams()
+    bs = eng.icfg.kv_block_size
+    buckets = [eng.token_bucket(1)]
+    while buckets[-1] < eng.icfg.token_budget:
+        buckets.append(eng.token_bucket(2 * buckets[-1]))
+    rs = np.random.RandomState(0)
+    uids = iter(range(1 << 20, 1 << 21))
+
+    def rand(n):
+        return rs.randint(0, eng.cfg.vocab_size, n).tolist()
+
+    def run(*prompts, decode=None):
+        """One step of these new prompts (and ``decode``'s next token);
+        every new prompt is flushed after it.  Returns the step's tokens."""
+        if decode is not None:
+            eng.put(*decode)
+        new = [next(uids) for _ in prompts]
+        for u, p in zip(new, prompts):
+            eng.put(u, p)
+        out = eng.step(sampling=sp)
+        for u in new:
+            eng.flush(u)
+        return out
+
+    t0 = time.perf_counter()
+    fresh_run(eng)
+    # 8 blocks: a 320-token prompt alone (bucket 512), two (1024), then
+    # its first 256 tokens cached before b new ones (bucket b <= 256)
+    prefix = rand(5 * bs)
+    run(prefix)
+    run(rand(5 * bs), rand(5 * bs))
+    for b in buckets:
+        if b <= 4 * bs:
+            run(prefix[:4 * bs] + rand(b))
+    # 16 blocks: a 520-token prompt (bucket 1024), then its decoding row
+    # beside b - 1 prompt tokens (bucket b), then alone (the least bucket)
+    d = next(uids)
+    eng.put(d, rand(8 * bs + 8))
+    tok = eng.step(sampling=sp)[d]
+    for b in buckets[1:]:
+        tok = run(rand(b - 1), decode=(d, [tok]))[d]
+    run(decode=(d, [tok]))
+    eng.flush(d)
+    torch.cuda.synchronize()
+    want = {("p", b, m, sp.sampler_key) for b in buckets for m in (8, 16)}
+    held = set(eng._graphs)
+    log(f"[{tag}] step shapes: {int(eng.timings['compiles'])} graphs "
+        f"captured in {time.perf_counter() - t0:.1f} s; held (token bucket, "
+        f"context blocks) "
+        f"{sorted((k[1], k[2]) for k in held if k[0] == 'p')}")
+    fresh_run(eng)
+    if not want <= held:
+        raise AssertionError(f"{tag}: step shapes not captured: "
+                             f"{sorted(want - held)}")
+
+
 def serve_fleet(torch, pa, model, prompts, phase5):
     """serve-fleet: a ``FleetRouter`` over two replicas of phase 5's model
     (the weights shared, a cache each) behind the port's ``Gateway`` on
@@ -3287,6 +3519,13 @@ def serve_fleet(torch, pa, model, prompts, phase5):
         f"{(torch.cuda.memory_allocated() - base) / 1e9:.3f} GB")
     if not shared:
         raise AssertionError(f"{tag}: the replicas copied the weights")
+    # every step shape the router can place on a replica, captured on each
+    # before the gateway's loop drives them: where the six later requests
+    # land relative to a replica's steps varies run to run
+    t0 = time.perf_counter()
+    for name, e in engines.items():
+        capture_step_shapes(torch, e, f"{tag} {name}")
+    log(f"[{tag}] step shapes captured in {time.perf_counter() - t0:.1f} s")
     router = FleetRouter(engines)
     handle = spawn_gateway(router, GatewayConfig(
         ops="on", install_signals=False, max_tokens_cap=SERVE_NEW_TOKENS))
@@ -4805,8 +5044,8 @@ def train_nvme(torch, fa, seed, device=None, **overrides):
                     f"{meter_bound / 1e9:.3f} GB and the model's bf16 bytes "
                     f"{2 * n / 1e9:.3f} GB (one swap group of the embedding "
                     f"alone is {sorted(eng._nvme._group_bytes)[-1] / 1e9:.3f}"
-                    f" GB: at 4 layers the meter cannot be under the bf16 "
-                    f"model)")
+                    f" GB: at {layers} layers the meter cannot be under the "
+                    f"bf16 model)")
                 if device is None and peak > bound:
                     raise AssertionError("train-nvme: the streamed step's "
                                          "peak exceeds its reckoning")
@@ -5955,6 +6194,195 @@ def attn_variants_phase(torch, seed, device=None, evo_shape=EVO_SHAPE,
 FAMILY_PHASES = ("encode", "clip", "diffusion", "attn-variants")
 
 
+# ---------------------------------------------------------------------------
+# aux. the aux subsystems: env_report, see_memory_usage, the autotuner,
+# the launcher and its elastic restart loop
+# ---------------------------------------------------------------------------
+
+# the autotuner's space on the card: GPT-2-small at phase 4's width (bf16,
+# flash, seq 1024), micro-batches x remat policies, the model tuner
+AUX_MICRO = (4, 8)
+AUX_REMAT = ("nothing", "everything")
+AUX_BUDGET = 4
+AUX_STEPS = 2
+# steps an experiment takes: its first, the flop-counted one, the timed ones
+AUX_STEPS_PER_EXP = 2 + AUX_STEPS
+
+# the launcher's child: joins the group through the runner's DSPD_*
+# environment (launch.init_distributed_from_env), all-reduces a CUDA
+# tensor (NCCL), records what it saw, and exits 17 on its first launch
+# (the --elastic_training loop relaunches it once)
+AUX_CHILD = """
+import json, os, sys, torch, torch.distributed as dist
+out = sys.argv[1]
+x = torch.full((4,), float(dist.get_rank() + 3), device="cuda")
+dist.all_reduce(x)
+torch.cuda.synchronize()
+with open(out, "a") as f:
+    f.write(json.dumps({"rank": dist.get_rank(),
+                        "world": dist.get_world_size(),
+                        "backend": dist.get_backend_config(),
+                        "sum": x.tolist(), "device": str(x.device)}) + "\\n")
+dist.destroy_process_group()
+if not os.path.exists(out + ".crashed"):
+    open(out + ".crashed", "w").write("exited 17 once")
+    sys.exit(17)
+"""
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def aux_autotune(torch, fa, seed):
+    """autotune over GPT-2-small on the card; returns the flash launches by
+    variant and the ranked experiments."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.autotuning import autotune, build_space
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.runtime import param_count
+
+    def model_fn(remat_policy):
+        return build_model("gpt2", seed=seed, max_seq_len=1024,
+                           attention_impl="flash",
+                           remat=remat_policy != "nothing",
+                           remat_policy=remat_policy)
+
+    def batch_fn(n):
+        return {"input_ids": np.random.RandomState(seed).randint(
+            0, 50257, (n, 1024))}
+
+    space = build_space(1, micro_batches=AUX_MICRO,
+                        remat_policies=AUX_REMAT)
+    n_params = param_count(model_fn("nothing").params)
+    free_engines(torch)
+    # the main path: counts to 0 just before, read just after
+    fa.reset_launches()
+    fa.flash_attention.fallbacks = 0
+    t0 = time.perf_counter()
+    ranked = autotune(model_fn, train_config(AUX_MICRO[0]), batch_fn,
+                      n_params=n_params, space=space, tuner="model",
+                      budget=AUX_BUDGET, steps=AUX_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: getattr(fa, k).launches for k in FLASH_KERNELS}
+    variants = {k: dict(getattr(fa, k).variant_launches)
+                for k in FLASH_KERNELS}
+    for i, e in enumerate(ranked):
+        log(f"[aux] autotune #{i + 1} {e.label()}: "
+            + (f"{e.step_time_s * 1e3:.1f} ms a step, "
+               f"{e.flops_per_step / 1e12:.3f} TFLOP a step (flop-counted "
+               f"step), peak {e.peak_bytes / 2**30:.2f} GiB, first step "
+               f"{e.compile_time_s:.2f} s (build included), state "
+               f"{e.est_state_bytes / 1e9:.2f} GB reckoned"
+               if e.ok else f"not run: {e.error or e.pruned}"))
+    ok = [e for e in ranked if e.ok]
+    n_remat = sum(e.overrides["remat_policy"] != "nothing" for e in ok)
+    steps = AUX_STEPS_PER_EXP * len(ok)
+    want = {"flash_fwd": 12 * (steps + AUX_STEPS_PER_EXP * n_remat),
+            "flash_dq": 12 * steps, "flash_dkv": 12 * steps}
+    log(f"[aux] autotune: {len(space)} experiments (micro-batches "
+        f"{AUX_MICRO} x remat {AUX_REMAT}), model tuner, budget "
+        f"{AUX_BUDGET}, {AUX_STEPS} timed steps: {len(ok)} ran in "
+        f"{wall:.1f} s; ranking {[e.label() for e in ok]}; K1 launches "
+        f"{counts} over {steps} steps ({n_remat} experiments recompute the "
+        f"forward under remat 'everything'): expected {want}; "
+        f"fallbacks {fa.flash_attention.fallbacks}")
+    times = [e.step_time_s for e in ok]
+    if len(ok) != len(space) or times != sorted(times):
+        raise AssertionError(f"aux: autotune ran {len(ok)} of {len(space)} "
+                             f"experiments or did not rank them: "
+                             f"{[(e.label(), e.error) for e in ranked]}")
+    if counts != want or fa.flash_attention.fallbacks:
+        raise AssertionError(f"aux: K1 launches {counts} != {want}")
+    if any(not e.flops_per_step or not e.peak_bytes for e in ok):
+        raise AssertionError("aux: an experiment lacks its flops or peak")
+    return variants, ok
+
+
+def aux_phase(torch, fa, seed):
+    """env_report's rows; see_memory_usage against the allocator; autotune
+    over GPT-2-small (K1 on every step); the launcher's LocalRunner under
+    --elastic_training starting a child that joins a world-1 group (NCCL
+    for its CUDA tensor) through init_distributed_from_env, all-reduces
+    and exits non-zero once, then its relaunch.  Returns the flash
+    launches by variant."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch import env_report
+    from deepspeed_tpu_torch.launcher import runner
+    from deepspeed_tpu_torch.runtime import see_memory_usage
+
+    tag = "aux"
+    t0 = phase_head(torch)
+    t = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = env_report.main()
+    for line in buf.getvalue().splitlines():
+        log(f"[{tag}] env_report: {line}")
+    if rc != 0 or "devices" not in buf.getvalue():
+        raise AssertionError(f"{tag}: env_report returned {rc}")
+    log(f"[{tag}] [time] env_report {time.perf_counter() - t:.1f} s")
+
+    x = torch.empty(1 << 28, dtype=torch.uint8, device="cuda")
+    st = see_memory_usage("aux", force=True)
+    alloc = torch.cuda.memory_allocated(0)
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"[{tag}] see_memory_usage: {st}; torch.cuda.memory_allocated "
+        f"{alloc}, max_memory_allocated {torch.cuda.max_memory_allocated(0)}"
+        f", total_memory {total}")
+    mine = st.get("0", {})
+    if (mine.get("bytes_in_use") != alloc or mine.get("bytes_limit") != total
+            or mine.get("peak_bytes_in_use")
+            != torch.cuda.max_memory_allocated(0)):
+        raise AssertionError(f"{tag}: see_memory_usage {st} disagrees with "
+                             "the allocator")
+    del x
+
+    t = time.perf_counter()
+    variants, ok = aux_autotune(torch, fa, seed)
+    log(f"[{tag}] [time] autotune {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    # the launched children import the package from this checkout
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=str(ROOT / "build")))
+    child = work / "child.py"
+    child.write_text(AUX_CHILD)
+    out = work / "child.jsonl"
+    port = free_port()
+    # one host: the runner takes its LocalRunner
+    rc = runner.main(["--master_port", str(port), "--master_addr",
+                      "localhost", "--elastic_training",
+                      "--max_elastic_restarts", "2", str(child), str(out)])
+    runs = ([json.loads(line) for line in out.read_text().splitlines()]
+            if out.exists() else [])
+    log(f"[{tag}] launcher: LocalRunner (localhost:{port}), "
+        f"--elastic_training, a child that joins through "
+        f"init_distributed_from_env, all-reduces a CUDA tensor and exits 17 "
+        f"on its first launch: rc {rc}, {len(runs)} launches, each saw "
+        f"{runs}; {time.perf_counter() - t:.1f} s")
+    if rc != 0 or len(runs) != 2 or any(
+            r.get("world") != 1 or "cuda:nccl" not in r.get("backend", "")
+            or r.get("sum") != [3.0] * 4
+            or not r.get("device", "").startswith("cuda") for r in runs):
+        raise AssertionError(f"{tag}: the launched children: rc {rc}, "
+                             f"{runs}")
+    shutil.rmtree(work, ignore_errors=True)
+    phase_tail(torch, tag, t0, 0)
+    return variants
+
+
 def device_profile(torch, run, wall_unprofiled, tag="serve", split=()):
     """The kernels that take the device time, over one more full run under
     torch.profiler (``run(prof)`` returns its wall seconds), and the
@@ -6033,7 +6461,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="device,build,kernel,train,train-fp32,"
-                            "train-ckpt,train-de,encode,clip,diffusion,"
+                            "train-ckpt,train-de,aux,encode,clip,diffusion,"
                             "attn-variants,serve,serve-quant,"
                             "serve-burst,"
                             "serve-failover,serve-offload,serve-fleet,"
@@ -6170,6 +6598,13 @@ def main() -> int:
         flash_runs.append(de_flash)
         phase_done("train-de")
 
+    # 4i. the aux subsystems (the autotuner trains phase 4's GPT-2)
+    aux_flash = None
+    if "aux" in phases:
+        aux_flash = aux_phase(torch, fa, args.seed)
+        flash_runs.append(aux_flash)
+        phase_done("aux")
+
     # 4e-4h. the model families and the attention variants: their paths
     # hold no port kernel, and none launches across them
     if phases & set(FAMILY_PHASES):
@@ -6203,8 +6638,11 @@ def main() -> int:
             launches = phase5["launches"]
         if "serve-quant" in phases:
             for tag, over in QUANT_RUNS:
+                t_q = time.perf_counter()
                 quant_runs[tag] = serve_quant(torch, pa, mg, model, prompts,
                                               tag, over)
+                log(f"[time] serve-quant {tag} ({over['weight_quant']}): "
+                    f"{time.perf_counter() - t_q:.1f} s")
         if "serve-burst" in phases:
             serve_burst(torch, pa, mg, model, prompts, decode_ref=(
                 quant_runs["a"]["decode_tok_s"] if "a" in quant_runs
@@ -6303,9 +6741,12 @@ def main() -> int:
             src = ("flash_attention_sm90.cuh"
                    if flash_design(k, dt, d) == "wgmma"
                    else "flash_attention_fp32.cu")
-            # train-de's own launches on the bf16 D 64 entries
+            # train-de's and the autotuner's own launches on the bf16 D 64
+            # entries
             de = ({"de_launches": de_flash[k].get((dt, d), 0)
-                   if de_flash is not None else None}
+                   if de_flash is not None else None,
+                   "aux_launches": aux_flash[k].get((dt, d), 0)
+                   if aux_flash is not None else None}
                   if (dt, d) == ("bfloat16", 64) else {})
             return dict(name=flash_name(k, dt, d), route="cuda",
                         source=f"deepspeed_tpu_torch/ops/csrc/{src}",
@@ -6331,6 +6772,8 @@ def main() -> int:
                         failover_launches=failover_launches,
                         fleet_launches=fleet_launches,
                         moe_launches=moe_launches,
+                        fp6_launches=quant_launches("c", "kv"),
+                        fp12_launches=quant_launches("d", "kv"),
                         offload_launches=offload_launches(
                             "a", "kv_offload", "launches"),
                         tier_launches=offload_launches("c", None,

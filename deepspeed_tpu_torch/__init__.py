@@ -20,7 +20,13 @@ HTTP gateway (``gateway``), and RLHF and data-efficient training: the
 hybrid engine (``HybridEngine``: training and serving on one set of
 weights), LoRA (``linear``), progressive layer drop, random-LTD, the
 curriculum, MoQ with eigenvalue pacing (``runtime``), compression
-(``compression``) and the flops profiler (``profiling``).
+(``compression``) and the flops profiler (``profiling``), the model
+families (encoders, CLIP, the diffusion UNet and VAE), the fp6/fp12
+minifloat weight layouts (``ops.quant``, served through
+``weight_quant="fp6"|"fp12"``), and the aux subsystems: elastic batch
+planning (``elasticity``), the environment report (``env_report``), the
+autotuner (``autotuning``), the launcher (``launcher``) and
+``runtime.partition_balanced`` / ``see_memory_usage``.
 """
 
 __version__ = "0.1.0"

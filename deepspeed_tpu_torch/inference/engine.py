@@ -31,8 +31,9 @@ and the KV block tier (``kv_tier="on"``, ``inference/ragged/tier.py``).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item when its config field is set away from the default): the
-attention-implementation probe, the fp6/fp12 minifloat weight layouts,
-tensor parallelism and ``refresh_params``.
+attention-implementation probe and tensor parallelism.  The fp6/fp12
+minifloat weights (``weight_quant="fp6"|"fp12"``) take no kernel, as in
+the reference: each layer is dequantized with plain torch ops.
 
 API:
     eng = InferenceEngine(model, InferenceConfig(...))
@@ -132,8 +133,9 @@ from ..ops.mixed_gemm import held_workspaces as _mixed_workspaces
 from ..ops.mixed_gemm import shape_error
 from ..ops.paged_attention import forget_plan
 from ..ops.paged_attention import held_workspaces as _paged_workspaces
-from ..ops.quant import (WEIGHT_QUANT_BITS, QuantizedTensor,
-                         is_mixed_gemm_layout, is_rowwise_int4)
+from ..ops.quant import (WEIGHT_QUANT_BITS, QuantizedTensor, _fmt_of,
+                         is_minifloat, is_mixed_gemm_layout, is_rowwise_int4,
+                         minifloat_tables)
 from ..telemetry import (AnomalyConfig, AnomalyMonitor, CounterDictView,
                          DeviceTelemetry, FlightRecorder, MetricsRegistry,
                          ProfilerCapture, RequestTracker, SloTracker,
@@ -177,7 +179,8 @@ class InferenceConfig:
     attn_impl: str = "auto"
     # None | "int8" | "fp8": the paged cache holds codes + per-vector scales
     kv_quant: Optional[str] = None
-    # None | "int8" | "int4" (fp6/fp12 are not ported)
+    # None | "int8" | "int4" | "fp6" | "fp12" (the minifloat layouts are
+    # dequantized a layer at a time: no mixed-input GEMM)
     weight_quant: Optional[str] = None
     # "auto": a row-wise int8/int4 tree takes the mixed-input GEMM (no
     # probe: the kernel on the card, its plain version on the CPU), any
@@ -234,8 +237,6 @@ class InferenceConfig:
 _UNSUPPORTED = {
     "attn_impl": (("auto",), "ROADMAP Queue 1, serving slice: the kernel "
                   "is chosen by the tensors' device, there is no probe"),
-    "weight_quant": ((None, "int8", "int4"), "ROADMAP Queue 1 item 7: the "
-                     "fp6/fp12 minifloat layouts"),
     "kv_donate": (("auto", "on"), "in-place KV updates (no 'off')"),
     "comm_overlap": (("auto", "off"), "ROADMAP Queue 1, multi-GPU "
                      "training breadth (tensor parallelism)"),
@@ -585,6 +586,10 @@ class InferenceEngine:
             self.params, self._quant = quantize_model_params(
                 self.params, bits=WEIGHT_QUANT_BITS[wq],
                 quantize_embeddings=self.icfg.quantize_embeddings)
+        # a minifloat payload's tables on this device before any capture
+        for qt in tree_leaves(self._quant or {}):
+            if isinstance(qt, QuantizedTensor) and is_minifloat(qt):
+                minifloat_tables(_fmt_of(qt), self.device)
         self._wstore: Optional[NVMeWeightStore] = None
         self._wstore_refusal: Optional[str] = None
         if self.icfg.weight_stream:

@@ -70,7 +70,7 @@ from ..models.transformer import (TransformerConfig, _norm,
 from ..parallel.moe import moe_serving
 from ..ops.mixed_gemm import mixed_matmul
 from ..ops.paged_attention import _kv_parts, paged_attention
-from ..ops.quant import (QuantizedTensor, dequantize_any,
+from ..ops.quant import (QuantizedTensor, _div, dequantize_any,
                          is_mixed_gemm_layout, is_rowwise_int8)
 from .quantization import (DENSE_ONLY_GROUPS, _row_scaled, contract_dims,
                            merge_layer)
@@ -85,7 +85,8 @@ def _quantize_kv(x: torch.Tensor, qdt: torch.dtype):
     """x: [..., D] -> (codes [..., D] in ``qdt``, scales [...] f32), one
     symmetric scale per trailing vector."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1) / _KV_QMAX[qdt], min=1e-8)
+    scale = torch.clamp(_div(xf.abs().amax(dim=-1), _KV_QMAX[qdt]),
+                        min=1e-8)
     q = xf / scale[..., None]
     if qdt == torch.int8:
         q = torch.clamp(torch.round(q), -127, 127)

@@ -5,8 +5,10 @@ Counterpart of ``deepspeed_tpu/inference/quantization.py``: the block
 projection weights (``wq wk wv wo wi wg``) of the stacked ``blocks`` tree
 become stacked :class:`~..ops.quant.QuantizedTensor`s (int8: the row-wise
 weight-shaped layout; int4: packed row-wise nibbles, or grouped when the
-contraction is odd), optionally the embedding table too; norms and biases
-stay dense.  The serving forward merges one layer's weights at a time
+contraction is odd; fp6/fp12: the packed row-wise minifloat layouts
+when the trailing dim divides into 24-bit words, else the emulated
+grouped minifloat codes), optionally the embedding table too; norms and
+biases stay dense.  The serving forward merges one layer's weights at a time
 (:func:`merge_layer`): left quantized for the mixed-input GEMM, or
 dequantized into the serving dtype.  The mixed-input GEMM's per-layer
 operands (payload views, scales one per contraction row) are built once
@@ -16,7 +18,8 @@ Each stacked weight is quantized one layer slice at a time into
 preallocated payload tensors (the JAX package quantizes the stacked leaf
 at once); the codes and scales are the same, but the fp32 temporaries of
 a Llama-3-8B ``[32, 4096, 14336]`` leaf (7.5 GB) never exist.  The
-fp6/fp12 minifloat layouts are not ported.
+minifloat layouts take no kernel (nor do they in the reference): the
+forward dequantizes them layer by layer with plain torch ops.
 """
 
 from __future__ import annotations
@@ -26,9 +29,11 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..ops.mixed_gemm import flat_kn
-from ..ops.quant import (_MINIFLOAT_ITEM, MINIFLOAT_BY_BITS, QuantizedTensor,
-                         _quantize_leading, default_groups, dequantize_any,
-                         is_mixed_gemm_layout, quantize, quantize_rowwise,
+from ..ops.quant import (MINIFLOAT_BY_BITS, QuantizedTensor,
+                         _quantize_leading, _quantize_rowwise_minifloat,
+                         default_groups, dequantize_any,
+                         is_mixed_gemm_layout, minifloat_layout,
+                         minifloat_quantize, quantize, quantize_rowwise,
                          quantize_rowwise4)
 
 # weights eligible for quantization inside a block (2D+ matmul operands)
@@ -52,9 +57,8 @@ def _quantize_stacked(w: torch.Tensor, bits: int,
     """Quantize a [L, ...] stacked weight layer by layer into stacked
     payloads: bits 8 = row-wise weight-shaped int8 (scales per (layer,
     row)); 4 = packed row-wise nibbles (grouped when the contraction is
-    odd)."""
-    if bits in MINIFLOAT_BY_BITS:
-        raise NotImplementedError(_MINIFLOAT_ITEM)
+    odd); 6 / 12 = packed row-wise fp6 / fp12 when the trailing dim
+    divides by 4 / 2, else the emulated grouped minifloat codes."""
     L = w.shape[0]
     if bits == 8:
         data = torch.empty(w.shape, dtype=torch.int8, device=w.device)
@@ -78,9 +82,26 @@ def _quantize_stacked(w: torch.Tensor, bits: int,
             data[i], scale[i] = qt.data, qt.scale
         return QuantizedTensor(data, scale, None, 4, tuple(w.shape), w.dtype,
                                layout="rowwise4")
-    # an odd contraction cannot pack strided halves: grouped layout
+    layout = minifloat_layout(bits, w.shape)
+    if layout is not None:
+        data = torch.empty(w.shape[:-1] + (w.shape[-1] * bits // 8,),
+                           dtype=torch.uint8, device=w.device)
+        scale = torch.empty((L, w.shape[1], 1), dtype=torch.float32,
+                            device=w.device)
+        for i in range(L):
+            qt = _quantize_rowwise_minifloat(w[i], layout)
+            data[i], scale[i] = qt.data, qt.scale
+        return QuantizedTensor(data, scale, None, bits, tuple(w.shape),
+                               w.dtype, layout=layout)
+    # an odd contraction cannot pack strided halves, an indivisible
+    # trailing dim no minifloat words: the grouped layouts
     groups = default_groups(w[0].numel())
-    qts = [quantize(w[i], bits=bits, num_groups=groups) for i in range(L)]
+    if bits in MINIFLOAT_BY_BITS:
+        qts = [minifloat_quantize(w[i], fmt=MINIFLOAT_BY_BITS[bits],
+                                  num_groups=groups) for i in range(L)]
+    else:
+        qts = [quantize(w[i], bits=bits, num_groups=groups)
+               for i in range(L)]
     return QuantizedTensor(
         data=torch.stack([q.data for q in qts]),
         scale=torch.stack([q.scale for q in qts]),
@@ -141,9 +162,6 @@ def quantize_model_params(params: Dict[str, Any], bits: int = 8,
     same paths (``blocks`` weights, and ``embed.table`` with
     ``quantize_embeddings``).  The pair feeds
     ``ragged_forward(..., quant=quant_tree)``."""
-    if bits in MINIFLOAT_BY_BITS:
-        raise NotImplementedError(_MINIFLOAT_ITEM)
-
     def copy(tree):
         return ({k: copy(v) for k, v in tree.items()}
                 if isinstance(tree, dict) else tree)
@@ -164,8 +182,12 @@ def quantize_model_params(params: Dict[str, Any], bits: int = 8,
             quant["blocks"][group_name] = qgroup
     if quantize_embeddings:
         tab = dense["embed"]["table"]
-        quant["embed"] = {"table": quantize_rowwise(tab) if bits == 8
-                          else quantize(tab, bits=bits)}
+        if bits in MINIFLOAT_BY_BITS:
+            quant["embed"] = {"table": minifloat_quantize(
+                tab, fmt=MINIFLOAT_BY_BITS[bits])}
+        else:
+            quant["embed"] = {"table": quantize_rowwise(tab) if bits == 8
+                              else quantize(tab, bits=bits)}
         del dense["embed"]["table"]
     return dense, quant
 

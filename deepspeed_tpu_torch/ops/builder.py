@@ -53,7 +53,8 @@ def find_nvcc() -> Optional[str]:
 class CUDAOpBuilder:
     """One shared library = its sources under ``csrc/`` + nvcc flags.
     ``headers`` (under ``csrc/``) are the files the sources include: they
-    are not compiled on their own but count in the cache key.
+    are not compiled on their own but count in the cache key;
+    ``extra_flags`` follow the class's flags.
 
     ``build_log`` and ``build_seconds`` hold the last build's compiler
     output (``-Xptxas -v``: registers, shared memory, spills) and wall
@@ -62,10 +63,12 @@ class CUDAOpBuilder:
     flags = NVCC_FLAGS
 
     def __init__(self, name: str, sources: Sequence[str],
-                 headers: Sequence[str] = ()):
+                 headers: Sequence[str] = (),
+                 extra_flags: Sequence[str] = ()):
         self.name = name
         self.sources = list(sources)
         self.headers = list(headers)
+        self.flags = [*type(self).flags, *extra_flags]
         self.build_log = ""
         self.build_seconds = 0.0
         self.command: List[str] = []

@@ -74,8 +74,13 @@ _HEADER = ["flash_attention.cuh", "flash_attention_sm90.cuh", "sm90.cuh",
 BUILDER = CUDAOpBuilder("flash_attention", ["flash_attention.cu"], _HEADER)
 BUILDER_FP16 = CUDAOpBuilder("flash_attention_fp16",
                              ["flash_attention_fp16.cu"], _HEADER)
+# the fp32 file's 36 register-blocked kernels keep nvcc's optimizer in
+# one thread for the longest build by far; split compilation runs it on
+# every core (chip_smoke.py's build phase prints each library's seconds;
+# tools/flash_ab.py times its kernels against another checkout's)
 BUILDER_FP32 = CUDAOpBuilder("flash_attention_fp32",
-                             ["flash_attention_fp32.cu"])
+                             ["flash_attention_fp32.cu"],
+                             extra_flags=["--split-compile=0"])
 BUILDERS = [BUILDER, BUILDER_FP16, BUILDER_FP32]
 
 # dtype -> (entry-point suffix, library)

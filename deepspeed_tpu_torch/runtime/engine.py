@@ -91,8 +91,6 @@ PRECISION_DTYPE = {"fp32": torch.float32, "fp16": torch.float16,
                    "bf16": torch.bfloat16}
 
 _MULTI = "ROADMAP Queue 1 item 6 (multi-GPU training breadth)"
-_AUX_LEFT = ("ROADMAP Queue 1 item 7 (the aux subsystems left: autotuning, "
-             "elasticity, the launcher, env_report)")
 
 
 class TrainState(NamedTuple):
@@ -139,7 +137,6 @@ def _reject_unported(config: Config) -> None:
         (config.comm.overlap or config.comm.quantized_allreduce is not None,
          "comm.overlap / comm.quantized_allreduce", _MULTI),
         (config.sparse_gradients, "sparse_gradients", _MULTI),
-        (config.elasticity.enabled, "elasticity", _AUX_LEFT),
     ]
     for configured, what, item in checks:
         if configured:

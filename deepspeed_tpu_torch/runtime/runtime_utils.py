@@ -1,17 +1,21 @@
 """Runtime numeric utilities and parameter-tree helpers.
 
 Counterpart of ``deepspeed_tpu/runtime/runtime_utils.py``: ``global_norm``
-(:16), ``clip_by_global_norm`` (:31) and ``param_count`` (:116).  A tree
-is a nest of dicts, lists and tuples (NamedTuples included) with tensors
-at the leaves, the shape the JAX package's pytrees take here.
+(:16), ``clip_by_global_norm`` (:31), ``partition_balanced`` (:42, copied:
+pure Python), ``see_memory_usage`` (:92, on ``torch.cuda.memory_stats``
+with the JAX package's keys) and ``param_count`` (:116).  A tree is a nest
+of dicts, lists and tuples (NamedTuples included) with tensors at the
+leaves, the shape the JAX package's pytrees take here.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
+
+from ..utils.logging import logger
 
 
 def _is_namedtuple(x) -> bool:
@@ -84,6 +88,80 @@ def clip_by_global_norm(tree: Any, max_norm: float,
     leaves = [x.clone() for x in tree_leaves(tree)]
     norm = clip_by_global_norm_(leaves, max_norm, norm)
     return tree_unflatten(tree, leaves), norm
+
+
+def partition_balanced(weights: Sequence[float], num_parts: int) -> List[int]:
+    """Split ``weights`` into ``num_parts`` contiguous chunks minimizing the
+    largest chunk's weight (the pipeline partitioner's split).  Returns the
+    part boundaries, ``num_parts + 1`` of them: a binary search on the cap
+    with a greedy check."""
+    n = len(weights)
+    if num_parts <= 0:
+        raise ValueError("num_parts must be positive")
+    if num_parts >= n:
+        bounds = list(range(n + 1))
+        bounds += [n] * (num_parts - n)
+        return bounds
+    prefix = [0.0]
+    for w in weights:
+        prefix.append(prefix[-1] + float(w))
+
+    def parts_needed(cap: float) -> int:
+        parts, cur = 1, 0.0
+        for w in weights:
+            w = float(w)
+            if w > cap:
+                return num_parts + 1
+            if cur + w > cap:
+                parts += 1
+                cur = w
+            else:
+                cur += w
+        return parts
+
+    lo, hi = max(map(float, weights)), prefix[-1]
+    for _ in range(64):
+        mid = (lo + hi) / 2
+        if parts_needed(mid) <= num_parts:
+            hi = mid
+        else:
+            lo = mid
+    cap = hi
+    bounds = [0]
+    cur = 0.0
+    for i, w in enumerate(weights):
+        w = float(w)
+        if cur + w > cap and len(bounds) < num_parts:
+            bounds.append(i)
+            cur = w
+        else:
+            cur += w
+    bounds += [n] * (num_parts + 1 - len(bounds))
+    return bounds
+
+
+def see_memory_usage(message: str = "", force: bool = False) -> dict:
+    """Device memory by card index: ``bytes_in_use`` and
+    ``peak_bytes_in_use`` (the caching allocator's allocated bytes, now
+    and at their peak) and ``bytes_limit`` (the card's total memory), the
+    JAX package's keys; empty without a card.  ``force`` logs the totals
+    with ``message``."""
+    stats = {}
+    if torch.cuda.is_available():
+        for i in range(torch.cuda.device_count()):
+            s = torch.cuda.memory_stats(i)
+            stats[str(i)] = {
+                "bytes_in_use": s.get("allocated_bytes.all.current", 0),
+                "peak_bytes_in_use": s.get("allocated_bytes.all.peak", 0),
+                "bytes_limit": torch.cuda.get_device_properties(
+                    i).total_memory,
+            }
+    if force and stats:
+        total = sum(v["bytes_in_use"] for v in stats.values())
+        peak = sum(v["peak_bytes_in_use"] for v in stats.values())
+        logger.info("%s | mem in_use=%.2fGB peak=%.2fGB", message,
+                    total / 2**30, peak / 2**30)
+    return stats
 
 
 def param_count(tree: Any) -> int:

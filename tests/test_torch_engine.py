@@ -128,12 +128,27 @@ def test_step_api_matches_generate(models, reference):
 
 
 @pytest.mark.parametrize("field, value", [
-    ("attn_impl", "pallas"), ("weight_quant", "fp6"), ("weight_quant", "fp12"),
-    ("comm_quant", "int8"), ("kv_donate", "off")])
+    ("attn_impl", "pallas"), ("comm_quant", "int8"), ("kv_donate", "off")])
 def test_unsupported_config_values_raise(models, field, value):
     _, port = models
     with pytest.raises(NotImplementedError, match=field):
         _port_engine(port, **{field: value})
+
+
+@pytest.mark.parametrize("wq", ["fp6", "fp12"])
+def test_minifloat_weight_quant_serves_as_jax(models, wq):
+    """``weight_quant="fp6"|"fp12"`` (once gated as unported) serves: the
+    block weights in the packed minifloat layout, dequantized a layer at
+    a time (no mixed-input GEMM), the JAX engine's greedy streams."""
+    jm, port = models
+    eng = _port_engine(port, weight_quant=wq)
+    assert not eng._mixed_gemm_active
+    layout = {"fp6": "rowwise6", "fp12": "rowwise12"}[wq]
+    assert {qt.layout for g in eng._quant["blocks"].values()
+            for qt in g.values()} == {layout}
+    sp = SamplingParams(max_new_tokens=10)
+    assert eng.generate(_prompts(), sp) == _jax_generate(
+        jm, _prompts(), sp, weight_quant=wq)
 
 
 @pytest.mark.parametrize("field", [

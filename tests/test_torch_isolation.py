@@ -48,7 +48,10 @@ def test_fresh_interpreter_imports_no_jax():
                 "runtime.quantize", "runtime.progressive_layer_drop",
                 "ops.xla_attention", "ops.spatial", "ops.sparse_attention",
                 "ops.evoformer", "models.diffusion", "models.encoder",
-                "models.clip"):
+                "models.clip", "elasticity", "elasticity.elasticity",
+                "env_report", "autotuning", "autotuning.autotuner",
+                "autotuning.tuner", "launcher", "launcher.runner",
+                "launcher.launch"):
         assert f"deepspeed_tpu_torch.{sub}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -236,13 +236,27 @@ def test_unported_layouts_raise():
     x = torch.randn(4, 8)
     with pytest.raises(NotImplementedError, match="stochastic"):
         pquant.quantize(x, stochastic=True)
-    qt = pquant.quantize(x)
-    qt.bits = 6
-    with pytest.raises(NotImplementedError, match="minifloat"):
-        pquant.dequantize_any(qt)
-    m = build_model("llama-tiny", device="cpu", vocab_size=64, num_layers=1,
-                    d_model=32, num_heads=2, num_kv_heads=2, d_ff=64)
-    with pytest.raises(NotImplementedError, match="minifloat"):
-        pq.quantize_model_params(m.params, bits=6)
     with pytest.raises(ValueError, match="even contraction"):
         pquant.quantize_rowwise4(torch.randn(7, 4))
+
+
+@pytest.mark.parametrize("bits", [6, 12])
+def test_minifloat_layouts_are_ported(bits):
+    """The fp6/fp12 layouts (once raising here) quantize a model's blocks
+    into the packed layout and dequantize through ``dequantize_any``
+    within the format's step, bitwise the JAX package's payload."""
+    m = build_model("llama-tiny", device="cpu", vocab_size=64, num_layers=1,
+                    d_model=32, num_heads=2, num_kv_heads=2, d_ff=64)
+    dense, quant = pq.quantize_model_params(m.params, bits=bits)
+    w = m.params["blocks"]["mlp"]["wi"]
+    qt = quant["blocks"]["mlp"]["wi"]
+    assert qt.layout == f"rowwise{bits}" and qt.bits == bits
+    assert qt.data.numel() == w.numel() * bits // 8
+    got = pquant.dequantize_any(qt, torch.float32)
+    # e3m2 keeps 2 mantissa bits (a step of 1/4 of the leading power of
+    # two: at most 1/8 of it off), e4m7 keeps 7
+    rel = 2.0 ** -(3 if bits == 6 else 8)
+    amax = w.abs().amax(dim=tuple(range(2, w.dim())), keepdim=True)
+    assert bool(((got - w).abs() <= rel * amax + 1e-7).all())
+    want = jq._quantize_stacked(jnp.asarray(w.numpy()), bits)
+    assert np.array_equal(qt.data.numpy(), np.asarray(want.data))

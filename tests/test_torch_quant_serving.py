@@ -280,9 +280,10 @@ def test_cow_repeat_on_quantized_cache_matches_jax(models):
 
 
 def test_minifloat_raises_and_resident_bytes_shrink(models):
+    """The resident quantized weights shrink: int4 below 0.55x of the
+    dense model, and the fp6 / fp12 block payloads (once refused here) to
+    0.75 / 1.5 bytes a weight, one fp32 scale a (layer, row) beside."""
     _, port = models
-    with pytest.raises(NotImplementedError, match="fp6"):
-        _port_engine(port, weight_quant="fp6")
     big = Model.from_params(
         dataclasses.replace(port.config, d_model=128, d_ff=512),
         jax.tree.map(lambda x: x, params_from_numpy(jax.tree.map(
@@ -304,3 +305,12 @@ def test_minifloat_raises_and_resident_bytes_shrink(models):
     assert resident < 0.55 * nbytes(dense.params), \
         (resident, nbytes(dense.params))
     assert len(tree_leaves(quant.params)) < len(tree_leaves(dense.params))
+    blocks = dense.params["blocks"]
+    for wq, per_weight in (("fp6", 0.75), ("fp12", 1.5)):
+        eng = InferenceEngine(big, InferenceConfig(**ENGINE, weight_quant=wq))
+        for g, grp in eng._quant["blocks"].items():
+            for name, qt in grp.items():
+                w = blocks[g][name]
+                assert qt.data.numel() * qt.data.element_size() == \
+                    w.numel() * per_weight, (wq, g, name)
+                assert qt.scale.numel() == w.shape[0] * w.shape[1]

@@ -391,7 +391,6 @@ UNPORTED = {
             "item 6"),
     "comm_overlap": ({"comm": {"overlap": True}}, "item 6"),
     "sparse_grads": ({"sparse_gradients": True}, "item 6"),
-    "elasticity": ({"elasticity": {"enabled": True}}, "item 7"),
 }
 
 
@@ -418,6 +417,9 @@ PORTED = {
     "moq": {"quantize_training": {"enabled": True, "start_bits": 8}},
     "flops_profiler": {"flops_profiler": {"enabled": True,
                                           "profile_step": 1}},
+    "elasticity": {"elasticity": {"enabled": True,
+                                  "max_train_batch_size": 8,
+                                  "micro_batch_sizes": [2]}},
 }
 
 
@@ -451,7 +453,9 @@ def test_ported_engine_features_are_accepted(case, tmp_path):
                 "random_ltd": eng._ltd_keep == 8,
                 "moq": eng._moq_bits == 8,
                 "flops_profiler": eng.flops_profile is not None and
-                eng.flops_profile["flops"] > 0}[case]
+                eng.flops_profile["flops"] > 0,
+                # accepted and read by nothing, as in the JAX engine
+                "elasticity": eng.config.elasticity.enabled}[case]
 
 
 def test_unported_messages_name_their_items(tmp_path):
@@ -516,25 +520,19 @@ def test_unported_messages_name_their_items(tmp_path):
     assert np.isfinite(float(eng.train_batch({"input_ids": np.zeros(
         (2, 16), np.int64)})["loss"]))
     assert eng.flops_profile["flops"] > 0
-    # what item 7 still holds names itself in full
-    with pytest.raises(NotImplementedError) as e:
-        InferenceEngine(tm, InferenceConfig(weight_quant="fp6"))
-    assert "InferenceConfig.weight_quant='fp6' is not ported yet (ROADMAP " \
-        "Queue 1 item 7: the fp6/fp12 minifloat layouts)" in str(e.value)
+    # item 7 is ported whole: the minifloat layouts serve and dequantize,
+    # the engine takes the elasticity block, and no message names item 7
+    InferenceEngine(tm, InferenceConfig(weight_quant="fp6"))
     from deepspeed_tpu_torch.ops.quant import (QuantizedTensor,
                                                dequantize_any)
-    with pytest.raises(NotImplementedError) as e:
-        dequantize_any(QuantizedTensor(torch.zeros(1), torch.ones(1), None,
-                                       6, (1,), torch.float32))
-    assert "the fp6/fp12 minifloat weight layouts are not ported yet " \
-        "(ROADMAP Queue 1 item 7: the minifloat layouts)" in str(e.value)
-    with pytest.raises(NotImplementedError) as e:
-        tds.initialize(model=tm, device="cpu", config={
-            "train_micro_batch_size_per_device": 2,
-            "elasticity": {"enabled": True}})
-    assert "elasticity is not ported yet (ROADMAP Queue 1 item 7 (the aux " \
-        "subsystems left: autotuning, elasticity, the launcher, " \
-        "env_report))" in str(e.value)
+    assert float(dequantize_any(QuantizedTensor(
+        torch.tensor([-3], dtype=torch.int8), torch.ones(1, 1), None, 6,
+        (1,), torch.float32))[0]) == -0.125      # -(2/4) x 2 ** (1 - 3)
+    eng = tds.initialize(model=tm, device="cpu", config={
+        "train_micro_batch_size_per_device": 2,
+        "elasticity": {"enabled": True}})
+    assert np.isfinite(float(eng.train_batch({"input_ids": np.zeros(
+        (2, 16), np.int64)})["loss"]))
 
 
 def test_engine_runs_on_the_card_unless_asked(monkeypatch, tmp_path):
