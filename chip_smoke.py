@@ -18,6 +18,7 @@
     python3 chip_smoke.py --phases device,build,kernel,hybrid,train-de
     python3 chip_smoke.py --phases device,encode,clip,diffusion,attn-variants
     python3 chip_smoke.py --phases device,build,serve-quant,aux
+    python3 chip_smoke.py --phases device,build,comm,serve-tp
 
 Phases, in order; any failure exits non-zero (nothing is caught and
 passed over):
@@ -70,6 +71,37 @@ passed over):
              microseconds per call (tensor maps included) and its
              library's build seconds; dq and dkv must be bitwise equal on
              a second run.
+3b. comm    — comm/ on one card: a world of one rank over NCCL
+             (init_distributed(backend="nccl")); every Collectives op
+             (all_reduce, its mean, all_gather, reduce_scatter,
+             all_to_all, broadcast, barrier) on the backend, each giving
+             its input back, with the comms logger's latencies; the tiled
+             matmul + all-reduce at serve-tp's down-projection shape
+             ([1024, 7168] x [7168, 4096] bf16) bitwise its serial path at
+             2, 4 and 8 tiles, and both timed; a comm.bench sweep of every
+             op (2^12 to 2^24 bytes) and its overlap leg; an NCCL
+             all-reduce captured in a CUDA graph, replayed and checked.
+3c. serve-tp — tensor-parallel serving: two ranks (spawned processes)
+             share the card over gloo (NCCL puts no two ranks of one
+             communicator on one device), MeshConfig(tensor=2).  (a)
+             Llama-3-8B at full width and depth in bf16, each rank drawing
+             the seeded weights leaf by leaf and keeping its slice (the
+             one-rank model's values); its cache holds 4 of the 8 KV heads
+             and K2 runs on its 16 query heads (K2-TP); phase 5's traffic,
+             every step eager (gloo is not captured): the first prefill's
+             logits within 2x the bf16 noise floor of the one-rank
+             engine's (the parent's, same seed), both ranks' streams
+             equal and equal to the one-rank engine's or first different
+             at a near-tie (its teacher-forced margin printed), K2 = 32 x
+             steps a rank, TTFT, prefill and decode tok/s, the comm share
+             of a prefill and a decode step (every collective timed
+             between synchronizations); (b) the same model at 4 layers
+             with weight_quant="int8", 2 prompts of 128 tokens, 8 new
+             tokens: the quantized tree memory-sharded over the ranks
+             and gathered a layer at use, K3 = 7 x 4 x steps and K2 = 4 x
+             steps a rank, streams against the one-rank int8 engine
+             (near-tie rule).  No number of this
+             phase is a multi-card speed.
 4. train   — GPT-2-small at full width and depth (bf16, ZeRO-1, AdamW,
              clip 1.0, micro-batch 32, seq 1024, attention_impl="flash":
              bench.py's training configuration) through
@@ -606,6 +638,11 @@ K2_CASES = [("llama3-8b mixed", (32, 8, 128, 64, 512, 20), False),
             ("falcon-7b decode", (71, 1, 64, 64, 512, 100), False),
             ("qwen2-moe-a2.7b mixed", (16, 16, 128, 64, 512, 20), False),
             ("qwen2-moe-a2.7b decode", (16, 16, 128, 64, 512, 100), False)]
+
+# K2-TP: one rank's head group of Llama-3-8B under tensor=2 (16 query
+# heads over 4 KV heads), what serve-tp (a) launches on each rank
+K2_TP_CASES = [("llama3-8b tp2 rank mixed", (16, 4, 128, 64, 512, 20)),
+               ("llama3-8b tp2 rank decode", (16, 4, 128, 64, 512, 100))]
 
 
 def k2_plan(torch, case, H, Hkv):
@@ -6383,6 +6420,479 @@ def aux_phase(torch, fa, seed):
     return variants
 
 
+# ---------------------------------------------------------------------------
+# comm: the collectives at world 1 over NCCL
+# ---------------------------------------------------------------------------
+
+# serve-tp's down-projection on a rank: [token budget, d_ff / 2] x
+# [d_ff / 2, d_model] (Llama-3-8B, tensor=2)
+COMM_MM = (1024, 7168, 4096)
+COMM_TILES = (2, 4, 8)
+COMM_SWEEP = (12, 24)       # log2 of the sweep's message bytes
+
+
+def comm_phase(torch, seed, device=None):
+    """``comm/`` on one card: a world of one rank over NCCL.  Every
+    ``Collectives`` op runs on the backend (an axis of size 1 keeps its
+    one-rank group) and must give its input back; the tiled matmul +
+    all-reduce is bitwise its serial path at every tile count; a small
+    ``comm.bench`` sweep and its overlap leg; an NCCL all-reduce captured
+    in a CUDA graph and replayed.  Returns the facts for PERF.md."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.comm import (Collectives, MeshTopology, bench,
+                                          comms_logger, init_distributed,
+                                          overlapped_matmul_allreduce)
+    from deepspeed_tpu_torch.comm.collectives import exact_psum
+    from deepspeed_tpu_torch.config.config import MeshConfig
+    dev = torch.device(device or "cuda")
+    t0 = time.perf_counter()
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        topo = MeshTopology.build(MeshConfig())
+        log(f"[comm] process group: backend {dist.get_backend()}, world "
+            f"{dist.get_world_size()}; mesh {topo.axis_sizes}; a one-rank "
+            f"group on every axis: {topo.group('tensor') is not None}")
+        col = Collectives(topo)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn((4096, 1024), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        # the first call of each op builds NCCL's communicator: the
+        # second round is the one logged
+        for logged in (False, True):
+            if logged:
+                comms_logger.configure(enabled=True, prof_all=True)
+                comms_logger.reset()
+            outs = {"all_reduce": col.all_reduce(x),
+                    "all_reduce mean": col.all_reduce(x, op="mean"),
+                    "all_gather": col.all_gather(x),
+                    "reduce_scatter": col.reduce_scatter(x),
+                    "all_to_all": col.all_to_all(x, split_dim=0,
+                                                 concat_dim=1),
+                    "broadcast": col.broadcast(x, src=0)}
+        col.barrier()
+        comms_logger.configure(enabled=False)
+        bad = [k for k, v in outs.items() if not torch.equal(v, x)]
+        table = comms_logger.log_all(print_log=False)
+        log("[comm] Collectives over NCCL at world 1 (4096 x 1024 bf16, "
+            "8 MiB): " + ", ".join(
+                f"{op} {rec['avg_latency_ms']:.4f} ms" for op, sizes in
+                sorted(table.items()) for rec in sizes.values())
+            + f"; each gives its input back: {not bad}; calls counted "
+            f"{int(col.metrics.counter('training_comm_collective_calls_total').value(op='all_reduce'))}"
+            " all_reduce")
+        if bad:
+            raise AssertionError(f"comm: {bad} changed the tensor at world 1")
+
+        rows, k, n = COMM_MM
+        u = torch.randn((rows, k), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        w = torch.randn((k, n), generator=gen, device=dev,
+                        dtype=torch.bfloat16) * k ** -0.5
+        g, size = topo.group("tensor"), topo.size("tensor")
+        serial = exact_psum(u @ w, g, size)
+        tiled = {t: overlapped_matmul_allreduce(u, w, "tensor", tiles=t,
+                                                topology=topo)
+                 for t in COMM_TILES}
+        not_bitwise = [t for t, y in tiled.items()
+                       if not torch.equal(y, serial)]
+        ms_serial = time_ms(torch, lambda: exact_psum(u @ w, g, size), 20)
+        ms_tiled = time_ms(torch, lambda: overlapped_matmul_allreduce(
+            u, w, "tensor", tiles=4, topology=topo), 20)
+        log(f"[comm] matmul + all-reduce [{rows}, {k}] x [{k}, {n}] bf16: "
+            f"tiles {COMM_TILES} bitwise the serial path: "
+            f"{not not_bitwise and 'all'}{not_bitwise or ''}; serial "
+            f"{ms_serial:.4f} ms, 4 tiles {ms_tiled:.4f} ms (CUDA events)")
+        if not_bitwise:
+            raise AssertionError(f"comm: tiles {not_bitwise} are not bitwise "
+                                 "the serial matmul + all-reduce")
+
+        recs = bench.sweep(list(bench.OPS), *COMM_SWEEP, trials=10,
+                           warmups=3, dtype="bfloat16", print_table=False,
+                           device=dev)
+        big = {r["op"]: r for r in recs if r["bytes"] == 1 << COMM_SWEEP[1]}
+        log(f"[comm] bench sweep 2^{COMM_SWEEP[0]}..2^{COMM_SWEEP[1]} bytes "
+            f"({len(recs)} records); at 2^{COMM_SWEEP[1]}: " + ", ".join(
+                f"{op} {r['latency_us']:.1f} us ({r['algbw_gbps']:.1f} "
+                f"Gbps)" for op, r in big.items()))
+        leg = bench.overlap_bench(rows=rows, k=4096, nmodel=n, tiles=4,
+                                  trials=10, warmups=3, dtype="bfloat16",
+                                  device=dev)
+        log(f"[comm] overlap leg: {leg}")
+
+        # an NCCL all-reduce in a CUDA graph: captured once, replayed
+        y = torch.empty_like(x)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):           # the communicator's warm-up
+            y.copy_(x)
+            dist.all_reduce(y)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y.copy_(x)
+            y.mul_(2)
+            dist.all_reduce(y)
+        x.add_(1)
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        ok = torch.equal(y, x * 2)
+        replay_ms = time_ms(torch, graph.replay, 20)
+        log(f"[comm] NCCL all-reduce captured in a CUDA graph: replay gives "
+            f"2x the updated input: {ok}; {replay_ms:.4f} ms a replay")
+        if not ok:
+            raise AssertionError("comm: the captured all-reduce replayed "
+                                 "wrong values")
+        del graph
+    finally:
+        dist.destroy_process_group()
+    log(f"[comm] phase wall {time.perf_counter() - t0:.2f} s "
+        f"[{nvidia_smi_line()}]")
+    return dict(serial_ms=ms_serial, tiled_ms=ms_tiled, replay_ms=replay_ms)
+
+
+# ---------------------------------------------------------------------------
+# serve-tp: Llama-3-8B over two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+TP_MESH = dict(tensor=2)
+TP_WORLD = 2
+# (b): int8 weights, the model cut to 4 layers, and its traffic cut to 2
+# prompts of 128 tokens and 8 new tokens: each step gathers every layer's
+# payload through host memory (gloo): ~2.7 s a step on an H100 at 700 W
+TP_QUANT_LAYERS = 4
+TP_QUANT_PROMPTS = (2, 128)
+TP_QUANT_NEW = 8
+TP_TIMEOUT = 600.0           # seconds a rank job may take
+
+
+def tp_first_logits(torch, cfg, params, prompts, kv_heads, shard_mesh=None,
+                    comm=None):
+    """The first prefill's logits of prompts 0 and 1 (first_forward_check's
+    batch) on a fresh cache of ``kv_heads`` heads a layer, fp32 [2, vocab]
+    on the host."""
+    from deepspeed_tpu_torch.inference.model import ragged_forward
+    from deepspeed_tpu_torch.inference.ragged.state import (KVCacheConfig,
+                                                            StateManager)
+    dev = params["ln_f"]["scale"].device
+    sm = StateManager(KVCacheConfig(cfg.num_layers, kv_heads, cfg.head_dim,
+                                    block_size=64, num_blocks=64,
+                                    dtype=torch.bfloat16, device=dev),
+                      max_seqs=2)
+    batch = sm.build_batch([(0, prompts[0]), (1, prompts[1])], 1024)
+    logits, _ = ragged_forward(cfg, params, sm.kv, batch, 64, 8,
+                               shard_mesh=shard_mesh, comm=comm)
+    return logits[[sm.slot(0), sm.slot(1)]].float().cpu()
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def tp_engine_run(torch, eng, prompts, n_new, rates=True):
+    """A rank's measured run on its engine: ``n_new`` greedy tokens a
+    prompt with the K2 and K3 counts zeroed just before and read just
+    after.  With ``rates``: a 1-token warm-up and a 1-token run first
+    (prefill tok/s; decode tok/s from the two runs' walls), then one
+    prefill and one decode step with every collective timed between
+    synchronizations (the comm share of a step)."""
+    import importlib
+
+    from deepspeed_tpu_torch.inference import SamplingParams
+    pa = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")\
+        .paged_attention
+    mg = importlib.import_module("deepspeed_tpu_torch.ops.mixed_gemm")
+    dev = eng.device
+    traffic = dict(enumerate(prompts))
+
+    def run(n):
+        fresh_run(eng)
+        _sync(torch, dev)
+        t = time.perf_counter()
+        out = eng.generate(traffic, SamplingParams(max_new_tokens=n))
+        _sync(torch, dev)
+        return time.perf_counter() - t, out, dict(eng.timings)
+
+    out = {}
+    if rates:
+        run(1)
+        t_pre, _, tm_pre = run(1)
+    pa.launches = pa.int8_launches = 0
+    mg.mixed_matmul_2d.launches = 0
+    mg.mixed_matmul_2d.design_launches = {k: 0 for k in
+                                          mg.mixed_matmul_2d.design_launches}
+    t_all, streams, tm = run(n_new)
+    out.update(streams={u: list(v) for u, v in streams.items()},
+               steps=int(tm["steps"]), eager_steps=int(tm["eager_steps"]),
+               launches=dict(k2=pa.launches, k3=mg.mixed_matmul_2d.launches,
+                             k3_design=dict(
+                                 mg.mixed_matmul_2d.design_launches)),
+               wall_s=t_all)
+    if not rates:
+        return out
+    computed = tm_pre["prompt_tokens"] - tm_pre["cached_tokens"]
+    ttft = sorted(eng.ttft_ms[u] for u in streams)
+    fresh_run(eng)
+    shard, share, nxt = eng._shard, {}, {}
+
+    def timed_step(kind):
+        shard.measure, shard.comm_ms = True, 0.0
+        _sync(torch, dev)
+        t = time.perf_counter()
+        got = eng.step()
+        _sync(torch, dev)
+        wall = (time.perf_counter() - t) * 1e3
+        shard.measure = False
+        share[kind] = dict(step_ms=wall, comm_ms=shard.comm_ms,
+                           share=shard.comm_ms / wall)
+        return got
+
+    # the bare exact all-reduce a step's rows take, with no model work
+    # beside it: a decode step's [8, d_model] and a prefill step's
+    # [1024, d_model] bf16 partial sums
+    bare = {}
+    for rows in (len(prompts), SERVE_ENGINE["token_budget"]):
+        x = torch.ones((rows, eng.cfg.d_model), dtype=torch.bfloat16,
+                       device=dev)
+        shard.psum(x)
+        _sync(torch, dev)
+        t = time.perf_counter()
+        for _ in range(10):
+            shard.psum(x)
+        _sync(torch, dev)
+        bare[rows] = (time.perf_counter() - t) / 10 * 1e3
+    for u, p in traffic.items():
+        eng.put(u, p)
+    nxt.update(timed_step("prefill"))
+    while len(nxt) < len(traffic):
+        nxt.update(eng.step())
+    for u, t in nxt.items():
+        eng.put(u, [t])
+    timed_step("decode")
+    for u in traffic:
+        eng.flush(u)
+    out.update(ttft_p50_ms=statistics.median(ttft),
+               prefill_tok_s=computed / t_pre,
+               decode_tok_s=len(prompts) * (n_new - 1)
+               / max(t_all - t_pre, 1e-9), comm=share, bare_psum_ms=bare)
+    return out
+
+
+def tp_serve_a(seed, prompts, device=None, overrides=None):
+    """serve-tp (a) on a rank: Llama-3-8B drawn leaf by leaf in
+    init_params' order, each leaf cut to this rank's slice as it is drawn
+    (the values are the one-device model's), served with
+    ``MeshConfig(tensor=2)``."""
+    import torch
+
+    from deepspeed_tpu_torch.comm import MeshTopology
+    from deepspeed_tpu_torch.config.config import MeshConfig
+    from deepspeed_tpu_torch.inference import (InferenceConfig,
+                                               InferenceEngine)
+    from deepspeed_tpu_torch.inference.engine import rank_cut
+    from deepspeed_tpu_torch.models import Model, build_config
+    from deepspeed_tpu_torch.models.transformer import (
+        init_params_and_axes, tree_leaves)
+    dev = torch.device(device or "cuda", torch.cuda.current_device()) \
+        if (device or "cuda") == "cuda" else torch.device(device)
+    cfg = build_config("llama3-8b", **(overrides or {}))
+    topo = MeshTopology.build(MeshConfig(**TP_MESH))
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, axes = init_params_and_axes(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+        torch.bfloat16, cut=rank_cut(cfg, topo))
+    model = Model.from_params(cfg, params, axes)
+    draw_s = time.perf_counter() - t0
+    weight_bytes = sum(x.numel() * x.element_size()
+                       for x in tree_leaves(params))
+    eng = InferenceEngine(model, InferenceConfig(**SERVE_ENGINE),
+                          topology=topo)
+    kv = eng.state.kv
+    logits = tp_first_logits(torch, cfg, eng.params, prompts,
+                             kv.shape[4], eng._shard, eng._serving_comm)
+    out = tp_engine_run(torch, eng, prompts, SERVE_NEW_TOKENS)
+    out.update(logits=logits, kv_shape=tuple(kv.shape),
+               weight_bytes=weight_bytes, draw_s=draw_s,
+               comm_plan=str(eng._serving_comm and eng._serving_comm._replace(
+                   mesh=None)),
+               rank=topo.rank, peak_gib=(
+                   torch.cuda.max_memory_allocated() / 2**30
+                   if dev.type == "cuda" else 0.0))
+    del eng, model, params
+    free_engines(torch) if dev.type == "cuda" else gc.collect()
+    return out
+
+
+def tp_serve_b(seed, prompts, device=None, overrides=None):
+    """serve-tp (b) on a rank: the same model at TP_QUANT_LAYERS layers
+    with ``weight_quant="int8"`` under ``MeshConfig(tensor=2)``: the
+    quantized tree memory-sharded, each layer gathered at use and run
+    through the mixed-input GEMM (K3) on the rank."""
+    import torch
+
+    from deepspeed_tpu_torch.comm import MeshTopology
+    from deepspeed_tpu_torch.config.config import MeshConfig
+    from deepspeed_tpu_torch.inference import (InferenceConfig,
+                                               InferenceEngine)
+    from deepspeed_tpu_torch.models import build_model
+    dev = torch.device(device or "cuda", torch.cuda.current_device()) \
+        if (device or "cuda") == "cuda" else torch.device(device)
+    topo = MeshTopology.build(MeshConfig(**TP_MESH))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = build_model("llama3-8b", seed=seed, dtype=torch.bfloat16,
+                        device=dev, **{"num_layers": TP_QUANT_LAYERS,
+                                       **(overrides or {})})
+    eng = InferenceEngine(model, InferenceConfig(**SERVE_ENGINE,
+                                                 weight_quant="int8"),
+                          topology=topo)
+    q = eng._quant["blocks"]["mlp"]["wi"]
+    out = tp_engine_run(torch, eng, prompts, TP_QUANT_NEW, rates=False)
+    out.update(kv_shape=tuple(eng.state.kv.shape),
+               wi_local=tuple(q.data.shape), wi_shape=q.shape,
+               mixed=eng._mixed_gemm_active, rank=topo.rank,
+               peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                         if dev.type == "cuda" else 0.0))
+    del eng, model
+    free_engines(torch) if dev.type == "cuda" else gc.collect()
+    return out
+
+
+def tp_check_ranks(res, cfg, layers, n_new, tag):
+    """Both ranks served the same streams of ``n_new`` tokens; K2 launched
+    once a layer a step on each (every step eager: gloo is not
+    captured)."""
+    for r in res:
+        line = (f"[{tag}] rank {r['rank']}: {r['steps']} steps "
+                f"({r['eager_steps']} eager) in {r['wall_s']:.2f} s, K2 "
+                f"launches {r['launches']['k2']} (= {layers} x "
+                f"{r['steps']}), K3 {r['launches']['k3']} "
+                f"{r['launches']['k3_design']}; KV cache a rank "
+                f"{r['kv_shape']}; peak {r['peak_gib']:.2f} GiB")
+        if "comm" in r:
+            c = r["comm"]
+            line += (f"; TTFT p50 {r['ttft_p50_ms']:.1f} ms, prefill "
+                     f"{r['prefill_tok_s']:.0f} tok/s, decode "
+                     f"{r['decode_tok_s']:.1f} tok/s; comm share of a "
+                     f"prefill step {100 * c['prefill']['share']:.1f}% "
+                     f"({c['prefill']['comm_ms']:.2f} of "
+                     f"{c['prefill']['step_ms']:.2f} ms), of a decode step "
+                     f"{100 * c['decode']['share']:.1f}% "
+                     f"({c['decode']['comm_ms']:.2f} of "
+                     f"{c['decode']['step_ms']:.2f} ms); a bare all-reduce "
+                     f"(ms by rows): " + ", ".join(
+                         f"{k}: {v:.3f}" for k, v in
+                         r["bare_psum_ms"].items()))
+        log(line)
+        check_tokens(r["streams"], cfg, n_new, tag)
+        if r["launches"]["k2"] != layers * r["steps"] \
+                or r["launches"]["k2"] == 0 or r["eager_steps"] != r["steps"]:
+            raise AssertionError(f"{tag}: rank {r['rank']} did not launch K2 "
+                                 "on its head group in every layer of every "
+                                 "eager step")
+        if r["kv_shape"][4] != cfg.num_kv_heads // TP_MESH["tensor"]:
+            raise AssertionError(f"{tag}: rank {r['rank']}'s cache holds "
+                                 f"{r['kv_shape'][4]} KV heads")
+    if any(r["streams"] != res[0]["streams"] for r in res[1:]):
+        raise AssertionError(f"{tag}: the ranks' streams differ")
+
+
+def serve_tp(torch, seed, device=None, **overrides):
+    """serve-tp: (a) Llama-3-8B at full width and depth (bf16) under
+    MeshConfig(tensor=2), two ranks sharing the card over gloo, against
+    the one-rank engine on the same seeded weights: the first prefill's
+    logits within 2x the bf16 noise floor, the greedy streams equal or
+    first different at a near-tie; (b) the same model at 4 layers with
+    int8 weights, K3 on memory-sharded weights.  Returns the K2 and K3
+    launches a rank and the rates."""
+    from deepspeed_tpu_torch.inference import (InferenceConfig,
+                                               InferenceEngine,
+                                               SamplingParams)
+    from deepspeed_tpu_torch.models import build_model
+    tag = "serve-tp a"
+    t0 = time.perf_counter()
+    from deepspeed_tpu_torch.comm.ranks import RankPool
+    # the ranks run this script's tp_serve_* (it is each rank's __main__)
+    ranks = RankPool(TP_WORLD, __name__,
+                     init_method=f"tcp://127.0.0.1:{free_port()}",
+                     device=device or "cuda", timeout=TP_TIMEOUT)
+    try:
+        model, prompts = serving_model(torch, "llama3-8b", seed, tag=tag,
+                                       device=device, **overrides)
+        cfg = model.config
+        tol = first_forward_check(torch, model, prompts, tag)
+        ref_logits = tp_first_logits(torch, cfg, model.params, prompts,
+                                     cfg.num_kv_heads)
+        eng1 = InferenceEngine(model, InferenceConfig(**SERVE_ENGINE))
+        ref = eng1.generate(dict(enumerate(prompts)),
+                            SamplingParams(max_new_tokens=SERVE_NEW_TOKENS))
+        log(f"[{tag}] the one-rank engine's streams taken; ranks start "
+            f"({time.perf_counter() - t0:.1f} s into the phase)")
+        t_a = time.perf_counter()
+        res = ranks.run("tp_serve_a", seed, prompts, device, overrides)
+        log(f"[{tag}] ranks done in {time.perf_counter() - t_a:.1f} s; each "
+            f"drew its slice in {res[0]['draw_s']:.2f} s "
+            f"({res[0]['weight_bytes'] / 1e9:.3f} GB a rank); comm plan "
+            f"{res[0]['comm_plan']}; backend gloo, {TP_WORLD} ranks on one "
+            f"card")
+        for r in res:
+            err = float((r["logits"] - ref_logits).abs().max())
+            log(f"[{tag}] rank {r['rank']} first prefill logits vs the "
+                f"one-rank engine's: max|d| {err:.4f} (tol {tol:.4f}, 2x the "
+                f"bf16 noise floor)")
+            if not bool(torch.isfinite(r["logits"]).all()) or err > tol:
+                raise AssertionError(f"{tag}: rank {r['rank']}'s first "
+                                     f"logits off by {err} > {tol}")
+        tp_check_ranks(res, cfg, cfg.num_layers, SERVE_NEW_TOKENS, tag)
+        got = {int(u): v for u, v in res[0]["streams"].items()}
+        check_near_ties(torch, eng1, dict(enumerate(prompts)), got,
+                        {u: list(v) for u, v in ref.items()}, tol, tag)
+        out = dict(a=res)
+        del eng1, model
+        free_engines(torch) if device is None else gc.collect()
+
+        tag = "serve-tp b"
+        over_b = {"num_layers": TP_QUANT_LAYERS, **overrides}
+        t_b = time.perf_counter()
+        model = build_model("llama3-8b", seed=seed, dtype=torch.bfloat16,
+                            device=device, **over_b)
+        tol_b = first_forward_check(torch, model, prompts, tag)
+        n_b, len_b = TP_QUANT_PROMPTS
+        prompts_b = [p[:len_b] for p in prompts[:n_b]]
+        eng1 = InferenceEngine(model, InferenceConfig(
+            **SERVE_ENGINE, weight_quant="int8"))
+        ref = eng1.generate(dict(enumerate(prompts_b)),
+                            SamplingParams(max_new_tokens=TP_QUANT_NEW))
+        res = ranks.run("tp_serve_b", seed, prompts_b, device, overrides)
+        log(f"[{tag}] {TP_QUANT_LAYERS} layers, int8 weights: wi's payload "
+            f"a rank {res[0]['wi_local']} of {res[0]['wi_shape']} "
+            f"(memory-sharded, gathered at use); mixed-input GEMM "
+            f"{res[0]['mixed']}; ranks done in "
+            f"{time.perf_counter() - t_b:.1f} s")
+        tp_check_ranks(res, model.config, TP_QUANT_LAYERS, TP_QUANT_NEW, tag)
+        for r in res:
+            k3 = r["launches"]["k3"]
+            if k3 != 7 * TP_QUANT_LAYERS * r["steps"] or k3 == 0:
+                raise AssertionError(f"{tag}: rank {r['rank']}: K3 launched "
+                                     f"{k3} times, not 7 x "
+                                     f"{TP_QUANT_LAYERS} x {r['steps']}")
+        got = {int(u): v for u, v in res[0]["streams"].items()}
+        check_near_ties(torch, eng1, dict(enumerate(prompts_b)), got,
+                        {u: list(v) for u, v in ref.items()}, tol_b, tag)
+        out["b"] = res
+        del eng1, model
+        free_engines(torch) if device is None else gc.collect()
+    finally:
+        ranks.close()
+    log(f"[serve-tp] phase wall {time.perf_counter() - t0:.2f} s "
+        f"[{nvidia_smi_line()}]")
+    return out
+
+
 def device_profile(torch, run, wall_unprofiled, tag="serve", split=()):
     """The kernels that take the device time, over one more full run under
     torch.profiler (``run(prof)`` returns its wall seconds), and the
@@ -6468,7 +6978,7 @@ def main() -> int:
                             "serve-alibi,"
                             "serve-mqa,"
                             "serve-spec,serve-moe,train-moe,train-fp16,"
-                            "hybrid,train-offload,train-nvme")
+                            "hybrid,comm,serve-tp,train-offload,train-nvme")
     ap.add_argument("--seed", type=int, default=0)
     # serve-failover (e) runs this script again as its child process
     ap.add_argument("--failover-child", metavar="SNAPSHOT_PATH",
@@ -6537,7 +7047,7 @@ def main() -> int:
     # 3. kernels vs plain
     kern = None
     qkv_kern, mixed_kern, alibi_kern, flash_kern = {}, {}, {}, {}
-    mqa_kern, d80_kern = {}, {}
+    mqa_kern, d80_kern, tp_kern = {}, {}, {}
     if "kernel" in phases:
         from deepspeed_tpu_torch.models.layers import alibi_slopes
         dev = torch.device("cuda")
@@ -6563,6 +7073,12 @@ def main() -> int:
                     (alibi_kern if alibi else qkv_kern).setdefault(code, res)
             del case
             torch.cuda.empty_cache()
+        for name, (H, Hkv, D, bs, nblk, iters) in K2_TP_CASES:
+            make = decode_batch if "decode" in name else mixed_batch
+            case = make(torch, H, Hkv, D, bs, nblk, args.seed, dev)
+            tp_kern.setdefault("bf16", check_kernel_case(
+                torch, pa, name, case, H, Hkv, D, iters))
+            del case
         for name, dt, (B, H, Hkv, S, D, iters) in FLASH_CASES:
             res = check_flash_case(torch, fa, name, B, H, Hkv, S, D, iters,
                                    dt)
@@ -6578,6 +7094,17 @@ def main() -> int:
                         mixed_kern[bits, res.pop("design")] = res
                     torch.cuda.empty_cache()
         phase_done("kernel")
+
+    # 3b. comm/ at world 1 over NCCL; 3c. Llama-3-8B tensor-parallel over
+    # two gloo ranks on the card (early: a multi-process phase on a free
+    # card)
+    if "comm" in phases:
+        comm_phase(torch, args.seed)
+        phase_done("comm")
+    tp_run = {}
+    if "serve-tp" in phases:
+        tp_run = serve_tp(torch, args.seed)
+        phase_done("serve-tp")
 
     # 4. and 4b. the training path, bf16 and fp32 (GPT-2-small); 8. fp16
     # (phi-2) runs last.  flash_runs: each training run's flash launches by
@@ -6767,8 +7294,19 @@ def main() -> int:
         # serve-offload's paths likewise: (a) the host-memory cache, (b)
         # the streamed weights' int8 cache, (c) the KV tier's rounds; and
         # serve-fleet's measured run through the gateway
+        def tp_launches(run, key):
+            # a rank's count in serve-tp's run (every rank's is checked
+            # equal to layers x steps; rank 0's is reported)
+            return tp_run[run][0]["launches"][key] if run in tp_run \
+                else None
+
+        def tp_k3(design):
+            return (tp_run["b"][0]["launches"]["k3_design"][design]
+                    if "b" in tp_run else None)
+
         entries = [dict(name="paged_attention", route="cuda", source=pa_src,
                         replaces=pa_replaces, launches=launches,
+                        tp_launches=tp_launches("a", "k2"),
                         failover_launches=failover_launches,
                         fleet_launches=fleet_launches,
                         moe_launches=moe_launches,
@@ -6799,7 +7337,8 @@ def main() -> int:
                          replaces=f"deepspeed_tpu/ops/mixed_gemm.py:{line}",
                          launches=quant_launches(run, design),
                          **({"stream_launches": (stream_design or {}).get(
-                             design)} if bits == 8 else {}),
+                             design), "tp_launches": tp_k3(design)}
+                            if bits == 8 else {}),
                          **mixed_kern[bits, design])
                     for bits, line, run in ((8, 49, "a"), (4, 125, "b"))
                     for design in ("decode", "prefill")]
@@ -6818,6 +7357,15 @@ def main() -> int:
         entries += [dict(name="paged_attention_d80", route="cuda",
                          source=pa_src, replaces=pa_replaces,
                          launches=hybrid_launches, **d80_kern["bf16"])]
+        # K2-TP: K2 on one rank's head group (16 query heads over 4 KV
+        # heads, tensor=2), timed at that shape; launches a rank in
+        # serve-tp (a)
+        entries += [dict(name="paged_attention_tp", route="cuda",
+                         source=pa_src,
+                         replaces="deepspeed_tpu/inference/model.py:96",
+                         launches=tp_launches("a", "k2"),
+                         tp_launches=tp_launches("a", "k2"),
+                         **tp_kern["bf16"])]
         print(json.dumps({"kernels": entries}), flush=True)
     print(rep["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

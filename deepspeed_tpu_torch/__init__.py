@@ -26,11 +26,15 @@ minifloat weight layouts (``ops.quant``, served through
 ``weight_quant="fp6"|"fp12"``), and the aux subsystems: elastic batch
 planning (``elasticity``), the environment report (``env_report``), the
 autotuner (``autotuning``), the launcher (``launcher``) and
-``runtime.partition_balanced`` / ``see_memory_usage``.
+``runtime.partition_balanced`` / ``see_memory_usage``, and
+tensor-parallel serving over ``torch.distributed``: the named-axis
+mesh and its collectives (``comm``), the logical-axis sharding rules
+(``parallel.sharding``) and ``InferenceEngine(topology=...)``.
 """
 
 __version__ = "0.1.0"
 
+from .comm import MeshTopology, init_distributed            # noqa: F401
 from .config import Config, load_config                     # noqa: F401
 from .inference import (InferenceConfig, InferenceEngine,   # noqa: F401
                         SamplingParams)

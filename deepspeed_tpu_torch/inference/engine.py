@@ -125,6 +125,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, \
 import numpy as np
 import torch
 
+from ..comm.mesh import MeshTopology
 from ..models.transformer import (Model, TransformerConfig, tree_leaves,
                                   tree_map)
 from ..ops import mixed_gemm as _mixed_gemm_mod
@@ -136,6 +137,7 @@ from ..ops.paged_attention import held_workspaces as _paged_workspaces
 from ..ops.quant import (WEIGHT_QUANT_BITS, QuantizedTensor, _fmt_of,
                          is_minifloat, is_mixed_gemm_layout, is_rowwise_int4,
                          minifloat_tables)
+from ..runtime.runtime_utils import tree_at, tree_map_with_path
 from ..telemetry import (AnomalyConfig, AnomalyMonitor, CounterDictView,
                          DeviceTelemetry, FlightRecorder, MetricsRegistry,
                          ProfilerCapture, RequestTracker, SloTracker,
@@ -238,10 +240,12 @@ _UNSUPPORTED = {
     "attn_impl": (("auto",), "ROADMAP Queue 1, serving slice: the kernel "
                   "is chosen by the tensors' device, there is no probe"),
     "kv_donate": (("auto", "on"), "in-place KV updates (no 'off')"),
-    "comm_overlap": (("auto", "off"), "ROADMAP Queue 1, multi-GPU "
-                     "training breadth (tensor parallelism)"),
-    "comm_quant": ((None,), "ROADMAP Queue 1, multi-GPU training breadth"),
+    "comm_quant": ((None,), "ROADMAP Queue 1 item 6, the quantized "
+                   "collectives"),
 }
+
+# the multi-GPU work left (ROADMAP Queue 1 item 6) that a topology refuses
+_ITEM6_STATE = "ROADMAP Queue 1 item 6, multi-process state"
 
 # retained CUDA graphs (the JAX engine's executable-cache bounds)
 _MAX_STEP_GRAPHS = 16
@@ -483,6 +487,37 @@ def _quant_placements(dst, src, path: str = "quant") -> List[tuple]:
     return pairs
 
 
+# a leaf smaller than this many elements is never memory-sharded (the
+# JAX engine's ``min_size``)
+_MEMORY_SHARD_MIN = 1 << 14
+
+
+def dense_specs(cfg: TransformerConfig, topology, axes=None):
+    """Each dense weight's spec under ``topology``: the logical-axis
+    tensor rules (``parallel.sharding.tree_specs`` over ``axes``, default
+    the config's own ``param_axes``), with the ``fsdp`` axis layered on
+    as a memory shard, as the JAX engine's ``_shard_weights`` places
+    them."""
+    from ..models.transformer import param_axes, param_shapes
+    from ..parallel import sharding as shd
+    shapes = param_shapes(cfg)
+    specs = shd.tree_specs(axes or param_axes(cfg), topology, shapes=shapes)
+    return tree_map_with_path(lambda path, spec: shd.add_fsdp_to_spec(
+        spec, tree_at(shapes, path), topology, min_size=_MEMORY_SHARD_MIN),
+        specs)
+
+
+def rank_cut(cfg: TransformerConfig, topology, axes=None):
+    """``init_params(cut=...)`` for a rank of ``topology``: the rank keeps
+    its slice of each dense weight as it is drawn (a clone, so the whole
+    is freed), the slice ``InferenceEngine`` serves.  The draws are the
+    one-device model's, so the values are too."""
+    from ..parallel.sharding import local_slice
+    specs = dense_specs(cfg, topology, axes)
+    return lambda path, x: local_slice(x, tree_at(specs, path),
+                                       topology).clone()
+
+
 class _Graph:
     """A captured step or burst: the graph, its output tensor, the
     launch counts one replay stands for, and the kernel workspaces it
@@ -494,27 +529,35 @@ class _Graph:
 
 
 class InferenceEngine:
-    """Single-device serving engine on the model's device (the card, or
-    the CPU when the model was built with ``device="cpu"``)."""
+    """Serving engine on the model's device (the card, or the CPU when the
+    model was built with ``device="cpu"``); with a ``topology`` of
+    several ranks, this rank's part of a tensor-parallel engine (the
+    logical-axis rules shard its weights and its KV heads; each rank runs
+    the same requests)."""
 
     def __init__(self, model: Model, config: Optional[InferenceConfig] = None,
                  topology=None, *, quant_tree=None):
         """The positional order is the reference's (``model, config,
-        topology``).  ``topology``: the device mesh of a sharded engine;
-        one device takes none, and anything else raises.  ``quant_tree``:
+        topology``).  ``topology``: a :class:`~..comm.mesh.MeshTopology`
+        over this process group (one device means no topology): each
+        rank serves its slice of the model (``_shard_weights``), the
+        cache holds its KV heads, and every rank must run the same
+        requests in the same order (each takes the same decisions and
+        samples from the same gathered logits).  ``quant_tree``:
         a pre-built quantized tree (the second output of
         ``quantization.quantize_model_params``, e.g. carried over from a
         quantized checkpoint with ``models.quant_tree_from_numpy``);
         ``model.params`` must then be the matching dense remainder, and
         ``weight_quant`` is not re-applied."""
-        if topology is not None:
-            raise NotImplementedError(
-                f"InferenceEngine(topology={topology!r}): a sharded engine "
-                "is not ported yet (ROADMAP Queue 1 item 6, multi-GPU); "
-                "one device takes topology=None")
         self.model = model
         self.cfg: TransformerConfig = model.config
         self.icfg = config or InferenceConfig()
+        if topology is not None and not isinstance(topology, MeshTopology):
+            raise TypeError(f"topology={topology!r}: expected a "
+                            "comm.MeshTopology (or None on one device)")
+        self.topology = topology if (
+            topology is not None and topology.device_count > 1) else None
+        self._check_topology()
         wq = self.icfg.weight_quant
         if wq is not None and wq not in WEIGHT_QUANT_BITS:
             raise ValueError(f"weight_quant={wq!r}: expected one of "
@@ -552,9 +595,15 @@ class InferenceEngine:
         # a sequence can never hold more blocks than the pool has
         self.max_blocks_per_seq = min(-(-max_len // self.icfg.kv_block_size),
                                       self.icfg.num_kv_blocks)
+        # a head-split cache holds this rank's Hkv/tp heads
+        # (_setup_sharding); one that is not holds them all on every rank
+        tp = self.topology.tp_size if self.topology is not None else 1
+        self._head_split = (tp > 1 and self.cfg.num_kv_heads % tp == 0
+                            and self.cfg.num_heads % tp == 0)
         kv_cfg = KVCacheConfig(
             num_layers=self.cfg.num_layers,
-            num_kv_heads=self.cfg.num_kv_heads,
+            num_kv_heads=self.cfg.num_kv_heads // (
+                tp if self._head_split else 1),
             head_dim=self.cfg.head_dim,
             block_size=self.icfg.kv_block_size,
             num_blocks=self.icfg.num_kv_blocks,
@@ -603,6 +652,9 @@ class InferenceEngine:
             raise ValueError(f"mixed_gemm='on': {refusal}; use 'auto'")
         self._mixed_gemm_active = (self.icfg.mixed_gemm != "off"
                                    and refusal is None)
+        self._shard = None
+        self._setup_sharding()
+        self._serving_comm = self._resolve_serving_comm()
         self._cuda = self.device.type == "cuda"
         # uid -> unprocessed toks
         self._pending: Dict[int, List[int]] = {}
@@ -686,16 +738,17 @@ class InferenceEngine:
         counters.update({k: reg.counter(name, h, int_valued=True)
                          for k, (name, h) in _INT_TIMINGS.items()})
         self.timings = CounterDictView(counters)
-        # the decomposed TP collectives' counters: always 0 until tensor
-        # parallelism is ported (ROADMAP Queue 1 item 6); registered so
-        # the exposition carries every series of the reference's, which
-        # the parity tests compare
-        reg.counter("serving_comm_ops_total", "decomposed TP collectives "
-                    "dispatched (kind: exact|quant)", int_valued=True)
-        reg.counter("serving_comm_tiles_total", "tiles across dispatched "
-                    "decomposed TP collectives", int_valued=True)
-        reg.counter("serving_comm_bytes_total", "modeled bytes on the wire "
-                    "for decomposed TP collectives (kind: exact|quant)")
+        # the decomposed TP collectives (comm_overlap under a topology):
+        # modeled per launched step from its shapes (_count_comm)
+        self._c_comm_ops = reg.counter(
+            "serving_comm_ops_total", "decomposed TP collectives "
+            "dispatched (kind: exact|quant)", int_valued=True)
+        self._c_comm_tiles = reg.counter(
+            "serving_comm_tiles_total", "tiles across dispatched "
+            "decomposed TP collectives", int_valued=True)
+        self._c_comm_bytes = reg.counter(
+            "serving_comm_bytes_total", "modeled bytes on the wire for "
+            "decomposed TP collectives (kind: exact|quant)")
         # KV-pool occupancy and tier gauges: read from allocator (tier)
         # truth at export time, never updated by the serving loop
         pool = lambda k: (lambda: self.state.pool_stats()[k])  # noqa: E731
@@ -920,6 +973,216 @@ class InferenceEngine:
                 + ", ".join(f"{k}={v!r}" for k, v in forced.items()))
             self.icfg = dataclasses.replace(self.icfg, **forced)
 
+    # ------------------------------------------------------------------
+    # tensor-parallel serving (a topology with a tensor / fsdp axis)
+    # ------------------------------------------------------------------
+    def _check_topology(self) -> None:
+        """What a topology refuses or drops, as the reference does where
+        it can: ``kv_offload`` warns and is ignored; ``weight_stream``, a
+        mixture-of-experts model and ``refresh_params`` (below) wait on
+        the rest of ROADMAP Queue 1 item 6."""
+        mode = self.icfg.comm_overlap
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(f"comm_overlap={mode!r}: expected 'auto', "
+                             "'on', or 'off'")
+        if self.topology is None:
+            return
+        if self.icfg.weight_stream:
+            raise NotImplementedError(
+                "weight_stream under a topology is not ported yet "
+                f"({_ITEM6_STATE})")
+        if self.cfg.num_experts > 1:
+            raise NotImplementedError(
+                "a mixture-of-experts model under a topology is not ported "
+                "yet (ROADMAP Queue 1 item 6, expert parallelism)")
+        if self.icfg.kv_offload:
+            logger.warning("kv_offload is single-device only; ignored "
+                           "under a multi-device topology")
+            self.icfg = dataclasses.replace(self.icfg, kv_offload=False)
+
+    def _setup_sharding(self) -> None:
+        """Cut the weights to this rank's slices and build its
+        :class:`~.model.ShardPlan` (the KV cache was sized for the rank's
+        heads at construction: ``[L, blocks+1, bs, 2, Hkv/tp, D]`` when
+        the KV and query heads both divide ``tp``, else whole on every
+        rank, as the JAX engine's ``_setup_sharding`` leaves it
+        replicated)."""
+        if self.topology is None:
+            return
+        self._shard = self._shard_weights()
+
+    def _shard_weights(self):
+        """This rank's slices of the weights, and the plan that serves
+        them.  Dense weights follow the logical-axis tensor rules
+        (``parallel.sharding.tree_specs``) with any ``fsdp`` axis layered
+        on as a memory shard.  A quantized tree's grouped layouts are
+        memory-sharded over the tensor axis and then fsdp, on the
+        largest dims that divide (the JAX engine's ``generic``), and so
+        is the dense remainder beside it.  A memory shard is all-gathered
+        at use (a layer's at that layer), so its values are bitwise the
+        one-device engine's.
+
+        A leaf may arrive whole (it is cut here, and the whole is freed
+        once nothing else holds it) or already cut to this rank's slice
+        (a model drawn with ``init_params(cut=...)``)."""
+        from ..comm.mesh import FSDP_AXIS, TENSOR_AXIS, PartitionSpec
+        from ..models.transformer import param_shapes
+        from ..parallel import sharding as shd
+        from .model import ShardPlan
+
+        topo = self.topology
+        quant = self._quant is not None
+        full = param_shapes(self.cfg)
+        if not quant:
+            specs = dense_specs(self.cfg, topo,
+                                getattr(self.model, "param_axes", None))
+        # the groups whose tensor-axis cut the forward computes on (its
+        # sums and gathers in ShardPlan); a tensor cut anywhere else is a
+        # memory shard, gathered at use like fsdp's
+        compute = {"attn": self._head_split, "mlp": True, "embed": True,
+                   "lm_head": True}
+        split = set()
+
+        def generic(shape):
+            spec = shd.add_fsdp_to_spec(PartitionSpec(), shape, topo,
+                                        min_size=_MEMORY_SHARD_MIN,
+                                        axis=TENSOR_AXIS)
+            return shd.add_fsdp_to_spec(spec, shape, topo,
+                                        min_size=_MEMORY_SHARD_MIN,
+                                        axis=FSDP_AXIS)
+
+        def memory_shards(spec, tensor_is_memory: bool) -> tuple:
+            """(dim, axis) pairs to all-gather at use, in gather order:
+            within a dim, the minor axis first."""
+            return tuple((d, a) for d, entry in enumerate(spec)
+                         for a in reversed(shd.entry_axes(entry))
+                         if a == FSDP_AXIS or tensor_is_memory)
+
+        def cut(x, spec, whole):
+            local = shd.local_shape(whole, spec, topo)
+            if tuple(x.shape) == local:         # uncut, or cut already
+                return x
+            if tuple(x.shape) == tuple(whole):
+                return shd.local_slice(x, spec, topo).clone()
+            raise ValueError(f"a served leaf of shape {tuple(x.shape)}: "
+                             f"expected the whole {tuple(whole)} or this "
+                             f"rank's {local}")
+
+        gathers: Dict[tuple, tuple] = {}
+
+        def place(path, x):
+            whole = tree_at(full, path)
+            if quant:
+                spec, tensor_mem = generic(whole), True
+            else:
+                spec = tree_at(specs, path)
+                group = path[1] if path[0] == "blocks" else path[0]
+                tensor_mem = not compute.get(group, False)
+                if not tensor_mem and any(TENSOR_AXIS in shd.entry_axes(e)
+                                          for e in spec):
+                    split.add(group)
+            rec = memory_shards(spec, tensor_mem)
+            if rec:
+                gathers[path] = rec
+            return cut(x, spec, whole)
+
+        self.params = tree_map_with_path(place, self.params)
+        qgathers: Dict[tuple, dict] = {}
+
+        def place_q(path, qt):
+            qgathers[path] = {}
+            for name in ("data", "scale", "zero"):
+                t = getattr(qt, name)
+                if t is not None:
+                    spec = generic(tuple(t.shape))
+                    qgathers[path][name] = memory_shards(spec, True)
+                    setattr(qt, name, cut(t, spec, tuple(t.shape)))
+            qt.operands = None
+            return qt
+
+        if quant:
+            self._quant = tree_map_with_path(place_q, self._quant)
+        gc.collect()
+        return ShardPlan(topo, head_split=self._head_split,
+                         heads_local="attn" in split,
+                         mlp_split="mlp" in split,
+                         embed_split="embed" in split,
+                         unembed_split="lm_head" in split,
+                         gathers=gathers, qgathers=qgathers)
+
+    def _count_comm(self, rows: int, logit_rows: int,
+                    iterations: int = 1) -> None:
+        """Modeled wire accounting of one launch's decomposed collectives
+        (host arithmetic, as the JAX engine's ``_comm_step_stats``): a
+        [rows, d_model] down-projection sum a layer and a [logit_rows,
+        vocab] logits all-gather an iteration.  The sum is counted as
+        what it sends: the rank-ordered sum (``exact_psum``) all-gathers
+        every rank's partial, (n-1) x the payload a rank, against an
+        all-reduce's 2(n-1)/n (equal at n=2, 2x at 4, 4x at 8)."""
+        from ..comm.overlap import _row_tiles, wire_bytes
+        comm = self._serving_comm
+        n = self.topology.tp_size
+        isz = torch.empty((), dtype=self.icfg.param_dtype).element_size()
+        ops = tiles = 0
+        nbytes = 0.0
+        if comm.downproj:
+            L = self.cfg.num_layers
+            ops += L
+            nbytes += L * wire_bytes("all_gather",
+                                     n * rows * self.cfg.d_model, isz, n)
+            tiles += L * _row_tiles(rows, comm.tiles)
+        if comm.unembed:
+            ops += 1
+            nbytes += wire_bytes("all_gather",
+                                 logit_rows * self.cfg.vocab_size, isz, n)
+            tiles += _row_tiles(logit_rows, comm.tiles)
+        self._c_comm_ops.inc(ops * iterations, kind="exact")
+        self._c_comm_bytes.inc(nbytes * iterations, kind="exact")
+        self._c_comm_tiles.inc(tiles * iterations)
+
+    def _eager_steps(self) -> bool:
+        """Whether steps and bursts on the card run eagerly, not as CUDA
+        graphs: under ``weight_stream`` (a file read cannot be replayed)
+        and under a topology (a gloo collective cannot be captured, and
+        capturing NCCL's wants several cards to check; ROADMAP)."""
+        return self._wstore is not None or self._shard is not None
+
+    def _resolve_serving_comm(self):
+        """Resolve ``comm_overlap`` / ``comm_tiles`` against the mesh and
+        the model's shapes into a :class:`~..comm.overlap.ServingComm`
+        plan (or None), as the JAX engine does: "auto" and "on" decompose
+        whichever of the down-projection all-reduce and the logits
+        all-gather the shapes allow; anything else stays serial and
+        exact, loudly when "on" was asked for."""
+        from ..comm.mesh import TENSOR_AXIS
+        from ..comm.overlap import ServingComm
+        mode = self.icfg.comm_overlap
+        plan = self._shard
+        if plan is None or plan.tp <= 1:
+            if mode == "on":
+                logger.warning(
+                    "comm_overlap: no tensor axis on this engine (%s) — "
+                    "collectives stay serial and exact",
+                    "single-device" if self.topology is None
+                    else f"mesh {self.topology.axis_sizes}")
+            return None
+        if mode == "off":
+            return None
+        downproj = plan.mlp_split
+        unembed = (plan.embed_split if self.cfg.tie_embeddings
+                   else plan.unembed_split)
+        if not downproj and not unembed:
+            if mode == "on":
+                logger.warning(
+                    "comm_overlap: neither the MLP nor the vocab is split "
+                    "on tensor=%d (indivisible dims or a memory-sharded "
+                    "quantized tree); serial exact collectives", plan.tp)
+            return None
+        return ServingComm(mesh=self.topology, axis_name=TENSOR_AXIS,
+                           tiles=max(1, self.icfg.comm_tiles),
+                           quant_bits=None, downproj=downproj,
+                           unembed=unembed)
+
     def reset_timings(self) -> None:
         """Zero the per-phase milliseconds (host scheduling, batch
         staging, the step's enqueue — ``device_ms``, of which
@@ -1128,6 +1391,10 @@ class InferenceEngine:
             raise NotImplementedError(
                 "refresh_params under weight_stream: re-spill the store "
                 "by rebuilding the engine")
+        if self._shard is not None:
+            raise NotImplementedError(
+                f"refresh_params under a topology is not ported yet "
+                f"({_ITEM6_STATE})")
         dense = tree_map(lambda x: x.to(self.icfg.param_dtype)
                          if x.dtype == torch.float32 else x, params)
         quant = None
@@ -2254,7 +2521,7 @@ class InferenceEngine:
             # launch, and never spans a CUDA graph capture: a step that
             # will capture closes an active window first and defers an
             # armed one
-            cold = self._cuda and self._wstore is None \
+            cold = self._cuda and not self._eager_steps() \
                 and key not in self._graphs
             if cold and cap.active:
                 self.finish_capture()
@@ -2291,6 +2558,8 @@ class InferenceEngine:
         t3 = time.perf_counter()
         self._steps_done += 1
         self._last_toks = toks
+        if self._serving_comm is not None:
+            self._count_comm(bucket, self.icfg.max_seqs * self._n_verify)
         tm["schedule_ms"] += (t1 - t0) * 1e3
         tm["stage_ms"] += (t2 - t1) * 1e3
         tm["device_ms"] += (t3 - t2) * 1e3
@@ -2395,7 +2664,8 @@ class InferenceEngine:
             else self._zero_toks
         sample_fn = self._sample_fn(sampling)
         offload = dict(mixed_gemm=self._mixed_gemm_active,
-                       kv_host=self._kv_work, stream=self._wstore)
+                       kv_host=self._kv_work, stream=self._wstore,
+                       shard_mesh=self._shard, comm=self._serving_comm)
         n_verify = self._n_verify
         if not cuda:
             def step():
@@ -2429,10 +2699,11 @@ class InferenceEngine:
         toks, host = self._ring_dev[i], self._ring_host[i]
         event = self._ring_events[i]
 
-        if self._wstore is not None:
-            # a file read cannot be replayed: the streamed step runs
-            # eagerly on the engine's stream, its tokens leaving through
-            # the same ring, copy and event as a replay's
+        if self._eager_steps():
+            # a file read cannot be replayed, nor a gloo collective
+            # captured: a streamed or tensor-parallel step runs eagerly on
+            # the engine's stream, its tokens leaving through the same
+            # ring, copy and event as a replay's
             def eager() -> None:
                 toks.copy_(run())
                 host.copy_(toks, non_blocking=True)
@@ -2822,7 +3093,8 @@ class InferenceEngine:
         if cap is not None:
             # as at a step: a burst that will capture its graph closes an
             # active window first and defers an armed one
-            cold = self._cuda and gkey not in self._burst_graphs
+            cold = self._cuda and not self._eager_steps() \
+                and gkey not in self._burst_graphs
             if cold and cap.active:
                 self.finish_capture()
             elif cap.armed and not cold:
@@ -2853,6 +3125,9 @@ class InferenceEngine:
         t2 = time.perf_counter()
         self._steps_done += steps
         self._note_step_success(tuple(pending))
+        if self._serving_comm is not None:
+            S = self.icfg.max_seqs
+            self._count_comm(S, S, iterations=steps)
         tm = self.timings
         tm["device_ms"] += (t1 - t0) * 1e3
         tm["wait_ms"] += (t2 - t1) * 1e3
@@ -2948,7 +3223,8 @@ class InferenceEngine:
             prefix = snapshot_prefix(st.kv, t, P, bs)
             toks, tail = decode_burst_forward(
                 self.cfg, self.params, prefix, b, k0, steps, sample_fn, key,
-                uids=u, quant=self._quant, mixed_gemm=mixed)
+                uids=u, quant=self._quant, mixed_gemm=mixed,
+                shard_mesh=self._shard, comm=self._serving_comm)
             scatter_tail(st.kv, tail, t, b, bs)
             return toks
 
@@ -2971,11 +3247,22 @@ class InferenceEngine:
             g.graph.replay()
             return g
 
-        g = self._replay(replay, uids)
-        # the tokens' copy and its event ride behind the replay on the
+        if self._eager_steps():
+            # a tensor-parallel burst runs eagerly (its collectives cannot
+            # be captured under gloo)
+            try:
+                out = self.failures.run(
+                    lambda: run_on(self._burst_dev, key_dev), uids=uids,
+                    cold=True)
+            finally:
+                forget_plan(self.device, self._stream.cuda_stream)
+            self.timings["eager_steps"] += 1
+        else:
+            out = self._replay(replay, uids).out
+        # the tokens' copy and its event ride behind the launch on the
         # stream: the guarded read only waits and copies on the host
-        host = torch.empty(g.out.shape, dtype=g.out.dtype, pin_memory=True)
-        host.copy_(g.out, non_blocking=True)
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
         event = torch.cuda.Event()
         event.record(self._stream)
         t1 = time.perf_counter()

@@ -56,24 +56,39 @@ card, asynchronous copies between page-locked memory and fixed device
 addresses, so a step with them still captures as a CUDA graph); with an
 ``NVMeWeightStore`` the block weights come from the store one layer at a
 time, left quantized for the mixed-input GEMM where it takes them.
+
+Tensor parallelism (``shard_mesh=``, a rank's :class:`ShardPlan`): the
+JAX forward runs under GSPMD, with paged attention in a ``shard_map``
+over the tensor axis.  Here each rank holds its slices (query heads, KV
+heads and their cache, MLP columns, vocab rows), runs paged attention on
+its own head group (K2-TP), sums the row-parallel partial products over
+the ranks and gathers the logits, so every rank computes the same
+logits; memory shards (an ``fsdp`` axis, a quantized tree) are gathered
+a layer at use.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import time
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..comm.collectives import exact_psum, gather_dim
+from ..comm.mesh import TENSOR_AXIS
+from ..comm.overlap import (ServingComm, shard_matmul_allgather,
+                            shard_matmul_allreduce)
 from ..models import layers as L
 from ..models.transformer import (TransformerConfig, _norm,
                                   _shared_expert, attn_scale, unstack_layers)
 from ..parallel.moe import moe_serving
+from ..runtime.runtime_utils import tree_map_with_path
 from ..ops.mixed_gemm import mixed_matmul
 from ..ops.paged_attention import _kv_parts, paged_attention
 from ..ops.quant import (QuantizedTensor, _div, dequantize_any,
                          is_mixed_gemm_layout, is_rowwise_int8)
 from .quantization import (DENSE_ONLY_GROUPS, _row_scaled, contract_dims,
-                           merge_layer)
+                           merge_layer, merge_layer_qts)
 from .ragged.state import RaggedBatch
 from .sampler import row_keys, window_keys
 
@@ -137,6 +152,188 @@ def _mm(x: torch.Tensor, w, dt: torch.dtype,
     return y.reshape(*x.shape[:-1], *wshape[contract_dims:])
 
 
+class ShardPlan:
+    """One rank's part of the tensor-parallel serving forward (built by
+    ``InferenceEngine`` under a topology; the JAX forward gets the same
+    from GSPMD and the ``shard_map`` of ``_paged_attention_pallas``).
+
+    * ``head_split``: the cache holds this rank's ``Hkv/tp`` KV heads,
+      and paged attention (K2) runs on them and the rank's ``H/tp`` query
+      heads, the ALiBi slopes cut with them (K2-TP).  With
+      ``heads_local`` the attention weights are the rank's head slices
+      and ``wo``'s partial sums are all-reduced; without it (a quantized
+      tree, memory-sharded and gathered whole) the full q/k/v are
+      projected, the rank's heads taken, and the attention outputs
+      all-gathered over heads before ``wo``.
+    * ``mlp_split``: ``wi``/``wg`` hold the rank's ``d_ff/tp`` columns
+      and ``wo`` its rows; the down-projection's partials are
+      all-reduced (tiled under a :class:`ServingComm`).
+    * ``embed_split`` / ``unembed_split``: the embedding table / LM head
+      hold the rank's ``vocab/tp`` rows / columns: the lookup is a masked
+      local lookup plus an all-reduce (exact: the other ranks add zeros),
+      and the logits are all-gathered over vocab (a gather never rounds,
+      so every rank samples the same tokens).
+    * ``gathers`` / ``qgathers``: the memory shards (the ``fsdp`` axis,
+      and every axis of a quantized tree) as ``path -> ((dim, axis),
+      ...)``, all-gathered at use: a layer's leaves at that layer, the
+      others once a step.
+
+    Every reduction sums in rank order (``comm.collectives.exact_psum``).
+    With ``measure`` set, every collective is timed between device
+    synchronizations into ``comm_ms`` (the comm share of a step)."""
+
+    def __init__(self, topology, *, head_split: bool, heads_local: bool,
+                 mlp_split: bool, embed_split: bool, unembed_split: bool,
+                 gathers: Dict[tuple, tuple], qgathers: Dict[tuple, dict]):
+        self.topology = topology
+        self.tp = topology.tp_size
+        self.rank = topology.axis_rank(TENSOR_AXIS)
+        self.group = topology.group(TENSOR_AXIS)
+        self.head_split, self.heads_local = head_split, heads_local
+        self.mlp_split = mlp_split
+        self.embed_split, self.unembed_split = embed_split, unembed_split
+        self.gathers, self.qgathers = gathers, qgathers
+        self.measure = False
+        self.comm_ms = 0.0
+
+    # -- collectives -------------------------------------------------------
+    def timed(self, fn: Callable, *args):
+        if not self.measure:
+            return fn(*args)
+        dev = next(a for a in args if isinstance(a, torch.Tensor)).device
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.comm_ms += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        with torch.profiler.record_function(f"all_reduce_{TENSOR_AXIS}"):
+            return self.timed(exact_psum, x, self.group, self.tp)
+
+    def gather(self, x: torch.Tensor, dim: int, axis: str = TENSOR_AXIS
+               ) -> torch.Tensor:
+        topo = self.topology
+        with torch.profiler.record_function(f"all_gather_{axis}"):
+            return self.timed(gather_dim, x, dim, topo.group(axis),
+                              topo.size(axis))
+
+    def _gathered(self, x: torch.Tensor, recipe, li: Optional[int] = None):
+        """``x`` (a stacked leaf when ``li`` is given: its layer ``li``)
+        with its memory shards all-gathered; a layer dim that is itself
+        cut gathers the whole leaf first."""
+        if li is not None and all(d != 0 for d, _ in recipe):
+            x, recipe, li = x[li], tuple((d - 1, a) for d, a in recipe), None
+        for d, a in recipe:
+            x = self.gather(x, d, a)
+        return x if li is None else x[li]
+
+    # -- weights -----------------------------------------------------------
+    def top(self, params):
+        """The non-block leaves with their memory shards gathered."""
+        return tree_map_with_path(lambda path, x: self._gathered(
+            x, self.gathers[path]) if path in self.gathers else x, params,
+            skip=("blocks",))
+
+    def layer(self, blocks, li: int):
+        """Layer ``li``'s dense weights (views, or gathered copies)."""
+        return tree_map_with_path(lambda path, x: (
+            self._gathered(x, self.gathers[path], li)
+            if path in self.gathers else x[li]), blocks, ("blocks",))
+
+    def quant_embed(self, quant):
+        """The quantized tree's embedding table, gathered whole."""
+        if quant is None or "embed" not in quant:
+            return quant
+        qt = quant["embed"]["table"]
+        return {**quant, "embed": {"table": self._qt_gathered(
+            qt, self.qgathers[("embed", "table")])}}
+
+    def _qt_gathered(self, qt: QuantizedTensor, recipes,
+                     li: Optional[int] = None) -> QuantizedTensor:
+        parts = {}
+        for name in ("data", "scale", "zero"):
+            t = getattr(qt, name)
+            parts[name] = None if t is None else self._gathered(
+                t, recipes.get(name, ()), li)
+        shape = qt.shape if li is None else qt.shape[1:]
+        return QuantizedTensor(parts["data"], parts["scale"], parts["zero"],
+                               qt.bits, shape, qt.dtype, layout=qt.layout)
+
+    def merge_quant(self, lp, quant_blocks, li: int, dt: torch.dtype,
+                    mixed: bool):
+        """Layer ``li`` of the memory-sharded quantized tree, each payload
+        gathered, merged into ``lp`` (``quantization.merge_layer_qts``:
+        row-wise for the mixed-input GEMM, K3, or dequantized)."""
+        return merge_layer_qts(lp, {
+            gname: {name: self._qt_gathered(
+                qt, self.qgathers[("blocks", gname, name)], li)
+                for name, qt in qgroup.items()}
+            for gname, qgroup in quant_blocks.items()}, dt, mixed)
+
+    # -- the forward's sharded steps ----------------------------------------
+    def embed_rows(self, table: torch.Tensor, ids: torch.Tensor):
+        """Rows of a vocab-split table: a masked local lookup, summed over
+        the ranks."""
+        v = table.shape[0]
+        local = ids.long() - self.rank * v
+        hit = (local >= 0) & (local < v)
+        rows = table[local.clamp(0, v - 1)]
+        return self.psum(torch.where(hit[:, None], rows,
+                                     torch.zeros_like(rows)))
+
+    def slopes(self, slopes: Optional[torch.Tensor]):
+        if slopes is None or not self.head_split:
+            return slopes
+        h = slopes.shape[0] // self.tp
+        return slopes[self.rank * h:(self.rank + 1) * h]
+
+    def heads(self, q, k, v):
+        """This rank's query and KV heads of a full projection."""
+        if not self.head_split or self.heads_local:
+            return q, k, v
+        hq, hk = q.shape[1] // self.tp, k.shape[1] // self.tp
+        r = self.rank
+        return (q[:, r * hq:(r + 1) * hq], k[:, r * hk:(r + 1) * hk],
+                v[:, r * hk:(r + 1) * hk])
+
+    def attn_out(self, o: torch.Tensor, wo, dt: torch.dtype):
+        """The attention output projection of this rank's heads."""
+        n = o.shape[0]
+        if self.heads_local:
+            return self.psum(_mm(o.reshape(n, -1), wo, dt, contract_dims=2))
+        if self.head_split:
+            o = self.gather(o, 1)
+        return _mm(o.reshape(n, -1), wo, dt, contract_dims=2)
+
+    def down(self, u: torch.Tensor, wo, dt: torch.dtype,
+             comm: Optional[ServingComm]):
+        """The MLP down-projection of this rank's columns, summed."""
+        if comm is not None and comm.downproj \
+                and not isinstance(wo, QuantizedTensor):
+            return self.timed(shard_matmul_allreduce, u, wo, comm, dt)
+        return self.psum(_mm(u, wo, dt))
+
+    def unembed(self, last: torch.Tensor, w: torch.Tensor, bias,
+                dt: torch.dtype, comm: Optional[ServingComm]):
+        """Logits of this rank's vocab columns, gathered over vocab.  The
+        weight is made contiguous first (a tied table's transpose is a
+        view): the GEMM's summation order then does not depend on the row
+        count, so the tiled path is bitwise the serial one."""
+        w = w.contiguous()
+        if comm is not None and comm.unembed:
+            logits = self.timed(shard_matmul_allgather, last, w, comm, dt)
+            return logits if bias is None else \
+                logits + self.gather(bias.to(dt), -1)
+        logits = last @ w
+        if bias is not None:
+            logits = logits + bias.to(dt)
+        return self.gather(logits, -1)
+
+
 def _qkv_proj(cfg: TransformerConfig, ap, h: torch.Tensor, dt, rope):
     """qkv projection + biases + rotary -> q [n, H, D], k/v [n, Hkv, D].
     ``rope``: (cos, sin) rows of the tokens' positions, [n, 1, R/2]."""
@@ -155,12 +352,15 @@ def _qkv_proj(cfg: TransformerConfig, ap, h: torch.Tensor, dt, rope):
 
 def _ffn(cfg: TransformerConfig, lp, h: torch.Tensor, dt,
          act: Callable, valid: Optional[torch.Tensor] = None,
-         tokens: int = 0) -> torch.Tensor:
+         tokens: int = 0, shard: Optional[ShardPlan] = None,
+         comm: Optional[ServingComm] = None) -> torch.Tensor:
     """MLP or MoE branch of a serving layer.  MoE: the experts over the
     rows of ``h`` whose ``valid`` is set (a step's padding takes no
     expert capacity), at the capacity the JAX serving forward gives its
     ``tokens`` rows at the same call site; then the qwen2-moe shared
-    expert."""
+    expert.  Under a ``shard`` plan that splits the MLP, the
+    down-projection's partial sums are all-reduced, tile-decomposed
+    under ``comm``."""
     if cfg.num_experts > 1:
         d = moe_serving(lp["gate"], lp["experts"], h, valid, tokens,
                         top_k=cfg.moe_top_k,
@@ -175,7 +375,10 @@ def _ffn(cfg: TransformerConfig, lp, h: torch.Tensor, dt,
     if cfg.mlp_bias:
         u = u + mp["bi"].to(dt)
     u = act(_mm(h, mp["wg"], dt)) * u if cfg.gated_mlp else act(u)
-    d = _mm(u, mp["wo"], dt)
+    if shard is not None and shard.mlp_split:
+        d = shard.down(u, mp["wo"], dt, comm)
+    else:
+        d = _mm(u, mp["wo"], dt)
     if cfg.mlp_bias:
         d = d + mp["bo"].to(dt)
     return d
@@ -229,11 +432,42 @@ def _embed_rows(params, quant, ids: torch.Tensor, tied: bool):
         qt.dtype
 
 
+def _embed(params, quant, ids: torch.Tensor, tied: bool,
+           shard: Optional[ShardPlan]):
+    """:func:`_embed_rows`, or under a vocab-split ``shard`` the rows
+    summed over the ranks (the table for a tied unembed is this rank's
+    rows)."""
+    if shard is not None and shard.embed_split:
+        tab = params["embed"]["table"]
+        return shard.embed_rows(tab, ids), tab, tab.dtype
+    return _embed_rows(params, quant, ids, tied)
+
+
+def _unembed(cfg: TransformerConfig, params, table, last: torch.Tensor,
+             dt, shard: Optional[ShardPlan], comm: Optional[ServingComm]):
+    """Logits of the final-normed rows ``last``: tied to the embedding
+    table or through the LM head, gathered over vocab under a plan that
+    splits it."""
+    if cfg.tie_embeddings:
+        w, bias, split = table.to(dt).T, None, \
+            shard is not None and shard.embed_split
+    else:
+        w = params["lm_head"]["kernel"].to(dt)
+        bias = params["lm_head"]["bias"] if cfg.head_bias else None
+        split = shard is not None and shard.unembed_split
+    if split:
+        return shard.unembed(last, w, bias, dt, comm)
+    logits = last @ w
+    return logits if bias is None else logits + bias.to(dt)
+
+
 @torch.no_grad()
 def ragged_forward(cfg: TransformerConfig, params, kv,
                    batch: RaggedBatch, block_size: int,
                    max_blocks_per_seq: int, *, quant=None, kv_host=None,
-                   stream=None, mixed_gemm: bool = False):
+                   stream=None, mixed_gemm: bool = False,
+                   shard_mesh: Optional[ShardPlan] = None,
+                   comm: Optional[ServingComm] = None):
     """-> (last_token_logits [max_seqs, vocab] f32, kv).
 
     ``kv``: [L, blocks+1, bs, 2, Hkv, D], or a quantized ``(codes,
@@ -260,10 +494,23 @@ def ragged_forward(cfg: TransformerConfig, params, kv,
     Every path is position-absolute: a batch whose tokens start at a
     nonzero context offset (chunked prefill, or a prefill resuming after
     a prefix-cache hit aliased the leading blocks) needs no special
-    handling."""
+    handling.
+
+    ``shard_mesh``: this rank's :class:`ShardPlan` under a tensor-parallel
+    topology (the JAX forward takes the mesh itself, for GSPMD and
+    ``shard_map``) (``params``, ``quant`` and ``kv`` then hold the rank's
+    slices): K2 runs on the rank's head group, the row-parallel partial
+    sums are all-reduced and the logits all-gathered over vocab, so
+    every rank returns the same logits.  ``comm``: a
+    :class:`~..comm.overlap.ServingComm` plan, under which the MLP
+    down-projection's all-reduce and the unembed's gather run
+    tile-decomposed (bitwise the serial path)."""
     n = batch.n_tokens
-    x, table, dt = _embed_rows(params, quant, batch.token_ids[:n],
-                               cfg.tie_embeddings)
+    shard = shard_mesh
+    if shard is not None:
+        params, quant = shard.top(params), shard.quant_embed(quant)
+    x, table, dt = _embed(params, quant, batch.token_ids[:n],
+                          cfg.tie_embeddings, shard)
     x = x.to(dt)                                                   # [n, dm]
     norm = _norm(cfg)
     act = L.ACTIVATIONS[cfg.activation]
@@ -276,8 +523,11 @@ def ragged_forward(cfg: TransformerConfig, params, kv,
     if cfg.position == "learned":
         x = x + params["pos_embed"]["table"][positions.long()].to(dt)
     elif cfg.position == "alibi":
-        # once per step, from the model's head count (never the local Hkv)
+        # once per step, from the model's head count (never the local
+        # Hkv); a rank's heads take their own slopes
         slopes = L.cached_alibi_slopes(cfg.num_heads, x.device)
+        if shard is not None:
+            slopes = shard.slopes(slopes)
     else:
         cos, sin = L.rope_freqs(cfg.rotary_dim, cfg.max_seq_len,
                                 cfg.rope_theta, device=x.device)
@@ -289,11 +539,15 @@ def ragged_forward(cfg: TransformerConfig, params, kv,
     data, scales = _kv_parts(kv)
     slots = _kv_slots(batch, n, block_size, data.shape[1] - 1)
     seq_slot = batch.seq_slot[:n]
-    if stream is None:
+    if stream is None and shard is None:
         layers = unstack_layers(params["blocks"], cfg.num_layers)
     for li in range(cfg.num_layers):
-        lp = (layers[li] if stream is None
-              else _stream_layer(stream, li, dt, mixed_gemm=mixed_gemm))
+        if shard is not None:
+            lp = shard.layer(params["blocks"], li)
+        elif stream is None:
+            lp = layers[li]
+        else:
+            lp = _stream_layer(stream, li, dt, mixed_gemm=mixed_gemm)
         if kv_host is None:
             # contiguous: L is the lead dim
             kv_layer = data[li] if scales is None else (data[li], scales[li])
@@ -302,15 +556,23 @@ def ragged_forward(cfg: TransformerConfig, params, kv,
                 w.copy_(h[li], non_blocking=True)
             kv_layer = kv_host
         if quant is not None:
-            lp = merge_layer(lp, quant["blocks"], li, dt, mixed=mixed_gemm)
+            lp = (merge_layer(lp, quant["blocks"], li, dt, mixed=mixed_gemm)
+                  if shard is None else
+                  shard.merge_quant(lp, quant["blocks"], li, dt, mixed_gemm))
         ap = lp["attn"]
         h = norm(lp["ln1"], x)
         q, k, v = _qkv_proj(cfg, ap, h, dt, rope)
+        if shard is not None:
+            q, k, v = shard.heads(q, k, v)
         _write_kv(kv_layer, k, v, slots)
+        # K2; under a plan (K2-TP) on this rank's head group
         o = paged_attention(kv_layer, q.contiguous(), seq_slot,
                             positions, batch.block_tables, block_size,
                             max_blocks_per_seq, scale, slopes=slopes)
-        o = _mm(o.reshape(n, -1), ap["wo"], dt, contract_dims=2)
+        if shard is not None:
+            o = shard.attn_out(o, ap["wo"], dt)
+        else:
+            o = _mm(o.reshape(n, -1), ap["wo"], dt, contract_dims=2)
         if cfg.attn_out_bias:
             o = o + ap["bo"].to(dt)
         if not cfg.parallel_block:
@@ -322,7 +584,7 @@ def ragged_forward(cfg: TransformerConfig, params, kv,
         # MoE capacity from the staged batch's full length (the JAX
         # step's token budget), its valid tokens the real rows
         d = _ffn(cfg, lp, h, dt, act, valid=batch.token_valid[:n],
-                 tokens=batch.token_ids.shape[0])
+                 tokens=batch.token_ids.shape[0], shard=shard, comm=comm)
         x = x + o + d if cfg.parallel_block else x + d
         if kv_host is not None:
             for w, h in zip(_parts(kv_host), _parts(kv)):
@@ -336,12 +598,7 @@ def ragged_forward(cfg: TransformerConfig, params, kv,
     idx = (batch.logits_idx if batch.verify_idx is None
            else batch.verify_idx)
     last = norm(params["ln_f"], x[idx.clamp(min=0).long()])
-    if cfg.tie_embeddings:
-        logits = last @ table.to(dt).T
-    else:
-        logits = last @ params["lm_head"]["kernel"].to(dt)
-        if cfg.head_bias:
-            logits = logits + params["lm_head"]["bias"].to(dt)
+    logits = _unembed(cfg, params, table, last, dt, shard, comm)
     return logits.float(), kv
 
 
@@ -351,7 +608,9 @@ def pipelined_ragged_step(cfg: TransformerConfig, params, quant, kv,
                           rng: Optional[torch.Tensor], sample_fn: Callable,
                           block_size: int, max_blocks_per_seq: int,
                           mixed_gemm: bool = False, kv_host=None,
-                          stream=None) -> Tuple[torch.Tensor, object]:
+                          stream=None, *, shard_mesh: Optional[ShardPlan] = None,
+                          comm: Optional[ServingComm] = None
+                          ) -> Tuple[torch.Tensor, object]:
     """One serving pipeline stage, entirely on the device: substitute
     deferred feedback tokens from the previous step's on-device samples,
     run the ragged forward, sample every slot's next token.
@@ -366,8 +625,8 @@ def pipelined_ragged_step(cfg: TransformerConfig, params, quant, kv,
     greedy sampler takes ``rng=None`` and gets ``keys=None``: the JAX
     step folds a zero key that XLA then drops, which eager PyTorch
     would run, so the fold is skipped instead.
-    ``quant``/``mixed_gemm``/``kv_host``/``stream`` as in
-    :func:`ragged_forward`.
+    ``quant``/``mixed_gemm``/``kv_host``/``stream``/``shard_mesh``/``comm`` as
+    in :func:`ragged_forward`.
     Returns (sampled tokens [max_seqs] i32, kv); rows whose
     ``batch.logits_idx`` is -1 are garbage.
 
@@ -388,7 +647,8 @@ def pipelined_ragged_step(cfg: TransformerConfig, params, quant, kv,
     logits, kv = ragged_forward(cfg, params, kv, batch, block_size,
                                 max_blocks_per_seq, quant=quant,
                                 kv_host=kv_host, stream=stream,
-                                mixed_gemm=mixed_gemm)
+                                mixed_gemm=mixed_gemm, shard_mesh=shard_mesh,
+                                comm=comm)
     if batch.verify_idx is not None:
         S, W = batch.verify_idx.shape
         vidx = batch.verify_idx.clamp(min=0).long()
@@ -444,7 +704,9 @@ def decode_burst_forward(cfg: TransformerConfig, params, prefix,
                          steps: int, sample_fn: Callable,
                          rng: Optional[torch.Tensor],
                          uids: Optional[torch.Tensor] = None, *,
-                         quant=None, mixed_gemm: bool = False):
+                         quant=None, mixed_gemm: bool = False,
+                         shard_mesh: Optional[ShardPlan] = None,
+                         comm: Optional[ServingComm] = None):
     """``steps`` decode iterations on the device (port of the reference's
     ``decode_burst_forward``).
 
@@ -458,12 +720,16 @@ def decode_burst_forward(cfg: TransformerConfig, params, prefix,
 
     Attention of each token merges (a) dense attention over the prefix,
     masked by base_ctx, and (b) attention over the in-burst tail, masked
-    by iteration, by an online softmax."""
+    by iteration, by an online softmax.  ``shard_mesh``/``comm`` as in
+    :func:`ragged_forward` (the prefix is then this rank's KV heads)."""
+    shard = shard_mesh
     pdata, pscales = _kv_parts(prefix)
     S, P = pdata.shape[1], pdata.shape[2]
     Hkv, D = pdata.shape[4], pdata.shape[5]
-    H = cfg.num_heads
-    rep = H // Hkv
+    rep = cfg.num_heads // cfg.num_kv_heads
+    H = Hkv * rep                       # this rank's query heads
+    if shard is not None:
+        params, quant = shard.top(params), shard.quant_embed(quant)
     norm = _norm(cfg)
     act = L.ACTIVATIONS[cfg.activation]
     scale = attn_scale(cfg)
@@ -473,14 +739,20 @@ def decode_burst_forward(cfg: TransformerConfig, params, prefix,
         cos, sin = L.rope_freqs(cfg.rotary_dim, cfg.max_seq_len,
                                 cfg.rope_theta, device=dev)
     elif cfg.position == "alibi":
-        slopes = L.cached_alibi_slopes(H, dev).float().reshape(Hkv, rep)
+        slopes = L.cached_alibi_slopes(cfg.num_heads, dev)
+        if shard is not None:
+            slopes = shard.slopes(slopes)
+        slopes = slopes.float().reshape(Hkv, rep)
     if uids is None:
         uids = torch.zeros(S, dtype=torch.int32, device=dev)
-    layers = unstack_layers(params["blocks"], cfg.num_layers)
+    if shard is None:
+        layers = unstack_layers(params["blocks"], cfg.num_layers)
     # the prefix in the serving dtype, [L, S, Hkv, P, D] for K and V:
     # dequantized and laid out once a burst (the reference does it per
     # layer and iteration; the values are the same)
-    dt0 = _embed_rows(params, quant, token0[:1], cfg.tie_embeddings)[2]
+    dt0 = (params["embed"]["table"].dtype
+           if shard is not None and shard.embed_split else
+           _embed_rows(params, quant, token0[:1], cfg.tie_embeddings)[2])
     kpre, vpre = pdata[:, :, :, 0], pdata[:, :, :, 1]
     if pscales is not None:
         kpre = _dequant_rows(kpre, pscales[:, :, :, 0], dt0)
@@ -496,7 +768,7 @@ def decode_burst_forward(cfg: TransformerConfig, params, prefix,
     tok = token0
     for j in range(steps):
         pos = base_ctx + j                  # this token's position
-        x, table, dt = _embed_rows(params, quant, tok, cfg.tie_embeddings)
+        x, table, dt = _embed(params, quant, tok, cfg.tie_embeddings, shard)
         x = x.to(dt)
         if tail is None:
             tail = torch.zeros((cfg.num_layers, S, steps, 2, Hkv, D),
@@ -509,13 +781,19 @@ def decode_burst_forward(cfg: TransformerConfig, params, prefix,
         if cos is not None:
             p = pos.long()
             rope = (cos[p][:, None, :], sin[p][:, None, :])
-        for li, lp in enumerate(layers):
+        for li in range(cfg.num_layers):
+            lp = layers[li] if shard is None else \
+                shard.layer(params["blocks"], li)
             if quant is not None:
-                lp = merge_layer(lp, quant["blocks"], li, dt,
-                                 mixed=mixed_gemm)
+                lp = (merge_layer(lp, quant["blocks"], li, dt,
+                                  mixed=mixed_gemm) if shard is None else
+                      shard.merge_quant(lp, quant["blocks"], li, dt,
+                                        mixed_gemm))
             ap = lp["attn"]
             h = norm(lp["ln1"], x)
             q, k, v = _qkv_proj(cfg, ap, h, dt, rope)
+            if shard is not None:
+                q, k, v = shard.heads(q, k, v)
             tail[li, :, j, 0] = k
             tail[li, :, j, 1] = v
             qg = q.reshape(S, Hkv, rep, D)
@@ -549,7 +827,10 @@ def decode_burst_forward(cfg: TransformerConfig, params, prefix,
             o = (oa.float() * wa[..., None] + ob.float() * wb[..., None]) \
                 / torch.clamp(denom, min=1e-30)[..., None]
             o = o.reshape(S, H, D).to(dt)
-            o = _mm(o.reshape(S, -1), ap["wo"], dt, contract_dims=2)
+            if shard is not None:
+                o = shard.attn_out(o, ap["wo"], dt)
+            else:
+                o = _mm(o.reshape(S, -1), ap["wo"], dt, contract_dims=2)
             if cfg.attn_out_bias:
                 o = o + ap["bo"].to(dt)
             if not cfg.parallel_block:
@@ -559,15 +840,11 @@ def decode_burst_forward(cfg: TransformerConfig, params, prefix,
                 h = norm(lp["ln2"], x)
             # MoE: the JAX burst gates its S slot rows; a slot in the
             # burst has context (base_ctx > 0), an empty one is padding
-            d = _ffn(cfg, lp, h, dt, act, valid=live, tokens=S)
+            d = _ffn(cfg, lp, h, dt, act, valid=live, tokens=S,
+                     shard=shard, comm=comm)
             x = x + o + d if cfg.parallel_block else x + d
         x = norm(params["ln_f"], x)
-        if cfg.tie_embeddings:
-            logits = x @ table.to(dt).T
-        else:
-            logits = x @ params["lm_head"]["kernel"].to(dt)
-            if cfg.head_bias:
-                logits = logits + params["lm_head"]["bias"].to(dt)
+        logits = _unembed(cfg, params, table, x, dt, shard, comm)
         # sampled token j lands at position pos + 1, the stepwise fold
         keys = None if rng is None else row_keys(rng, uids, pos + 1)
         tok = sample_fn(logits.float(), keys)

@@ -9,8 +9,9 @@ contraction is odd; fp6/fp12: the packed row-wise minifloat layouts
 when the trailing dim divides into 24-bit words, else the emulated
 grouped minifloat codes), optionally the embedding table too; norms and
 biases stay dense.  The serving forward merges one layer's weights at a time
-(:func:`merge_layer`): left quantized for the mixed-input GEMM, or
-dequantized into the serving dtype.  The mixed-input GEMM's per-layer
+(:func:`merge_layer`; under a topology :func:`merge_layer_qts`, on the
+layer a rank gathered from its memory shards): left quantized for the
+mixed-input GEMM, or dequantized into the serving dtype.  The mixed-input GEMM's per-layer
 operands (payload views, scales one per contraction row) are built once
 per stacked weight (:func:`mixed_operand`), not at every step.
 
@@ -207,5 +208,27 @@ def merge_layer(lp: Dict[str, Any], quant_blocks: Dict[str, Any], i: int,
                     qt, i, contract_dims(group_name, name, len(qt.shape)))
             else:
                 g[name] = layer_weight(qt, i, dt)
+        out[group_name] = g
+    return out
+
+
+def merge_layer_qts(lp: Dict[str, Any], qlayer: Dict[str, Any],
+                    dt: torch.dtype, mixed: bool = False) -> Dict[str, Any]:
+    """:func:`merge_layer` for one layer's unstacked QuantizedTensors
+    ``{group: {name: qt}}``: what a tensor-parallel engine's rank has
+    after it gathers the layer of its memory-sharded quantized tree (the
+    JAX engine's ``generic`` placement, which XLA gathers at use).  Each
+    is left row-wise for the mixed-input GEMM or dequantized into
+    ``dt``, as the one-device merge does."""
+    out = dict(lp)
+    for group_name, qgroup in qlayer.items():
+        g = dict(out.get(group_name, {}))
+        for name, qt in qgroup.items():
+            if mixed and group_name not in DENSE_ONLY_GROUPS \
+                    and is_mixed_gemm_layout(qt):
+                g[name] = _row_scaled(qt, contract_dims(
+                    group_name, name, len(qt.shape) + 1))
+            else:
+                g[name] = dequantize_any(qt, dt)
         out[group_name] = g
     return out

@@ -138,87 +138,134 @@ def unstack_layers(blocks, num_layers: int):
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
-                device, dtype=torch.float32) -> Dict[str, Any]:
+                device, dtype=torch.float32, *,
+                cut: Optional[Callable] = None) -> Dict[str, Any]:
     """Random parameters with the JAX package's tree, shapes and init
     scales (``init_params`` there), drawn ON ``device`` from
     ``generator`` (which must live on that device) — a large model's
     random weights never pass through host memory.  The values differ
-    from the JAX package's for the same seed."""
+    from the JAX package's for the same seed.  ``cut(path, leaf)``: what
+    to keep of each leaf right after its draw (a sharded engine's rank
+    keeps its slice), so a rank never holds the whole model; the draws
+    are the same, in the same order."""
+    return init_params_and_axes(cfg, generator, device, dtype, cut=cut)[0]
+
+
+def init_params_and_axes(cfg: TransformerConfig, generator, device,
+                         dtype=torch.float32, *,
+                         cut: Optional[Callable] = None):
+    """:func:`init_params` and the logical axes of its tree, one name a
+    dim, recorded at each leaf's draw (the JAX ``init_params``' two
+    outputs).  ``generator`` None draws nothing (shapes only)."""
     dev = torch.device(device)
     H, D, Hkv = cfg.num_heads, cfg.head_dim, cfg.num_kv_heads
     dm, dff, nl = cfg.d_model, cfg.d_ff, cfg.num_layers
     out_scale = 1.0 / math.sqrt(dm) / math.sqrt(2.0 * nl)   # GPT-2 depth scaling
+    keep = cut or (lambda path, x: x)
+    params: Dict[str, Any] = {}
+    axes_tree: Dict[str, Any] = {}
+    L = ("layers",)
 
-    def normal(shape, scale):
-        x = torch.randn(shape, generator=generator, device=dev, dtype=dtype)
-        return x.mul_(scale)
+    def leaf(path, axes, x):
+        for tree, value in ((params, keep(path, x)), (axes_tree, axes)):
+            for k in path[:-1]:
+                tree = tree.setdefault(k, {})
+            tree[path[-1]] = value
 
-    def zeros(*shape):
-        return torch.zeros(shape, device=dev, dtype=dtype)
+    def normal(path, axes, shape, scale):
+        if generator is None:
+            x = torch.empty(shape, device=dev, dtype=dtype)
+        else:
+            x = torch.randn(shape, generator=generator, device=dev,
+                            dtype=dtype).mul_(scale)
+        leaf(path, axes, x)
 
-    def ones(*shape):
-        return torch.ones(shape, device=dev, dtype=dtype)
+    def zeros(path, axes, *shape):
+        leaf(path, axes, torch.zeros(shape, device=dev, dtype=dtype))
 
-    def norm_init(*lead):
-        p = {"scale": ones(*lead, dm)}
+    def norm_init(path, *lead):
+        axes = L + ("norm",) if lead else ("norm",)
+        leaf(path + ("scale",), axes,
+             torch.ones((*lead, dm), device=dev, dtype=dtype))
         if cfg.norm == "layernorm":
-            p["bias"] = zeros(*lead, dm)
-        return p
+            zeros(path + ("bias",), axes, *lead, dm)
 
-    params: Dict[str, Any] = {"embed": {"table": normal((cfg.vocab_size, dm),
-                                                        0.02)}}
+    normal(("embed", "table"), ("vocab", "embed"), (cfg.vocab_size, dm),
+           0.02)
     if cfg.position == "learned":
-        params["pos_embed"] = {"table": normal((cfg.max_seq_len, dm), 0.01)}
+        normal(("pos_embed", "table"), (None, "embed"),
+               (cfg.max_seq_len, dm), 0.01)
     if cfg.embed_norm:                      # bloom word_embeddings_layernorm
-        params["ln_embed"] = norm_init()
+        norm_init(("ln_embed",))
 
-    attn = {"wq": normal((nl, dm, H, D), 1.0 / math.sqrt(dm)),
-            "wk": normal((nl, dm, Hkv, D), 1.0 / math.sqrt(dm)),
-            "wv": normal((nl, dm, Hkv, D), 1.0 / math.sqrt(dm)),
-            "wo": normal((nl, H, D, dm), out_scale)}
+    at, qs = ("blocks", "attn"), 1.0 / math.sqrt(dm)
+    normal(at + ("wq",), L + ("embed", "heads", "head_dim"), (nl, dm, H, D),
+           qs)
+    normal(at + ("wk",), L + ("embed", "kv_heads", "head_dim"),
+           (nl, dm, Hkv, D), qs)
+    normal(at + ("wv",), L + ("embed", "kv_heads", "head_dim"),
+           (nl, dm, Hkv, D), qs)
+    normal(at + ("wo",), L + ("heads", "head_dim", "embed"), (nl, H, D, dm),
+           out_scale)
     if cfg.attn_bias:
-        attn["bq"] = zeros(nl, H, D)
-        attn["bk"] = zeros(nl, Hkv, D)
-        attn["bv"] = zeros(nl, Hkv, D)
+        zeros(at + ("bq",), L + ("heads", "head_dim"), nl, H, D)
+        zeros(at + ("bk",), L + ("kv_heads", "head_dim"), nl, Hkv, D)
+        zeros(at + ("bv",), L + ("kv_heads", "head_dim"), nl, Hkv, D)
     if cfg.attn_out_bias:
-        attn["bo"] = zeros(nl, dm)
-    blocks: Dict[str, Any] = {"attn": attn}
+        zeros(at + ("bo",), L + ("embed",), nl, dm)
     if cfg.num_experts > 1:
         E = cfg.num_experts
-        blocks["gate"] = {"kernel": normal((nl, dm, E), 0.01)}
-        experts = {"wi": normal((nl, E, dm, dff), 1.0 / math.sqrt(dm)),
-                   "wo": normal((nl, E, dff, dm), out_scale)}
+        normal(("blocks", "gate", "kernel"), L + ("embed", None), (nl, dm, E),
+               0.01)
+        ex = ("blocks", "experts")
+        normal(ex + ("wi",), L + ("expert", "embed", "mlp"), (nl, E, dm, dff),
+               qs)
+        normal(ex + ("wo",), L + ("expert", "mlp", "embed"), (nl, E, dff, dm),
+               out_scale)
         if cfg.gated_mlp:
-            experts["wg"] = normal((nl, E, dm, dff), 1.0 / math.sqrt(dm))
-        blocks["experts"] = experts
+            normal(ex + ("wg",), L + ("expert", "embed", "mlp"),
+                   (nl, E, dm, dff), qs)
         if cfg.moe_shared_ff:        # qwen2-moe dense shared expert
-            sff = cfg.moe_shared_ff
-            shared = {"wi": normal((nl, dm, sff), 1.0 / math.sqrt(dm)),
-                      "wo": normal((nl, sff, dm), out_scale)}
+            sff, sh = cfg.moe_shared_ff, ("blocks", "shared")
+            normal(sh + ("wi",), L + ("embed", "mlp"), (nl, dm, sff), qs)
+            normal(sh + ("wo",), L + ("mlp", "embed"), (nl, sff, dm),
+                   out_scale)
             if cfg.gated_mlp:
-                shared["wg"] = normal((nl, dm, sff), 1.0 / math.sqrt(dm))
-            shared["gate"] = normal((nl, dm, 1), 1.0 / math.sqrt(dm))
-            blocks["shared"] = shared
+                normal(sh + ("wg",), L + ("embed", "mlp"), (nl, dm, sff), qs)
+            normal(sh + ("gate",), L + ("embed", None), (nl, dm, 1), qs)
     else:
-        mlp = {"wi": normal((nl, dm, dff), 1.0 / math.sqrt(dm))}
+        ml = ("blocks", "mlp")
+        normal(ml + ("wi",), L + ("embed", "mlp"), (nl, dm, dff), qs)
         if cfg.gated_mlp:
-            mlp["wg"] = normal((nl, dm, dff), 1.0 / math.sqrt(dm))
-        mlp["wo"] = normal((nl, dff, dm), out_scale)
+            normal(ml + ("wg",), L + ("embed", "mlp"), (nl, dm, dff), qs)
+        normal(ml + ("wo",), L + ("mlp", "embed"), (nl, dff, dm), out_scale)
         if cfg.mlp_bias:
-            mlp["bi"] = zeros(nl, dff)
-            mlp["bo"] = zeros(nl, dm)
-        blocks["mlp"] = mlp
-    blocks["ln1"] = norm_init(nl)
+            zeros(ml + ("bi",), L + ("mlp",), nl, dff)
+            zeros(ml + ("bo",), L + ("embed",), nl, dm)
+    norm_init(("blocks", "ln1"), nl)
     if not cfg.parallel_block or cfg.parallel_separate_norms:
-        blocks["ln2"] = norm_init(nl)
-    params["blocks"] = blocks
-    params["ln_f"] = norm_init()
+        norm_init(("blocks", "ln2"), nl)
+    norm_init(("ln_f",))
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"kernel": normal((dm, cfg.vocab_size),
-                                              1.0 / math.sqrt(dm))}
+        normal(("lm_head", "kernel"), ("embed", "vocab"), (dm, cfg.vocab_size),
+               qs)
         if cfg.head_bias:
-            params["lm_head"]["bias"] = zeros(cfg.vocab_size)
-    return params
+            zeros(("lm_head", "bias"), ("vocab",), cfg.vocab_size)
+    return params, axes_tree
+
+
+def param_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
+    """The shape of every leaf of :func:`init_params`' tree (drawn on the
+    meta device: nothing is allocated)."""
+    return tree_map(lambda x: tuple(x.shape),
+                    init_params(cfg, None, "meta"))
+
+
+def param_axes(cfg: TransformerConfig) -> Dict[str, Any]:
+    """The logical axes of :func:`init_params`' tree (the JAX package's
+    ``init_params``' second output): what
+    ``parallel.sharding.tree_specs`` maps onto a mesh."""
+    return init_params_and_axes(cfg, None, "meta")[1]
 
 
 # numpy dtypes torch.from_numpy rejects (ml_dtypes) -> (same-width integer
@@ -786,7 +833,8 @@ class Model:
         gen.manual_seed(seed)
         self.config = cfg
         self.device = dev
-        self.params = init_params(cfg, gen, dev, dtype)
+        self.params, self.param_axes = init_params_and_axes(cfg, gen, dev,
+                                                            dtype)
         self._set_loss(attention_fn)
 
     def _set_loss(self, attention_fn: Optional[Callable]) -> None:
@@ -803,12 +851,15 @@ class Model:
     def from_params(cls, cfg: TransformerConfig, params, param_axes=None,
                     attention_fn: Optional[Callable] = None) -> "Model":
         """Wrap EXISTING parameters (no initializer run); the device is
-        the one the parameters live on.  ``param_axes`` (the reference's
-        logical-axis tree for sharding) is accepted and ignored: one
-        device shards nothing."""
+        the one the parameters live on.  ``param_axes``: the logical-axis
+        tree a sharded engine maps onto its mesh (None: every dim None,
+        as the reference infers, so only memory shards apply)."""
+        from ..parallel.sharding import infer_logical_axes
         m = cls.__new__(cls)
         m.config = cfg
         m.params = params
+        m.param_axes = (param_axes if param_axes is not None
+                        else infer_logical_axes(params))
         m.device = tree_leaves(params)[0].device
         m._set_loss(attention_fn)
         return m

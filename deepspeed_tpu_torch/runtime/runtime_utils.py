@@ -46,6 +46,25 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree: Any, path: tuple = (),
+                       skip: Sequence[str] = ()) -> Any:
+    """``fn(path, leaf)`` over a dict tree's leaves (anything not a dict
+    is a leaf, a QuantizedTensor too; ``path`` is the tuple of keys),
+    keeping the subtrees whose key is in ``skip`` as they are."""
+    if isinstance(tree, dict):
+        return {k: (v if k in skip else
+                    tree_map_with_path(fn, v, path + (k,), skip))
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def tree_at(tree: Any, path: tuple) -> Any:
+    """The subtree of a dict tree at ``path``."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def tree_unflatten(template: Any, leaves: List[Any]) -> Any:
     """A tree shaped like ``template`` holding ``leaves`` in
     :func:`tree_leaves` order."""

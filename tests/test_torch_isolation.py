@@ -51,7 +51,9 @@ def test_fresh_interpreter_imports_no_jax():
                 "models.clip", "elasticity", "elasticity.elasticity",
                 "env_report", "autotuning", "autotuning.autotuner",
                 "autotuning.tuner", "launcher", "launcher.runner",
-                "launcher.launch"):
+                "launcher.launch", "comm", "comm.mesh", "comm.collectives",
+                "comm.overlap", "comm.bench", "comm.comms_logging",
+                "comm.ranks", "parallel.sharding"):
         assert f"deepspeed_tpu_torch.{sub}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

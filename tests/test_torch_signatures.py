@@ -379,13 +379,18 @@ def test_step_takes_rng_first():
 
 
 def test_topology_is_the_third_positional():
-    """One device takes ``topology=None``; anything else is refused
-    loudly, and ``quant_tree`` is keyword-only."""
+    """One device takes ``topology=None`` (or a one-device
+    ``MeshTopology``, which means no topology, as in the reference);
+    anything but a ``MeshTopology`` is refused loudly, and
+    ``quant_tree`` is keyword-only."""
+    from deepspeed_tpu_torch.comm import MeshTopology
     _, port = _models()
     icfg = InferenceConfig(**ENGINE, kv_dtype=torch.float32,
                            param_dtype=torch.float32)
     InferenceEngine(port, icfg, None)
-    with pytest.raises(NotImplementedError, match="topology"):
+    assert InferenceEngine(port, icfg, MeshTopology.build()).topology \
+        is None
+    with pytest.raises(TypeError, match="topology"):
         InferenceEngine(port, icfg, object())
     with pytest.raises(TypeError):
         InferenceEngine(port, icfg, None, None)
@@ -395,7 +400,7 @@ def test_model_positionals_are_the_reference_ones():
     """``Model(cfg, seed, attention_fn)`` takes the attention by position
     (it raised in ``torch.device`` before), and
     ``Model.from_params(cfg, params, param_axes)`` takes the axes tree
-    third and ignores it (the loss still runs)."""
+    third and keeps it for a sharded engine (the loss still runs)."""
     from deepspeed_tpu_torch.models import build_config
     from deepspeed_tpu_torch.models.layers import causal_attention
     # attention_impl "xla": from_params resolves the same causal_attention
@@ -409,6 +414,7 @@ def test_model_positionals_are_the_reference_ones():
     loss = m.loss_fn(m.params, {"input_ids": ids})
     m2 = Model.from_params(cfg, m.params, {"x": 1})
     assert torch.equal(m2.loss_fn(m2.params, {"input_ids": ids}), loss)
+    assert m2.param_axes == {"x": 1}
 
 
 @pytest.mark.parametrize("pkg", [jax_failures, port_failures],

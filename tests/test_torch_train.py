@@ -495,14 +495,16 @@ def test_unported_messages_name_their_items(tmp_path):
                         "output_path": str(tmp_path / "csv")}})
     assert eng.monitor is not None and eng.metrics_snapshot()
     for field, value, item in (
-            ("comm_quant", "int8", "ROADMAP Queue 1, multi-GPU training "
-             "breadth"),
-            ("comm_overlap", "on", "ROADMAP Queue 1, multi-GPU training "
-             "breadth (tensor parallelism)")):
+            ("comm_quant", "int8", "ROADMAP Queue 1 item 6, the quantized "
+             "collectives"),):
         with pytest.raises(NotImplementedError) as e:
             InferenceEngine(tm, InferenceConfig(**{field: value}))
         assert f"InferenceConfig.{field}={value!r} is not ported yet " \
             f"({item})" in str(e.value)
+    # tensor-parallel serving is ported: comm_overlap="on" on one device
+    # is the reference's loud no-op, not an error
+    assert InferenceEngine(tm, InferenceConfig(
+        comm_overlap="on"))._serving_comm is None
     # item 7's training side is ported: refresh_params, the flops
     # profiler and the data-efficiency family run
     InferenceEngine(tm, InferenceConfig()).refresh_params(tm.params)
